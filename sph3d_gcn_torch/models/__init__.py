@@ -1,0 +1,5 @@
+"""SPH3D model families (counterparts of ``sph3d_gcn_tpu/models``)."""
+
+from sph3d_gcn_torch.models.modelnet import SPH3DModelNet
+
+__all__ = ["SPH3DModelNet"]

@@ -1,0 +1,45 @@
+"""Shared model components (counterpart of
+``sph3d_gcn_tpu/models/common.py``)."""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from sph3d_gcn_torch.nn.layers import SeparableConv3d
+from sph3d_gcn_torch.ops.dense import DenseNeighborhood
+
+
+def normalize_unit_sphere(points: torch.Tensor) -> torch.Tensor:
+    """Center and scale each cloud into the unit sphere
+    (ref models/SPH3D_modelnet.py:11-17), guarded against all-identical
+    clouds."""
+    points = points - points.mean(dim=1, keepdim=True)
+    scale = (points * points).sum(dim=-1, keepdim=True).amax(
+        dim=1, keepdim=True
+    )
+    return points / torch.sqrt(torch.clamp_min(scale, 1e-12))
+
+
+class SeparableConvBlock(nn.Module):
+    """A stack of separable convs sharing one neighborhood, named ``_1,
+    _2, ...`` as the reference scopes them (ref SPH3D_modelnet.py:20-30)."""
+
+    def __init__(self, in_channels: int, list_channels: tuple[int, ...],
+                 bin_size: int, depth_multiplier: tuple[int, ...],
+                 with_bn: bool, with_bias: bool, dtype: torch.dtype,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        c = in_channels
+        for i, num_out in enumerate(list_channels):
+            self.add_module(f"_{i + 1}", SeparableConv3d(
+                c, num_out, bin_size, depth_multiplier[i], with_bn=with_bn,
+                with_bias=with_bias, dtype=dtype, generator=generator,
+            ))
+            c = num_out
+
+    def forward(self, net: torch.Tensor, nbh: DenseNeighborhood,
+                use_kernels: bool | None = None) -> torch.Tensor:
+        for conv in self.children():
+            net = conv(net, nbh, use_kernels=use_kernels)
+        return net

@@ -1,0 +1,69 @@
+"""Graph construction for the SPH3D pyramids (counterpart of
+``sph3d_gcn_tpu/nn/graph.py``, dense and global graphs)."""
+
+from __future__ import annotations
+
+import torch
+
+from sph3d_gcn_torch.ops.dense import DenseNeighborhood, build_dense_graph
+from sph3d_gcn_torch.ops.locality import sort_indices_small
+from sph3d_gcn_torch.ops.neighbor import build_sphere_neighbor
+from sph3d_gcn_torch.ops.sample import farthest_point_sample
+from sph3d_gcn_torch.ops.types import Neighborhood
+
+
+def build_graph_dense(
+    xyz: torch.Tensor,
+    radius: float,
+    nn_uplimit: int,
+    num_sample: int | None,
+    sample_method: str | None = None,
+    kernel: tuple[int, int, int] = (8, 2, 2),
+    window: int = 1024,
+    use_kernels: bool | None = None,
+) -> tuple[DenseNeighborhood, torch.Tensor | None]:
+    """Intra-level dense graph plus FPS subsample indices, returned SORTED
+    so the coarser cloud stays axis-sorted. Only FPS is ported."""
+    if num_sample is not None and sample_method != "FPS":
+        raise NotImplementedError(
+            f"sampling method {sample_method!r} is not ported yet (FPS is)"
+        )
+    dnbh = build_dense_graph(
+        xyz, xyz, radius, nn_uplimit, kernel, window=window,
+        self_graph=True, use_kernels=use_kernels,
+    )
+    if num_sample is None:
+        return dnbh, None
+    idx = farthest_point_sample(num_sample, xyz, use_kernels=use_kernels)
+    return dnbh, sort_indices_small(idx)
+
+
+def build_pool_graph_dense(
+    xyz: torch.Tensor,
+    xyz_sampled: torch.Tensor,
+    radius: float,
+    nn_uplimit: int,
+    window: int,
+    use_kernels: bool | None = None,
+) -> DenseNeighborhood:
+    """Dense pooling graph: the sampled points re-query the level cloud
+    (selection-only rank maps)."""
+    return build_dense_graph(
+        xyz, xyz_sampled, radius, nn_uplimit, None, window=window,
+        self_graph=False, use_kernels=use_kernels,
+    )
+
+
+def build_global_graph(
+    xyz: torch.Tensor, query: torch.Tensor, radius: float
+) -> Neighborhood:
+    """All-points-to-centroid edges with nn_sample = N
+    (ref utils/sph3gcn_util.py:20-25)."""
+    return build_sphere_neighbor(xyz, query, radius=radius,
+                                 nn_sample=xyz.shape[1])
+
+
+def gather_points(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Subsample along the point axis: (B, N, ...), (B, S) -> (B, S, ...)."""
+    idx_b = idx.long().reshape(idx.shape + (1,) * (x.dim() - 2))
+    return torch.gather(x, 1, idx_b.expand(idx.shape + x.shape[2:]))

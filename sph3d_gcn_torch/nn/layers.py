@@ -1,0 +1,182 @@
+"""Layer library (counterpart of ``sph3d_gcn_tpu/nn/layers.py``).
+
+Reproduced behavioral details of the reference (utils/sph3gcn_util.py):
+ELU activations; batch norm AFTER the activation, momentum 0.99 and
+epsilon 1e-3, statistics and affine parameters in f32; Xavier/Glorot
+uniform weights; parameter names ``depthwise_weights``, ``weights``,
+``biases`` as the reference scopes them. ``dtype`` is the compute
+dtype (parameters stay f32); matmuls accumulate in f32 and round once.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sph3d_gcn_torch.ops.conv import depthwise_conv3d, einsum_f32
+from sph3d_gcn_torch.ops.dense import (
+    DenseNeighborhood,
+    dense_depthwise_conv3d,
+    dense_max_pool3d,
+)
+from sph3d_gcn_torch.ops.types import Neighborhood
+
+
+def glorot_uniform(shape: tuple[int, ...],
+                   generator: torch.Generator | None) -> nn.Parameter:
+    """Xavier/Glorot uniform with flax's fan convention (receptive field =
+    all but the last two dims)."""
+    receptive = math.prod(shape[:-2]) if len(shape) > 2 else 1
+    fan_in, fan_out = shape[-2] * receptive, shape[-1] * receptive
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    w = torch.empty(shape, dtype=torch.float32)
+    w.uniform_(-limit, limit, generator=generator)
+    return nn.Parameter(w)
+
+
+class BatchNorm(nn.Module):
+    """TF-flavored batch norm, eval mode: ``(x - mean) * rsqrt(var + eps)
+    * scale + bias`` in f32 from the running statistics, cast to the
+    activation dtype (flax BatchNorm's arithmetic). Training-mode
+    statistics come with the train step."""
+
+    def __init__(self, channels: int, momentum: float = 0.99,
+                 epsilon: float = 1e-3) -> None:
+        super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "BatchNorm batch statistics are not ported yet: call "
+                "model.eval()"
+            )
+        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
+        return ((x.float() - self.mean) * mul + self.bias).to(x.dtype)
+
+
+class _Dense(nn.Module):
+    """Shared tail of the conv/FC layers: optional bias, ELU, BN."""
+
+    def __init__(self, num_out: int, with_bn: bool, with_bias: bool,
+                 activation: bool, dtype: torch.dtype) -> None:
+        super().__init__()
+        self.dtype = dtype
+        self.activation = activation
+        if with_bias:
+            self.biases = nn.Parameter(torch.zeros(num_out))
+        else:
+            self.biases = None
+        self.bn = BatchNorm(num_out) if with_bn else None
+
+    def _tail(self, out: torch.Tensor) -> torch.Tensor:
+        if self.biases is not None:
+            out = out + self.biases.to(out.dtype)
+        if self.activation:
+            out = F.elu(out)
+        if self.bn is not None:
+            out = self.bn(out)
+        return out
+
+
+class SeparableConv3d(_Dense):
+    """Depthwise spherical graph conv -> pointwise GEMM -> ELU -> BN
+    (ref utils/sph3gcn_util.py:88-163)."""
+
+    def __init__(self, in_channels: int, num_out_channels: int,
+                 bin_size: int, depth_multiplier: int, with_bn: bool = False,
+                 with_bias: bool = False, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__(num_out_channels, with_bn, with_bias, True, dtype)
+        self.depthwise_weights = glorot_uniform(
+            (bin_size, in_channels, depth_multiplier), generator
+        )
+        self.weights = glorot_uniform(
+            (in_channels * depth_multiplier, num_out_channels), generator
+        )
+
+    def forward(
+        self,
+        inputs: torch.Tensor,
+        nbh: DenseNeighborhood | Neighborhood,
+        filt_index: torch.Tensor | None = None,
+        use_kernels: bool | None = None,
+    ) -> torch.Tensor:
+        inputs = inputs.to(self.dtype)
+        if isinstance(nbh, DenseNeighborhood):
+            # bins live in the packed maps; the pointwise GEMM is folded in
+            out = dense_depthwise_conv3d(
+                inputs, self.depthwise_weights, nbh, pointwise=self.weights,
+                use_kernels=use_kernels,
+            )
+        else:
+            out = depthwise_conv3d(
+                inputs, self.depthwise_weights, nbh.idx, nbh.count,
+                filt_index,
+            )
+            out = einsum_f32(
+                "bmc,co->bmo", out, self.weights.to(self.dtype)
+            ).to(self.dtype)
+        return self._tail(out)
+
+
+class PointwiseConv3d(_Dense):
+    """1x1 conv as a flattened matmul (ref utils/sph3gcn_util.py:166-222)."""
+
+    def __init__(self, in_channels: int, num_out_channels: int,
+                 with_bn: bool = False, with_bias: bool = False,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__(num_out_channels, with_bn, with_bias, True, dtype)
+        self.weights = glorot_uniform(
+            (in_channels, num_out_channels), generator
+        )
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        out = einsum_f32(
+            "bmc,co->bmo", inputs.to(self.dtype), self.weights.to(self.dtype)
+        ).to(self.dtype)
+        return self._tail(out)
+
+
+class FullyConnected(_Dense):
+    """Dense layer on (B, C) (ref utils/sph3gcn_util.py:225-273)."""
+
+    def __init__(self, in_channels: int, num_out_channels: int,
+                 with_bn: bool = False, with_bias: bool = False,
+                 activation: bool = True, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__(num_out_channels, with_bn, with_bias, activation,
+                         dtype)
+        self.weights = glorot_uniform(
+            (in_channels, num_out_channels), generator
+        )
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        out = einsum_f32(
+            "bc,co->bo", inputs.to(self.dtype), self.weights.to(self.dtype)
+        ).to(self.dtype)
+        return self._tail(out)
+
+
+def pool3d(
+    inputs: torch.Tensor,
+    nbh: DenseNeighborhood,
+    method: str = "max",
+    use_kernels: bool | None = None,
+) -> torch.Tensor:
+    """Pooling dispatch (ref utils/sph3gcn_util.py:276-297); dense max
+    pooling only for now."""
+    if method != "max":
+        raise NotImplementedError(f"pooling method {method!r} is not ported")
+    out, _ = dense_max_pool3d(inputs, nbh, with_index=False,
+                              use_kernels=use_kernels)
+    return out
