@@ -143,7 +143,7 @@ def dense_query(
       q_p:  (B, M_pad, 3) f32 queries, TILE-padded with 1e9 sentinels.
       s_blk: (B, nT) int window start per query tile, in TILE rows.
       u_end: (B, nT) int count of window chunks that can hold candidates
-        (clamped here to [1, W/TILE]).
+        (clamped to [1, W/TILE] by either version).
       axis: (B,) per-cloud sort axis for SORT-GROUPED bin ids, or None.
       radius, k, kernel, window: as ``ops.dense.build_dense_graph``.
 
@@ -153,8 +153,6 @@ def dense_query(
     _check_kernel(kernel)
     if not 1 <= k <= 127:
         raise ValueError(f"int8 maps need 1 <= K <= 127, got {k}")
-    n_chunks = window // TILE
-    u_end = u_end.clamp(1, n_chunks)
     if _build.use_kernel(db_p, use_kernels):
         return dense_query_kernel(
             db_p, q_p, s_blk, u_end, axis, radius=radius, k=k,
@@ -177,6 +175,7 @@ def dense_query_plain(db_p, q_p, s_blk, u_end, axis, *, radius, k, kernel,
     rows = (s_blk.reshape(g_all, 1).long() * TILE + cols)      # (G, W)
     b_of_g = torch.arange(batch, device=dev).repeat_interleave(n_t)
     q_t = q_p.reshape(g_all, TILE, 3)
+    u_end = u_end.clamp(1, window // TILE)
     live = cols[None, :] < u_end.reshape(g_all, 1).long() * TILE
     r32 = torch.tensor(radius, dtype=torch.float32, device=dev)
     out = torch.empty((g_all, TILE, window), dtype=torch.int8, device=dev)
@@ -221,7 +220,8 @@ def dense_query_kernel(db_p, q_p, s_blk, u_end, axis, *, radius, k, kernel,
     if s_blk.shape != (batch, n_t) or u_end.shape != (batch, n_t):
         raise ValueError("s_blk / u_end must be (B, nT)")
     sb = s_blk.to(torch.int32).contiguous()
-    ue = u_end.to(torch.int32).contiguous()
+    # the kernel stages u_end chunks of the window in shared memory
+    ue = u_end.clamp(1, window // TILE).to(torch.int32).contiguous()
     if kernel is None:
         mode, q_bins = 0, 1
     else:

@@ -143,8 +143,7 @@ def test_kernels_match_plain_on_cuda(cuda_device, dtype):
     for db, q, kernel, w in ((t, t, (8, 2, 2), 256), (t, t[:, ::4], None,
                                                        384)):
         plan = D.plan_dense_query(db, q, 0.25, kernel, w)
-        args = (plan.db_p, plan.q_p, plan.s_blk,
-                plan.u_end.clamp(1, plan.window // Q.TILE), plan.axis)
+        args = (plan.db_p, plan.q_p, plan.s_blk, plan.u_end, plan.axis)
         kw = dict(radius=0.25, k=16, kernel=kernel, window=plan.window)
         assert torch.equal(Q.dense_query_kernel(*args, **kw),
                            Q.dense_query_plain(*args, **kw))
