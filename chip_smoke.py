@@ -8,19 +8,25 @@ through the hand-written CUDA kernels, in phases:
 
 1. header: the card's name and power limit, torch and CUDA versions;
 2. build: compile ``sph3d_gcn_torch/csrc/*.cu`` (seconds);
-3. per-kernel parity and timing: each kernel against its plain PyTorch
-   version for one ``bench.surface_clouds`` batch (FPS indices, query
-   maps byte for byte, conv bf16 outputs within rtol=atol=1e-2, pool
-   outputs exactly), median CUDA-event times of both; once at the served
-   model's shapes (the ``"hard"`` windows below; these go into the
-   per-kernel JSON line) and once at the default ``"plain"`` windows of
-   ``modelnet_config(fast=True, dense=True)``;
+3. per-kernel parity and timing: one forward of the plain versions on a
+   ``surface_clouds`` batch records the operands of every kernel-wrapped
+   call of the main path (``_build.record_calls``); each recorded call is
+   replayed through the kernel and its plain version and the two are
+   compared (FPS indices, query maps and pool outputs exactly, conv bf16
+   outputs within rtol=atol=1e-2), with median CUDA-event times of both.
+   Done once with the served model's ``"hard"`` windows (these go into
+   the per-kernel JSON line) and once with the default ``"plain"``
+   windows of ``modelnet_config(fast=True, dense=True)``;
 4. serving: 2 batches x 3 votes through ``vote_classify``; logits
    (16, 40) and finite, ``dense_ok`` on every forward, launch counts of
    3 FPS, 6 query, 6 conv and 3 pool per forward; one forward's kernel
    logits against the plain versions' (argmax agreement >= 0.95, logits
-   within rtol=atol=5e-2); forward time and points/s with both window
-   families.
+   within 1% of their largest magnitude); forward time and points/s with
+   both window families;
+5. profile: ``torch.profiler`` over forwards of each window family;
+   per forward the wall span, the device's busy time (union of kernel
+   and copy intervals on the trace timeline) and idle share, and the
+   device time by kernel name (:func:`report_trace`).
 
 Serving runs the config's ``family="hard"`` windows (2304/1024/640 rows
 at the encoder levels): the vote augmentation rotates each cloud about
@@ -40,7 +46,9 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -49,7 +57,7 @@ B, N = 16, 10000
 BATCHES, VOTES = 2, 3
 REPS = 5
 CONV_TOL = 1e-2      # bf16 outputs: f32 sums in another order, one rounding
-LOGIT_TOL = 5e-2     # bf16 network: rounding differences compound
+LOGIT_TOL = 1e-2     # of the largest |logit|: bf16 rounding may compound
 PER_FORWARD = {"fps": 3, "dense_query": 6, "dense_conv": 6, "rank_pool": 3}
 SOURCES = {
     "fps": ("sph3d_gcn_torch/csrc/fps.cu",
@@ -93,6 +101,35 @@ def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
                 bn.var.copy_(0.5 + torch.rand(c, generator=gen))
 
 
+def versions():
+    """Per kernel: (kernel wrapper, plain version, tolerance or None for
+    exact equality)."""
+    from sph3d_gcn_torch.ops import dense as D
+    from sph3d_gcn_torch.ops import query as Q
+    from sph3d_gcn_torch.ops import sample as S
+
+    return {
+        "fps": (S.farthest_point_sample_kernel,
+                S.farthest_point_sample_plain, None),
+        "dense_query": (Q.dense_query_kernel, Q.dense_query_plain, None),
+        "dense_conv": (D.dense_conv_kernel, D.dense_conv_plain, CONV_TOL),
+        "rank_pool": (D.rank_pool_kernel, D.rank_pool_plain, None),
+    }
+
+
+def describe(name: str, args: tuple, kw: dict) -> str:
+    """A recorded call's shapes, for the log."""
+    if name == "fps":
+        return f"{args[1].shape[1]} -> {args[0]} points"
+    if name == "dense_query":
+        kind = "ranks" if kw["kernel"] is None else "bins"
+        return f"{kind} M_pad={args[1].shape[1]} W={kw['window']}"
+    w = args[0].shape[-1]
+    if name == "dense_conv":
+        return f"C={args[2].shape[2]} r={args[3].shape[3]} W={w}"
+    return f"C={args[3].shape[2]} W={w}"
+
+
 class Results:
     """Per-kernel parity errors and times, summed over the main path's
     calls of one forward."""
@@ -107,7 +144,7 @@ class Results:
         self.err[name] = max(self.err[name], err)
         self.ms[name] += ms
         self.plain_ms[name] += plain_ms
-        print(f"  {name:12s} {what:34s} max_abs_err {err:.3g}  "
+        print(f"  {name:12s} {what:30s} max_abs_err {err:.3g}  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
         if tol is None:
             if not torch.equal(got, ref):
@@ -117,74 +154,104 @@ class Results:
                                        atol=tol)
 
 
-def kernel_parity(model, cfg, pts: torch.Tensor, res: Results) -> None:
-    """Walk the model's level loop under ``cfg`` on one batch with the
-    plain versions, checking and timing every kernel call of the main
-    path on the way."""
-    from sph3d_gcn_torch.models.common import normalize_unit_sphere
-    from sph3d_gcn_torch.nn.graph import gather_points
-    from sph3d_gcn_torch.ops import dense as D
-    from sph3d_gcn_torch.ops import query as Q
-    from sph3d_gcn_torch.ops import sample as S
-    from sph3d_gcn_torch.ops.locality import (
-        permute_points,
-        sort_indices_small,
-        spatial_sort,
-    )
+def kernel_parity(model, x: torch.Tensor, res: Results) -> None:
+    """Record the kernel-wrapped calls of one plain forward of ``model`` on
+    ``x``, then replay each through the kernel and its plain version:
+    compare the two and time both."""
+    from sph3d_gcn_torch import _build
 
-    perm, _ = spatial_sort(pts, cfg.radius[0])
-    xyz = normalize_unit_sphere(permute_points(pts, perm))
-    with torch.no_grad():
-        net = model.mlp1(xyz)
+    with _build.record_calls() as calls, torch.inference_mode():
+        model(x, use_kernels=False)
+    seen = {name: 0 for name in PER_FORWARD}
+    for name, _, _ in calls:
+        seen[name] += 1
+    if seen != PER_FORWARD:
+        raise AssertionError(f"recorded calls {seen}, want {PER_FORWARD}")
+    table = versions()
+    with torch.inference_mode():
+        for name, args, kw in calls:
+            kern, plain, tol = table[name]
+            reps = 3 if name == "fps" else REPS
+            res.add(name, describe(name, args, kw), kern(*args, **kw),
+                    plain(*args, **kw),
+                    median_ms(lambda: kern(*args, **kw), reps),
+                    median_ms(lambda: plain(*args, **kw), reps), tol)
 
-    def graph(db, q, kernel, window, what):
-        k = cfg.nn_uplimit[level]
-        plan = D.plan_dense_query(db, q, cfg.radius[level], kernel, window)
-        args = (plan.db_p, plan.q_p, plan.s_blk, plan.u_end, plan.axis)
-        kw = dict(radius=cfg.radius[level], k=k, kernel=kernel,
-                  window=plan.window)
-        got = Q.dense_query_kernel(*args, **kw)
-        ref = Q.dense_query_plain(*args, **kw)
-        res.add("dense_query", what, got, ref,
-                median_ms(lambda: Q.dense_query_kernel(*args, **kw)),
-                median_ms(lambda: Q.dense_query_plain(*args, **kw)))
-        return D.build_dense_graph(db, q, cfg.radius[level], k, kernel,
-                                   window, self_graph=q is db,
-                                   use_kernels=False)
 
-    for level in range(len(cfg.radius)):
-        net = torch.cat([net, xyz.to(net.dtype)], dim=-1)
-        nbh = graph(xyz, xyz, cfg.kernel, cfg.enc_window(level),
-                    f"level {level} intra")
-        for i, conv in enumerate(getattr(model, f"conv{level + 1}").children()):
-            x = net.to(conv.dtype).contiguous()
-            filt_b, inv = D.conv_operands(x, conv.depthwise_weights, nbh)
-            a = (nbh.packed, nbh.s_blk, x, filt_b, inv)
-            res.add("dense_conv", f"level {level} conv {i + 1} C={x.shape[2]}",
-                    D.dense_conv_kernel(*a), D.dense_conv_plain(*a),
-                    median_ms(lambda: D.dense_conv_kernel(*a)),
-                    median_ms(lambda: D.dense_conv_plain(*a)), tol=CONV_TOL)
-            with torch.no_grad():
-                net = conv(net, nbh, use_kernels=False)
-        npoint = cfg.num_sample[level]
-        got = S.farthest_point_sample_kernel(npoint, xyz)
-        ref = S.farthest_point_sample_plain(npoint, xyz)
-        res.add("fps", f"level {level} {xyz.shape[1]} -> {npoint}", got, ref,
-                median_ms(lambda: S.farthest_point_sample_kernel(npoint, xyz),
-                          reps=3),
-                median_ms(lambda: S.farthest_point_sample_plain(npoint, xyz),
-                          reps=3))
-        coarse = gather_points(xyz, sort_indices_small(ref))
-        inter = graph(xyz, coarse, None, cfg.pool_window(level),
-                      f"level {level} pool")
-        counts = D.pool_counts(inter)
-        a = (inter.packed, inter.s_blk, counts, net.contiguous())
-        res.add("rank_pool", f"level {level} C={net.shape[2]}",
-                D.rank_pool_kernel(*a), D.rank_pool_plain(*a),
-                median_ms(lambda: D.rank_pool_kernel(*a)),
-                median_ms(lambda: D.rank_pool_plain(*a)))
-        net = D.rank_pool_plain(*a)[:, :inter.num_query]
-        xyz = coarse
+def union_us(intervals: list[tuple[float, float]]) -> float:
+    """Total length of the union of (start, end) intervals."""
+    total, end = 0.0, -float("inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def profile_forward(model, x: torch.Tensor, family: str,
+                    reps: int = 3) -> None:
+    """``torch.profiler`` over 1 + ``reps`` synchronised forwards; see
+    :func:`report_trace`."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with torch.inference_mode():
+        for _ in range(3):
+            model(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(1 + reps):
+                with record_function("serve_forward"):
+                    model(x)
+                    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    report_trace(events, family, reps)
+
+
+def report_trace(events: list, family: str, reps: int,
+                 top: int = 12) -> None:
+    """Per profiled forward (the first is skipped: a profiler session can
+    miss its first launches): the host-clock wall of its span, the union
+    of its kernel and copy intervals on the device timeline (busy), the
+    idle share ``1 - busy / wall``; then the device time by kernel name.
+
+    A forward's device work is found by the correlation ids of the
+    launches its host span made, not by timestamps: a trace aligns its
+    host and device clocks only approximately."""
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == "serve_forward"
+                   and e.get("cat") == "user_annotation")[1:]
+    launches = [(e["ts"], e["args"]["correlation"]) for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})]
+    device = [(e["args"]["correlation"], e["ts"], e["ts"] + e["dur"],
+               e["name"]) for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if len(spans) != reps or not device:
+        raise AssertionError(f"profile of {family}: {len(spans)} forward "
+                             f"spans, {len(device)} device events")
+    by_name: dict[str, list[float]] = {}
+    for i, (s, e) in enumerate(spans):
+        ids = {c for t, c in launches if s <= t < e}
+        mine = [(a, b, name) for c, a, b, name in device if c in ids]
+        busy = union_us([(a, b) for a, b, _ in mine])
+        for a, b, name in mine:
+            tot = by_name.setdefault(name, [0.0, 0])
+            tot[0] += b - a
+            tot[1] += 1
+        print(f"profile {family} forward {i + 1}: wall {(e - s) / 1e3:.3f} "
+              f"ms (host clock, under the profiler), device busy "
+              f"{busy / 1e3:.3f} ms, idle share {1 - busy / (e - s):.3f}, "
+              f"{len(mine)} device events", flush=True)
+    print(f"profile {family}: device time per forward by name (top {top})",
+          flush=True)
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
+            :top]:
+        print(f"  {us / reps / 1e3:8.3f} ms  {n / reps:6.1f} x  {name[:90]}",
+              flush=True)
 
 
 def main() -> None:
@@ -195,9 +262,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    from bench import surface_clouds
-    from sph3d_gcn_tpu.configs import modelnet_config
     from sph3d_gcn_torch import _build, kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.configs import modelnet_config
+    from sph3d_gcn_torch.data.synthetic import surface_clouds
     from sph3d_gcn_torch.models import SPH3DModelNet
     from sph3d_gcn_torch.train.eval import checked_forward, vote_classify
 
@@ -236,16 +303,17 @@ def main() -> None:
 
     # 3. per-kernel parity: the served shapes (reported), then the default
     # windows' shapes
-    pts0 = torch.from_numpy(batches[0]).to(dev)
+    x = torch.from_numpy(batches[0]).to(dev)
     res, res_plain_win = Results(), Results()
-    for family, c, r in (("hard", cfg, res), ("plain", cfg_plain,
-                                              res_plain_win)):
+    for family, m, r in (("hard", model, res),
+                         ("plain", model_plain, res_plain_win)):
+        c = m.config
         levels = range(len(c.radius))
         print(f"per-kernel parity, batch 0, {family} windows "
               f"{[c.enc_window(lv) for lv in levels]} / pool "
               f"{[c.pool_window(lv) for lv in levels]} "
               f"(times: median of CUDA events)", flush=True)
-        kernel_parity(model, c, pts0, r)
+        kernel_parity(m, x, r)
 
     # 4. serving: vote_classify through the kernels
     forward = checked_forward(model, dev)
@@ -266,7 +334,6 @@ def main() -> None:
                 f"{name}: {launches[name]} launches, want {per} per forward"
             )
 
-    x = torch.from_numpy(batches[0]).to(dev)
     with torch.inference_mode():
         got = model(x)
         ok_k = bool(model.dense_ok)
@@ -280,18 +347,25 @@ def main() -> None:
         raise AssertionError("dense_ok False on the comparison forward")
     agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
     diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
     print(f"kernel vs plain logits: max_abs_err {diff:.4g}, argmax "
-          f"agreement {agree:.4f} (|logits| <= "
-          f"{ref.abs().max().item():.3g})", flush=True)
+          f"agreement {agree:.4f} (|logits| <= {scale:.3g}, tolerance "
+          f"{LOGIT_TOL:g} of that)", flush=True)
     if agree < 0.95:
         raise AssertionError(f"argmax agreement {agree} < 0.95")
-    torch.testing.assert_close(got, ref, rtol=LOGIT_TOL, atol=LOGIT_TOL)
-    print(f"forward B={B} N={N}, hard windows: {fwd_ms:.2f} ms "
+    torch.testing.assert_close(got, ref, rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL * scale)
+    print(f"forward B={B} N={N}, hard-family windows: {fwd_ms:.2f} ms "
           f"({B * N / fwd_ms * 1e3:.0f} points/s) with kernels, "
           f"{plain_fwd_ms:.2f} ms with the plain versions", flush=True)
-    print(f"forward B={B} N={N}, plain windows: {fwd_plain_win_ms:.2f} ms "
+    print(f"forward B={B} N={N}, plain-family windows: "
+          f"{fwd_plain_win_ms:.2f} ms "
           f"({B * N / fwd_plain_win_ms * 1e3:.0f} points/s) with kernels",
           flush=True)
+
+    # 5. profile: the served forward's device-busy time and idle share
+    for family, m in (("hard", model), ("plain", model_plain)):
+        profile_forward(m, x, family)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

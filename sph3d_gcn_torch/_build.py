@@ -9,7 +9,10 @@ when the package is imported, and nothing is built for CPU tensors.
 
 Each launcher returns the ``cudaError_t`` of its launch; :class:`Kernel`
 raises on anything but 0 and counts successful launches, so a run can
-show that its main path really went through the kernels.
+show that its main path really went through the kernels. Inside
+:class:`record_calls` every dispatching wrapper also records the operands
+it hands to the kernel or its plain version, so that a run can replay
+exactly its main path's calls through both and compare them.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ NVCC_FLAGS = (
 )
 
 _LIB: ctypes.CDLL | None = None
+_RECORD: list | None = None
 
 
 def _sources() -> list[Path]:
@@ -144,6 +148,28 @@ def kernel_launches() -> dict[str, int]:
 def reset_kernel_launches() -> None:
     for k in KERNELS.values():
         k.launches = 0
+
+
+class record_calls:
+    """Context manager: while it is open, :func:`record` appends each
+    wrapped call as ``(kernel name, args, kwargs)`` to the list that
+    ``with record_calls() as calls`` binds, in call order."""
+
+    def __enter__(self) -> list:
+        global _RECORD
+        _RECORD = []
+        return _RECORD
+
+    def __exit__(self, *exc) -> None:
+        global _RECORD
+        _RECORD = None
+
+
+def record(name: str, *args, **kwargs) -> None:
+    """Record one call's operands (as the kernel and its plain version
+    both take them) when a :class:`record_calls` block is open."""
+    if _RECORD is not None:
+        _RECORD.append((name, args, kwargs))
 
 
 # dynamic shared memory a block may use on Hopper (227 KB), less a margin

@@ -1,0 +1,102 @@
+"""Immutable model configuration (counterpart of
+``sph3d_gcn_tpu/configs/base.py``).
+
+The fields the port's models read, under the JAX config's names, order
+and defaults; ``tests/test_torch_configs_data.py`` holds every field and
+window of :func:`sph3d_gcn_torch.configs.modelnet_config` equal to the
+JAX package's. Fields of engines and models not ported yet (decoder
+windows, growth, sharding, rematerialization) come with them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Literal
+
+
+@dataclasses.dataclass(frozen=True)
+class SPH3DConfig:
+    """Architecture config of the SPH3D model families (field names of the
+    reference config modules)."""
+
+    num_input: int
+    num_cls: int
+    mlp: int
+    num_sample: tuple[int, ...]
+    radius: tuple[float, ...]
+    nn_uplimit: tuple[int, ...]
+    channels: tuple[tuple[int, ...], ...]
+    multiplier: tuple[tuple[int, ...], ...]
+    weight_decay: float | None
+    kernel: tuple[int, int, int] = (8, 2, 2)
+    normalize: bool = True
+    pool_method: Literal["max", "avg"] = "max"
+    sample: Literal["FPS", "IDS", "random"] = "FPS"
+    use_raw: bool = False
+    with_bn: bool = True
+    with_bias: bool = False
+    # classification-only global-layer settings (ref modelnet_config.py:21-23)
+    global_channels: int | None = None
+    global_multiplier: int | None = None
+    # 'float32' (reference parity) or 'bfloat16' (fast mode; graph
+    # construction and BN statistics stay f32 either way)
+    compute_dtype: str = "float32"
+    # sort each input cloud along a per-cloud spatial axis, so that the
+    # neighbors of a 128-query tile lie in a narrow window of rows
+    spatial_sort: bool = False
+    # per-encoder-level row-window widths of the dense engine
+    windows: tuple[int, ...] | None = None
+    # dense windowed engine (ops/dense.py): level graphs as (tile x
+    # window) maps, exactness certified per graph (dense_ok)
+    dense_graph: bool = False
+
+    def enc_window(self, level: int) -> int | None:
+        """Row window for encoder level ``level`` (cloud size N_level)."""
+        return None if self.windows is None else self.windows[level]
+
+    def pool_window(self, level: int) -> int | None:
+        """Row window for the pooling edges of ``level``: a 128-row tile
+        of sampled points spans ~128 * N/S rows of the fine cloud, so the
+        window needs that much room beyond the conv window."""
+        w = self.enc_window(level)
+        if w is None:
+            return None
+        n_l = self.num_input if level == 0 else self.num_sample[level - 1]
+        s_l = self.num_sample[level]
+        extra = 128 * (-(-n_l // s_l) - 1)
+        return w + (-(-extra // 128) * 128 if extra else 0)
+
+    @property
+    def bin_size(self) -> int:
+        """n*p*q + 1, bin 0 reserved for the self-loop
+        (ref modelnet_config.py:27-28)."""
+        return int(math.prod(self.kernel)) + 1
+
+    def __post_init__(self) -> None:
+        num_levels = len(self.num_sample)
+        if self.dense_graph and (self.windows is None or not self.spatial_sort):
+            raise ValueError(
+                "dense_graph requires spatial_sort=True and per-level windows"
+            )
+        if self.windows is not None and len(self.windows) != num_levels:
+            raise ValueError(
+                f"windows must have {num_levels} entries, got "
+                f"{len(self.windows)}"
+            )
+        for field in ("radius", "nn_uplimit", "channels", "multiplier"):
+            if len(getattr(self, field)) != num_levels:
+                raise ValueError(
+                    f"{field} must have {num_levels} entries (one per level), "
+                    f"got {len(getattr(self, field))}"
+                )
+        if len(self.kernel) != 3 or any(k < 1 for k in self.kernel):
+            raise ValueError(
+                f"kernel must be three positive ints (n, p, q), got "
+                f"{self.kernel!r}"
+            )
+        if self.sample not in ("FPS", "IDS", "random"):
+            raise ValueError(
+                f"Unknown sampling method: {self.sample!r} "
+                "(expected 'FPS', 'IDS' or 'random')"
+            )

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from sph3d_gcn_tpu.configs.base import SPH3DConfig
+from sph3d_gcn_torch.configs.base import SPH3DConfig
 from sph3d_gcn_torch.models.common import (
     SeparableConvBlock,
     normalize_unit_sphere,
@@ -56,10 +56,9 @@ class SPH3DModelNet(nn.Module):
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
         cfg = config
-        if not cfg.dense_graph or cfg.point_axis is not None:
+        if not cfg.dense_graph:
             raise NotImplementedError(
-                "only the dense engine without point-axis sharding is "
-                "ported (dense_graph=True, point_axis=None)"
+                "only the dense engine is ported (dense_graph=True)"
             )
         if cfg.sample != "FPS" or cfg.pool_method != "max":
             raise NotImplementedError("only FPS sampling and max pooling")

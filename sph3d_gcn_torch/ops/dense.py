@@ -392,11 +392,12 @@ def dense_depthwise_conv3d(
     """
     dtype = inputs.dtype
     filt_b, inv = conv_operands(inputs, filt, dnbh)
+    args = (dnbh.packed, dnbh.s_blk, inputs.contiguous(), filt_b, inv)
+    _build.record("dense_conv", *args)
     if _build.use_kernel(inputs, use_kernels):
-        out = dense_conv_kernel(dnbh.packed, dnbh.s_blk, inputs.contiguous(),
-                                filt_b, inv)
+        out = dense_conv_kernel(*args)
     else:
-        out = dense_conv_plain(dnbh.packed, dnbh.s_blk, inputs, filt_b, inv)
+        out = dense_conv_plain(*args)
     if pointwise is not None:
         out = einsum_f32("bmk,ko->bmo", out, pointwise.to(dtype)).to(dtype)
     return out[:, :dnbh.num_query]
@@ -473,10 +474,10 @@ def dense_max_pool3d(
     yet."""
     if with_index:
         raise NotImplementedError("max_index output is not ported yet")
-    counts = pool_counts(dnbh)
+    args = (dnbh.packed, dnbh.s_blk, pool_counts(dnbh), inputs.contiguous())
+    _build.record("rank_pool", *args)
     if _build.use_kernel(inputs, use_kernels):
-        out = rank_pool_kernel(dnbh.packed, dnbh.s_blk, counts,
-                               inputs.contiguous())
+        out = rank_pool_kernel(*args)
     else:
-        out = rank_pool_plain(dnbh.packed, dnbh.s_blk, counts, inputs)
+        out = rank_pool_plain(*args)
     return out[:, :dnbh.num_query], None

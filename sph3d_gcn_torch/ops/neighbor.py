@@ -5,12 +5,14 @@ Reproduced quirks (ref tf_nnquery_gpu.cu):
 - strict ``dist < radius`` with an extra ``|dist - radius| > 1e-6``
   margin (:49), distances from the matmul form ``|q|^2 - 2 q.db + |db|^2``
   as the JAX op computes its in-range mask;
-- zero-neighbor queries grow their radius by 0.05 and rescan (:30-60);
 - the stored distance is ``sqrt(euclidean)`` from the difference form (:54);
 - ``count = min(total_in_range, K)`` (:56-62).
 
-Plain PyTorch: the dense engine carries the level graphs; this query
-serves ModelNet's global graph (every point to the centroid).
+Plain PyTorch, for ModelNet's global graph (every point to the centroid
+at radius 100), which always finds neighbors. The reference's radius
+growth for zero-neighbor queries (:30-60) is not ported: such a query
+keeps count 0, as the JAX op's ``self_graph=True`` form gives. It comes
+with the classic per-edge engine.
 """
 
 from __future__ import annotations
@@ -19,9 +21,7 @@ import torch
 
 from sph3d_gcn_torch.ops.types import Neighborhood
 
-_GROW_STEP = 0.05
 _BOUNDARY_EPS = 1e-6
-_MAX_GROW_ITERS = 512
 
 
 def build_sphere_neighbor(
@@ -29,7 +29,6 @@ def build_sphere_neighbor(
     query: torch.Tensor,
     radius: float = 0.1,
     nn_sample: int = 100,
-    self_graph: bool = False,
 ) -> Neighborhood:
     """(B, N, 3+) database, (B, M, 3+) queries -> Neighborhood with
     (B, M, K) idx/dist and (B, M) count; padding entries are 0."""
@@ -42,19 +41,8 @@ def build_sphere_neighbor(
         :, None, :
     ]
     d = torch.sqrt(torch.clamp_min(d2, 0.0))                  # (B, M, N)
-
-    def in_range(r):
-        return (d < r[..., None]) & ((d - r[..., None]).abs() > _BOUNDARY_EPS)
-
-    r = torch.full(d.shape[:2], float(radius), device=d.device)
-    mask = in_range(r)
-    if not self_graph:
-        for _ in range(_MAX_GROW_ITERS):
-            empty = ~mask.any(dim=-1)
-            if not bool(empty.any()):
-                break
-            r = torch.where(empty, r + _GROW_STEP, r)
-            mask = in_range(r)
+    r = float(radius)
+    mask = (d < r) & ((d - r).abs() > _BOUNDARY_EPS)
     # in-range points first, each group in point order
     order = torch.argsort((~mask).to(torch.int8), dim=-1, stable=True)
     idx = order[..., :k]

@@ -153,15 +153,12 @@ def dense_query(
     _check_kernel(kernel)
     if not 1 <= k <= 127:
         raise ValueError(f"int8 maps need 1 <= K <= 127, got {k}")
+    args = (db_p, q_p, s_blk, u_end, axis)
+    kw = dict(radius=radius, k=k, kernel=kernel, window=window)
+    _build.record("dense_query", *args, **kw)
     if _build.use_kernel(db_p, use_kernels):
-        return dense_query_kernel(
-            db_p, q_p, s_blk, u_end, axis, radius=radius, k=k,
-            kernel=kernel, window=window,
-        )
-    return dense_query_plain(
-        db_p, q_p, s_blk, u_end, axis, radius=radius, k=k, kernel=kernel,
-        window=window,
-    )
+        return dense_query_kernel(*args, **kw)
+    return dense_query_plain(*args, **kw)
 
 
 def dense_query_plain(db_p, q_p, s_blk, u_end, axis, *, radius, k, kernel,

@@ -29,6 +29,7 @@ def farthest_point_sample(
     n = database.shape[-2]
     if not 1 <= npoint <= n:
         raise ValueError(f"npoint must be in [1, num_points={n}], got {npoint}")
+    _build.record("fps", npoint, database)
     if _build.use_kernel(database, use_kernels):
         return farthest_point_sample_kernel(npoint, database)
     return farthest_point_sample_plain(npoint, database)

@@ -16,7 +16,7 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from sph3d_gcn_tpu.data import augment as aug
+from sph3d_gcn_torch.data import augment as aug
 
 
 class DenseCoverageError(RuntimeError):

@@ -1,6 +1,6 @@
 """PyTorch port vs JAX: the classic ops of ModelNet's global conv — the
-sphere query, spherical kernel bins and the plain-gather depthwise conv
-(ids exact, f32 values rtol=atol=1e-5)."""
+sphere query (without radius growth), spherical kernel bins and the
+plain-gather depthwise conv (ids exact, f32 values rtol=atol=1e-5)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -54,28 +54,32 @@ def test_global_graph_bins_and_conv():
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("self_graph", [True, False])
-def test_sphere_query_first_k_and_growth(self_graph):
+@pytest.mark.parametrize("offset", [0.0, 0.3])
+def test_sphere_query_first_k(offset):
+    """First K in point order, without radius growth: the JAX op's
+    ``self_graph=True`` form (queries off the cloud, ``offset`` 0.3, leave
+    some with no neighbor and count 0)."""
     db = _cloud(2, n=300)
-    q = db[:, ::5] if self_graph else db[:, ::5] + np.float32(0.3)
+    q = db[:, ::5] + np.float32(offset)
     jn = j_sphere(jnp.asarray(db), jnp.asarray(q), radius=0.25, nn_sample=12,
-                  self_graph=self_graph)
+                  self_graph=True)
     tn = build_sphere_neighbor(torch.from_numpy(db), torch.from_numpy(q),
-                               radius=0.25, nn_sample=12,
-                               self_graph=self_graph)
+                               radius=0.25, nn_sample=12)
     _assert_nbh(tn, jn)
     assert int(tn.count.max()) == 12
+    assert (int(tn.count.min()) == 0) == (offset > 0)
     bins_j = j_bins(jnp.asarray(db), jnp.asarray(q), jn, 0.25, (8, 2, 3))
     bins_t = spherical_kernel(torch.from_numpy(db), torch.from_numpy(q), tn,
                               0.25, (8, 2, 3))
     np.testing.assert_array_equal(bins_t.numpy(), np.asarray(bins_j))
 
 
-def test_zero_neighbor_queries_grow_radius():
+def test_zero_neighbor_queries_keep_count_zero():
     db = _cloud(3, n=100)
     q = np.full((2, 3, 3), 2.0, np.float32)    # far from every point
-    jn = j_sphere(jnp.asarray(db), jnp.asarray(q), radius=0.1, nn_sample=4)
+    jn = j_sphere(jnp.asarray(db), jnp.asarray(q), radius=0.1, nn_sample=4,
+                  self_graph=True)
     tn = build_sphere_neighbor(torch.from_numpy(db), torch.from_numpy(q),
                                radius=0.1, nn_sample=4)
     _assert_nbh(tn, jn)
-    assert (tn.count > 0).all()
+    assert (tn.count == 0).all() and (tn.idx == 0).all()

@@ -3,7 +3,8 @@ rule.
 
 On the CPU every op runs its plain version; a wrapper asked for its
 CUDA kernel with a CPU tensor raises (nothing is built, nothing falls
-back). The port and a CPU forward leave JAX unimported. Tests marked
+back). The port and a CPU forward leave JAX and the JAX package
+unimported. The call recorder sees exactly the main path's calls. Tests marked
 ``cuda`` compare each kernel with its plain version on a card and skip
 where there is none (run them on the card with
 ``python -m pytest tests/test_torch_dispatch.py -m cuda``).
@@ -18,8 +19,8 @@ import numpy as np
 import pytest
 import torch
 
-from sph3d_gcn_tpu.configs import modelnet_config
 from sph3d_gcn_torch import _build, kernel_launches
+from sph3d_gcn_torch.configs import modelnet_config
 from sph3d_gcn_torch.models import SPH3DModelNet
 from sph3d_gcn_torch.ops import dense as D
 from sph3d_gcn_torch.ops import query as Q
@@ -90,7 +91,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys, dataclasses, numpy as np, torch\n"
         "import sph3d_gcn_torch\n"
-        "from sph3d_gcn_tpu.configs import modelnet_config\n"
+        "from sph3d_gcn_torch.configs import modelnet_config\n"
         "from sph3d_gcn_torch.models import SPH3DModelNet\n"
         "from sph3d_gcn_torch.train.eval import checked_forward, "
         "vote_classify\n"
@@ -104,7 +105,7 @@ def test_port_imports_no_jax():
         "x.astype(np.float32), 2)\n"
         "assert v.shape == (2, 40) and np.isfinite(v).all()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax'))\n"
+        "('jax', 'jaxlib', 'flax', 'sph3d_gcn_tpu', 'bench'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -113,6 +114,29 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_record_calls_sees_every_wrapped_call_of_a_forward():
+    cfg = dataclasses.replace(modelnet_config(fast=True, dense=True),
+                              num_input=1024, num_sample=(256, 64, 16),
+                              windows=(512, 256, 128))
+    model = SPH3DModelNet(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(_cloud(n=1024, seed=3))
+    with _build.record_calls() as calls, torch.no_grad():
+        ref = model.eval()(x)
+    assert [name for name, _, _ in calls] == [
+        "dense_query", "fps", "dense_conv", "dense_conv", "dense_query",
+        "rank_pool"] * 3
+    assert _build._RECORD is None
+    plain = {"fps": S.farthest_point_sample_plain,
+             "dense_query": Q.dense_query_plain,
+             "dense_conv": D.dense_conv_plain,
+             "rank_pool": D.rank_pool_plain}
+    for name, args, kw in calls:        # the operands replay as recorded
+        plain[name](*args, **kw)
+    with torch.no_grad():               # nothing is recorded outside
+        assert torch.equal(model(x), ref)
+    assert len(calls) == 18
 
 
 def test_eval_entry_raises_on_failed_certificate():

@@ -18,17 +18,20 @@ import numpy as np
 import pytest
 import torch
 
-from sph3d_gcn_tpu.configs import modelnet_config
+from sph3d_gcn_tpu.configs import modelnet_config as jax_modelnet_config
 from sph3d_gcn_tpu.models import SPH3DModelNet as JaxModelNet
+from sph3d_gcn_torch.configs import modelnet_config
 from sph3d_gcn_torch.models import SPH3DModelNet
 from sph3d_gcn_torch.utils.convert import torch_state_dict_from_flax
 
 B, N = 2, 1024
 
 
-def _config(dtype):
+def _config(dtype, factory=modelnet_config):
+    """The test config from the port's (default) or the JAX package's
+    ``modelnet_config``."""
     return dataclasses.replace(
-        modelnet_config(), num_input=N, num_sample=(256, 64, 16),
+        factory(), num_input=N, num_sample=(256, 64, 16),
         windows=(512, 256, 128), dense_graph=True, spatial_sort=True,
         compute_dtype=dtype,
     )
@@ -41,11 +44,12 @@ def _points():
     return v * rng.uniform(0.3, 1.0, (B, 1, 3)).astype(np.float32)
 
 
-def _flax_variables(cfg, pts):
+def _flax_variables(pts):
     """The JAX model's variable tree (shapes from tracing init), filled
     with numpy-seeded values: He-scaled weights, BN terms near 1 / 0."""
     shapes = jax.eval_shape(
-        lambda p: JaxModelNet(cfg).init(jax.random.key(0), p), pts
+        lambda p: JaxModelNet(_config("float32", jax_modelnet_config)).init(
+            jax.random.key(0), p), pts
     )
     rng = np.random.default_rng(1)
 
@@ -64,15 +68,16 @@ def _flax_variables(cfg, pts):
 
 @pytest.fixture(scope="module")
 def variables():
-    return _flax_variables(_config("float32"), _points())
+    return _flax_variables(_points())
 
 
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4), ("bfloat16", 5e-2)])
 def test_modelnet_logits_match_jax(variables, dtype, tol):
     cfg = _config(dtype)
+    jcfg = _config(dtype, jax_modelnet_config)
     pts = _points()
     ref, inter = jax.jit(
-        lambda v, p: JaxModelNet(cfg).apply(v, p, mutable=["intermediates"])
+        lambda v, p: JaxModelNet(jcfg).apply(v, p, mutable=["intermediates"])
     )(variables, pts)
     (ref_ok,) = inter["intermediates"]["dense_ok"]
 
