@@ -35,30 +35,81 @@ ellipsoids, do not cover every rotated copy (level-0 slabs of up to 1579
 rows were measured on these very votes), so the certificate would fail
 and the eval entry raise. Weights do not depend on the windows.
 
+Then the train phases, on the default ``"plain"`` windows of
+``modelnet_config(fast=True, dense=True)`` (the JAX bench's training
+configuration: no augmentation, so every graph is covered), one
+``surface_clouds`` batch with integer labels and seeded weights, through
+``classification_step_factory(...).train_step`` (Adam on the staircase
+schedule, weight decay):
+
+6. per-kernel parity and timing of the train step: one plain step's
+   forward and backward records every kernel-wrapped call (6 conv
+   forwards, 3 pool forwards with their argmax, 6 conv backwards, 3 pool
+   backwards, 3 FPS, 6 queries); each is replayed through kernel and plain
+   version. The pool argmax and the pool gradients must be equal; the
+   conv backward's ``dx`` (bf16) within rtol 1e-2 and 1e-3 of its largest
+   magnitude (f32 sums in another order, one bf16 rounding), its f32
+   filter gradient within 1e-4 of its largest magnitude (sums of up to
+   ~10^6 products in another order). These times go into the JSON line;
+7. one kernel step against one plain step from the same state, batch and
+   dropout seed, ``dense_ok`` True: loss within 1%; with f32 activations
+   (same weights, graphs and masks) every gradient leaf within a relative
+   L2 error of 2e-3 (sums in other orders); with the served bf16
+   activations each leaf's error against the f32 gradients at most 2x
+   the plain bf16 step's own error on that leaf plus 0.05 (a bf16
+   gradient leaf differs from its f32 value by up to tens of percent
+   where a batch-norm backward cancels most of its input, in the plain
+   version as in the JAX package; the two bf16 versions round at the same
+   points, so a 1-ulp difference in an activation is all that separates
+   them);
+8. determinism: two kernel steps from the same state give bitwise-equal
+   loss and gradients, under ``torch.use_deterministic_algorithms(True)``
+   (cuBLAS's workspace is fixed before CUDA starts);
+9. 20 steps on the fixed batch: finite loss, lower at the end, ``dense_ok``
+   on every step, launch counts of exactly 3 FPS, 6 query, 6 conv, 3 pool,
+   6 conv-backward and 3 pool-backward per step; median step time and
+   points/s with the kernels, and one plain step's time;
+10. profile of the train step (:func:`report_trace`).
+
 Any failure raises and the script exits non-zero. The last two lines
-are one JSON object of per-kernel results and the contract line
-``{"ok": true, "device": {...}}``. Run from the repository root:
-``python3 chip_smoke.py``.
+are one JSON object of per-kernel results (times and launches from the
+train phases) and the contract line ``{"ok": true, "device": {...}}``.
+Run from the repository root: ``python3 chip_smoke.py``.
 """
 
 from __future__ import annotations
 
-import json
-import subprocess
-import sys
-import tempfile
-import time
-from pathlib import Path
+import os
 
-import numpy as np
-import torch
+# a fixed cuBLAS workspace makes its GEMMs reproducible; it is read when
+# CUDA starts, so it is set before torch is imported
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+import tempfile  # noqa: E402
+import time  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 B, N = 16, 10000
 BATCHES, VOTES = 2, 3
 REPS = 5
+PLAIN_REPS = 3       # the plain versions of the train replay
+STEPS = 20
 CONV_TOL = 1e-2      # bf16 outputs: f32 sums in another order, one rounding
+DX_ATOL = 1e-3       # conv backward dx: of its largest magnitude
+DFILT_TOL = 1e-4     # conv backward f32 dfilt: of its largest magnitude
 LOGIT_TOL = 1e-2     # of the largest |logit|: bf16 rounding may compound
+LOSS_TOL = 1e-2      # kernel step vs plain step, of the loss
+GRAD_TOL = 2e-3      # f32 kernel step vs f32 plain step, relative L2 per leaf
+BF16_GRAD_SLACK, BF16_GRAD_ATOL = 2.0, 0.05   # bf16 steps vs the f32 grads
 PER_FORWARD = {"fps": 3, "dense_query": 6, "dense_conv": 6, "rank_pool": 3}
+PER_STEP = dict(PER_FORWARD, dense_conv_bwd=6, rank_pool_bwd=3)
 SOURCES = {
     "fps": ("sph3d_gcn_torch/csrc/fps.cu",
             "sph3d_gcn_tpu/ops/pallas/fps_kernel.py:44"),
@@ -68,6 +119,10 @@ SOURCES = {
                    "sph3d_gcn_tpu/ops/dense.py:611 and :1132"),
     "rank_pool": ("sph3d_gcn_torch/csrc/rank_pool.cu",
                   "sph3d_gcn_tpu/ops/dense.py:1953"),
+    "dense_conv_bwd": ("sph3d_gcn_torch/csrc/dense_conv_bwd.cu",
+                       "sph3d_gcn_tpu/ops/dense.py:692 and :1183"),
+    "rank_pool_bwd": ("sph3d_gcn_torch/csrc/rank_pool_bwd.cu",
+                      "sph3d_gcn_tpu/ops/dense.py:2035"),
 }
 
 
@@ -101,19 +156,45 @@ def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
                 bn.var.copy_(0.5 + torch.rand(c, generator=gen))
 
 
+def exact(got: tuple, ref: tuple) -> None:
+    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+        raise AssertionError("kernel != plain")
+
+
+def close(got: tuple, ref: tuple) -> None:
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.float(), r.float(), rtol=CONV_TOL,
+                                   atol=CONV_TOL)
+
+
+def conv_grads_close(got: tuple, ref: tuple) -> None:
+    """(dx, dfilt): bf16 dx within rtol CONV_TOL and DX_ATOL of its largest
+    magnitude; f32 dfilt within DFILT_TOL of its largest magnitude."""
+    (dx, dfilt), (dx_p, dfilt_p) = got, ref
+    torch.testing.assert_close(
+        dx.float(), dx_p.float(), rtol=CONV_TOL,
+        atol=DX_ATOL * dx_p.abs().max().item())
+    torch.testing.assert_close(
+        dfilt, dfilt_p, rtol=DFILT_TOL,
+        atol=DFILT_TOL * dfilt_p.abs().max().item())
+
+
 def versions():
-    """Per kernel: (kernel wrapper, plain version, tolerance or None for
-    exact equality)."""
+    """Per kernel: (kernel wrapper, plain version, comparison)."""
     from sph3d_gcn_torch.ops import dense as D
     from sph3d_gcn_torch.ops import query as Q
     from sph3d_gcn_torch.ops import sample as S
 
     return {
         "fps": (S.farthest_point_sample_kernel,
-                S.farthest_point_sample_plain, None),
-        "dense_query": (Q.dense_query_kernel, Q.dense_query_plain, None),
-        "dense_conv": (D.dense_conv_kernel, D.dense_conv_plain, CONV_TOL),
-        "rank_pool": (D.rank_pool_kernel, D.rank_pool_plain, None),
+                S.farthest_point_sample_plain, exact),
+        "dense_query": (Q.dense_query_kernel, Q.dense_query_plain, exact),
+        "dense_conv": (D.dense_conv_kernel, D.dense_conv_plain, close),
+        "rank_pool": (D.rank_pool_kernel, D.rank_pool_plain, exact),
+        "dense_conv_bwd": (D.dense_conv_bwd_kernel, D.dense_conv_bwd_plain,
+                           conv_grads_close),
+        "rank_pool_bwd": (D.rank_pool_bwd_kernel, D.rank_pool_bwd_plain,
+                          exact),
     }
 
 
@@ -124,58 +205,69 @@ def describe(name: str, args: tuple, kw: dict) -> str:
     if name == "dense_query":
         kind = "ranks" if kw["kernel"] is None else "bins"
         return f"{kind} M_pad={args[1].shape[1]} W={kw['window']}"
+    if name == "rank_pool_bwd":
+        return f"C={args[1].shape[2]} W={args[4]}"
     w = args[0].shape[-1]
-    if name == "dense_conv":
+    if name in ("dense_conv", "dense_conv_bwd"):
         return f"C={args[2].shape[2]} r={args[3].shape[3]} W={w}"
-    return f"C={args[3].shape[2]} W={w}"
+    return f"C={args[3].shape[2]} W={w}" + (" +arg" if kw else "")
 
 
 class Results:
     """Per-kernel parity errors and times, summed over the main path's
-    calls of one forward."""
+    calls of one forward (or one train step)."""
 
     def __init__(self) -> None:
         self.err = {k: 0.0 for k in SOURCES}
         self.ms = {k: 0.0 for k in SOURCES}
         self.plain_ms = {k: 0.0 for k in SOURCES}
 
-    def add(self, name, what, got, ref, ms, plain_ms, tol=None):
-        err = (got.float() - ref.float()).abs().max().item()
+    def add(self, name, what, got, ref, ms, plain_ms, check):
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(got, ref))
         self.err[name] = max(self.err[name], err)
         self.ms[name] += ms
         self.plain_ms[name] += plain_ms
-        print(f"  {name:12s} {what:30s} max_abs_err {err:.3g}  "
+        print(f"  {name:14s} {what:30s} max_abs_err {err:.3g}  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
-        if tol is None:
-            if not torch.equal(got, ref):
-                raise AssertionError(f"{name} {what}: kernel != plain")
-        else:
-            torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
-                                       atol=tol)
+        try:
+            check(got, ref)
+        except AssertionError as e:
+            raise AssertionError(f"{name} {what}: {e}") from e
 
 
-def kernel_parity(model, x: torch.Tensor, res: Results) -> None:
-    """Record the kernel-wrapped calls of one plain forward of ``model`` on
-    ``x``, then replay each through the kernel and its plain version:
-    compare the two and time both."""
-    from sph3d_gcn_torch import _build
-
-    with _build.record_calls() as calls, torch.inference_mode():
-        model(x, use_kernels=False)
-    seen = {name: 0 for name in PER_FORWARD}
+def replay(calls: list, res: Results, expect: dict[str, int],
+           plain_reps: int = REPS) -> None:
+    """Replay recorded kernel-wrapped calls through the kernel and its
+    plain version: compare the two and time both. ``expect`` is the
+    number of calls of each kernel the recorded run must have made."""
+    seen = {name: 0 for name in expect}
     for name, _, _ in calls:
-        seen[name] += 1
-    if seen != PER_FORWARD:
-        raise AssertionError(f"recorded calls {seen}, want {PER_FORWARD}")
+        seen[name] = seen.get(name, 0) + 1
+    if seen != expect:
+        raise AssertionError(f"recorded calls {seen}, want {expect}")
     table = versions()
-    with torch.inference_mode():
+    with torch.no_grad():
         for name, args, kw in calls:
-            kern, plain, tol = table[name]
+            kern, plain, check = table[name]
             reps = 3 if name == "fps" else REPS
             res.add(name, describe(name, args, kw), kern(*args, **kw),
                     plain(*args, **kw),
                     median_ms(lambda: kern(*args, **kw), reps),
-                    median_ms(lambda: plain(*args, **kw), reps), tol)
+                    median_ms(lambda: plain(*args, **kw),
+                              min(reps, plain_reps)), check)
+
+
+def kernel_parity(model, x: torch.Tensor, res: Results) -> None:
+    """Record the kernel-wrapped calls of one plain forward of ``model`` on
+    ``x``, then replay each through the kernel and its plain version."""
+    from sph3d_gcn_torch import _build
+
+    with _build.record_calls() as calls, torch.inference_mode():
+        model(x, use_kernels=False)
+    replay(calls, res, PER_FORWARD)
 
 
 def union_us(intervals: list[tuple[float, float]]) -> float:
@@ -204,25 +296,31 @@ def profile_forward(model, x: torch.Tensor, family: str,
                 with record_function("serve_forward"):
                     model(x)
                     torch.cuda.synchronize()
+    report_trace(trace_events(prof), f"{family} forward", reps)
+
+
+def trace_events(prof) -> list:
+    """The chrome-trace events of a finished ``torch.profiler`` session."""
     with tempfile.TemporaryDirectory() as tmp:
         trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
-        events = json.loads(trace.read_text())["traceEvents"]
-    report_trace(events, family, reps)
+        return json.loads(trace.read_text())["traceEvents"]
 
 
-def report_trace(events: list, family: str, reps: int,
-                 top: int = 12) -> None:
-    """Per profiled forward (the first is skipped: a profiler session can
-    miss its first launches): the host-clock wall of its span, the union
-    of its kernel and copy intervals on the device timeline (busy), the
-    idle share ``1 - busy / wall``; then the device time by kernel name.
+def report_trace(events: list, what: str, reps: int,
+                 span: str = "serve_forward", top: int = 12) -> None:
+    """Per profiled span named ``span`` (the first is skipped: a profiler
+    session can miss its first launches): the host-clock wall of the span,
+    the union of its kernel and copy intervals on the device timeline
+    (busy), the idle share ``1 - busy / wall``; then the device time by
+    kernel name.
 
-    A forward's device work is found by the correlation ids of the
-    launches its host span made, not by timestamps: a trace aligns its
+    A span's device work is found by the correlation ids of the launches
+    made inside it (on any host thread: the backward launches from
+    autograd's own thread), not by device timestamps: a trace aligns its
     host and device clocks only approximately."""
     spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("name") == "serve_forward"
+                   if e.get("name") == span
                    and e.get("cat") == "user_annotation")[1:]
     launches = [(e["ts"], e["args"]["correlation"]) for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
@@ -231,8 +329,8 @@ def report_trace(events: list, family: str, reps: int,
                e["name"]) for e in events
               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
     if len(spans) != reps or not device:
-        raise AssertionError(f"profile of {family}: {len(spans)} forward "
-                             f"spans, {len(device)} device events")
+        raise AssertionError(f"profile of {what}: {len(spans)} spans, "
+                             f"{len(device)} device events")
     by_name: dict[str, list[float]] = {}
     for i, (s, e) in enumerate(spans):
         ids = {c for t, c in launches if s <= t < e}
@@ -242,16 +340,186 @@ def report_trace(events: list, family: str, reps: int,
             tot = by_name.setdefault(name, [0.0, 0])
             tot[0] += b - a
             tot[1] += 1
-        print(f"profile {family} forward {i + 1}: wall {(e - s) / 1e3:.3f} "
+        print(f"profile {what} {i + 1}: wall {(e - s) / 1e3:.3f} "
               f"ms (host clock, under the profiler), device busy "
               f"{busy / 1e3:.3f} ms, idle share {1 - busy / (e - s):.3f}, "
               f"{len(mine)} device events", flush=True)
-    print(f"profile {family}: device time per forward by name (top {top})",
+    print(f"profile {what}: device time per span by name (top {top})",
           flush=True)
     for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
             :top]:
         print(f"  {us / reps / 1e3:8.3f} ms  {n / reps:6.1f} x  {name[:90]}",
               flush=True)
+
+
+def train_phases(dev: torch.device, res: Results) -> dict[str, int]:
+    """Phases 6-10 (see the module docstring). Returns the launch counts
+    of the 20-step run."""
+    from sph3d_gcn_torch import _build, kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.configs import modelnet_config
+    from sph3d_gcn_torch.data.synthetic import surface_clouds
+    from sph3d_gcn_torch.models import SPH3DModelNet
+    from sph3d_gcn_torch.train.schedule import (
+        exponential_decay_lr,
+        make_optimizer,
+    )
+    from sph3d_gcn_torch.train.steps import classification_step_factory
+
+    cfg = modelnet_config(fast=True, dense=True)
+    model = SPH3DModelNet(cfg, generator=torch.Generator().manual_seed(1))
+    model = model.to(dev)
+    rng = np.random.default_rng(1)
+    batch = {
+        "points": torch.from_numpy(surface_clouds(rng, B, N)).to(dev),
+        "label": torch.from_numpy(
+            rng.integers(0, cfg.num_cls, (B,)).astype(np.int64)).to(dev),
+    }
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def factory(use_kernels, net=model):
+        opt, sch = make_optimizer(
+            net.parameters(), "adam",
+            exponential_decay_lr(0.001, batch_size=B))
+        return classification_step_factory(
+            net, opt, sch, weight_decay=cfg.weight_decay,
+            use_kernels=use_kernels)
+
+    def dropout_gen():
+        return torch.Generator(device=dev).manual_seed(2)
+
+    def grads_of(step):
+        """Loss metrics and gradients of one step from ``state0``."""
+        step.model.load_state_dict(state0)
+        metrics = step.loss_and_grads(batch, dropout_gen())
+        if not bool(metrics["dense_ok"]):
+            raise AssertionError("dense_ok False on the train batch")
+        return metrics, {k: p.grad.clone()
+                         for k, p in step.model.named_parameters()}
+
+    def leaf_errors(got, ref):
+        return {k: ((got[k] - ref[k]).norm() / ref[k].norm()).item()
+                for k in ref}
+
+    plain_step, kernel_step = factory(False), factory(None)
+    print(f"train step: plain windows {list(cfg.windows)}, B={B} N={N}, "
+          f"Adam on the staircase schedule, weight decay "
+          f"{cfg.weight_decay}", flush=True)
+
+    # 6. per-kernel parity of the train step's calls
+    print("per-kernel parity, train step (forward + backward, times: "
+          "median of CUDA events)", flush=True)
+    model.load_state_dict(state0)
+    with _build.record_calls() as calls:
+        plain_step.loss_and_grads(batch, dropout_gen())
+    replay(calls, res, PER_STEP, plain_reps=PLAIN_REPS)
+
+    # 7. the whole step, kernels against plain versions: in f32 (the same
+    # weights, graphs and dropout masks) to a tight tolerance, and in bf16
+    # anchored to the f32 gradients
+    model32 = SPH3DModelNet(dataclasses.replace(
+        cfg, compute_dtype="float32")).to(dev)
+    m_k, g_k = grads_of(kernel_step)
+    m_p, g_p = grads_of(plain_step)
+    _, g_k32 = grads_of(factory(None, model32))
+    _, g_p32 = grads_of(factory(False, model32))
+    del model32
+    loss_k, loss_p = m_k["loss"].item(), m_p["loss"].item()
+    e32 = leaf_errors(g_k32, g_p32)
+    e_k, e_p = leaf_errors(g_k, g_p32), leaf_errors(g_p, g_p32)
+    e_kp = leaf_errors(g_k, g_p)
+    bound = {k: BF16_GRAD_SLACK * e_p[k] + BF16_GRAD_ATOL for k in e_p}
+    print(f"train step kernel vs plain: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(bf16); relative L2 error per gradient leaf, max / median over "
+          f"{len(e32)} leaves: f32 kernel vs f32 plain "
+          f"{max(e32.values()):.3g} / {float(np.median(list(e32.values()))):.3g} "
+          f"(tolerance {GRAD_TOL}); bf16 kernel vs bf16 plain "
+          f"{max(e_kp.values()):.3g} / "
+          f"{float(np.median(list(e_kp.values()))):.3g}; against the f32 "
+          f"gradients: bf16 kernel {max(e_k.values()):.3g}, bf16 plain "
+          f"{max(e_p.values()):.3g} (tolerance per leaf "
+          f"{BF16_GRAD_SLACK} x plain's + {BF16_GRAD_ATOL})", flush=True)
+    for k in sorted(e_kp, key=e_kp.get, reverse=True)[:5]:
+        print(f"  bf16 kernel vs plain {e_kp[k]:.3g}, vs f32: kernel "
+              f"{e_k[k]:.3g} plain {e_p[k]:.3g}  {k}", flush=True)
+    if abs(loss_k - loss_p) > LOSS_TOL * abs(loss_p):
+        raise AssertionError(f"loss {loss_k} vs plain {loss_p}")
+    bad = [k for k in e32 if not e32[k] <= GRAD_TOL]
+    bad += [k for k in e_k if not e_k[k] <= bound[k]]
+    if bad:
+        raise AssertionError(f"gradient leaves out of tolerance: {bad}")
+
+    # 8. determinism: bitwise-equal gradients of two kernel steps
+    torch.use_deterministic_algorithms(True)
+    try:
+        m_1, g_1 = grads_of(kernel_step)
+        m_2, g_2 = grads_of(kernel_step)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = [k for k in g_1 if torch.equal(g_1[k], g_2[k])]
+    print(f"determinism: {len(same)} of {len(g_1)} gradient leaves bitwise "
+          f"equal over two kernel steps, loss "
+          f"{'equal' if torch.equal(m_1['loss'], m_2['loss']) else 'differs'}"
+          f" (torch.use_deterministic_algorithms(True))", flush=True)
+    if len(same) != len(g_1) or not torch.equal(m_1["loss"], m_2["loss"]):
+        raise AssertionError("two kernel steps gave different gradients")
+
+    # 9. steps on the fixed batch
+    model.load_state_dict(state0)
+    step = factory(None)
+    gen = dropout_gen()
+    step.train_step(batch, gen)            # warm-up (allocator, cuBLAS)
+    model.load_state_dict(state0)
+    step = factory(None)
+    gen = dropout_gen()
+    losses, oks, times = [], [], []
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        metrics = step.train_step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+        oks.append(metrics["dense_ok"])
+    launches = kernel_launches()
+    loss = torch.stack(losses).cpu()
+    print(f"{STEPS} train steps: loss {loss[0].item():.4f} -> "
+          f"{loss[-1].item():.4f} ({[round(v, 3) for v in loss.tolist()]})",
+          flush=True)
+    print(f"launches over {STEPS} steps: {launches}", flush=True)
+    for name, per in PER_STEP.items():
+        if launches[name] != per * STEPS:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches, want {per} per step")
+    if not bool(torch.stack(oks).all()):
+        raise AssertionError("dense_ok False on a train step")
+    if not torch.isfinite(loss).all() or not loss[-1] < loss[0]:
+        raise AssertionError(f"loss did not fall: {loss.tolist()}")
+    step_ms = float(np.median(times)) * 1e3
+    model.load_state_dict(state0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    factory(False).train_step(batch, dropout_gen())
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"train step B={B} N={N}, plain windows: {step_ms:.2f} ms "
+          f"median of {STEPS} (host clock, synchronised; "
+          f"{B * N / step_ms * 1e3:.0f} points/s) with kernels, "
+          f"{plain_ms:.2f} ms for one step with the plain versions",
+          flush=True)
+
+    # 10. profile of the train step
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    reps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(1 + reps):
+            with record_function("train_step"):
+                step.train_step(batch, gen)
+                torch.cuda.synchronize()
+    report_trace(trace_events(prof), "train step", reps, span="train_step")
+    return launches
 
 
 def main() -> None:
@@ -366,12 +634,18 @@ def main() -> None:
     # 5. profile: the served forward's device-busy time and idle share
     for family, m in (("hard", model), ("plain", model_plain)):
         profile_forward(m, x, family)
+    del model, model_plain
+
+    # 6-10. the train step
+    res_train = Results()
+    train_launches = train_phases(dev, res_train)
 
     kernels = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "max_abs_err": max(res.err[name], res_plain_win.err[name]),
-         "ms": res.ms[name], "plain_ms": res.plain_ms[name]}
+         "launches": train_launches[name],
+         "max_abs_err": max(r.err[name]
+                            for r in (res, res_plain_win, res_train)),
+         "ms": res_train.ms[name], "plain_ms": res_train.plain_ms[name]}
         for name, (src, rep) in SOURCES.items()
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -5,8 +5,9 @@ Axis sort -> unit-sphere normalization -> input MLP -> 3 levels of
 {dense sphere graph -> separable conv block -> FPS -> pool graph -> max
 pool} with xyz concatenated onto every level's input -> per-level global
 max features -> global centroid conv (radius 100, kernel (8,2,1), 17 bins)
--> FC 512 -> FC 256 -> logits (ref SPH3D_modelnet.py:33-108). Dropout is
-the identity in eval, the only mode ported so far.
+-> FC 512 -> dropout -> FC 256 -> dropout -> logits (ref
+SPH3D_modelnet.py:33-108). ``self.training`` drives batch-statistics BN
+and dropout (``model.train()`` / ``model.eval()``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from sph3d_gcn_torch.nn.graph import (
     gather_points,
 )
 from sph3d_gcn_torch.nn.layers import (
+    Dropout,
     FullyConnected,
     PointwiseConv3d,
     SeparableConv3d,
@@ -82,7 +84,9 @@ class SPH3DModelNet(nn.Module):
         )
         feat += cfg.global_channels
         self.fc1 = FullyConnected(feat, 512, **common)
+        self.fc1_dp = Dropout(0.5)
         self.fc2 = FullyConnected(512, 256, **common)
+        self.fc2_dp = Dropout(0.5)
         self.logits = FullyConnected(
             256, cfg.num_cls, with_bn=False, with_bias=cfg.with_bias,
             activation=False, generator=generator,
@@ -90,10 +94,12 @@ class SPH3DModelNet(nn.Module):
         self.dense_ok: torch.Tensor | None = None
 
     def forward(self, points: torch.Tensor,
-                use_kernels: bool | None = None) -> torch.Tensor:
+                use_kernels: bool | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """``use_kernels``: None runs the CUDA kernels on a CUDA device and
         the plain versions on the CPU; False forces the plain versions
-        (for comparing the two)."""
+        (for comparing the two). ``generator`` draws the dropout masks in
+        train mode."""
         cfg = self.config
         if points.dim() != 3 or points.shape[1] != cfg.num_input:
             raise ValueError(
@@ -138,7 +144,9 @@ class SPH3DModelNet(nn.Module):
                 net = pool3d(net, inter, method=cfg.pool_method,
                              use_kernels=use_kernels)
                 xyz = xyz_coarse
-            # multi-scale global max feature (ref SPH3D_modelnet.py:82-83)
+            # multi-scale global max feature (ref SPH3D_modelnet.py:82-83);
+            # amax splits the gradient evenly between tied maxima, as
+            # jnp.max does (bf16 makes ties common)
             global_feat.append(net.amax(dim=1, keepdim=True))
         self.dense_ok = dense_ok
 
@@ -149,6 +157,21 @@ class SPH3DModelNet(nn.Module):
         net = self.global_conv(net, gnbh, gfilt)
         global_feat.append(net)
         net = torch.cat(global_feat, dim=2).reshape(net.shape[0], -1)
-        net = self.fc1(net)
-        net = self.fc2(net)
+        net = self.fc1_dp(self.fc1(net), generator)
+        net = self.fc2_dp(self.fc2(net), generator)
         return self.logits(net)
+
+
+def classification_item_loss(logits: torch.Tensor,
+                             labels: torch.Tensor) -> torch.Tensor:
+    """Per-item softmax cross entropy, (B,), in f32. The label pick is a
+    one-hot product, so its gradient is elementwise (no scatter)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    onehot = torch.nn.functional.one_hot(labels.long(), logits.shape[-1])
+    return -(logp * onehot).sum(dim=-1)
+
+
+def classification_loss(logits: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """Mean softmax cross entropy (ref SPH3D_modelnet.py:112-119)."""
+    return classification_item_loss(logits, labels).mean()

@@ -38,10 +38,15 @@ def glorot_uniform(shape: tuple[int, ...],
 
 
 class BatchNorm(nn.Module):
-    """TF-flavored batch norm, eval mode: ``(x - mean) * rsqrt(var + eps)
-    * scale + bias`` in f32 from the running statistics, cast to the
-    activation dtype (flax BatchNorm's arithmetic). Training-mode
-    statistics come with the train step."""
+    """TF-flavored batch norm with flax ``BatchNorm`` semantics:
+    ``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32, cast once to
+    the activation dtype. Eval mode reads the running statistics. Train
+    mode (``self.training``) uses the batch statistics, reduced in f32
+    over every axis but the last, with flax's fast biased variance
+    ``max(0, mean(x^2) - mean^2)``, and updates the running statistics as
+    ``momentum * running + (1 - momentum) * batch`` (momentum 0.99, eps
+    1e-3; not ``F.batch_norm``, which keeps the unbiased variance and
+    reads its momentum as ``1 - m``)."""
 
     def __init__(self, channels: int, momentum: float = 0.99,
                  epsilon: float = 1e-3) -> None:
@@ -54,13 +59,51 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm batch statistics are not ported yet: call "
-                "model.eval()"
-            )
-        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
-        return ((x.float() - self.mean) * mul + self.bias).to(x.dtype)
+            red = tuple(range(x.dim() - 1))
+            mean = xf.mean(dim=red)
+            var = torch.clamp_min((xf * xf).mean(dim=red) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.epsilon) * self.scale
+        return ((xf - mean) * mul + self.bias).to(x.dtype)
+
+
+class Dropout(nn.Module):
+    """Inverted dropout (flax ``nn.Dropout``): in train mode each element
+    is kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``,
+    its mask drawn from an explicit ``torch.Generator`` (on the tensor's
+    device; None takes PyTorch's default generator); the identity in eval
+    mode or at rate 0."""
+
+    def __init__(self, rate: float = 0.5) -> None:
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=generator, device=x.device)
+        return torch.where(mask < keep, x / keep, torch.zeros_like(x))
+
+
+# parameter names the reference's L2 weight decay collects: conv/FC kernels
+# and BN beta/gamma, not the layers' ``biases``
+_L2_NAMES = ("weights", "depthwise_weights", "scale", "bias")
+
+
+def l2_regularization(model: nn.Module) -> torch.Tensor:
+    """Sum of TF-style ``l2_loss`` (``sum(p^2) / 2``) over the regularized
+    parameters (``sph3d_gcn_tpu/nn/layers.py:383-396``)."""
+    return sum(0.5 * (p * p).sum() for name, p in model.named_parameters()
+               if name.rsplit(".", 1)[-1] in _L2_NAMES)
 
 
 class _Dense(nn.Module):

@@ -17,9 +17,15 @@ provable window bound held: the database is sorted along some axis and
 every tile's [min - r, max + r] slab fits its window. Results then equal
 the classic per-edge ops exactly.
 
-Kernels: the query is ``ops/query.py``; the conv (``csrc/dense_conv.cu``)
-and the rank pool (``csrc/rank_pool.cu``) are wrapped here, each beside
-its plain PyTorch version.
+Kernels: the query is ``ops/query.py``; the conv (``csrc/dense_conv.cu``),
+its backward (``csrc/dense_conv_bwd.cu``), the rank pool
+(``csrc/rank_pool.cu``, with the first attaining column when a gradient
+is wanted) and its backward (``csrc/rank_pool_bwd.cu``) are wrapped here,
+each beside its plain PyTorch version. The conv and the pool are
+``torch.autograd.Function``s whose backward runs the backward kernel (or,
+for a CPU tensor, its plain version): both backwards give every output
+row one owner and sum in a fixed order, so gradients are bitwise
+reproducible.
 """
 
 from __future__ import annotations
@@ -47,7 +53,15 @@ CONV_KERNEL = _build.register(
 )
 POOL_KERNEL = _build.register(
     "rank_pool", "sph3d_rank_pool_launch",
-    [_build.PTR] * 5 + [_build.INT] * 6 + [_build.PTR],
+    [_build.PTR] * 6 + [_build.INT] * 6 + [_build.PTR],
+)
+CONV_BWD_KERNEL = _build.register(
+    "dense_conv_bwd", "sph3d_dense_conv_bwd_launch",
+    [_build.PTR] * 8 + [_build.INT] * 8 + [_build.PTR],
+)
+POOL_BWD_KERNEL = _build.register(
+    "rank_pool_bwd", "sph3d_rank_pool_bwd_launch",
+    [_build.PTR] * 4 + [_build.INT] * 6 + [_build.PTR],
 )
 
 
@@ -345,6 +359,114 @@ def dense_conv_kernel(packed, s_blk, inputs, filt_b, inv):
     return out
 
 
+def dense_conv_bwd_plain(packed, s_blk, inputs, filt_b, inv, dout):
+    """Plain PyTorch backward of the dense conv, in f32, chunked over tiles
+    as :func:`dense_conv_plain` (differentiating that function instead
+    would hold the one-hot of the whole cloud at once).
+
+    With ``g = inv * dout`` per query row: ``dx`` sums, over the selected
+    entries of each window row, ``g . filt_b[bin]`` and ``dfilt_b[b, f]``
+    sums ``g * x[row]`` over cloud b's entries of bin f. Returns (dx
+    (B, N, C) in the input dtype, rounded once; dfilt_b (B, F, C, r) f32).
+    """
+    batch, n_t, _, w = packed.shape
+    _, num_in, c = inputs.shape
+    f_bins, mult = filt_b.shape[1], filt_b.shape[3]
+    rows, valid, b_of_g = _window_rows(packed, s_blk, num_in)
+    pk = packed.reshape(batch * n_t, TILE, w)
+    g_all = dout.reshape(batch * n_t, TILE, c, mult).float() * inv.reshape(
+        batch * n_t, TILE, 1, 1)
+    fids = torch.arange(1, f_bins + 1, device=packed.device,
+                        dtype=torch.int8)
+    dx = torch.zeros((batch * num_in, c), dtype=torch.float32,
+                     device=inputs.device)
+    dfilt = torch.zeros((batch, f_bins, c, mult), dtype=torch.float32,
+                        device=inputs.device)
+    step = max(1, _PLAIN_BUDGET // (TILE * w * f_bins))
+    for g0 in range(0, batch * n_t, step):
+        sl = slice(g0, g0 + step)
+        onehot = (pk[sl, :, :, None] == fids).float()          # (g,T,W,F)
+        ds = torch.einsum("gtcr,gfcr->gtfc", g_all[sl], filt_b[b_of_g[sl]])
+        dxw = torch.einsum("gtwf,gtfc->gwc", onehot, ds)
+        xw = inputs[b_of_g[sl, None], rows[sl]].float()         # (g, W, C)
+        xw = torch.where(valid[sl, :, None], xw, 0.0)
+        s = torch.einsum("gtwf,gwc->gtfc", onehot, xw)
+        dfilt.index_add_(0, b_of_g[sl],
+                         torch.einsum("gtfc,gtcr->gfcr", s, g_all[sl]))
+        flat = (b_of_g[sl, None] * num_in + rows[sl])[valid[sl]]
+        dx.index_add_(0, flat, dxw[valid[sl]])
+    return dx.reshape(batch, num_in, c).to(inputs.dtype), dfilt
+
+
+def dense_conv_bwd_kernel(packed, s_blk, inputs, filt_b, inv, dout):
+    """The conv backward through ``csrc/dense_conv_bwd.cu``: one thread
+    block per (cloud, 128-row block of ``inputs``) owns that block's
+    gradient rows and walks the query tiles whose window covers it, in
+    tile order. Its per-block dfilt partials are summed over blocks here
+    (a fixed-order reduction). Returns (dx, dfilt_b) as the plain
+    version."""
+    _build.check(packed, "packed", torch.int8, 4)
+    _build.check(inputs, "inputs", (torch.float32, torch.bfloat16), 3)
+    _build.check(filt_b, "filt_b", torch.float32, 4)
+    _build.check(inv, "inv", torch.float32, 2)
+    _build.check(dout, "dout", inputs.dtype, 3)
+    batch, n_t, _, w = packed.shape
+    _, num_in, c = inputs.shape
+    f_bins, mult = filt_b.shape[1], filt_b.shape[3]
+    if c > _MAX_CONV_C or mult not in (1, 2):
+        raise ValueError(
+            f"dense conv backward kernel takes C <= {_MAX_CONV_C} and a "
+            f"depth multiplier of 1 or 2, got C={c}, r={mult}"
+        )
+    if filt_b.shape != (batch, f_bins, c, mult) or f_bins > 127:
+        raise ValueError(f"bad per-cloud filter shape {tuple(filt_b.shape)}")
+    if inv.shape != (batch, n_t * TILE):
+        raise ValueError(f"bad inverse-count shape {tuple(inv.shape)}")
+    if dout.shape != (batch, n_t * TILE, c * mult):
+        raise ValueError(f"bad output-gradient shape {tuple(dout.shape)}")
+    n_blk = -(-num_in // TILE)
+    sb = s_blk.to(torch.int32).contiguous()
+    dx = torch.empty_like(inputs)
+    part = torch.empty((batch, n_blk, f_bins, c, mult), dtype=torch.float32,
+                       device=inputs.device)
+    CONV_BWD_KERNEL.launch(
+        _build.ptr(packed), _build.ptr(sb), _build.ptr(inputs),
+        _build.ptr(filt_b), _build.ptr(inv), _build.ptr(dout),
+        _build.ptr(dx), _build.ptr(part),
+        batch, n_t, num_in, c, f_bins, w, mult,
+        int(inputs.dtype == torch.bfloat16),
+        _build.stream(inputs),
+    )
+    return dx, part.sum(dim=1)
+
+
+class _DenseConv(torch.autograd.Function):
+    """The conv with its hand-written backward. ``packed``, ``s_blk`` and
+    ``inv`` get no gradient: the graph and the counts are constants (as in
+    the JAX VJP, ``ops/dense.py:1069-1076``)."""
+
+    @staticmethod
+    def forward(ctx, inputs, filt_b, packed, s_blk, inv, use_kernels):
+        args = (packed, s_blk, inputs, filt_b, inv)
+        _build.record("dense_conv", *args)
+        ctx.save_for_backward(*args)
+        ctx.use_kernels = use_kernels
+        if _build.use_kernel(inputs, use_kernels):
+            return dense_conv_kernel(*args)
+        return dense_conv_plain(*args)
+
+    @staticmethod
+    def backward(ctx, dout):
+        packed, s_blk, inputs, filt_b, inv = ctx.saved_tensors
+        args = (packed, s_blk, inputs, filt_b, inv, dout.contiguous())
+        _build.record("dense_conv_bwd", *args)
+        if _build.use_kernel(inputs, ctx.use_kernels):
+            dx, dfilt = dense_conv_bwd_kernel(*args)
+        else:
+            dx, dfilt = dense_conv_bwd_plain(*args)
+        return dx, dfilt, None, None, None, None
+
+
 def conv_operands(
     inputs: torch.Tensor, filt: torch.Tensor, dnbh: DenseNeighborhood
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -353,15 +475,19 @@ def conv_operands(
     Returns (filt_b (B, F, C, r) f32: the filter rounded to the compute
     dtype, its bin rows in the map's (sort-grouped) order for each cloud;
     inv (B, M_pad) f32: 1 / max(count, 1), the reference's neighbor
-    mean)."""
+    mean). The grouped rows are picked by a one-hot product, so autograd
+    un-permutes and sums the per-cloud filter gradient with a matmul (no
+    scatter-add: reproducible on the card)."""
     batch = inputs.shape[0]
     m_pad = dnbh.s_blk.shape[1] * TILE
     cnt_p = F.pad(dnbh.count, (0, m_pad - dnbh.num_query))
     inv = 1.0 / torch.clamp_min(cnt_p, 1).float()
     filt_c = filt.to(inputs.dtype).float()
     if dnbh.grouped:
-        perm = torch.tensor(_grouped_perm(filt.shape[0]), device=filt.device)
-        filt_b = filt_c[perm[dnbh.axis.long()]]
+        f_bins = filt.shape[0]
+        perm = torch.tensor(_grouped_perm(f_bins), device=filt.device)
+        pick = F.one_hot(perm[dnbh.axis.long()], f_bins).float()  # (B,F,F)
+        filt_b = torch.einsum("bgf,fcr->bgcr", pick, filt_c)
     else:
         filt_b = filt_c.expand((batch,) + filt_c.shape)
     return filt_b.contiguous(), inv.contiguous()
@@ -392,20 +518,19 @@ def dense_depthwise_conv3d(
     """
     dtype = inputs.dtype
     filt_b, inv = conv_operands(inputs, filt, dnbh)
-    args = (dnbh.packed, dnbh.s_blk, inputs.contiguous(), filt_b, inv)
-    _build.record("dense_conv", *args)
-    if _build.use_kernel(inputs, use_kernels):
-        out = dense_conv_kernel(*args)
-    else:
-        out = dense_conv_plain(*args)
+    out = _DenseConv.apply(inputs.contiguous(), filt_b, dnbh.packed,
+                           dnbh.s_blk, inv, use_kernels)
     if pointwise is not None:
         out = einsum_f32("bmk,ko->bmo", out, pointwise.to(dtype)).to(dtype)
     return out[:, :dnbh.num_query]
 
 
-def rank_pool_plain(packed, s_blk, counts, inputs):
+def rank_pool_plain(packed, s_blk, counts, inputs, with_arg=False):
     """Plain PyTorch masked max over the entries whose rank lies in
-    1..count, chunked over tiles; rows with none give 0."""
+    1..count, chunked over tiles; rows with none give 0. With
+    ``with_arg`` also the first window column attaining the max (-0 and
+    +0 tie; -1 for a row with none): returns (out, arg (B, M_pad, C)
+    int32)."""
     batch, n_t, _, w = packed.shape
     _, num_in, c = inputs.shape
     rows, valid, b_of_g = _window_rows(packed, s_blk, num_in)
@@ -413,6 +538,8 @@ def rank_pool_plain(packed, s_blk, counts, inputs):
     cnt = counts.reshape(batch * n_t, TILE, 1)
     out = torch.empty((batch * n_t, TILE, c), dtype=inputs.dtype,
                       device=inputs.device)
+    arg = torch.empty((batch * n_t, TILE, c), dtype=torch.int32,
+                      device=inputs.device) if with_arg else None
     step = max(1, _PLAIN_BUDGET // (TILE * w * c))
     for g0 in range(0, batch * n_t, step):
         sl = slice(g0, g0 + step)
@@ -420,15 +547,23 @@ def rank_pool_plain(packed, s_blk, counts, inputs):
         sel = (pk[sl] >= 1) & (pk[sl] <= cnt[sl]) & valid[sl, None, :]
         cand = torch.where(sel[..., None], xw[:, None], -float("inf"))
         best = cand.amax(dim=2) + 0.0                           # -0 -> +0
-        out[sl] = torch.where(sel.any(dim=-1)[..., None], best, 0.0).to(
-            inputs.dtype
-        )
-    return out.reshape(batch, n_t * TILE, c)
+        some = sel.any(dim=-1)[..., None]
+        out[sl] = torch.where(some, best, 0.0).to(inputs.dtype)
+        if with_arg:
+            hit = sel[..., None] & (cand == best[:, :, None, :])
+            first = hit.to(torch.uint8).argmax(dim=2)      # first maximum
+            arg[sl] = torch.where(some, first, -1).to(torch.int32)
+    out = out.reshape(batch, n_t * TILE, c)
+    if with_arg:
+        return out, arg.reshape(batch, n_t * TILE, c)
+    return out
 
 
-def rank_pool_kernel(packed, s_blk, counts, inputs):
+def rank_pool_kernel(packed, s_blk, counts, inputs, with_arg=False):
     """The pool through ``csrc/rank_pool.cu``: one warp per query row
-    walks the row's window once and keeps a running max per channel."""
+    walks the row's window once and keeps a running max per channel (and,
+    with ``with_arg``, the first column attaining it). Returns as the
+    plain version."""
     _build.check(packed, "packed", torch.int8, 4)
     _build.check(counts, "counts", torch.int32, 2)
     _build.check(inputs, "inputs", (torch.float32, torch.bfloat16), 3)
@@ -441,13 +576,95 @@ def rank_pool_kernel(packed, s_blk, counts, inputs):
     sb = s_blk.to(torch.int32).contiguous()
     out = torch.empty((batch, n_t * TILE, c), dtype=inputs.dtype,
                       device=inputs.device)
+    arg = torch.empty((batch, n_t * TILE, c), dtype=torch.int32,
+                      device=inputs.device) if with_arg else None
     POOL_KERNEL.launch(
         _build.ptr(packed), _build.ptr(sb), _build.ptr(counts),
         _build.ptr(inputs), _build.ptr(out),
+        _build.ptr(arg) if with_arg else None,
         batch, n_t, num_in, c, w, int(inputs.dtype == torch.bfloat16),
         _build.stream(inputs),
     )
-    return out
+    return (out, arg) if with_arg else out
+
+
+def rank_pool_bwd_plain(s_blk, arg, dout, num_in, window):
+    """Plain PyTorch backward of the rank pool: each row's output gradient
+    goes to its first attaining window column (``arg``), i.e. the cloud
+    row ``s_blk * 128 + arg``; rows with ``arg == -1`` give nothing.
+    Summed in f32, rounded once: (B, num_in, C) in ``dout``'s dtype.
+    ``window`` is the kernel's (it skips tiles whose window misses a
+    block); every column is in the window here by construction."""
+    del window
+    batch, m_pad, c = arg.shape
+    rows = s_blk.long().repeat_interleave(TILE, dim=1)[..., None] * TILE
+    live = arg >= 0
+    flat = torch.arange(batch, device=arg.device)[:, None, None] * num_in
+    flat = torch.where(live, flat + rows + arg, 0)
+    dx = torch.zeros((batch * num_in, c), dtype=torch.float32,
+                     device=dout.device)
+    dx.scatter_add_(0, flat.reshape(-1, c),
+                    torch.where(live, dout.float(), 0.0).reshape(-1, c))
+    return dx.reshape(batch, num_in, c).to(dout.dtype)
+
+
+def rank_pool_bwd_kernel(s_blk, arg, dout, num_in, window):
+    """The pool backward through ``csrc/rank_pool_bwd.cu``: one thread
+    block per (cloud, 128-row block of the input) owns that block's
+    gradient rows and adds, in tile and row order, the output gradients
+    whose first attaining column lands in it. Returns as the plain
+    version."""
+    _build.check(arg, "arg", torch.int32, 3)
+    _build.check(dout, "dout", (torch.float32, torch.bfloat16), 3)
+    batch, m_pad, c = arg.shape
+    n_t = s_blk.shape[1]
+    if c > _MAX_CONV_C:
+        raise ValueError(
+            f"rank pool backward kernel takes C <= {_MAX_CONV_C}, got {c}")
+    if dout.shape != arg.shape or m_pad != n_t * TILE or window % TILE:
+        raise ValueError(
+            f"bad pool backward shapes: arg {tuple(arg.shape)}, dout "
+            f"{tuple(dout.shape)}, {n_t} tiles, window {window}")
+    sb = s_blk.to(torch.int32).contiguous()
+    dx = torch.empty((batch, num_in, c), dtype=dout.dtype,
+                     device=dout.device)
+    POOL_BWD_KERNEL.launch(
+        _build.ptr(sb), _build.ptr(arg), _build.ptr(dout), _build.ptr(dx),
+        batch, n_t, num_in, c, window, int(dout.dtype == torch.bfloat16),
+        _build.stream(dout),
+    )
+    return dx
+
+
+class _RankPool(torch.autograd.Function):
+    """The rank pool with its hand-written backward: the forward also
+    keeps the first attaining column, the backward routes each output
+    gradient there (ties to the smallest rank, as the JAX VJP)."""
+
+    @staticmethod
+    def forward(ctx, inputs, packed, s_blk, counts, use_kernels):
+        args = (packed, s_blk, counts, inputs)
+        _build.record("rank_pool", *args, with_arg=True)
+        if _build.use_kernel(inputs, use_kernels):
+            out, arg = rank_pool_kernel(*args, with_arg=True)
+        else:
+            out, arg = rank_pool_plain(*args, with_arg=True)
+        ctx.save_for_backward(s_blk, arg)
+        ctx.num_in = inputs.shape[1]
+        ctx.window = packed.shape[-1]
+        ctx.use_kernels = use_kernels
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        s_blk, arg = ctx.saved_tensors
+        args = (s_blk, arg, dout.contiguous(), ctx.num_in, ctx.window)
+        _build.record("rank_pool_bwd", *args)
+        if _build.use_kernel(dout, ctx.use_kernels):
+            dx = rank_pool_bwd_kernel(*args)
+        else:
+            dx = rank_pool_bwd_plain(*args)
+        return dx, None, None, None, None
 
 
 def pool_counts(dnbh: DenseNeighborhood) -> torch.Tensor:
@@ -470,14 +687,19 @@ def dense_max_pool3d(
 ) -> tuple[torch.Tensor, None]:
     """Max pooling from dense maps: (out (B, M, C) in the input dtype,
     None). Rows with no selected neighbor give 0 (the reference's
-    untouched output). ``with_index=True`` (argmax ids) is not ported
-    yet."""
+    untouched output). Differentiable in ``inputs``: the gradient goes to
+    the first attaining neighbor. ``with_index=True`` (argmax ids) is not
+    ported yet."""
     if with_index:
         raise NotImplementedError("max_index output is not ported yet")
     args = (dnbh.packed, dnbh.s_blk, pool_counts(dnbh), inputs.contiguous())
-    _build.record("rank_pool", *args)
-    if _build.use_kernel(inputs, use_kernels):
-        out = rank_pool_kernel(*args)
+    if torch.is_grad_enabled() and inputs.requires_grad:
+        out = _RankPool.apply(args[3], *args[:3], use_kernels)
     else:
-        out = rank_pool_plain(*args)
+        # inference: the values-only launch
+        _build.record("rank_pool", *args)
+        if _build.use_kernel(inputs, use_kernels):
+            out = rank_pool_kernel(*args)
+        else:
+            out = rank_pool_plain(*args)
     return out[:, :dnbh.num_query], None

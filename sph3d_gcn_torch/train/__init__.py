@@ -1,1 +1,2 @@
-"""Training-side protocols (eval voting)."""
+"""Training side: the train and eval steps, the learning-rate schedule
+and optimizers, and the eval voting protocol."""

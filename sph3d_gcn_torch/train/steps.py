@@ -1,0 +1,121 @@
+"""Train and eval steps (counterpart of the non-mesh branch of
+``sph3d_gcn_tpu/train/steps.py``).
+
+One train step: the train-mode forward (batch-statistics BN, which
+updates the running statistics in place, and dropout from an explicit
+generator), the data loss plus ``weight_decay * l2_regularization``, the
+backward through every layer (the dense conv and pool through their
+hand-written backward kernels on a CUDA device), one optimizer update and
+one scheduler step. The metrics stay on the device: the step adds no
+host synchronisation of its own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from collections.abc import Callable
+
+import torch
+
+from sph3d_gcn_torch.nn.layers import l2_regularization
+
+# (logits, batch) -> data loss (scalar) or per-item loss (B,)
+LossFn = Callable[[torch.Tensor, dict[str, torch.Tensor]], torch.Tensor]
+
+
+@dataclasses.dataclass
+class StepFactory:
+    """A model, its optimizer and scheduler, and the loss.
+
+    Args:
+      model: a module whose forward is ``(points, use_kernels=,
+        generator=)``; after each forward its ``dense_ok`` holds the
+        window-coverage certificate (a bool tensor).
+      optimizer, scheduler: from ``train.schedule.make_optimizer``.
+      loss_fn: maps (logits, batch) to the data loss.
+      weight_decay: the reference's L2 coefficient on
+        ``l2_regularization(model)``, or None.
+      item_loss_fn: optional (logits, batch) -> (B,) per-item loss, which
+        eval steps return.
+      use_kernels: forwarded to the model (None: kernels on a CUDA
+        device, plain versions on the CPU; False: plain versions).
+    """
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: torch.optim.lr_scheduler.LRScheduler
+    loss_fn: LossFn
+    weight_decay: float | None = None
+    item_loss_fn: LossFn | None = None
+    use_kernels: bool | None = None
+
+    def _losses(self, batch, generator):
+        logits = self.model(batch["points"], use_kernels=self.use_kernels,
+                            generator=generator)
+        data_loss = self.loss_fn(logits, batch)
+        total = data_loss
+        if self.weight_decay is not None:
+            total = total + self.weight_decay * l2_regularization(self.model)
+        return total, data_loss, logits
+
+    def loss_and_grads(self, batch: dict[str, torch.Tensor],
+                       generator: torch.Generator | None = None
+                       ) -> dict[str, torch.Tensor]:
+        """The train-mode forward and backward without the update: leaves
+        the gradients in each parameter's ``.grad`` (and the running BN
+        statistics updated) and returns the step's metrics."""
+        self.model.train()
+        self.optimizer.zero_grad(set_to_none=True)
+        total, data_loss, logits = self._losses(batch, generator)
+        total.backward()
+        return {"loss": total.detach(), "data_loss": data_loss.detach(),
+                "logits": logits.detach(), "dense_ok": self.model.dense_ok}
+
+    def train_step(self, batch: dict[str, torch.Tensor],
+                   generator: torch.Generator | None = None
+                   ) -> dict[str, torch.Tensor]:
+        """One step on ``batch`` (``points`` (B, N, 3), ``label`` (B,)):
+        returns ``loss``, ``data_loss``, ``logits`` and ``dense_ok``, all
+        device tensors."""
+        metrics = self.loss_and_grads(batch, generator)
+        self.optimizer.step()
+        self.scheduler.step()
+        return metrics
+
+    def eval_step(self, batch: dict[str, torch.Tensor]
+                  ) -> dict[str, torch.Tensor]:
+        """The eval-mode forward and losses (running BN statistics, no
+        dropout, no gradient)."""
+        self.model.eval()
+        with torch.no_grad():
+            total, data_loss, logits = self._losses(batch, None)
+        out = {"loss": total, "data_loss": data_loss, "logits": logits,
+               "dense_ok": self.model.dense_ok}
+        if self.item_loss_fn is not None:
+            out["item_loss"] = self.item_loss_fn(logits, batch)
+        return out
+
+
+def classification_step_factory(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    scheduler: torch.optim.lr_scheduler.LRScheduler,
+    weight_decay: float | None = None,
+    use_kernels: bool | None = None,
+) -> StepFactory:
+    """StepFactory with the mean softmax-CE classification loss
+    (ref SPH3D_modelnet.py:112-119)."""
+    from sph3d_gcn_torch.models.modelnet import (
+        classification_item_loss,
+        classification_loss,
+    )
+
+    return StepFactory(
+        model=model, optimizer=optimizer, scheduler=scheduler,
+        loss_fn=lambda logits, batch: classification_loss(
+            logits, batch["label"]),
+        weight_decay=weight_decay,
+        item_loss_fn=lambda logits, batch: classification_item_loss(
+            logits, batch["label"]),
+        use_kernels=use_kernels,
+    )

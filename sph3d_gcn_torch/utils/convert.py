@@ -1,5 +1,6 @@
-"""Flax variables -> PyTorch ``state_dict`` (the JAX package's checkpoints
-into the port).
+"""Flax variables <-> PyTorch ``state_dict`` (the JAX package's checkpoints
+into the port, and the port's parameters, gradients or statistics back
+into a Flax-shaped tree).
 
 The port names its modules, parameters and buffers after the Flax scopes,
 so the map is structural: a Flax path ``conv1/_2/bn/BatchNorm_0/scale``
@@ -64,4 +65,38 @@ def torch_state_dict_from_flax(
             f"Flax leaves with no port key: {unused}; port keys with no "
             f"Flax leaf: {missing}"
         )
+    return out
+
+
+_BN_STATS = ("mean", "var")
+
+
+def flax_tree_from_torch(
+    tensors: Mapping[str, torch.Tensor]
+) -> dict[str, dict]:
+    """The reverse map: port names (``named_parameters``, a state dict, or
+    per-parameter gradients under the same names) -> a Flax-shaped
+    ``{"params": ..., "batch_stats": ...}`` tree of f32 numpy arrays.
+
+    ``conv1._2.bn.scale`` becomes ``params/conv1/_2/bn/BatchNorm_0/scale``
+    and the BN buffers ``mean``/``var`` go to ``batch_stats``; a
+    collection with no leaf is left out.
+    """
+    out: dict[str, dict] = {}
+    for key, value in tensors.items():
+        parts = key.split(".")
+        path: list[str] = []
+        for p in parts[:-1]:
+            path.append(p)
+            if p == "bn":
+                path.append("BatchNorm_0")
+        leaf = parts[-1]
+        in_bn = "bn" in parts[:-1]
+        coll = "batch_stats" if in_bn and leaf in _BN_STATS else "params"
+        node = out.setdefault(coll, {})
+        for p in path:
+            node = node.setdefault(p, {})
+        if leaf in node:
+            raise ValueError(f"two port keys map onto {coll}/{path}/{leaf}")
+        node[leaf] = value.detach().float().cpu().numpy()
     return out

@@ -68,6 +68,13 @@ def test_forced_kernel_on_cpu_raises_before_any_build():
         lambda: S.farthest_point_sample_kernel(8, t),
         lambda: D.rank_pool_kernel(pool.packed, pool.s_blk,
                                    D.pool_counts(pool), feats),
+        lambda: D.dense_conv_bwd_kernel(
+            intra.packed, intra.s_blk, feats,
+            *D.conv_operands(feats, filt, intra),
+            torch.zeros(2, intra.s_blk.shape[1] * 128, 64)),
+        lambda: D.rank_pool_bwd_kernel(
+            pool.s_blk, torch.zeros(2, 128, 64, dtype=torch.int32),
+            torch.zeros(2, 128, 64), 512, pool.window),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
@@ -96,7 +103,10 @@ def test_port_imports_no_jax():
         "from sph3d_gcn_torch.train.eval import checked_forward, "
         "vote_classify\n"
         "from sph3d_gcn_torch.utils.convert import "
-        "torch_state_dict_from_flax\n"
+        "torch_state_dict_from_flax, flax_tree_from_torch\n"
+        "from sph3d_gcn_torch.train.schedule import make_optimizer\n"
+        "from sph3d_gcn_torch.train.steps import "
+        "classification_step_factory\n"
         "cfg = dataclasses.replace(modelnet_config(num_input=512, fast=True,"
         " dense=True), windows=(512,))\n"
         "m = SPH3DModelNet(cfg, generator=torch.Generator().manual_seed(0))\n"
@@ -104,6 +114,12 @@ def test_port_imports_no_jax():
         "v = vote_classify(checked_forward(m.eval(), 'cpu'), "
         "x.astype(np.float32), 2)\n"
         "assert v.shape == (2, 40) and np.isfinite(v).all()\n"
+        "step = classification_step_factory(m, *make_optimizer("
+        "m.parameters()), weight_decay=1e-5)\n"
+        "out = step.train_step({'points': torch.from_numpy("
+        "x.astype(np.float32)), 'label': torch.tensor([1, 2])}, "
+        "torch.Generator().manual_seed(0))\n"
+        "assert torch.isfinite(out['loss'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'sph3d_gcn_tpu', 'bench'))\n"
         "assert not bad, bad\n"
@@ -137,6 +153,34 @@ def test_record_calls_sees_every_wrapped_call_of_a_forward():
     with torch.no_grad():               # nothing is recorded outside
         assert torch.equal(model(x), ref)
     assert len(calls) == 18
+
+
+def test_record_calls_sees_the_backward_calls_of_a_train_step():
+    """A train-mode forward and backward records each conv and pool once
+    forward (the pool with its argmax) and once backward, and every
+    backward call replays through its plain version to the gradient the
+    step computed."""
+    cfg = dataclasses.replace(modelnet_config(fast=True, dense=True),
+                              num_input=1024, num_sample=(256, 64, 16),
+                              windows=(512, 256, 128))
+    model = SPH3DModelNet(cfg, generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(_cloud(n=1024, seed=3))
+    with _build.record_calls() as calls:
+        model.train()(x, generator=torch.Generator().manual_seed(1)).sum(
+        ).backward()
+    names = [name for name, _, _ in calls]
+    assert names[:18] == ["dense_query", "fps", "dense_conv", "dense_conv",
+                          "dense_query", "rank_pool"] * 3
+    assert sorted(names[18:]) == ["dense_conv_bwd"] * 6 + ["rank_pool_bwd"] * 3
+    assert all(kw == {"with_arg": True} for name, _, kw in calls
+               if name == "rank_pool")
+    for name, args, kw in calls[18:]:
+        plain = (D.dense_conv_bwd_plain if name == "dense_conv_bwd"
+                 else D.rank_pool_bwd_plain)
+        out = plain(*args)
+        out = out if isinstance(out, tuple) else (out,)
+        assert all(torch.isfinite(o.float()).all() for o in out)
+    assert set(kernel_launches().values()) == {0}
 
 
 def test_eval_entry_raises_on_failed_certificate():
@@ -183,3 +227,49 @@ def test_kernels_match_plain_on_cuda(cuda_device, dtype):
     x = torch.randn(3, 700, 64, device=cuda_device).to(dtype)
     a = (pool.packed, pool.s_blk, D.pool_counts(pool), x)
     assert torch.equal(D.rank_pool_kernel(*a), D.rank_pool_plain(*a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernels_match_plain_on_cuda(cuda_device, dtype):
+    """K5 (conv backward) within f32 sum-order tolerance (dx one rounding
+    in bf16; dfilt relative to its largest magnitude), run twice to the
+    same bits; K4's argmax and K6 (pool backward) exactly, on integer
+    features with ties and -0."""
+    pts = _cloud(n=700, b=3, seed=2)
+    t, intra, pool = _graphs(pts, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for c, mult in ((35, 2), (64, 1), (131, 1)):
+        x = torch.randn(3, 700, c, device=cuda_device, generator=gen).to(
+            dtype)
+        filt_b, inv = D.conv_operands(
+            x, torch.randn(33, c, mult, device=cuda_device, generator=gen),
+            intra)
+        dout = torch.randn(3, intra.s_blk.shape[1] * 128, c * mult,
+                           device=cuda_device, generator=gen).to(dtype)
+        a = (intra.packed, intra.s_blk, x, filt_b, inv, dout)
+        dx, dfilt = D.dense_conv_bwd_kernel(*a)
+        dx_p, dfilt_p = D.dense_conv_bwd_plain(*a)
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(dx.float(), dx_p.float(), rtol=tol,
+                                   atol=tol * dx_p.abs().max().item())
+        torch.testing.assert_close(dfilt, dfilt_p, rtol=1e-5,
+                                   atol=1e-5 * dfilt_p.abs().max().item())
+        dx2, dfilt2 = D.dense_conv_bwd_kernel(*a)
+        assert torch.equal(dx, dx2) and torch.equal(dfilt, dfilt2)
+    for c in (64, 128):
+        x = torch.randint(-3, 4, (3, 700, c), device=cuda_device,
+                          generator=gen).float()
+        x = torch.where((x == 0) & (torch.rand(x.shape, device=cuda_device,
+                                               generator=gen) < 0.5),
+                        -0.0, x).to(dtype)
+        a = (pool.packed, pool.s_blk, D.pool_counts(pool), x)
+        out, arg = D.rank_pool_kernel(*a, with_arg=True)
+        out_p, arg_p = D.rank_pool_plain(*a, with_arg=True)
+        assert torch.equal(out, out_p) and torch.equal(arg, arg_p)
+        assert torch.equal(out, D.rank_pool_kernel(*a))
+        dout = torch.randint(-4, 5, out.shape, device=cuda_device,
+                             generator=gen).to(dtype)
+        b = (pool.s_blk, arg, dout, 700, pool.window)
+        assert torch.equal(D.rank_pool_bwd_kernel(*b),
+                           D.rank_pool_bwd_plain(*b))

@@ -121,5 +121,9 @@ def test_unported_configs_raise():
     model = SPH3DModelNet(_config("float32"))
     with pytest.raises(ValueError):
         model(torch.zeros(1, 512, 3))
-    with pytest.raises(NotImplementedError):             # train mode
-        model.train()(torch.from_numpy(_points()))
+    # train mode runs (batch-statistics BN, dropout) and updates BN stats
+    before = model.conv1._1.bn.mean.clone()
+    logits = model.train()(torch.from_numpy(_points()),
+                           generator=torch.Generator().manual_seed(0))
+    assert logits.shape == (B, 40) and torch.isfinite(logits).all()
+    assert not torch.equal(model.conv1._1.bn.mean, before)
