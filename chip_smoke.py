@@ -71,10 +71,39 @@ schedule, weight decay):
    points/s with the kernels, and one plain step's time;
 10. profile of the train step (:func:`report_trace`).
 
+Then the S3DIS phases: ``SPH3DSceneSeg`` of
+``s3dis_config(fast=True, dense=True)`` (B=16, N=8192, full published
+width: mlp 64, levels 128/256/256/512, decoder convs up to C_in = 1024,
+13 classes; seeded random weights, eval mode) serving synthetic scene
+blocks (the port's ``scene_blocks``):
+
+11. per-kernel parity and timing: one plain forward records every
+    kernel-wrapped call (4 FPS, 12 queries, 4 growth queries, 16 convs, 4
+    pools) and the 4 masked-mean unpools; each kernel call is replayed
+    through the kernel and its plain version (maps, growth steps, FPS
+    indices and pool values exactly, conv outputs within ``CONV_TOL``),
+    and each unpool (plain PyTorch, no kernel) is timed;
+12. serving: 32 blocks of 10000 points, inner xy in [0.3, 1.2]^2, through
+    ``coverage_eval_blocks`` at B=16, N=8192: every inner point covered,
+    finite (P, 13) logits per block, ``dense_ok`` on every forward, launch
+    counts of 4 FPS, 12 queries, 4 growth queries, 16 convs and 4 pools
+    per forward; one forward's kernel logits against the plain versions'
+    (argmax agreement >= 0.95, within 1% of the largest |logit|); forward
+    time (CUDA events, median of 5), points/s and blocks/s;
+13. profile of the S3DIS forward (:func:`report_trace`).
+
+Every kernel's line in the per-kernel JSON carries its summed times,
+errors and launches from one path (``path``: the S3DIS serving forward
+for K1-K4 and K7, the ModelNet train step for K5 and K6), its bound
+(``bound_ms``: per replayed call the larger of its bytes over the card's
+memory rate and its operations over the f32 rate, summed; ``bound_by``
+names the side that binds most of that sum) and ``library_ms``, the time
+of one PyTorch call computing the same function where one exists.
+
 Any failure raises and the script exits non-zero. The last two lines
-are one JSON object of per-kernel results (times and launches from the
-train phases) and the contract line ``{"ok": true, "device": {...}}``.
-Run from the repository root: ``python3 chip_smoke.py``.
+are the per-kernel JSON object and the contract line ``{"ok": true,
+"device": {...}}``. Run from the repository root: ``python3
+chip_smoke.py``.
 """
 
 from __future__ import annotations
@@ -85,6 +114,7 @@ import os
 # CUDA starts, so it is set before torch is imported
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
+import collections  # noqa: E402
 import dataclasses  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
@@ -110,6 +140,16 @@ GRAD_TOL = 2e-3      # f32 kernel step vs f32 plain step, relative L2 per leaf
 BF16_GRAD_SLACK, BF16_GRAD_ATOL = 2.0, 0.05   # bf16 steps vs the f32 grads
 PER_FORWARD = {"fps": 3, "dense_query": 6, "dense_conv": 6, "rank_pool": 3}
 PER_STEP = dict(PER_FORWARD, dense_conv_bwd=6, rank_pool_bwd=3)
+S3_B, S3_N = 16, 8192               # the S3DIS serving batch
+S3_BLOCKS, S3_P = 32, 10000         # served blocks and their points
+S3_PLAIN_REPS = 1                   # the plain versions of the S3DIS replay
+PER_SEG_FORWARD = {"fps": 4, "dense_query": 12, "growth_query": 4,
+                   "dense_conv": 16, "rank_pool": 4}
+# the card's published rates (H100 SXM data sheet): device memory, and
+# float32 outside the tensor cores (every kernel here computes in f32 or
+# integer arithmetic on the CUDA cores)
+MEM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 SOURCES = {
     "fps": ("sph3d_gcn_torch/csrc/fps.cu",
             "sph3d_gcn_tpu/ops/pallas/fps_kernel.py:44"),
@@ -123,6 +163,8 @@ SOURCES = {
                        "sph3d_gcn_tpu/ops/dense.py:692 and :1183"),
     "rank_pool_bwd": ("sph3d_gcn_torch/csrc/rank_pool_bwd.cu",
                       "sph3d_gcn_tpu/ops/dense.py:2035"),
+    "growth_query": ("sph3d_gcn_torch/csrc/growth_query.cu",
+                     "sph3d_gcn_tpu/ops/pallas/query_kernel.py:307"),
 }
 
 
@@ -195,7 +237,99 @@ def versions():
                            conv_grads_close),
         "rank_pool_bwd": (D.rank_pool_bwd_kernel, D.rank_pool_bwd_plain,
                           exact),
+        "growth_query": (Q.growth_query_kernel, Q.growth_query_plain, exact),
     }
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def live_candidates(q_p, u_end, window: int) -> int:
+    """Query rows times the window columns a query must test: the tiles'
+    slab ends (u_end chunks, clamped as the queries clamp them)."""
+    return int(u_end.clamp(1, window // 128).sum().item()) * 128 * 128
+
+
+def work(name: str, args: tuple, kw: dict) -> tuple[int, int]:
+    """(bytes, operations) the function of one recorded call needs: each
+    input read once and each output written once; operations counted for
+    this call's data (live window columns of a query, selected map entries
+    of a conv or pool)."""
+    if name == "fps":
+        num, xyz = args
+        b, n, _ = xyz.shape
+        # per step and point: a distance (8) and a running min (1) and
+        # argmax (1)
+        return nbytes(xyz) + 4 * b * num, 10 * b * num * n
+    if name in ("dense_query", "growth_query"):
+        db_p, q_p, s_blk, u_end = args[:4]
+        w = kw["window"]
+        out = q_p.shape[0] * q_p.shape[1] * w
+        live = live_candidates(q_p, u_end, w)
+        if name == "dense_query":
+            # distance 9, radius test 2, rank 1; bins ~20 compares more
+            per = 12 + (20 if kw["kernel"] is not None else 0)
+            extra = nbytes(args[4])                # the sort axes
+        else:
+            # distance 9, 3 per radius, rank 1; plus the per-row steps
+            per = 10 + 3 * (kw["growth_steps"] + 1)
+            extra = q_p.shape[0] * q_p.shape[1]
+        return nbytes(db_p, q_p, s_blk, u_end) + extra + out, per * live
+    if name == "dense_conv":
+        packed, s_blk, x, filt_b, inv = args
+        c, r = filt_b.shape[2], filt_b.shape[3]
+        nnz = int((packed != 0).sum().item())
+        out = inv.numel() * c * r * x.element_size()
+        return (nbytes(packed, s_blk, x, filt_b, inv) + out,
+                2 * nnz * c * r + inv.numel() * c * r)
+    if name == "rank_pool":
+        packed, s_blk, counts, x = args
+        c = x.shape[2]
+        cnt = counts.reshape(packed.shape[0], packed.shape[1], 128, 1)
+        sel = int(((packed >= 1) & (packed <= cnt)).sum().item())
+        out = counts.numel() * c * (x.element_size()
+                                    + (4 if kw.get("with_arg") else 0))
+        return nbytes(packed, s_blk, counts, x) + out, sel * c
+    if name == "dense_conv_bwd":
+        packed, s_blk, x, filt_b, inv, dout = args
+        c, r = filt_b.shape[2], filt_b.shape[3]
+        nnz = int((packed != 0).sum().item())
+        out = nbytes(x) + nbytes(filt_b)            # dx, dfilt_b
+        return (nbytes(packed, s_blk, x, filt_b, inv, dout) + out,
+                4 * nnz * c * r + inv.numel() * c * r)
+    if name == "rank_pool_bwd":
+        s_blk, arg, dout, num_in, _ = args
+        out = arg.shape[0] * num_in * arg.shape[2] * dout.element_size()
+        return (nbytes(s_blk, arg, dout) + out,
+                int((arg >= 0).sum().item()))
+    if name == "mean_interpolate":
+        x, dnbh = args
+        nnz = int((dnbh.packed != 0).sum().item())
+        out = dnbh.num_query * x.shape[0] * x.shape[2] * x.element_size()
+        return (nbytes(x, dnbh.packed, dnbh.count) + out,
+                2 * nnz * x.shape[2] + out // x.element_size())
+    raise KeyError(name)
+
+
+def library_call(name: str, args: tuple, kw: dict):
+    """One PyTorch call computing the same function, as a thunk, or None
+    where PyTorch has none (no PyTorch call reads packed window maps). For
+    the pool backward it is the ``scatter_add_`` of the plain version, its
+    flat row indices computed beforehand (not timed)."""
+    if name != "rank_pool_bwd":
+        return None
+    s_blk, arg, dout, num_in, _ = args
+    batch, _, c = arg.shape
+    rows = s_blk.long().repeat_interleave(128, dim=1)[..., None] * 128
+    live = arg >= 0
+    flat = torch.arange(batch, device=arg.device)[:, None, None] * num_in
+    flat = torch.where(live, flat + rows + arg, 0).reshape(-1, c)
+    src = torch.where(live, dout, 0).reshape(-1, c)
+    dx = torch.zeros((batch * num_in, c), dtype=dout.dtype,
+                     device=dout.device)
+    return lambda: dx.scatter_add_(0, flat, src)
 
 
 def describe(name: str, args: tuple, kw: dict) -> str:
@@ -207,6 +341,12 @@ def describe(name: str, args: tuple, kw: dict) -> str:
         return f"{kind} M_pad={args[1].shape[1]} W={kw['window']}"
     if name == "rank_pool_bwd":
         return f"C={args[1].shape[2]} W={args[4]}"
+    if name == "growth_query":
+        return (f"ranks M_pad={args[1].shape[1]} W={kw['window']} "
+                f"G={kw['growth_steps']}")
+    if name == "mean_interpolate":
+        return (f"C={args[0].shape[2]} M={args[1].num_query} "
+                f"W={args[1].window}")
     w = args[0].shape[-1]
     if name in ("dense_conv", "dense_conv_bwd"):
         return f"C={args[2].shape[2]} r={args[3].shape[3]} W={w}"
@@ -214,15 +354,52 @@ def describe(name: str, args: tuple, kw: dict) -> str:
 
 
 class Results:
-    """Per-kernel parity errors and times, summed over the main path's
-    calls of one forward (or one train step)."""
+    """Per-kernel parity errors, times and bounds, summed over the main
+    path's calls of one forward (or one train step)."""
 
     def __init__(self) -> None:
-        self.err = {k: 0.0 for k in SOURCES}
-        self.ms = {k: 0.0 for k in SOURCES}
-        self.plain_ms = {k: 0.0 for k in SOURCES}
+        self.err = collections.defaultdict(float)
+        self.ms = collections.defaultdict(float)
+        self.plain_ms = collections.defaultdict(float)
+        self.library_ms = collections.defaultdict(float)
+        self.has_library = set()
+        self.calls = collections.Counter()
+        # the bound's summed time, split by which side binds each call
+        self.bound_ms = collections.defaultdict(
+            lambda: {"bytes": 0.0, "operations": 0.0})
 
-    def add(self, name, what, got, ref, ms, plain_ms, check):
+    def add_bound(self, name, work_done):
+        data, ops = work_done
+        t_bytes = data / MEM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        side = "bytes" if t_bytes >= t_ops else "operations"
+        self.bound_ms[name][side] += max(t_bytes, t_ops)
+        self.calls[name] += 1
+        return (f"bound {max(t_bytes, t_ops):.4f} ms ({side}: "
+                f"{data / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
+
+    def bound(self, name) -> tuple[float, str]:
+        parts = self.bound_ms[name]
+        return sum(parts.values()), max(parts, key=parts.get)
+
+    def summary(self, what: str) -> None:
+        """Per kernel, the sums over the path's calls: kernel, plain and
+        library time, the bound and the kernel's share of it."""
+        print(f"summary, {what} (sums over its calls; share = bound / "
+              f"kernel ms):", flush=True)
+        for name in self.calls:
+            bound_ms, bound_by = self.bound(name)
+            lib = (f"library {self.library_ms[name]:.3f} ms"
+                   if name in self.has_library else "library none")
+            plain = (f"plain {self.plain_ms[name]:.3f} ms"
+                     if name in SOURCES else "no kernel")
+            print(f"  {name:16s} {self.calls[name]:3d} calls  "
+                  f"{self.ms[name]:8.3f} ms  {plain}  {lib}  bound "
+                  f"{bound_ms:.4f} ms ({bound_by})  share "
+                  f"{bound_ms / self.ms[name]:.3f}", flush=True)
+
+    def add(self, name, what, got, ref, ms, plain_ms, check, work_done,
+            library_ms=None):
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
         err = max((g.float() - r.float()).abs().max().item()
@@ -230,8 +407,15 @@ class Results:
         self.err[name] = max(self.err[name], err)
         self.ms[name] += ms
         self.plain_ms[name] += plain_ms
+        lib = ""
+        if library_ms is not None:
+            self.has_library.add(name)
+            self.library_ms[name] += library_ms
+            lib = f"  library {library_ms:.3f} ms"
+        bound = self.add_bound(name, work_done)
         print(f"  {name:14s} {what:30s} max_abs_err {err:.3g}  "
-              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms", flush=True)
+              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{lib}  {bound}",
+              flush=True)
         try:
             check(got, ref)
         except AssertionError as e:
@@ -241,26 +425,41 @@ class Results:
 def replay(calls: list, res: Results, expect: dict[str, int],
            plain_reps: int = REPS) -> None:
     """Replay recorded kernel-wrapped calls through the kernel and its
-    plain version: compare the two and time both. ``expect`` is the
-    number of calls of each kernel the recorded run must have made."""
+    plain version: compare the two and time both (and the library call,
+    where one exists). ``expect`` is the number of calls of each kernel
+    the recorded run must have made. Recorded masked-mean unpools (plain
+    PyTorch, no kernel) are timed."""
+    from sph3d_gcn_torch.ops import dense as D
+
     seen = {name: 0 for name in expect}
     for name, _, _ in calls:
-        seen[name] = seen.get(name, 0) + 1
+        if name != "mean_interpolate":
+            seen[name] = seen.get(name, 0) + 1
     if seen != expect:
         raise AssertionError(f"recorded calls {seen}, want {expect}")
     table = versions()
     with torch.no_grad():
         for name, args, kw in calls:
+            what = describe(name, args, kw)
+            if name == "mean_interpolate":
+                ms = median_ms(lambda: D.dense_mean_interpolate(*args))
+                res.ms[name] += ms
+                print(f"  {name:14s} {what:30s} torch {ms:.3f} ms  "
+                      f"{res.add_bound(name, work(name, args, kw))}",
+                      flush=True)
+                continue
             kern, plain, check = table[name]
             reps = 3 if name == "fps" else REPS
-            res.add(name, describe(name, args, kw), kern(*args, **kw),
-                    plain(*args, **kw),
+            lib = library_call(name, args, kw)
+            res.add(name, what, kern(*args, **kw), plain(*args, **kw),
                     median_ms(lambda: kern(*args, **kw), reps),
                     median_ms(lambda: plain(*args, **kw),
-                              min(reps, plain_reps)), check)
+                              min(reps, plain_reps)), check,
+                    work(name, args, kw),
+                    None if lib is None else median_ms(lib, reps))
 
 
-def kernel_parity(model, x: torch.Tensor, res: Results) -> None:
+def kernel_parity(model, x: torch.Tensor, res: Results, what: str) -> None:
     """Record the kernel-wrapped calls of one plain forward of ``model`` on
     ``x``, then replay each through the kernel and its plain version."""
     from sph3d_gcn_torch import _build
@@ -268,6 +467,7 @@ def kernel_parity(model, x: torch.Tensor, res: Results) -> None:
     with _build.record_calls() as calls, torch.inference_mode():
         model(x, use_kernels=False)
     replay(calls, res, PER_FORWARD)
+    res.summary(what)
 
 
 def union_us(intervals: list[tuple[float, float]]) -> float:
@@ -412,6 +612,7 @@ def train_phases(dev: torch.device, res: Results) -> dict[str, int]:
     with _build.record_calls() as calls:
         plain_step.loss_and_grads(batch, dropout_gen())
     replay(calls, res, PER_STEP, plain_reps=PLAIN_REPS)
+    res.summary("ModelNet train step")
 
     # 7. the whole step, kernels against plain versions: in f32 (the same
     # weights, graphs and dropout masks) to a tight tolerance, and in bf16
@@ -522,6 +723,141 @@ def train_phases(dev: torch.device, res: Results) -> dict[str, int]:
     return launches
 
 
+def s3dis_phases(dev: torch.device, res: Results) -> dict[str, int]:
+    """Phases 11-13 (see the module docstring). Returns the launch counts
+    of the serving run."""
+    from sph3d_gcn_torch import _build, kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.configs import s3dis_config
+    from sph3d_gcn_torch.data.synthetic import scene_blocks
+    from sph3d_gcn_torch.models import SPH3DSceneSeg
+    from sph3d_gcn_torch.ops import query as Q
+    from sph3d_gcn_torch.train.eval import (
+        checked_forward,
+        coverage_eval_blocks,
+    )
+
+    cfg = s3dis_config(fast=True, dense=True)
+    gen = torch.Generator().manual_seed(3)
+    model = SPH3DSceneSeg(cfg, generator=gen)
+    randomize_bn(model, gen)
+    model = model.to(dev).eval()
+    levels = range(len(cfg.radius))
+    print(f"S3DIS: B={S3_B} N={S3_N}, windows "
+          f"{[cfg.enc_window(lv) for lv in levels]} / pool "
+          f"{[cfg.pool_window(lv) for lv in levels]} / decoder "
+          f"{[cfg.dec_window(lv) for lv in levels]} + margin "
+          f"{cfg.dec_margin}, growth {cfg.growth_steps}", flush=True)
+    x = torch.from_numpy(scene_blocks(np.random.default_rng(20), S3_B, S3_N)
+                         ).to(dev)
+
+    # 11. per-kernel parity of one forward's calls
+    print("per-kernel parity, S3DIS forward (times: median of CUDA events)",
+          flush=True)
+    with _build.record_calls() as calls, torch.inference_mode():
+        model(x, use_kernels=False)
+    ok_rec = bool(model.dense_ok)
+    n_unpool = sum(name == "mean_interpolate" for name, _, _ in calls)
+    replay(calls, res, PER_SEG_FORWARD, plain_reps=S3_PLAIN_REPS)
+    res.summary("S3DIS forward")
+    # how much the decoders' inter graphs grow
+    with torch.no_grad():
+        for name, args, kw in calls:
+            if name == "growth_query":
+                _, steps = Q.growth_query_kernel(*args, **kw)
+                hist = torch.bincount(steps.reshape(-1).long()).tolist()
+                print(f"  growth M_pad={args[1].shape[1]}: query rows per "
+                      f"growth step 0, 1, ...: {hist}", flush=True)
+    del calls
+    if not ok_rec or n_unpool != 4:
+        raise AssertionError(
+            f"recorded S3DIS forward: dense_ok {ok_rec}, {n_unpool} unpools")
+
+    # 12. serving: coverage-vote 32 blocks through the kernels
+    pts = scene_blocks(np.random.default_rng(21), S3_BLOCKS, S3_P)
+    blocks = [(p, ((p[:, :2] >= 0.3) & (p[:, :2] <= 1.2)).all(-1).astype(
+        np.int32)) for p in pts]
+    checked = checked_forward(model, dev)
+    n_fwd = 0
+
+    def forward(chunk, ids):
+        nonlocal n_fwd
+        n_fwd += 1
+        return checked(chunk, ids)
+
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    sums = coverage_eval_blocks(forward, blocks, S3_N, S3_B,
+                                rng=np.random.default_rng(22))
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    inner_pts = sum(int(inner.sum()) for _, inner in blocks)
+    for (p, inner), logit in zip(blocks, sums):
+        if logit.shape != (S3_P, cfg.num_cls) or not np.isfinite(logit).all():
+            raise AssertionError(f"bad block logits {logit.shape}")
+        if not (np.abs(logit[inner == 1]).sum(-1) > 0).all():
+            raise AssertionError("an inner point got no logits")
+    print(f"served {S3_BLOCKS} blocks of {S3_P} points ({inner_pts} inner, "
+          f"all covered) in {n_fwd} forwards, dense_ok on every forward; "
+          f"{wall:.3f} s host clock: {S3_BLOCKS / wall:.2f} blocks/s",
+          flush=True)
+    print(f"launches over {n_fwd} forwards: {launches}", flush=True)
+    for name, per in PER_SEG_FORWARD.items():
+        if launches[name] != per * n_fwd:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches, want {per} per forward")
+
+    with torch.inference_mode():
+        got = model(x)
+        ok_k = bool(model.dense_ok)
+        ref = model(x, use_kernels=False)
+        ok_p = bool(model.dense_ok)
+        fwd_ms = median_ms(lambda: model(x))
+    if not (ok_k and ok_p):
+        raise AssertionError("dense_ok False on the comparison forward")
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"S3DIS kernel vs plain logits: max_abs_err {diff:.4g}, argmax "
+          f"agreement {agree:.4f} (|logits| <= {scale:.3g}, tolerance "
+          f"{LOGIT_TOL:g} of that)", flush=True)
+    if agree < 0.95:
+        raise AssertionError(f"argmax agreement {agree} < 0.95")
+    torch.testing.assert_close(got, ref, rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL * scale)
+    print(f"S3DIS forward B={S3_B} N={S3_N}: {fwd_ms:.2f} ms "
+          f"({S3_B * S3_N / fwd_ms * 1e3:.0f} points/s) with kernels",
+          flush=True)
+
+    # 13. profile of the S3DIS forward
+    profile_forward(model, x, "S3DIS")
+    return launches
+
+
+def kernel_lines(s3: tuple, train: tuple, others: tuple) -> dict:
+    """The per-kernel JSON object: each kernel's times, bound and launches
+    from the S3DIS serving path (K1-K4, K7) or the train step (K5, K6),
+    its largest error over every replay. ``s3`` and ``train`` are
+    (Results, launch counts); ``others`` more Results."""
+    kernels = []
+    for name, (src, rep) in SOURCES.items():
+        path = "s3dis_serve" if name in PER_SEG_FORWARD else (
+            "modelnet_train_step")
+        r, launches = s3 if name in PER_SEG_FORWARD else train
+        bound_ms, bound_by = r.bound(name)
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "path": path, "launches": launches[name],
+            "max_abs_err": max(x.err[name]
+                               for x in (s3[0], train[0], *others)),
+            "ms": r.ms[name], "plain_ms": r.plain_ms[name],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": (r.library_ms[name] if name in r.has_library
+                           else None),
+        })
+    return {"kernels": kernels}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -581,7 +917,7 @@ def main() -> None:
               f"{[c.enc_window(lv) for lv in levels]} / pool "
               f"{[c.pool_window(lv) for lv in levels]} "
               f"(times: median of CUDA events)", flush=True)
-        kernel_parity(m, x, r)
+        kernel_parity(m, x, r, f"ModelNet forward, {family} windows")
 
     # 4. serving: vote_classify through the kernels
     forward = checked_forward(model, dev)
@@ -640,15 +976,13 @@ def main() -> None:
     res_train = Results()
     train_launches = train_phases(dev, res_train)
 
-    kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": train_launches[name],
-         "max_abs_err": max(r.err[name]
-                            for r in (res, res_plain_win, res_train)),
-         "ms": res_train.ms[name], "plain_ms": res_train.plain_ms[name]}
-        for name, (src, rep) in SOURCES.items()
-    ]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    # 11-13. the S3DIS serving forward
+    res_s3 = Results()
+    s3_launches = s3dis_phases(dev, res_s3)
+
+    print(json.dumps(kernel_lines(
+        (res_s3, s3_launches), (res_train, train_launches),
+        (res, res_plain_win))), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,18 +1,22 @@
 """Build, load and launch the hand-written CUDA kernels in ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ONE ``nvcc`` call into one shared
-library with a plain ``extern "C"`` interface, loaded with ``ctypes``
-(no PyTorch headers: the build takes seconds, not minutes). The library
-goes into ``.kernel_build/<hash of sources and flags>/`` beside the
-package, at first use; an unchanged checkout reuses it. Nothing is built
-when the package is imported, and nothing is built for CPU tensors.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all
+started together, and one more ``nvcc`` call links the objects into one
+shared library with a plain ``extern "C"`` interface, loaded with
+``ctypes`` (no PyTorch headers: the build takes seconds, not minutes).
+The library goes into ``.kernel_build/<hash of sources and flags>/``
+beside the package, at first use; an unchanged checkout reuses it.
+Nothing is built when the package is imported, and nothing is built for
+CPU tensors.
 
 Each launcher returns the ``cudaError_t`` of its launch; :class:`Kernel`
 raises on anything but 0 and counts successful launches, so a run can
 show that its main path really went through the kernels. Inside
 :class:`record_calls` every dispatching wrapper also records the operands
 it hands to the kernel or its plain version, so that a run can replay
-exactly its main path's calls through both and compare them.
+exactly its main path's calls through both and compare them; the
+masked-mean unpool (plain PyTorch, no kernel) records its operands as
+``mean_interpolate`` so that a run can time it beside the kernels.
 """
 
 from __future__ import annotations
@@ -30,11 +34,11 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / ".kernel_build"
 LIB_NAME = "libsph3d_kernels.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _LIB: ctypes.CDLL | None = None
 _RECORD: list | None = None
@@ -46,7 +50,7 @@ def _sources() -> list[Path]:
 
 def build_dir() -> Path:
     """The build directory for the current sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -69,26 +73,47 @@ def find_nvcc() -> str:
 
 
 def build() -> tuple[Path, float]:
-    """Compile ``csrc/*.cu`` if needed. Returns (library path, seconds
-    spent compiling, 0.0 when the library was already built). The
+    """Compile ``csrc/*.cu`` if needed, one ``nvcc`` process per source
+    started together, then link. Returns (library path, seconds spent
+    compiling and linking, 0.0 when the library was already built). The
     compiler's ``-Xptxas -v`` report is kept as ``ptxas.log`` beside it."""
     out_dir = build_dir()
     lib = out_dir / LIB_NAME
     if lib.exists():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(s) for s in sorted(CSRC.glob("*.cu"))]
+    nvcc = find_nvcc()
+    pid = os.getpid()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f".{src.stem}.{pid}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:          # wait for every process
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
+    if not failed:
+        tmp = out_dir / f".{LIB_NAME}.{pid}.tmp"
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp)]
+        cmd += [str(obj) for _, obj, _ in jobs]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        logs.append(res.stdout)
+        if res.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({res.returncode}):\n"
+                          f"{res.stdout}")
     seconds = time.perf_counter() - t0
-    (out_dir / "ptxas.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}\n{res.stderr}"
-        )
+    (out_dir / "ptxas.log").write_text("".join(logs))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     os.replace(tmp, lib)
     return lib, seconds
 

@@ -1,19 +1,45 @@
 """Per-dataset architecture configs (counterparts of
-``sph3d_gcn_tpu/configs``). Only ModelNet40 is ported so far.
+``sph3d_gcn_tpu/configs``): ModelNet40, S3DIS and ScanNet.
 
 ``fast=True`` selects the fast mode: bfloat16 activations, per-cloud
 spatial sorting and the row windows; ``dense=True`` adds the dense
-windowed engine. The default is the float32 reference-parity mode.
+windowed engine. The default is the float32 reference-parity mode. An
+undersized window is never silent: the forward's ``dense_ok`` certificate
+turns False.
 """
 
 import dataclasses
 
 from sph3d_gcn_torch.configs.base import SPH3DConfig
 
-# ModelNet40 row windows per encoder level, calibrated on two families of
-# synthetic clouds: 'plain' smooth ellipsoid surfaces and 'hard'
-# bump-modulated ellipsoids (the JAX package's scripts/measure_windows.py)
-_MODELNET_WINDOWS = {"plain": (1536, 896, 640), "hard": (2304, 1024, 640)}
+# ModelNet40 row windows (encoder levels, decoder levels), calibrated on
+# two families of synthetic clouds: 'plain' smooth ellipsoid surfaces and
+# 'hard' bump-modulated ellipsoids (the JAX package's
+# scripts/measure_windows.py)
+_MODELNET_WINDOWS = {
+    "plain": ((1536, 896, 640), (640, 384, 256)),
+    "hard": ((2304, 1024, 640), (640, 512, 256)),
+}
+
+
+def _fast_mode(
+    cfg: SPH3DConfig,
+    windows: tuple[int, ...],
+    dense: bool,
+    dec_windows: tuple[int, ...],
+    dec_margin: int,
+    growth_steps: int,
+) -> SPH3DConfig:
+    return dataclasses.replace(
+        cfg,
+        compute_dtype="bfloat16",
+        spatial_sort=True,
+        windows=windows[: len(cfg.num_sample)],
+        dense_graph=dense,
+        dec_windows=dec_windows[: len(cfg.num_sample)],
+        dec_margin=dec_margin,
+        growth_steps=growth_steps,
+    )
 
 
 def modelnet_config(
@@ -21,9 +47,7 @@ def modelnet_config(
     family: str = "plain",
 ) -> SPH3DConfig:
     """ref modelnet40_cls/modelnet_config.py:1-37; ``family`` picks the
-    fast mode's window calibration ('plain' or 'hard'). An undersized
-    window is never silent: the forward's ``dense_ok`` certificate turns
-    False."""
+    fast mode's window calibration ('plain' or 'hard')."""
     num_sample = tuple(
         num_input // 4 ** (i + 1)
         for i in range(10)
@@ -53,14 +77,73 @@ def modelnet_config(
     if fast:
         if family not in _MODELNET_WINDOWS:
             raise ValueError(f"unknown window family {family!r}")
-        cfg = dataclasses.replace(
-            cfg,
-            compute_dtype="bfloat16",
-            spatial_sort=True,
-            windows=_MODELNET_WINDOWS[family][:num_levels],
-            dense_graph=dense,
+        windows, dec_windows = _MODELNET_WINDOWS[family]
+        cfg = _fast_mode(cfg, windows, dense, dec_windows, dec_margin=128,
+                         growth_steps=2)
+    return cfg
+
+
+def _scene_seg_config(
+    num_cls: int, num_input: int = 8192, fast: bool = False,
+    dense: bool = False,
+) -> SPH3DConfig:
+    # the reference pyramid at 8192 points, scaled proportionally for
+    # smaller (test) inputs
+    base = (2048, 768, 384, 128)
+    if num_input != 8192:
+        base = tuple(max(2, s * num_input // 8192) for s in base)
+    cfg = SPH3DConfig(
+        num_input=num_input,
+        num_cls=num_cls,
+        mlp=64,
+        num_sample=base,
+        radius=(0.1, 0.2, 0.4, 0.8),
+        nn_uplimit=(64, 64, 64, 64),
+        channels=((128, 128), (256, 256), (256, 256), (512, 512)),
+        multiplier=((2, 2), (2, 2), (2, 2), (2, 2)),
+        weight_decay=None,
+        kernel=(8, 2, 2),
+        normalize=True,
+        pool_method="max",
+        unpool_method="mean",
+        sample="FPS",
+        with_bn=True,
+        with_bias=False,
+    )
+    if fast:
+        # calibrated by the JAX package's scripts/measure_windows.py over
+        # uniform 1.5 m blocks and plane-heavy blocks (8% margin), scaled
+        # for other input sizes
+        def _scale(w, cap=8192):
+            return tuple(
+                min(-(-x * num_input // 8192 // 128) * 128, cap) for x in w
+            )
+
+        cfg = _fast_mode(
+            cfg, _scale((1664, 896, 640, 384)), dense,
+            dec_windows=_scale((640, 512, 384, 128)),
+            dec_margin=128, growth_steps=3,
         )
     return cfg
 
 
-__all__ = ["SPH3DConfig", "modelnet_config"]
+def scannet_config(
+    num_input: int = 8192, fast: bool = False, dense: bool = False
+) -> SPH3DConfig:
+    """ref scannet_seg/scannet_config.py:1-26."""
+    return _scene_seg_config(
+        num_cls=21, num_input=num_input, fast=fast, dense=dense
+    )
+
+
+def s3dis_config(
+    num_input: int = 8192, fast: bool = False, dense: bool = False
+) -> SPH3DConfig:
+    """ref s3dis_seg/s3dis_config.py:1-26."""
+    return _scene_seg_config(
+        num_cls=13, num_input=num_input, fast=fast, dense=dense
+    )
+
+
+__all__ = ["SPH3DConfig", "modelnet_config", "s3dis_config",
+           "scannet_config"]

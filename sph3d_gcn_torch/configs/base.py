@@ -3,9 +3,9 @@
 
 The fields the port's models read, under the JAX config's names, order
 and defaults; ``tests/test_torch_configs_data.py`` holds every field and
-window of :func:`sph3d_gcn_torch.configs.modelnet_config` equal to the
-JAX package's. Fields of engines and models not ported yet (decoder
-windows, growth, sharding, rematerialization) come with them.
+window of the port's ``modelnet_config``, ``s3dis_config`` and
+``scannet_config`` equal to the JAX package's. Fields of engines not
+ported yet (point-axis sharding) come with them.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ class SPH3DConfig:
     kernel: tuple[int, int, int] = (8, 2, 2)
     normalize: bool = True
     pool_method: Literal["max", "avg"] = "max"
+    unpool_method: Literal["mean", "weighted"] = "mean"
     sample: Literal["FPS", "IDS", "random"] = "FPS"
     use_raw: bool = False
     with_bn: bool = True
@@ -47,6 +48,14 @@ class SPH3DConfig:
     spatial_sort: bool = False
     # per-encoder-level row-window widths of the dense engine
     windows: tuple[int, ...] | None = None
+    # calibrated per-level decoder-graph windows (rows over the SAMPLED
+    # cloud of each level); None scales ``windows`` by the sampling ratio
+    dec_windows: tuple[int, ...] | None = None
+    # decoder-inter window headroom (rows beyond dec_window) for the
+    # +0.05-grown radii, and the most growth steps reproduced in-window
+    # (ref tf_nnquery_gpu.cu:30-60; rows needing more flip dense_ok)
+    dec_margin: int = 384
+    growth_steps: int = 12
     # dense windowed engine (ops/dense.py): level graphs as (tile x
     # window) maps, exactness certified per graph (dense_ok)
     dense_graph: bool = False
@@ -67,6 +76,20 @@ class SPH3DConfig:
         extra = 128 * (-(-n_l // s_l) - 1)
         return w + (-(-extra // 128) * 128 if extra else 0)
 
+    def dec_window(self, level: int) -> int | None:
+        """Row window for the decoder pass of original level ``level``:
+        the calibrated ``dec_windows`` entry, else the encoder window
+        scaled by the subsampling ratio (decoder edges search the SAMPLED
+        cloud)."""
+        if self.windows is None:
+            return None
+        if self.dec_windows is not None:
+            return self.dec_windows[level]
+        n_l = self.num_input if level == 0 else self.num_sample[level - 1]
+        s_l = self.num_sample[level]
+        w = -(-self.windows[level] * s_l // n_l)
+        return -(-w // 128) * 128
+
     @property
     def bin_size(self) -> int:
         """n*p*q + 1, bin 0 reserved for the self-loop
@@ -83,6 +106,14 @@ class SPH3DConfig:
             raise ValueError(
                 f"windows must have {num_levels} entries, got "
                 f"{len(self.windows)}"
+            )
+        if (
+            self.dec_windows is not None
+            and len(self.dec_windows) != num_levels
+        ):
+            raise ValueError(
+                f"dec_windows must have {num_levels} entries, got "
+                f"{len(self.dec_windows)}"
             )
         for field in ("radius", "nn_uplimit", "channels", "multiplier"):
             if len(getattr(self, field)) != num_levels:

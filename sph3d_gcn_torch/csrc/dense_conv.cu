@@ -15,17 +15,22 @@
 // Sums are f32; the output is cast once to the feature dtype (f32 or
 // bf16), after the scale, as the TPU's C <= 128 kernel does.
 //
-// Design: one warp per query row walks the row's window once in 32-column
-// steps; a ballot finds the (at most K) selected columns and the warp then
-// reads each selected neighbor's feature row with coalesced channel loads
-// (lane + 32*slot), accumulating r products per channel in registers. No
-// one-hot matrix, no zone split, no lane padding: the TPU's MXU
-// formulation did ~F*W/K times the useful multiply-adds to keep its matrix
-// unit busy; here only the K selected entries of a row cost arithmetic.
+// Design: one warp per (query row, 256-channel chunk) walks the row's
+// window in 32-column steps; a ballot finds the (at most K) selected
+// columns and the warp then reads each selected neighbor's feature row
+// with coalesced channel loads (chunk*256 + lane + 32*slot), accumulating
+// r products per channel in registers. The chunk is the grid's y index
+// (C <= 1024: up to 4 chunks), so the per-warp work and the registers
+// (acc[8][r]) stay those of a 256-channel row; wider rows walk their map
+// once per chunk. No one-hot matrix, no zone split, no lane padding: the
+// TPU's MXU formulation did ~F*W/K times the useful multiply-adds to keep
+// its matrix unit busy; here only the K selected entries of a row cost
+// arithmetic.
 //
 // What bounds it on the H100: the gathered feature reads, B*M*K*C
 // elements, mostly from L2 (a tile's window of rows is shared by its 128
-// rows), and the map read, B*M*W bytes from device memory.
+// rows), and the map read, B*M*W bytes from device memory (once per
+// channel chunk, the later reads mostly from L2).
 #include "common.cuh"
 
 namespace {
@@ -34,7 +39,9 @@ using sph3d::kFullMask;
 using sph3d::kTile;
 
 constexpr int kWarps = 8;
-constexpr int kSlots = 8;  // 32-lane channel slots: C <= 256
+constexpr int kSlots = 8;  // 32-lane channel slots per chunk
+constexpr int kChunk = kSlots * 32;  // channels per chunk (grid y)
+constexpr int kMaxC = 4 * kChunk;    // C <= 1024
 
 template <typename T, int R>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -47,6 +54,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows_total) return;  // the whole warp leaves together
   const int lane = threadIdx.x & 31;
+  const int ch0 = blockIdx.y * kChunk + lane;  // this lane's first channel
   const int g = row / kTile;  // b * n_t + tile
   const int b = g / n_t;
   const int base = s_blk[g] * kTile;
@@ -73,7 +81,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       const float* fr = fb + static_cast<size_t>(f) * c * R;
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
-        const int ch = lane + 32 * s;
+        const int ch = ch0 + 32 * s;
         if (ch < c) {
           const float xv = sph3d::to_float(xr[ch]);
 #pragma unroll
@@ -88,7 +96,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   T* orow = out + static_cast<size_t>(row) * c * R;
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    const int ch = lane + 32 * s;
+    const int ch = ch0 + 32 * s;
     if (ch < c) {
 #pragma unroll
       for (int j = 0; j < R; ++j) {
@@ -103,8 +111,9 @@ cudaError_t launch(const int8_t* packed, const int* s_blk, const void* x,
                    const float* filt, const float* inv, void* out,
                    int rows_total, int n_t, int n, int c, int f_bins,
                    int window, cudaStream_t stream) {
-  const int blocks = (rows_total + kWarps - 1) / kWarps;
-  dense_conv_kernel<T, R><<<blocks, kWarps * 32, 0, stream>>>(
+  const dim3 grid((rows_total + kWarps - 1) / kWarps,
+                  (c + kChunk - 1) / kChunk);
+  dense_conv_kernel<T, R><<<grid, kWarps * 32, 0, stream>>>(
       packed, s_blk, static_cast<const T*>(x), filt, inv,
       static_cast<T*>(out), rows_total, n_t, n, c, f_bins, window);
   return cudaGetLastError();
@@ -118,7 +127,7 @@ extern "C" int sph3d_dense_conv_launch(const int8_t* packed, const int* s_blk,
                                        int batch, int n_t, int n, int c,
                                        int f_bins, int window, int mult,
                                        int is_bf16, void* stream) {
-  if (c > kSlots * 32 || (mult != 1 && mult != 2)) {
+  if (c < 1 || c > kMaxC || (mult != 1 && mult != 2)) {
     return cudaErrorInvalidValue;
   }
   const int rows = batch * n_t * kTile;

@@ -1,8 +1,9 @@
 // K2: dense windowed sphere query -> packed int8 neighbor maps.
 //
 // Replaces the TPU kernel sph3d_gcn_tpu/ops/pallas/query_kernel.py:245
-// (_query_kernel, reached via dense_query_pallas), without radius growth
-// and without distance maps. Plain PyTorch twin:
+// (_query_kernel, reached via dense_query_pallas), without distance maps.
+// The radius-growth query of the decoders' inter graphs is K7,
+// csrc/growth_query.cu. Plain PyTorch twin:
 // sph3d_gcn_torch/ops/query.py::dense_query_plain.
 //
 // One block per (cloud, 128-query tile). The block stages the live part

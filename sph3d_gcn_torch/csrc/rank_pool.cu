@@ -9,10 +9,11 @@
 //   arg[t, c] = the FIRST such column w attaining the max, -1 if none
 //               (only when the caller asks for it: the backward's input)
 //
-// Design: one warp per query row walks the row's window once in 32-column
-// steps; a ballot finds the selected columns and the warp folds each
-// selected neighbor's feature row into a running max per channel (lane +
-// 32*slot). The TPU kernel compacted the window to K rows with a one-hot
+// Design: one warp per (query row, 256-channel chunk; the chunk is the
+// grid's y index, C <= 512) walks the row's window in 32-column steps; a
+// ballot finds the selected columns and the warp folds each selected
+// neighbor's feature row into a running max per channel (chunk*256 + lane
+// + 32*slot). The TPU kernel compacted the window to K rows with a one-hot
 // rank matmul and took one max over composite int32 (value, rank) keys;
 // here a strict `>` in window order keeps the first attaining column,
 // which is the smallest rank (ranks count the selected columns in window
@@ -22,7 +23,8 @@
 // instance (fmaxf, no arg registers).
 //
 // What bounds it on the H100: the gathered feature reads, B*M*K*C
-// elements mostly from L2, and the map read, B*M*W bytes.
+// elements mostly from L2, and the map read, B*M*W bytes (once per
+// channel chunk).
 #include <math_constants.h>
 
 #include "common.cuh"
@@ -33,7 +35,9 @@ using sph3d::kFullMask;
 using sph3d::kTile;
 
 constexpr int kWarps = 8;
-constexpr int kSlots = 8;  // 32-lane channel slots: C <= 256
+constexpr int kSlots = 8;  // 32-lane channel slots per chunk
+constexpr int kChunk = kSlots * 32;  // channels per chunk (grid y)
+constexpr int kMaxC = 2 * kChunk;    // C <= 512
 
 template <typename T, bool kArg>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -46,6 +50,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows_total) return;  // the whole warp leaves together
   const int lane = threadIdx.x & 31;
+  const int ch0 = blockIdx.y * kChunk + lane;  // this lane's first channel
   const int g = row / kTile;
   const int b = g / n_t;
   const int base = s_blk[g] * kTile;
@@ -73,7 +78,7 @@ __global__ void __launch_bounds__(kWarps * 32)
       const T* xr = xb + static_cast<size_t>(w) * c;
 #pragma unroll
       for (int s = 0; s < kSlots; ++s) {
-        const int ch = lane + 32 * s;
+        const int ch = ch0 + 32 * s;
         if (ch < c) {
           // + 0.0f folds -0 to +0 (not an identity without fast-math)
           const float v = sph3d::to_float(xr[ch]) + 0.0f;
@@ -93,7 +98,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   int* arow = kArg ? arg + static_cast<size_t>(row) * c : nullptr;
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
-    const int ch = lane + 32 * s;
+    const int ch = ch0 + 32 * s;
     if (ch < c) {
       orow[ch] = sph3d::from_float<T>(any ? best[s] : 0.0f);
       if (kArg) arow[ch] = best_w[s];
@@ -106,8 +111,9 @@ cudaError_t launch_impl(const int8_t* packed, const int* s_blk,
                         const int* counts, const void* x, void* out, int* arg,
                         int rows_total, int n_t, int n, int c, int window,
                         cudaStream_t stream) {
-  const int blocks = (rows_total + kWarps - 1) / kWarps;
-  rank_pool_kernel<T, kArg><<<blocks, kWarps * 32, 0, stream>>>(
+  const dim3 grid((rows_total + kWarps - 1) / kWarps,
+                  (c + kChunk - 1) / kChunk);
+  rank_pool_kernel<T, kArg><<<grid, kWarps * 32, 0, stream>>>(
       packed, s_blk, counts, static_cast<const T*>(x), static_cast<T*>(out),
       arg, rows_total, n_t, n, c, window);
   return cudaGetLastError();
@@ -133,7 +139,7 @@ extern "C" int sph3d_rank_pool_launch(const int8_t* packed, const int* s_blk,
                                       void* out, int* arg, int batch,
                                       int n_t, int n, int c, int window,
                                       int is_bf16, void* stream) {
-  if (c > kSlots * 32) return cudaErrorInvalidValue;
+  if (c < 1 || c > kMaxC) return cudaErrorInvalidValue;
   const int rows = batch * n_t * kTile;
   const auto st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {

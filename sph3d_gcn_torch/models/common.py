@@ -6,8 +6,14 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from sph3d_gcn_torch.configs.base import SPH3DConfig
 from sph3d_gcn_torch.nn.layers import SeparableConv3d
 from sph3d_gcn_torch.ops.dense import DenseNeighborhood
+
+
+def compute_dtype(cfg: SPH3DConfig) -> torch.dtype:
+    """The torch dtype of ``cfg.compute_dtype`` ('float32' | 'bfloat16')."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
 def normalize_unit_sphere(points: torch.Tensor) -> torch.Tensor:
@@ -19,6 +25,15 @@ def normalize_unit_sphere(points: torch.Tensor) -> torch.Tensor:
         dim=1, keepdim=True
     )
     return points / torch.sqrt(torch.clamp_min(scale, 1e-12))
+
+
+def normalize_xy_center_z_floor(points: torch.Tensor) -> torch.Tensor:
+    """Center xy at the bounding-box center, keep z as it is
+    (ref models/SPH3D_s3dis.py:11-19, identical in SPH3D_scannet.py)."""
+    center = (points.amax(dim=1, keepdim=True)
+              + points.amin(dim=1, keepdim=True)) / 2
+    return torch.cat([points[..., 0:2] - center[..., 0:2],
+                      points[..., 2:]], dim=-1)
 
 
 class SeparableConvBlock(nn.Module):

@@ -18,6 +18,7 @@ from torch import nn
 from sph3d_gcn_torch.configs.base import SPH3DConfig
 from sph3d_gcn_torch.models.common import (
     SeparableConvBlock,
+    compute_dtype,
     normalize_unit_sphere,
 )
 from sph3d_gcn_torch.nn.graph import (
@@ -38,11 +39,6 @@ from sph3d_gcn_torch.ops.locality import permute_points, spatial_sort
 
 _GLOBAL_RADIUS = 100.0       # ref SPH3D_modelnet.py:86 (connects all points)
 _GLOBAL_KERNEL = (8, 2, 1)   # ref SPH3D_modelnet.py:89-90, binSize 17
-
-
-def compute_dtype(cfg: SPH3DConfig) -> torch.dtype:
-    """The torch dtype of ``cfg.compute_dtype`` ('float32' | 'bfloat16')."""
-    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
 class SPH3DModelNet(nn.Module):

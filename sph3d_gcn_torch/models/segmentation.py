@@ -1,0 +1,226 @@
+"""Scene segmentation, dense engine (counterpart of
+``sph3d_gcn_tpu/models/segmentation.py``: ``SegEncoderDecoder`` and
+``SPH3DSceneSeg``, the S3DIS / ScanNet model).
+
+Axis sort -> xy-center normalization -> input MLP -> encoder {dense
+sphere graph -> separable conv block -> FPS -> pool graph -> max pool} x
+L -> mirrored decoder {coarse intra graph + fine->coarse inter graph with
+radius growth -> conv block at the coarse level -> masked-mean unpool to
+the finer level -> skip concat} -> pointwise logits -> unsort to the
+input order (ref SPH3D_s3dis.py:35-112). The decoder indexes reversed
+copies of the config lists (the reference reverses them in place,
+ref SPH3D_s3dis.py:79-84).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from sph3d_gcn_torch.configs.base import SPH3DConfig
+from sph3d_gcn_torch.models.common import (
+    SeparableConvBlock,
+    compute_dtype,
+    normalize_xy_center_z_floor,
+)
+from sph3d_gcn_torch.nn.graph import (
+    build_graph_deconv_dense,
+    build_graph_dense,
+    build_pool_graph_dense,
+    gather_points,
+)
+from sph3d_gcn_torch.nn.layers import PointwiseConv3d, pool3d, unpool3d
+from sph3d_gcn_torch.ops.locality import permute_points, spatial_sort
+
+# the backbone's input: the xy-centered xyz and the rgb columns 6:9 of the
+# 9-column scene blocks (xyz, block-relative xyz, rgb)
+_IN_CHANNELS = 6
+
+
+class SegEncoderDecoder(nn.Module):
+    """mlp1 -> encoder pyramid -> decoder with skip concats, dense engine
+    (without point sharding and without the ShapeNet input skip).
+
+    ``forward`` returns (features (B, N, C) at the finest level, the
+    forward's window-coverage certificate as a bool tensor)."""
+
+    def __init__(self, config: SPH3DConfig, in_channels: int,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        cfg = config
+        common = dict(with_bn=cfg.with_bn, with_bias=cfg.with_bias,
+                      dtype=compute_dtype(cfg), generator=generator)
+        self.config = cfg
+        self.mlp1 = PointwiseConv3d(in_channels, cfg.mlp, **common)
+        c = cfg.mlp
+        skips = []
+        for level in range(len(cfg.radius)):
+            self.add_module(f"conv{level + 1}", SeparableConvBlock(
+                c, cfg.channels[level], cfg.bin_size, cfg.multiplier[level],
+                **common,
+            ))
+            c = cfg.channels[level][-1]
+            skips.append(c)
+        for level, (chans, mults) in enumerate(
+                zip(cfg.channels[::-1], cfg.multiplier[::-1])):
+            self.add_module(f"deconv{level + 1}", SeparableConvBlock(
+                c, chans, cfg.bin_size, mults, **common,
+            ))
+            c = chans[-1] + skips[::-1][level]
+        self.out_channels = c
+
+    def forward(self, net: torch.Tensor, xyz: torch.Tensor,
+                use_kernels: bool | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+        cfg = self.config
+        num_levels = len(cfg.radius)
+        net = self.mlp1(net)
+        xyz_layers = [xyz]
+        encoder = []
+        dense_ok = torch.ones((), dtype=torch.bool, device=xyz.device)
+
+        # encoder (ref SPH3D_s3dis.py:53-77)
+        for level in range(num_levels):
+            nbh, sample_idx = build_graph_dense(
+                xyz, cfg.radius[level], cfg.nn_uplimit[level],
+                cfg.num_sample[level], sample_method=cfg.sample,
+                kernel=cfg.kernel, window=cfg.enc_window(level),
+                use_kernels=use_kernels,
+            )
+            dense_ok = dense_ok & nbh.ok
+            net = getattr(self, f"conv{level + 1}")(
+                net, nbh, use_kernels=use_kernels)
+            encoder.append(net)
+            if cfg.num_sample[level] > 1:
+                # FPS indices come back sorted: the coarse cloud stays
+                # axis-sorted for the next dense level
+                xyz_coarse = gather_points(xyz, sample_idx)
+                inter = build_pool_graph_dense(
+                    xyz, xyz_coarse, cfg.radius[level],
+                    cfg.nn_uplimit[level], window=cfg.pool_window(level),
+                    use_kernels=use_kernels,
+                )
+                dense_ok = dense_ok & inter.ok
+                net = pool3d(net, inter, method=cfg.pool_method,
+                             use_kernels=use_kernels)
+                xyz = xyz_coarse
+                xyz_layers.append(xyz)
+
+        # decoder (ref SPH3D_s3dis.py:87-105) over reversed copies
+        radius_r = cfg.radius[::-1]
+        nn_uplimit_r = cfg.nn_uplimit[::-1]
+        xyz_layers = xyz_layers[::-1]
+        encoder = encoder[::-1]
+        for level in range(num_levels):
+            xyz_coarse = xyz_layers[level]
+            xyz_fine = xyz_layers[level + 1]
+            # decoder edges search the SAMPLED cloud of the mirrored
+            # encoder level: its calibrated decoder window applies
+            intra, inter = build_graph_deconv_dense(
+                xyz_coarse, xyz_fine, radius_r[level], nn_uplimit_r[level],
+                kernel=cfg.kernel,
+                window=cfg.dec_window(num_levels - 1 - level),
+                dec_margin=cfg.dec_margin, growth_steps=cfg.growth_steps,
+                use_kernels=use_kernels,
+            )
+            dense_ok = dense_ok & intra.ok & inter.ok
+            net = getattr(self, f"deconv{level + 1}")(
+                net, intra, use_kernels=use_kernels)
+            net = unpool3d(net, inter, method=cfg.unpool_method)
+            net = torch.cat([net, encoder[level]], dim=-1)
+        return net, dense_ok
+
+
+class SPH3DSceneSeg(nn.Module):
+    """Scene segmentation (S3DIS / ScanNet): (B, N, 9) points (xyz,
+    block-relative xyz, rgb) -> (B, N, num_cls) f32 logits in the input
+    point order. The input features are the xy-centered xyz and the
+    columns 6: (ref SPH3D_s3dis.py:35-49).
+
+    After each forward, ``dense_ok`` holds that forward's window-coverage
+    certificate (a bool tensor): True iff every dense graph provably
+    covered all its in-range neighbors (at its grown radius, for the
+    decoders' inter graphs).
+    """
+
+    def __init__(self, config: SPH3DConfig,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__()
+        cfg = config
+        if not cfg.dense_graph:
+            raise NotImplementedError(
+                "only the dense engine is ported (dense_graph=True)")
+        if cfg.sample != "FPS" or cfg.pool_method != "max":
+            raise NotImplementedError("only FPS sampling and max pooling")
+        if cfg.unpool_method != "mean":
+            raise NotImplementedError(
+                "only the mean unpool is ported (weighted needs distance "
+                "maps)")
+        self.config = cfg
+        self.backbone = SegEncoderDecoder(cfg, _IN_CHANNELS, generator)
+        # the classifier: no activation, no BN, f32 (the JAX layer's
+        # default dtype)
+        self.logits = PointwiseConv3d(
+            self.backbone.out_channels, cfg.num_cls, with_bn=False,
+            with_bias=cfg.with_bias, activation=False, generator=generator,
+        )
+        self.dense_ok: torch.Tensor | None = None
+
+    def forward(self, points: torch.Tensor,
+                use_kernels: bool | None = None) -> torch.Tensor:
+        """``use_kernels``: None runs the CUDA kernels on a CUDA device and
+        the plain versions on the CPU; False forces the plain versions
+        (for comparing the two)."""
+        cfg = self.config
+        if points.shape[1:] != (cfg.num_input, 3 + _IN_CHANNELS):
+            raise ValueError(
+                f"expected (B, {cfg.num_input}, {3 + _IN_CHANNELS}) points, "
+                f"got {tuple(points.shape)}")
+        points = points.float()
+        rank = None
+        if cfg.spatial_sort:
+            perm, rank = spatial_sort(points, cfg.radius[0])
+            points = permute_points(points, perm)
+        xyz = points[..., 0:3]
+        norm_xyz = normalize_xy_center_z_floor(xyz) if cfg.normalize else xyz
+        net = torch.cat([norm_xyz, points[..., 6:]], dim=-1)
+        net, self.dense_ok = self.backbone(net, xyz, use_kernels=use_kernels)
+        logits = self.logits(net)
+        # back to the caller's point order
+        return logits if rank is None else permute_points(logits, rank)
+
+
+def _nll_points(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """-logp[..., label] per point by a one-hot product (its gradient is
+    elementwise: no scatter)."""
+    onehot = torch.nn.functional.one_hot(labels.long(), logp.shape[-1])
+    return -(logp * onehot).sum(dim=-1)
+
+
+def segmentation_item_loss(logits: torch.Tensor,
+                           labels: torch.Tensor) -> torch.Tensor:
+    """Per-item mean CE over the item's points, (B,), in f32."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return _nll_points(logp, labels).mean(dim=1)
+
+
+def inner_masked_item_loss(logits: torch.Tensor, labels: torch.Tensor,
+                           inner_label: torch.Tensor) -> torch.Tensor:
+    """Per-item mean CE over the inner (non-context) points, (B,); an item
+    with no inner point gives 0 (ref SPH3D_s3dis.py:116-133)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = _nll_points(logp, labels)
+    inner = (inner_label > 0).to(nll.dtype)
+    per_item_sum = (nll * inner).sum(dim=1)
+    per_item_cnt = inner.sum(dim=1)
+    return torch.where(per_item_cnt > 0,
+                       per_item_sum / torch.clamp_min(per_item_cnt, 1.0),
+                       0.0)
+
+
+def inner_masked_segmentation_loss(logits: torch.Tensor,
+                                   labels: torch.Tensor,
+                                   inner_label: torch.Tensor) -> torch.Tensor:
+    """The inner-masked per-item losses SUMMED over the batch (the
+    reference accumulates them with ``+=``, ref SPH3D_s3dis.py:116-133)."""
+    return inner_masked_item_loss(logits, labels, inner_label).sum()

@@ -1,5 +1,6 @@
 """Graph construction for the SPH3D pyramids (counterpart of
-``sph3d_gcn_tpu/nn/graph.py``, dense and global graphs)."""
+``sph3d_gcn_tpu/nn/graph.py``: the dense encoder, pool and decoder graphs
+and the global graph)."""
 
 from __future__ import annotations
 
@@ -52,6 +53,34 @@ def build_pool_graph_dense(
         xyz, xyz_sampled, radius, nn_uplimit, None, window=window,
         self_graph=False, use_kernels=use_kernels,
     )
+
+
+def build_graph_deconv_dense(
+    xyz: torch.Tensor,
+    xyz_unpool: torch.Tensor,
+    radius: float,
+    nn_uplimit: int,
+    kernel: tuple[int, int, int],
+    window: int,
+    dec_margin: int = 384,
+    growth_steps: int = 12,
+    use_kernels: bool | None = None,
+) -> tuple[DenseNeighborhood, DenseNeighborhood]:
+    """Decoder graphs: the coarse cloud's intra graph (bin maps) and the
+    fine->coarse inter graph for unpooling (rank maps). The inter graph
+    reproduces the reference's +0.05 radius growth for fine points with
+    no coarse neighbor (ref tf_nnquery_gpu.cu:30-60) in a window widened
+    by ``dec_margin`` rows, re-certified at each tile's grown radius."""
+    intra = build_dense_graph(
+        xyz, xyz, radius, nn_uplimit, kernel, window=window,
+        self_graph=True, use_kernels=use_kernels,
+    )
+    inter = build_dense_graph(
+        xyz, xyz_unpool, radius, nn_uplimit, None,
+        window=window + dec_margin, self_graph=False,
+        growth_steps=growth_steps, use_kernels=use_kernels,
+    )
+    return intra, inter
 
 
 def build_global_graph(

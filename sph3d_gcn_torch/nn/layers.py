@@ -21,6 +21,7 @@ from sph3d_gcn_torch.ops.dense import (
     DenseNeighborhood,
     dense_depthwise_conv3d,
     dense_max_pool3d,
+    dense_mean_interpolate,
 )
 from sph3d_gcn_torch.ops.types import Neighborhood
 
@@ -172,13 +173,15 @@ class SeparableConv3d(_Dense):
 
 
 class PointwiseConv3d(_Dense):
-    """1x1 conv as a flattened matmul (ref utils/sph3gcn_util.py:166-222)."""
+    """1x1 conv as a flattened matmul (ref utils/sph3gcn_util.py:166-222);
+    ``activation=False`` drops the ELU (a classifier layer)."""
 
     def __init__(self, in_channels: int, num_out_channels: int,
                  with_bn: bool = False, with_bias: bool = False,
-                 dtype: torch.dtype = torch.float32,
+                 activation: bool = True, dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None) -> None:
-        super().__init__(num_out_channels, with_bn, with_bias, True, dtype)
+        super().__init__(num_out_channels, with_bn, with_bias, activation,
+                         dtype)
         self.weights = glorot_uniform(
             (in_channels, num_out_channels), generator
         )
@@ -223,3 +226,14 @@ def pool3d(
     out, _ = dense_max_pool3d(inputs, nbh, with_index=False,
                               use_kernels=use_kernels)
     return out
+
+
+def unpool3d(inputs: torch.Tensor, nbh: DenseNeighborhood,
+             method: str = "mean") -> torch.Tensor:
+    """Unpooling dispatch (ref utils/sph3gcn_util.py:300-325): the dense
+    masked mean of each fine point's coarse neighbors. The 'weighted'
+    method needs distance maps, which are not ported yet."""
+    if method != "mean":
+        raise NotImplementedError(
+            f"unpooling method {method!r} is not ported (mean is)")
+    return dense_mean_interpolate(inputs, nbh)

@@ -11,21 +11,23 @@ edge index list:
   conv   out[t, c*r+j] = sum_w x[win(w), c] * filt[packed[t,w]-1, c, j]
                          / max(count[t], 1)
   pool   out[t, c]     = max over selected w of x[win(w), c] (0 if none)
+  unpool out[t, c]     = mean over selected w of x[win(w), c]
 
 The certificate ``ok`` (JAX: ``DenseNeighborhood.ok``) is True when the
 provable window bound held: the database is sorted along some axis and
 every tile's [min - r, max + r] slab fits its window. Results then equal
 the classic per-edge ops exactly.
 
-Kernels: the query is ``ops/query.py``; the conv (``csrc/dense_conv.cu``),
-its backward (``csrc/dense_conv_bwd.cu``), the rank pool
-(``csrc/rank_pool.cu``, with the first attaining column when a gradient
-is wanted) and its backward (``csrc/rank_pool_bwd.cu``) are wrapped here,
-each beside its plain PyTorch version. The conv and the pool are
+Kernels: the query and the growth query are ``ops/query.py``; the conv
+(``csrc/dense_conv.cu``), its backward (``csrc/dense_conv_bwd.cu``), the
+rank pool (``csrc/rank_pool.cu``, with the first attaining column when a
+gradient is wanted) and its backward (``csrc/rank_pool_bwd.cu``) are
+wrapped here, each beside its plain PyTorch version. The conv and the pool are
 ``torch.autograd.Function``s whose backward runs the backward kernel (or,
 for a CPU tensor, its plain version): both backwards give every output
 row one owner and sum in a fixed order, so gradients are bitwise
-reproducible.
+reproducible. The masked-mean unpool is a batched matmul over the
+gathered windows (the JAX package leaves it to XLA as well).
 """
 
 from __future__ import annotations
@@ -39,12 +41,19 @@ import torch.nn.functional as F
 
 from sph3d_gcn_torch import _build
 from sph3d_gcn_torch.ops.conv import einsum_f32
-from sph3d_gcn_torch.ops.query import TILE, dense_query
+from sph3d_gcn_torch.ops.query import (
+    GROWTH_STEP,
+    TILE,
+    dense_query,
+    growth_query,
+)
 
 # element budget of the plain conv's one-hot and the plain pool's
 # candidate block per tile chunk (f32: 256 MB)
 _PLAIN_BUDGET = 1 << 26
-_MAX_CONV_C = 256      # 8 channel slots of 32 lanes per warp
+_MAX_CONV_C = 1024     # the conv kernel: 4 chunks of 8 32-lane slots
+_MAX_POOL_C = 512      # the pool kernel: 2 chunks
+_MAX_BWD_C = 256       # the backward kernels: 8 32-lane slots
 _POOL_ALL = 127        # "every nonzero entry" count for bin maps
 
 CONV_KERNEL = _build.register(
@@ -127,6 +136,9 @@ class QueryPlan:
     window: int              # W after rounding and clamping
     num_query: int
     num_db: int
+    key_p: torch.Tensor      # (B, N_pad) sort-axis keys, 2e9 padding
+    tile_min: torch.Tensor   # (B, nT) query tiles' sort-axis extent
+    tile_max: torch.Tensor
 
 
 def plan_dense_query(
@@ -135,9 +147,13 @@ def plan_dense_query(
     radius: float,
     kernel: tuple[int, int, int] | None,
     window: int,
+    growth_steps: int = 0,
 ) -> QueryPlan:
     """Padding, per-tile window starts and slab ends, and the provable
-    coverage certificate of one dense graph (the JAX op's XLA part)."""
+    coverage certificate of one dense graph (the JAX op's XLA part). With
+    ``growth_steps`` the window starts one block lower and the slab end
+    is taken at the largest grown radius; the grown slab is re-certified
+    after the query (:func:`build_dense_graph`)."""
     db = database[..., :3].float()
     q = query[..., :3].float()
     batch, num_db, _ = db.shape
@@ -171,16 +187,25 @@ def plan_dense_query(
     hi = tile_max[..., None] + radius
     s_row = (key_p[:, None, :] < lo).sum(dim=-1)         # (B, nT)
     e_row = (key_p[:, None, :] <= hi).sum(dim=-1)
-    s_blk = torch.clamp(s_row // TILE, 0, (n_pad - w) // TILE)
+    s_start = s_row // TILE
+    if growth_steps:
+        # growth widens the slab on both sides: start one block lower
+        s_start = s_start - 1
+    s_blk = torch.clamp(s_start, 0, (n_pad - w) // TILE)
     ok = is_sorted & (e_row - s_blk * TILE <= w).all()
-    # per-tile slab END in TILE chunks past s_blk: later chunks provably
-    # hold no in-range candidate and are zero-filled
+    if growth_steps:
+        hi_m = tile_max[..., None] + (radius + GROWTH_STEP * growth_steps)
+        e_row = (key_p[:, None, :] <= hi_m).sum(dim=-1)
+    # per-tile slab END in TILE chunks past s_blk (at the largest grown
+    # radius): later chunks provably hold no in-range candidate and are
+    # zero-filled
     u_end = -torch.div(-(e_row - s_blk * TILE), TILE, rounding_mode="floor")
     grouped = kernel is not None and tuple(kernel[:2]) == (8, 2)
     return QueryPlan(
         db_p=db_p, q_p=q_p, s_blk=s_blk, u_end=u_end,
         axis=axis.to(torch.int32) if grouped else None, ok=ok, window=w,
-        num_query=num_q, num_db=num_db,
+        num_query=num_q, num_db=num_db, key_p=key_p, tile_min=tile_min,
+        tile_max=tile_max,
     )
 
 
@@ -210,27 +235,59 @@ def build_dense_graph(
       window:   W, rounded up to 128 and clamped to the padded cloud.
       self_graph: the query is the database (every row selects itself, so
                 the zero-count check is skipped).
-      need_dist, growth_steps, query_shard: not ported yet (raise).
+      growth_steps: reproduce the reference's +0.05 radius growth of
+                zero-neighbor queries (ref tf_nnquery_gpu.cu:30-60) for up
+                to this many steps, densely in-window: each row selects at
+                its first radius with a candidate in range
+                (``ops.query.growth_query``). The certificate then also
+                checks each tile's slab at its grown radius. Selection-only
+                graphs (``kernel=None``) only.
+      need_dist, query_shard: not ported yet (raise).
 
     Returns:
       DenseNeighborhood.
     """
-    if need_dist or growth_steps or query_shard is not None:
+    if need_dist or query_shard is not None:
         raise NotImplementedError(
-            "distance maps, radius growth and query sharding of the dense "
-            "graph are not ported yet"
+            "distance maps and query sharding of the dense graph are not "
+            "ported yet"
         )
-    plan = plan_dense_query(database, query, radius, kernel, window)
+    if growth_steps and kernel is not None:
+        raise ValueError(
+            "growth_steps is only supported for selection-only graphs "
+            "(kernel=None); intra graphs self-include and never grow"
+        )
+    plan = plan_dense_query(database, query, radius, kernel, window,
+                            growth_steps)
     k = int(nn_sample)
-    packed = dense_query(
-        plan.db_p, plan.q_p, plan.s_blk, plan.u_end, plan.axis,
-        radius=radius, k=k, kernel=kernel, window=plan.window,
-        use_kernels=use_kernels,
-    )
+    if growth_steps:
+        packed, steps = growth_query(
+            plan.db_p, plan.q_p, plan.s_blk, plan.u_end, radius=radius, k=k,
+            window=plan.window, growth_steps=growth_steps,
+            use_kernels=use_kernels,
+        )
+    else:
+        packed = dense_query(
+            plan.db_p, plan.q_p, plan.s_blk, plan.u_end, plan.axis,
+            radius=radius, k=k, kernel=kernel, window=plan.window,
+            use_kernels=use_kernels,
+        )
     batch = packed.shape[0]
     count = (packed > 0).sum(dim=-1, dtype=torch.int32).reshape(batch, -1)
     count = count[:, :plan.num_query]
     ok = plan.ok
+    if growth_steps:
+        # selections at a tile's grown radius are exact only if the grown
+        # slab still lies inside the window gathered at the base radius
+        gmax = steps.amax(dim=-1).float()                # (B, nT)
+        r_eff = radius + GROWTH_STEP * gmax
+        lo_g = plan.tile_min - r_eff
+        hi_g = plan.tile_max + r_eff
+        s_row_g = (plan.key_p[:, None, :] < lo_g[..., None]).sum(dim=-1)
+        e_row_g = (plan.key_p[:, None, :] <= hi_g[..., None]).sum(dim=-1)
+        start = plan.s_blk * TILE
+        ok = ok & ((s_row_g >= start)
+                   & (e_row_g - start <= plan.window)).all()
     if not self_graph:
         # the reference grows the radius of zero-neighbor queries; dense
         # mode reports that case through ok=False instead
@@ -337,7 +394,7 @@ def dense_conv_kernel(packed, s_blk, inputs, filt_b, inv):
     batch, n_t, _, w = packed.shape
     _, num_in, c = inputs.shape
     f_bins, mult = filt_b.shape[1], filt_b.shape[3]
-    if c > _MAX_CONV_C or mult not in (1, 2):
+    if not 1 <= c <= _MAX_CONV_C or mult not in (1, 2):
         raise ValueError(
             f"dense conv kernel takes C <= {_MAX_CONV_C} and a depth "
             f"multiplier of 1 or 2, got C={c}, r={mult}"
@@ -413,9 +470,9 @@ def dense_conv_bwd_kernel(packed, s_blk, inputs, filt_b, inv, dout):
     batch, n_t, _, w = packed.shape
     _, num_in, c = inputs.shape
     f_bins, mult = filt_b.shape[1], filt_b.shape[3]
-    if c > _MAX_CONV_C or mult not in (1, 2):
+    if not 1 <= c <= _MAX_BWD_C or mult not in (1, 2):
         raise ValueError(
-            f"dense conv backward kernel takes C <= {_MAX_CONV_C} and a "
+            f"dense conv backward kernel takes C <= {_MAX_BWD_C} and a "
             f"depth multiplier of 1 or 2, got C={c}, r={mult}"
         )
     if filt_b.shape != (batch, f_bins, c, mult) or f_bins > 127:
@@ -569,8 +626,8 @@ def rank_pool_kernel(packed, s_blk, counts, inputs, with_arg=False):
     _build.check(inputs, "inputs", (torch.float32, torch.bfloat16), 3)
     batch, n_t, _, w = packed.shape
     _, num_in, c = inputs.shape
-    if c > _MAX_CONV_C:
-        raise ValueError(f"rank pool kernel takes C <= {_MAX_CONV_C}, got {c}")
+    if not 1 <= c <= _MAX_POOL_C:
+        raise ValueError(f"rank pool kernel takes C <= {_MAX_POOL_C}, got {c}")
     if counts.shape != (batch, n_t * TILE):
         raise ValueError(f"bad counts shape {tuple(counts.shape)}")
     sb = s_blk.to(torch.int32).contiguous()
@@ -618,9 +675,9 @@ def rank_pool_bwd_kernel(s_blk, arg, dout, num_in, window):
     _build.check(dout, "dout", (torch.float32, torch.bfloat16), 3)
     batch, m_pad, c = arg.shape
     n_t = s_blk.shape[1]
-    if c > _MAX_CONV_C:
+    if not 1 <= c <= _MAX_BWD_C:
         raise ValueError(
-            f"rank pool backward kernel takes C <= {_MAX_CONV_C}, got {c}")
+            f"rank pool backward kernel takes C <= {_MAX_BWD_C}, got {c}")
     if dout.shape != arg.shape or m_pad != n_t * TILE or window % TILE:
         raise ValueError(
             f"bad pool backward shapes: arg {tuple(arg.shape)}, dout "
@@ -703,3 +760,26 @@ def dense_max_pool3d(
         else:
             out = rank_pool_plain(*args)
     return out[:, :dnbh.num_query], None
+
+
+def dense_mean_interpolate(
+    inputs: torch.Tensor, dnbh: DenseNeighborhood
+) -> torch.Tensor:
+    """Mean unpooling: each fine point's masked mean over its selected
+    coarse neighbors (ref tf_unpool3d_gpu.cu:5-22): one batched matmul of the 0/1 maps with the
+    gathered feature windows, summed in f32, rounded to the input dtype,
+    then scaled by ``1 / max(count, 1)`` computed in the input dtype (the
+    JAX op's rounding points, ``ops/dense.py:2398-2436``).
+
+    Returns (B, M, C) in the input dtype."""
+    _build.record("mean_interpolate", inputs, dnbh)
+    batch, n_t, _, w = dnbh.packed.shape
+    num_in = inputs.shape[1]
+    dtype = inputs.dtype
+    rows, valid, b_of_g = _window_rows(dnbh.packed, dnbh.s_blk, num_in)
+    fw = inputs[b_of_g[:, None], rows].masked_fill(~valid[..., None], 0)
+    mask = (dnbh.packed > 0).reshape(batch * n_t, TILE, w)
+    out = einsum_f32("gtw,gwc->gtc", mask, fw).reshape(batch, n_t * TILE, -1)
+    cnt_p = F.pad(dnbh.count, (0, n_t * TILE - dnbh.num_query))
+    inv = 1.0 / torch.clamp_min(cnt_p, 1).to(dtype)
+    return (out.to(dtype) * inv[..., None])[:, :dnbh.num_query]

@@ -1,6 +1,7 @@
 """Dense windowed sphere query: packed int8 neighbor maps (counterpart of
-``sph3d_gcn_tpu/ops/pallas/query_kernel.py``, ``_query_kernel`` without
-radius growth and without distance maps).
+``sph3d_gcn_tpu/ops/pallas/query_kernel.py``: ``_query_kernel`` without
+distance maps, and ``_growth_kernel``, the radius-growth query of the
+decoders' inter graphs, see :func:`growth_query`).
 
 For every 128-query tile and every column ``w`` of the tile's window of
 axis-sorted database rows ``[s_blk*128, s_blk*128 + W)``:
@@ -16,11 +17,14 @@ proves they hold no in-range candidate). Bins follow the compare-only
 ``_bins_822`` form for (8, 2, q) kernels, optionally SORT-GROUPED by the
 cloud's sort axis (see :func:`bins_822`).
 
-A CUDA tensor goes to ``csrc/dense_query.cu``, a CPU tensor to
-:func:`dense_query_plain`.
+A CUDA tensor goes to ``csrc/dense_query.cu`` (``csrc/growth_query.cu``
+for the growth query), a CPU tensor to :func:`dense_query_plain`
+(:func:`growth_query_plain`).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -31,6 +35,8 @@ TILE = 128
 _BOUNDARY_EPS = 1e-6     # ref tf_nnquery_gpu.cu:49
 _M_EPS = 1.01e-3         # ref tf_buildkernel_gpu.cu:6
 _MAX_Q_BINS = 4          # radial thresholds the kernel takes as arguments
+GROWTH_STEP = 0.05       # ref tf_nnquery_gpu.cu:30-60
+_MAX_GROWTH = 15         # growth steps the kernel takes (16 radii)
 # element budget of one (tiles, TILE, W) float temporary in the plain query
 _PLAIN_BUDGET = 1 << 24
 
@@ -39,6 +45,11 @@ QUERY_KERNEL = _build.register(
     [_build.PTR] * 6 + [_build.INT] * 7 + [_build.FLOAT] * 5
     + [_build.PTR],
 )
+GROWTH_KERNEL = _build.register(
+    "growth_query", "sph3d_growth_query_launch",
+    [_build.PTR] * 7 + [_build.INT] * 6 + [_build.PTR],
+)
+_RADII = ctypes.c_float * (_MAX_GROWTH + 1)    # host array of the radii
 
 
 def bin_thresholds(radius: float, q_bins: int) -> tuple[list[float], float]:
@@ -238,3 +249,132 @@ def dense_query_kernel(db_p, q_p, s_blk, u_end, axis, *, radius, k, kernel,
         _build.stream(db_p),
     )
     return out
+
+
+def growth_radii(radius: float, growth_steps: int) -> np.ndarray:
+    """The G+1 radii of the growth query, a running f32 sum as the JAX
+    kernel builds them: r_0 = f32(radius), r_{i+1} = f32(r_i + f32(0.05))
+    (``query_kernel.py:471-475``)."""
+    radii = [np.float32(radius)]
+    for _ in range(growth_steps):
+        radii.append(np.float32(radii[-1] + np.float32(GROWTH_STEP)))
+    return np.array(radii, np.float32)
+
+
+def growth_query(
+    db_p: torch.Tensor,
+    q_p: torch.Tensor,
+    s_blk: torch.Tensor,
+    u_end: torch.Tensor,
+    *,
+    radius: float,
+    k: int,
+    window: int,
+    growth_steps: int,
+    use_kernels: bool | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rank maps of a selection-only graph whose zero-neighbor queries
+    grow their radius by +0.05 (ref tf_nnquery_gpu.cu:30-60), densely
+    in-window, for up to ``growth_steps`` steps.
+
+    With radii r_0..r_G (:func:`growth_radii`) and, for a query row and
+    each live window column w, ``g(w)`` = the number of radii at which w
+    is NOT in range (strict ``<`` with the 1e-6 margin): the row's step is
+    ``g* = min(G+1, min_w g(w))``, the row is alive iff ``g* <= G``, and it
+    selects the columns with ``g(w) <= g*`` (the in-range set at radius
+    ``r_{g*}``), the first K of them in window order, as ranks 1..K.
+
+    Args: as :func:`dense_query` (no bins: ``kernel`` is None), plus
+      ``growth_steps`` G in 1..15.
+
+    Returns:
+      (packed (B, nT, TILE, W) int8 ranks, steps (B, nT, TILE) int8: each
+      row's growth step, 0 for rows that select nothing).
+    """
+    if not 1 <= k <= 127:
+        raise ValueError(f"int8 maps need 1 <= K <= 127, got {k}")
+    if not 1 <= growth_steps <= _MAX_GROWTH:
+        raise ValueError(
+            f"growth_steps must be in 1..{_MAX_GROWTH}, got {growth_steps}")
+    args = (db_p, q_p, s_blk, u_end)
+    kw = dict(radius=radius, k=k, window=window, growth_steps=growth_steps)
+    _build.record("growth_query", *args, **kw)
+    if _build.use_kernel(db_p, use_kernels):
+        return growth_query_kernel(*args, **kw)
+    return growth_query_plain(*args, **kw)
+
+
+def growth_query_plain(db_p, q_p, s_blk, u_end, *, radius, k, window,
+                       growth_steps):
+    """Plain PyTorch growth query, chunked over tiles to bound memory."""
+    batch, m_pad, _ = q_p.shape
+    n_t = m_pad // TILE
+    g_all = batch * n_t
+    dev = db_p.device
+    cols = torch.arange(window, device=dev)
+    rows = (s_blk.reshape(g_all, 1).long() * TILE + cols)      # (G, W)
+    b_of_g = torch.arange(batch, device=dev).repeat_interleave(n_t)
+    q_t = q_p.reshape(g_all, TILE, 3)
+    u_end = u_end.clamp(1, window // TILE)
+    live = cols[None, :] < u_end.reshape(g_all, 1).long() * TILE
+    radii = torch.from_numpy(growth_radii(radius, growth_steps)).to(dev)
+    never = growth_steps + 1
+    out = torch.empty((g_all, TILE, window), dtype=torch.int8, device=dev)
+    steps = torch.empty((g_all, TILE), dtype=torch.int8, device=dev)
+    step = max(1, _PLAIN_BUDGET // (TILE * window))
+    for g0 in range(0, g_all, step):
+        sl = slice(g0, g0 + step)
+        win = db_p[b_of_g[sl, None], rows[sl]]                  # (g, W, 3)
+        q = q_t[sl]
+        dx = win[:, None, :, 0] - q[:, :, None, 0]
+        dy = win[:, None, :, 1] - q[:, :, None, 1]
+        dz = win[:, None, :, 2] - q[:, :, None, 2]
+        d3 = torch.sqrt(dx * dx + dy * dy + dz * dz)
+        g_cand = torch.zeros(d3.shape, dtype=torch.int32, device=dev)
+        for r in radii:
+            in_r = (d3 < r) & ((d3 - r).abs() > _BOUNDARY_EPS)
+            g_cand += (~in_r).to(torch.int32)
+        g_cand = torch.where(live[sl, None, :], g_cand, never)
+        gstar = g_cand.amin(dim=-1, keepdim=True)               # (g, T, 1)
+        alive = gstar < never
+        in_g = (g_cand <= gstar) & alive
+        rank = torch.cumsum(in_g.to(torch.int32), dim=-1)
+        out[sl] = torch.where(in_g & (rank <= k), rank, 0).to(torch.int8)
+        steps[sl] = torch.where(alive, gstar, 0)[..., 0].to(torch.int8)
+    return (out.reshape(batch, n_t, TILE, window),
+            steps.reshape(batch, n_t, TILE))
+
+
+def growth_query_kernel(db_p, q_p, s_blk, u_end, *, radius, k, window,
+                        growth_steps):
+    """The growth query through ``csrc/growth_query.cu``: one block per
+    (cloud, query tile), the live window staged in shared memory, one
+    warp per query row; pass 1 finds the row's step with a warp min,
+    pass 2 recomputes the distances and writes the ranks."""
+    _build.check(db_p, "db_p", torch.float32, 3)
+    _build.check(q_p, "q_p", torch.float32, 3)
+    batch, n_pad, _ = db_p.shape
+    m_pad = q_p.shape[1]
+    n_t = m_pad // TILE
+    if m_pad % TILE or n_pad % TILE or window % TILE or window > n_pad:
+        raise ValueError("query shapes must be TILE-padded with W <= N_pad")
+    if 12 * window > _build.MAX_DYNAMIC_SMEM:
+        raise ValueError(f"window {window} exceeds the kernel's shared memory")
+    if s_blk.shape != (batch, n_t) or u_end.shape != (batch, n_t):
+        raise ValueError("s_blk / u_end must be (B, nT)")
+    sb = s_blk.to(torch.int32).contiguous()
+    ue = u_end.clamp(1, window // TILE).to(torch.int32).contiguous()
+    # the launcher copies the radii from this host array into the
+    # kernel's parameters
+    radii = _RADII(*growth_radii(radius, growth_steps).tolist())
+    out = torch.empty((batch, n_t, TILE, window), dtype=torch.int8,
+                      device=db_p.device)
+    steps = torch.empty((batch, n_t, TILE), dtype=torch.int8,
+                        device=db_p.device)
+    GROWTH_KERNEL.launch(
+        _build.ptr(db_p), _build.ptr(q_p), _build.ptr(sb), _build.ptr(ue),
+        _build.ptr(out), _build.ptr(steps), radii,
+        batch, n_pad, n_t, window, k, growth_steps + 1,
+        _build.stream(db_p),
+    )
+    return out, steps

@@ -1,12 +1,19 @@
-"""Classification eval protocol (counterpart of ``vote_classify`` in
-``sph3d_gcn_tpu/train/eval.py``): ``num_votes`` forwards per batch —
-vote 0 on the raw cloud, later votes on augmented copies — logits summed
-(ref modelnet40_cls/evaluate_modelnet.py:181-198, augment at :71-79).
+"""Eval protocols (counterparts of ``sph3d_gcn_tpu/train/eval.py``):
 
-The dense engine's window-coverage certificate is enforced: a forward
-whose ``dense_ok`` is False raises :class:`DenseCoverageError`. The exact
-classic-engine fallback of the JAX package is not ported yet, so nothing
-is silently re-routed.
+- classification, :func:`vote_classify`: ``num_votes`` forwards per
+  batch — vote 0 on the raw cloud, later votes on augmented copies —
+  logits summed (ref modelnet40_cls/evaluate_modelnet.py:181-198, augment
+  at :71-79);
+- segmentation blocks, :func:`coverage_eval_blocks`: each variable-size
+  block is resampled to the model's point count until every inner point
+  has been sampled, logits accumulated per block point, with resamples of
+  different blocks sharing a batch (ref
+  s3dis_seg/evaluate_s3dis_with_overlap.py:270-302).
+
+The dense engine's window-coverage certificate is enforced by
+:func:`checked_forward`: a forward whose ``dense_ok`` is False raises
+:class:`DenseCoverageError`. The exact classic-engine fallback of the JAX
+package is not ported yet, so nothing is silently re-routed.
 """
 
 from __future__ import annotations
@@ -50,13 +57,17 @@ def vote_classify(
 
 
 def checked_forward(
-    model: torch.nn.Module, device: torch.device | str
-) -> Callable[[np.ndarray], np.ndarray]:
-    """A ``vote_classify`` forward: numpy (B, N, 3) in, numpy logits out,
-    run without gradients on ``device``; raises DenseCoverageError when
-    the forward's ``dense_ok`` certificate is False."""
+    model: torch.nn.Module, device: torch.device | str = "cuda"
+) -> Callable[..., np.ndarray]:
+    """A forward for :func:`vote_classify` and :func:`coverage_eval_blocks`:
+    numpy points in ((B, N, 3) clouds or (B, N, 9) scene blocks), numpy
+    logits out ((B, num_cls) or (B, N, num_cls)), run without gradients on
+    ``device`` (the card unless the caller asks for the CPU); raises
+    DenseCoverageError when the forward's ``dense_ok`` certificate is
+    False. ``block_ids`` (passed by :func:`coverage_eval_blocks`) is
+    unused: these models take no per-block side input."""
 
-    def forward(points: np.ndarray) -> np.ndarray:
+    def forward(points: np.ndarray, block_ids=None) -> np.ndarray:
         x = torch.as_tensor(np.asarray(points, np.float32), device=device)
         with torch.inference_mode():
             logits = model(x)
@@ -68,3 +79,70 @@ def checked_forward(
         return logits.float().cpu().numpy()
 
     return forward
+
+
+def resample_block(
+    num_points: int, target: int, rng: np.random.Generator
+) -> np.ndarray:
+    """The reference's resampling rule: with replacement only when the
+    block has fewer points than the model takes (ref train_s3dis.py:343-346,
+    evaluate_s3dis_with_overlap.py:274-277)."""
+    if num_points < target:
+        return rng.choice(num_points, target, replace=True)
+    return rng.choice(num_points, target, replace=False)
+
+
+def coverage_eval_blocks(
+    forward: Callable[[np.ndarray, list[int]], np.ndarray],
+    blocks: list[tuple[np.ndarray, np.ndarray]],
+    num_model_points: int,
+    batch_size: int,
+    rng: np.random.Generator | None = None,
+) -> list[np.ndarray]:
+    """Coverage-vote many blocks with full batches: each forward mixes
+    resamples of up to ``batch_size`` still-uncovered blocks (a padded
+    final batch repeats its first block), and a block leaves the queue
+    once each of its inner points has been sampled.
+
+    Args:
+      forward: (points (B, N, D), block_ids list[int]) -> (B, N, C) logits.
+      blocks: per block, (points (P, D), inner (P,) mask: 1 = inner).
+      num_model_points: the model's fixed point count N.
+      batch_size: B.
+      rng: the resampling generator.
+
+    Returns:
+      Per block, (P, C) f32 logits summed over its resamples.
+    """
+    if rng is None:
+        rng = np.random.default_rng(0)
+    n = len(blocks)
+    sums: list[np.ndarray | None] = [None] * n
+    counts = [np.zeros(len(pts), np.int64) for pts, _ in blocks]
+    need = list(range(n))
+
+    def covered(i):
+        inner_idx = np.asarray(blocks[i][1]) == 1
+        return bool((counts[i][inner_idx] >= 1).all())
+
+    while need:
+        take = need[:batch_size]
+        sels = [resample_block(len(blocks[i][0]), num_model_points, rng)
+                for i in take]
+        chunk = np.stack(
+            [blocks[i][0][sel] for i, sel in zip(take, sels)]
+        ).astype(np.float32)
+        real = len(take)
+        if real < batch_size:
+            chunk = np.concatenate(
+                [chunk, np.repeat(chunk[:1], batch_size - real, axis=0)])
+        ids = take + [take[0]] * (batch_size - real)
+        logits = np.asarray(forward(chunk, ids))[:real]
+        for j, (i, sel) in enumerate(zip(take, sels)):
+            if sums[i] is None:
+                sums[i] = np.zeros((len(blocks[i][0]), logits.shape[-1]),
+                                   np.float32)
+            np.add.at(sums[i], sel, logits[j])
+            counts[i][sel] += 1
+        need = [i for i in need if not (i in take and covered(i))]
+    return sums

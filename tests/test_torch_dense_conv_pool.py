@@ -1,4 +1,5 @@
-"""PyTorch port vs JAX: dense depthwise conv and dense max pool.
+"""PyTorch port vs JAX: dense depthwise conv, dense max pool and the
+dense masked-mean unpool.
 
 Both frameworks build their own dense graph from the same numpy-seeded
 sorted clouds (the graphs are equal, see test_torch_dense_graph.py) and
@@ -9,7 +10,9 @@ Tolerances: conv f32 rtol=atol=1e-5 (f32 sums in another order); conv
 bf16 rtol=atol=3e-2 (one bf16 rounding of the conv output, and for
 C_in > 128 the JAX row-major path rounds the unscaled sums to bf16 once
 more before its scale); pool exact in f32 and bf16 (a max of the same
-values).
+values); unpool f32 within 1e-6 (f32 sums of at most K terms in another
+order), bf16 within one bf16 ulp of the reference (both round the f32
+sum once, then scale in bf16).
 """
 
 import jax.numpy as jnp
@@ -97,7 +100,7 @@ def test_dense_conv_without_fold_and_ungrouped_bins():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("c", [64, 128])
+@pytest.mark.parametrize("c", [64, 128, 512])
 def test_dense_max_pool_rank_maps(c, dtype):
     jdt, tdt, _ = DTYPES[dtype]
     pts = sorted_clouds(2)
@@ -128,3 +131,32 @@ def test_dense_max_pool_empty_rows_give_zero():
     assert (out[empty] == 0).all() and (out[~empty] < 0).all()
     with pytest.raises(NotImplementedError):
         td.dense_max_pool3d(feats, tg, with_index=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [64, 256])
+def test_dense_mean_interpolate_growth_graph(c, dtype):
+    """Fine points unpool from a coarse subsequence through the decoder's
+    inter graph, radius growth included."""
+    jdt, tdt, _ = DTYPES[dtype]
+    pts = sorted_clouds(4)
+    coarse = np.ascontiguousarray(pts[:, ::6])
+    jg = jd.build_dense_graph(jnp.asarray(coarse), jnp.asarray(pts), 0.06,
+                              16, None, window=128, growth_steps=6)
+    tg = td.build_dense_graph(torch.from_numpy(coarse), torch.from_numpy(pts),
+                              0.06, 16, None, window=128, growth_steps=6)
+    assert bool(jg.ok) and bool(tg.ok)
+    rng = np.random.default_rng(c)
+    feats = rng.standard_normal((2, 100, c)).astype(np.float32)
+    ref = np.asarray(jd.dense_mean_interpolate(jnp.asarray(feats, jdt), jg),
+                     np.float32)
+    got = td.dense_mean_interpolate(torch.from_numpy(feats).to(tdt), tg)
+    assert got.dtype == tdt and got.shape == (2, 600, c)
+    got = got.float().numpy()
+    if dtype == "float32":
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    else:
+        ulp = np.abs(ref) * 2.0 ** -7 + 1e-30
+        assert (np.abs(got - ref) <= ulp).all()
+    # rows with several neighbors really average
+    assert int(tg.count.max()) > 1 and np.abs(got).max() > 0

@@ -1,10 +1,10 @@
 """PyTorch port vs JAX: the dense windowed graph build (exact).
 
 ``build_dense_graph`` on numpy-seeded, axis-sorted clouds — intra graphs
-with SORT-GROUPED (8, 2, 2) bin maps, pool graphs with rank maps — must
-give the JAX op's packed maps byte for byte and equal ``s_blk``,
-``count``, ``axis`` and ``ok``. JAX runs its Pallas query kernel in
-interpret mode on the CPU.
+with SORT-GROUPED (8, 2, 2) bin maps, pool graphs with rank maps, and the
+decoders' fine->coarse graphs with radius growth — must give the JAX op's
+packed maps byte for byte and equal ``s_blk``, ``count``, ``axis`` and
+``ok``. JAX runs its Pallas query kernels in interpret mode on the CPU.
 """
 
 import jax.numpy as jnp
@@ -13,8 +13,12 @@ import pytest
 import torch
 
 from sph3d_gcn_tpu.ops import dense as jd
+from sph3d_gcn_tpu.ops.pallas.query_kernel import (
+    blocked_db,
+    dense_query_pallas,
+)
 from sph3d_gcn_torch.ops import dense as td
-from sph3d_gcn_torch.ops.query import bins_822
+from sph3d_gcn_torch.ops.query import bins_822, growth_query_plain
 
 KERNEL = (8, 2, 2)
 
@@ -124,7 +128,70 @@ def test_grouped_perm_matches_jax():
 
 def test_unported_options_raise():
     pts = torch.zeros(1, 128, 3)
-    for kw in ({"need_dist": True}, {"growth_steps": 2},
-               {"query_shard": ("p", 2)}):
+    for kw in ({"need_dist": True}, {"query_shard": ("p", 2)}):
         with pytest.raises(NotImplementedError):
             td.build_dense_graph(pts, pts, 0.1, 8, None, window=128, **kw)
+
+
+def growth_case(name):
+    """(database, query, radius, K, window, growth_steps) of a decoder
+    inter graph: fine queries search a sorted subsequence of their cloud."""
+    if name == "exhausted":
+        pts = sorted_clouds(1)
+        return pts[:, ::8].copy(), pts, 0.05, 16, 384, 3
+    pts = sorted_clouds(2, b=2, n=2000)
+    window, steps = {"covered": (512, 12), "slab_left": (384, 8)}[name]
+    return pts[:, ::3].copy(), pts, 0.01, 16, window, steps
+
+
+@pytest.mark.parametrize("case,expect_ok", [
+    ("covered", True),       # rows grow, every grown slab in the window
+    ("exhausted", False),    # rows with no candidate after G steps
+    ("slab_left", False),    # a grown slab overruns the window
+])
+def test_growth_graph(case, expect_ok):
+    db, q, radius, k, window, steps = growth_case(case)
+    ref = jd.build_dense_graph(jnp.asarray(db), jnp.asarray(q), radius, k,
+                               None, window=window, growth_steps=steps)
+    got = td.build_dense_graph(torch.from_numpy(db), torch.from_numpy(q),
+                               radius, k, None, window=window,
+                               growth_steps=steps)
+    assert_same_graph(got, ref)
+    assert bool(got.ok) is expect_ok and got.k_max == k
+    plan = td.plan_dense_query(torch.from_numpy(db), torch.from_numpy(q),
+                               radius, None, window, steps)
+    assert bool(plan.ok)                 # the base-radius slabs are covered
+    zero_rows = int((got.count == 0).sum())
+    assert (zero_rows > 0) is (case == "exhausted")
+    _, row_steps = growth_query_plain(
+        plan.db_p, plan.q_p, plan.s_blk, plan.u_end, radius=radius, k=k,
+        window=plan.window, growth_steps=steps)
+    assert int(row_steps.max()) > 0     # some rows grew
+    with pytest.raises(ValueError, match="selection-only"):
+        td.build_dense_graph(torch.from_numpy(db), torch.from_numpy(q),
+                             radius, k, KERNEL, window=window,
+                             growth_steps=steps)
+
+
+@pytest.mark.parametrize("case", ["covered", "exhausted"])
+def test_growth_query_matches_the_jax_kernel(case):
+    """The plain growth query's maps and per-row steps against the JAX
+    Pallas kernel's maps and per-tile maximum step (``gmax``)."""
+    db, q, radius, k, window, steps = growth_case(case)
+    plan = td.plan_dense_query(torch.from_numpy(db), torch.from_numpy(q),
+                               radius, None, window, steps)
+    packed, row_steps = growth_query_plain(
+        plan.db_p, plan.q_p, plan.s_blk, plan.u_end, radius=radius, k=k,
+        window=plan.window, growth_steps=steps)
+    ref, _, gmax = dense_query_pallas(
+        blocked_db(jnp.asarray(plan.db_p.numpy())),
+        jnp.asarray(plan.q_p.numpy()), jnp.asarray(plan.s_blk.numpy()),
+        jnp.asarray(plan.u_end.numpy()), radius=radius, k=k, kernel=None,
+        window=plan.window, growth_steps=steps, interpret=True)
+    np.testing.assert_array_equal(packed.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(row_steps.amax(dim=-1).numpy(),
+                                  np.asarray(gmax))
+    assert row_steps.dtype == torch.int8 and int(row_steps.max()) > 0
+    # rows that select nothing report step 0
+    dead = (packed > 0).sum(dim=-1) == 0
+    assert (row_steps[dead] == 0).all()

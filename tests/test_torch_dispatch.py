@@ -20,14 +20,16 @@ import pytest
 import torch
 
 from sph3d_gcn_torch import _build, kernel_launches
-from sph3d_gcn_torch.configs import modelnet_config
-from sph3d_gcn_torch.models import SPH3DModelNet
+from sph3d_gcn_torch.configs import modelnet_config, s3dis_config
+from sph3d_gcn_torch.data.synthetic import scene_blocks
+from sph3d_gcn_torch.models import SPH3DModelNet, SPH3DSceneSeg
 from sph3d_gcn_torch.ops import dense as D
 from sph3d_gcn_torch.ops import query as Q
 from sph3d_gcn_torch.ops import sample as S
 from sph3d_gcn_torch.train.eval import (
     DenseCoverageError,
     checked_forward,
+    coverage_eval_blocks,
     vote_classify,
 )
 
@@ -40,6 +42,22 @@ def _cloud(n=512, b=2, seed=0):
     v /= np.linalg.norm(v, axis=-1, keepdims=True)
     v *= rng.uniform(0.3, 1.0, (b, 1, 3)).astype(np.float32)
     return v[:, np.argsort(v[0, :, 0], kind="stable")]
+
+
+def _scene_config(**kw):
+    """S3DIS at N=1024 with windows that cover ``scene_blocks`` there."""
+    kw = dict(dict(windows=(768, 512, 256, 128), dec_windows=(512,) * 4,
+                   growth_steps=12, dec_margin=384), **kw)
+    return dataclasses.replace(
+        s3dis_config(num_input=1024, fast=True, dense=True), **kw)
+
+
+def _growth_plan(pts, device="cpu"):
+    """A decoder inter graph's query plan: fine points search every
+    third point of their cloud, with radius growth."""
+    t = torch.from_numpy(pts).to(device)
+    return D.plan_dense_query(t[:, ::3].contiguous(), t, 0.01, None, 512,
+                              growth_steps=12)
 
 
 def _graphs(pts, device="cpu"):
@@ -57,7 +75,12 @@ def test_forced_kernel_on_cpu_raises_before_any_build():
     feats = torch.randn(2, 512, 64)
     filt = torch.randn(33, 64, 1)
     plan = D.plan_dense_query(t, t, 0.25, (8, 2, 2), 256)
+    gplan = _growth_plan(pts)
+    gargs = (gplan.db_p, gplan.q_p, gplan.s_blk, gplan.u_end)
+    gkw = dict(radius=0.01, k=16, window=gplan.window, growth_steps=12)
     calls = [
+        lambda: Q.growth_query(*gargs, **gkw, use_kernels=True),
+        lambda: Q.growth_query_kernel(*gargs, **gkw),
         lambda: S.farthest_point_sample(8, t, use_kernels=True),
         lambda: Q.dense_query(plan.db_p, plan.q_p, plan.s_blk, plan.u_end,
                               plan.axis, radius=0.25, k=16, kernel=(8, 2, 2),
@@ -99,9 +122,9 @@ def test_port_imports_no_jax():
         "import sys, dataclasses, numpy as np, torch\n"
         "import sph3d_gcn_torch\n"
         "from sph3d_gcn_torch.configs import modelnet_config\n"
-        "from sph3d_gcn_torch.models import SPH3DModelNet\n"
+        "from sph3d_gcn_torch.models import SPH3DModelNet, SPH3DSceneSeg\n"
         "from sph3d_gcn_torch.train.eval import checked_forward, "
-        "vote_classify\n"
+        "vote_classify, coverage_eval_blocks\n"
         "from sph3d_gcn_torch.utils.convert import "
         "torch_state_dict_from_flax, flax_tree_from_torch\n"
         "from sph3d_gcn_torch.train.schedule import make_optimizer\n"
@@ -181,6 +204,46 @@ def test_record_calls_sees_the_backward_calls_of_a_train_step():
         out = out if isinstance(out, tuple) else (out,)
         assert all(torch.isfinite(o.float()).all() for o in out)
     assert set(kernel_launches().values()) == {0}
+
+
+def test_record_calls_sees_every_wrapped_call_of_a_scene_forward():
+    model = SPH3DSceneSeg(_scene_config(),
+                          generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(scene_blocks(np.random.default_rng(0), 2, 1024))
+    with _build.record_calls() as calls, torch.no_grad():
+        model.eval()(x)
+    names = [name for name, _, _ in calls]
+    enc = ["dense_query", "fps", "dense_conv", "dense_conv", "dense_query",
+           "rank_pool"]
+    dec = ["dense_query", "growth_query", "dense_conv", "dense_conv",
+           "mean_interpolate"]
+    assert names == enc * 4 + dec * 4
+    assert bool(model.dense_ok)
+    assert set(kernel_launches().values()) == {0}
+
+
+def test_scene_blocks_served_through_coverage_eval():
+    """Blocks of more and fewer points than the model takes, served on the
+    CPU through the checked forward: every inner point covered, finite
+    logits in block order."""
+    model = SPH3DSceneSeg(_scene_config(),
+                          generator=torch.Generator().manual_seed(0)).eval()
+    rng = np.random.default_rng(2)
+    blocks = []
+    for p in (1500, 800, 1100):
+        pts = scene_blocks(rng, 1, p)[0]
+        inner = ((pts[:, :2] > 0.3) & (pts[:, :2] < 1.2)).all(-1)
+        blocks.append((pts, inner.astype(np.int32)))
+    sums = coverage_eval_blocks(checked_forward(model, "cpu"), blocks, 1024,
+                                2, rng=np.random.default_rng(3))
+    for (pts, inner), logits in zip(blocks, sums):
+        assert logits.shape == (len(pts), 13)
+        assert np.isfinite(logits).all()
+        assert (np.abs(logits[inner == 1]).sum(-1) > 0).all()
+    tight = SPH3DSceneSeg(_scene_config(dec_margin=0, growth_steps=1),
+                          generator=torch.Generator().manual_seed(0)).eval()
+    with pytest.raises(DenseCoverageError):
+        coverage_eval_blocks(checked_forward(tight, "cpu"), blocks, 1024, 2)
 
 
 def test_eval_entry_raises_on_failed_certificate():
@@ -273,3 +336,52 @@ def test_backward_kernels_match_plain_on_cuda(cuda_device, dtype):
         b = (pool.s_blk, arg, dout, 700, pool.window)
         assert torch.equal(D.rank_pool_bwd_kernel(*b),
                            D.rank_pool_bwd_plain(*b))
+
+
+@pytest.mark.cuda
+def test_growth_kernel_matches_plain_on_cuda(cuda_device):
+    """K7: maps and per-row steps exactly, at several growth depths, and
+    the graph build through it."""
+    pts = _cloud(n=2000, b=3, seed=4)
+    plan = _growth_plan(pts, cuda_device)
+    args = (plan.db_p, plan.q_p, plan.s_blk, plan.u_end)
+    for steps in (1, 3, 12, 15):
+        kw = dict(radius=0.01, k=16, window=plan.window, growth_steps=steps)
+        got, got_steps = Q.growth_query_kernel(*args, **kw)
+        ref, ref_steps = Q.growth_query_plain(*args, **kw)
+        assert torch.equal(got, ref) and torch.equal(got_steps, ref_steps)
+        assert int(ref_steps.max()) > 0
+    t = torch.from_numpy(pts).to(cuda_device)
+    db = t[:, ::3].contiguous()
+    g_k = D.build_dense_graph(db, t, 0.01, 16, None, window=512,
+                              growth_steps=12)
+    g_p = D.build_dense_graph(db, t, 0.01, 16, None, window=512,
+                              growth_steps=12, use_kernels=False)
+    assert torch.equal(g_k.packed, g_p.packed)
+    assert bool(g_k.ok) == bool(g_p.ok)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_conv_and_pool_kernels_match_plain_on_cuda(cuda_device, dtype):
+    """K3 at the S3DIS widths C_in = 512 and 1024 (r = 2), K4 at C = 512
+    (values and first attaining column)."""
+    pts = _cloud(n=700, b=3, seed=2)
+    t, intra, pool = _graphs(pts, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for c in (512, 1024):
+        x = torch.randn(3, 700, c, device=cuda_device, generator=gen).to(dtype)
+        filt_b, inv = D.conv_operands(
+            x, torch.randn(33, c, 2, device=cuda_device, generator=gen),
+            intra)
+        a = (intra.packed, intra.s_blk, x, filt_b, inv)
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        torch.testing.assert_close(D.dense_conv_kernel(*a).float(),
+                                   D.dense_conv_plain(*a).float(),
+                                   rtol=tol, atol=tol)
+    x = torch.randn(3, 700, 512, device=cuda_device, generator=gen).to(dtype)
+    a = (pool.packed, pool.s_blk, D.pool_counts(pool), x)
+    assert torch.equal(D.rank_pool_kernel(*a), D.rank_pool_plain(*a))
+    out, arg = D.rank_pool_kernel(*a, with_arg=True)
+    out_p, arg_p = D.rank_pool_plain(*a, with_arg=True)
+    assert torch.equal(out, out_p) and torch.equal(arg, arg_p)
