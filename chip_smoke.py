@@ -33,7 +33,8 @@ at the encoder levels): the vote augmentation rotates each cloud about
 z, and the ``"plain"`` windows (1536/896/640), calibrated on unrotated
 ellipsoids, do not cover every rotated copy (level-0 slabs of up to 1579
 rows were measured on these very votes), so the certificate would fail
-and the eval entry raise. Weights do not depend on the windows.
+and those votes re-run on the per-edge engine (phase 15 serves them so).
+Weights do not depend on the windows.
 
 Then the train phases, on the default ``"plain"`` windows of
 ``modelnet_config(fast=True, dense=True)`` (the JAX bench's training
@@ -92,9 +93,39 @@ blocks (the port's ``scene_blocks``):
     time (CUDA events, median of 5), points/s and blocks/s;
 13. profile of the S3DIS forward (:func:`report_trace`).
 
+Then the per-edge engine of ``modelnet_config(fast=True)`` (the JAX
+package's classic fallback: bf16, axis sort, edge lists; the same
+architecture and width, seeded weights), at B=16, N=10000:
+
+14. per-kernel parity and timing: the 9 edge gathers (K8) of one plain
+    forward, replayed through kernel and plain version (bitwise equal);
+15. the dense engine's fallback: ``modelnet_config(fast=True, dense=True)``
+    with its default windows on the same weights serves phase 4's 2
+    batches x 3 votes through ``checked_forward`` and ``vote_classify``;
+    the number of votes that fell back, each fallback's logits equal to a
+    direct per-edge forward, launches per vote (the dense engine's, plus
+    3 FPS and 9 K8 for a vote that fell back);
+16. the per-edge forward: launches 3 FPS and 9 K8 per forward, kernel vs
+    plain logits (within 1% of the largest |logit|), forward time (CUDA
+    events, median of 5), the sphere query's time per level, peak device
+    memory, profile;
+17. the per-edge train step: the K8 and K9 calls of one plain bf16 step
+    and the K9 calls of one plain f32 step replayed (K9 within
+    ``K9_TOL``), kernel step vs plain step (f32 and bf16, as phase 7),
+    two kernel steps bitwise equal, 10 steps (launches 3 FPS, 9 K8, 9 K9
+    per step, loss falling), step time and peak device memory;
+18. profile of the per-edge train step;
+19. ``fit()``'s recovery: a batch with half its clouds rotated about z
+    fails the default windows' certificate in a dense train step; the
+    batch is re-run from the pre-step state through
+    ``StepFactory.classic_fallback()``, which must leave the dense model's
+    parameters and statistics bitwise equal to a separate per-edge step
+    from the same state (under ``torch.use_deterministic_algorithms``).
+
 Every kernel's line in the per-kernel JSON carries its summed times,
 errors and launches from one path (``path``: the S3DIS serving forward
-for K1-K4 and K7, the ModelNet train step for K5 and K6), its bound
+for K1-K4 and K7, the ModelNet train step for K5 and K6, the per-edge
+forward for K8, the per-edge train step for K9), its bound
 (``bound_ms``: per replayed call the larger of its bytes over the card's
 memory rate and its operations over the f32 rate, summed; ``bound_by``
 names the side that binds most of that sum) and ``library_ms``, the time
@@ -115,6 +146,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import collections  # noqa: E402
+import copy  # noqa: E402
 import dataclasses  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
@@ -145,6 +177,23 @@ S3_BLOCKS, S3_P = 32, 10000         # served blocks and their points
 S3_PLAIN_REPS = 1                   # the plain versions of the S3DIS replay
 PER_SEG_FORWARD = {"fps": 4, "dense_query": 12, "growth_query": 4,
                    "dense_conv": 16, "rank_pool": 4}
+# the per-edge (windowed) engine: per level 2 conv gathers and 1 pool
+# gather (K8), each with its backward (K9) in training
+PER_WIN_FORWARD = {"fps": 3, "window_gather": 9}
+PER_WIN_STEP = dict(PER_WIN_FORWARD, window_gather_bwd=9)
+WIN_STEPS = 10
+# K9 against its plain version (index_add_, float atomics): f32 sums in
+# another order (rtol, and atol of the largest magnitude); bf16 one
+# rounding of such sums (2^-7 relative at worst)
+K9_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2.0 ** -7, 1e-5)}
+# the path whose run gives each kernel's launches and times in the JSON line
+PATH_OF = {"fps": "s3dis_serve", "dense_query": "s3dis_serve",
+           "dense_conv": "s3dis_serve", "rank_pool": "s3dis_serve",
+           "growth_query": "s3dis_serve",
+           "dense_conv_bwd": "modelnet_train_step",
+           "rank_pool_bwd": "modelnet_train_step",
+           "window_gather": "modelnet_per_edge_serve",
+           "window_gather_bwd": "modelnet_per_edge_train_step"}
 # the card's published rates (H100 SXM data sheet): device memory, and
 # float32 outside the tensor cores (every kernel here computes in f32 or
 # integer arithmetic on the CUDA cores)
@@ -165,6 +214,10 @@ SOURCES = {
                       "sph3d_gcn_tpu/ops/dense.py:2035"),
     "growth_query": ("sph3d_gcn_torch/csrc/growth_query.cu",
                      "sph3d_gcn_tpu/ops/pallas/query_kernel.py:307"),
+    "window_gather": ("sph3d_gcn_torch/csrc/window_gather.cu",
+                      "sph3d_gcn_tpu/ops/windowed.py:59"),
+    "window_gather_bwd": ("sph3d_gcn_torch/csrc/window_gather_bwd.cu",
+                          "sph3d_gcn_tpu/ops/windowed.py:71"),
 }
 
 
@@ -221,11 +274,20 @@ def conv_grads_close(got: tuple, ref: tuple) -> None:
         atol=DFILT_TOL * dfilt_p.abs().max().item())
 
 
+def window_bwd_close(got: tuple, ref: tuple) -> None:
+    """K9 within K9_TOL of its plain version (by dtype)."""
+    (dx,), (dx_p,) = got, ref
+    rtol, atol = K9_TOL[dx.dtype]
+    torch.testing.assert_close(dx.float(), dx_p.float(), rtol=rtol,
+                               atol=atol * dx_p.abs().max().item())
+
+
 def versions():
     """Per kernel: (kernel wrapper, plain version, comparison)."""
     from sph3d_gcn_torch.ops import dense as D
     from sph3d_gcn_torch.ops import query as Q
     from sph3d_gcn_torch.ops import sample as S
+    from sph3d_gcn_torch.ops import windowed as W
 
     return {
         "fps": (S.farthest_point_sample_kernel,
@@ -238,6 +300,10 @@ def versions():
         "rank_pool_bwd": (D.rank_pool_bwd_kernel, D.rank_pool_bwd_plain,
                           exact),
         "growth_query": (Q.growth_query_kernel, Q.growth_query_plain, exact),
+        "window_gather": (W.window_gather_kernel, W.window_gather_plain,
+                          exact),
+        "window_gather_bwd": (W.window_gather_bwd_kernel,
+                              W.window_gather_bwd_plain, window_bwd_close),
     }
 
 
@@ -310,14 +376,64 @@ def work(name: str, args: tuple, kw: dict) -> tuple[int, int]:
         out = dnbh.num_query * x.shape[0] * x.shape[2] * x.element_size()
         return (nbytes(x, dnbh.packed, dnbh.count) + out,
                 2 * nnz * x.shape[2] + out // x.element_size())
+    if name == "window_gather":
+        # a copy: no arithmetic; the idx of the valid lanes only, the whole
+        # padded (B, M_pad, K, C) output (its zero lanes are outputs too)
+        x, idx, count = args
+        m_pad = -(-idx.shape[1] // 128) * 128
+        out = x.shape[0] * m_pad * idx.shape[2] * x.shape[2]
+        return (nbytes(x, count) + idx.element_size() * valid_edges(name, args)
+                + out * x.element_size(), 0)
+    if name == "window_gather_bwd":
+        # the valid edges' gradient rows and list entries only (invalid
+        # lanes and padded rows add nothing); one add per edge and channel
+        dg, order, starts, num_in = args
+        n_valid = valid_edges(name, args)
+        out = dg.shape[0] * num_in * dg.shape[3] * dg.element_size()
+        return (n_valid * (dg.shape[3] * dg.element_size()
+                           + order.element_size()) + nbytes(starts) + out,
+                n_valid * dg.shape[3])
     raise KeyError(name)
+
+
+def valid_edges(name: str, args: tuple) -> int:
+    """The valid (k < count) edges of a recorded edge gather or its
+    backward."""
+    if name == "window_gather":
+        return int(args[2].sum().item())
+    return int(args[2][-1].item())
 
 
 def library_call(name: str, args: tuple, kw: dict):
     """One PyTorch call computing the same function, as a thunk, or None
     where PyTorch has none (no PyTorch call reads packed window maps). For
     the pool backward it is the ``scatter_add_`` of the plain version, its
-    flat row indices computed beforehand (not timed)."""
+    flat row indices computed beforehand (not timed); for K8
+    ``torch.gather`` with the lane mask; for K9 ``index_add_`` of every
+    edge row into its target (invalid edges into a spare row), in the
+    gradient's dtype, its per-edge targets computed beforehand."""
+    if name == "window_gather":
+        x, idx, count = args
+        m_pad = -(-idx.shape[1] // 128) * 128
+        pad = (0, 0, 0, m_pad - idx.shape[1])
+        idx_p = torch.nn.functional.pad(idx, pad)
+        valid = (torch.arange(idx.shape[2], device=idx.device)
+                 < torch.nn.functional.pad(count, pad[2:])[..., None])
+        flat = idx_p.reshape(x.shape[0], -1, 1).expand(-1, -1, x.shape[2])
+        mask = valid.reshape(x.shape[0], -1, 1)
+        return lambda: torch.where(mask, torch.gather(x, 1, flat), 0)
+    if name == "window_gather_bwd":
+        dg, order, starts, num_in = args
+        rows = dg.shape[0] * num_in
+        n_valid = int(starts[-1].item())
+        target = torch.full((order.numel(),), rows, dtype=torch.int64,
+                            device=dg.device)
+        target[order[:n_valid].long()] = torch.repeat_interleave(
+            torch.arange(rows, device=dg.device), starts.diff().long())
+        src = dg.reshape(-1, dg.shape[3])
+        dx = torch.zeros((rows + 1, dg.shape[3]), dtype=dg.dtype,
+                         device=dg.device)
+        return lambda: dx.index_add_(0, target, src)
     if name != "rank_pool_bwd":
         return None
     s_blk, arg, dout, num_in, _ = args
@@ -347,6 +463,16 @@ def describe(name: str, args: tuple, kw: dict) -> str:
     if name == "mean_interpolate":
         return (f"C={args[0].shape[2]} M={args[1].num_query} "
                 f"W={args[1].window}")
+    if name == "window_gather":
+        lanes = args[0].shape[0] * (-(-args[1].shape[1] // 128) * 128) \
+            * args[1].shape[2]
+        return (f"{str(args[0].dtype)[6:]} C={args[0].shape[2]} "
+                f"N={args[0].shape[1]} M={args[1].shape[1]} valid "
+                f"{valid_edges(name, args) / lanes:.3f}")
+    if name == "window_gather_bwd":
+        return (f"{str(args[0].dtype)[6:]} C={args[0].shape[3]} "
+                f"N={args[3]} M_pad={args[0].shape[1]} valid "
+                f"{valid_edges(name, args) / args[1].numel():.3f}")
     w = args[0].shape[-1]
     if name in ("dense_conv", "dense_conv_bwd"):
         return f"C={args[2].shape[2]} r={args[3].shape[3]} W={w}"
@@ -552,6 +678,69 @@ def report_trace(events: list, what: str, reps: int,
               flush=True)
 
 
+def leaf_errors(got: dict, ref: dict) -> dict:
+    """Relative L2 error of each gradient leaf."""
+    return {k: ((got[k] - ref[k]).norm() / ref[k].norm()).item()
+            for k in ref}
+
+
+def compare_steps(grads_of, factory, model32, what: str) -> None:
+    """One kernel step against one plain step from the same state, batch
+    and dropout seed: the bf16 loss within LOSS_TOL; with f32 activations
+    every gradient leaf within GRAD_TOL; each bf16 kernel leaf's error
+    against the f32 plain gradients within BF16_GRAD_SLACK x the bf16
+    plain leaf's plus BF16_GRAD_ATOL. ``grads_of(step)`` gives (metrics,
+    gradients) of one step from the fixed state; ``factory(use_kernels,
+    net)`` makes a step on ``net`` (default: the served bf16 model)."""
+    m_k, g_k = grads_of(factory(None))
+    m_p, g_p = grads_of(factory(False))
+    _, g_k32 = grads_of(factory(None, model32))
+    _, g_p32 = grads_of(factory(False, model32))
+    loss_k, loss_p = m_k["loss"].item(), m_p["loss"].item()
+    e32 = leaf_errors(g_k32, g_p32)
+    e_k, e_p = leaf_errors(g_k, g_p32), leaf_errors(g_p, g_p32)
+    e_kp = leaf_errors(g_k, g_p)
+    bound = {k: BF16_GRAD_SLACK * e_p[k] + BF16_GRAD_ATOL for k in e_p}
+    print(f"{what} kernel vs plain: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(bf16); relative L2 error per gradient leaf, max / median over "
+          f"{len(e32)} leaves: f32 kernel vs f32 plain "
+          f"{max(e32.values()):.3g} / {float(np.median(list(e32.values()))):.3g} "
+          f"(tolerance {GRAD_TOL}); bf16 kernel vs bf16 plain "
+          f"{max(e_kp.values()):.3g} / "
+          f"{float(np.median(list(e_kp.values()))):.3g}; against the f32 "
+          f"gradients: bf16 kernel {max(e_k.values()):.3g}, bf16 plain "
+          f"{max(e_p.values()):.3g} (tolerance per leaf "
+          f"{BF16_GRAD_SLACK} x plain's + {BF16_GRAD_ATOL})", flush=True)
+    for k in sorted(e_kp, key=e_kp.get, reverse=True)[:5]:
+        print(f"  bf16 kernel vs plain {e_kp[k]:.3g}, vs f32: kernel "
+              f"{e_k[k]:.3g} plain {e_p[k]:.3g}  {k}", flush=True)
+    if abs(loss_k - loss_p) > LOSS_TOL * abs(loss_p):
+        raise AssertionError(f"{what}: loss {loss_k} vs plain {loss_p}")
+    bad = [k for k in e32 if not e32[k] <= GRAD_TOL]
+    bad += [k for k in e_k if not e_k[k] <= bound[k]]
+    if bad:
+        raise AssertionError(f"{what}: gradient leaves out of tolerance: "
+                             f"{bad}")
+
+
+def check_bitwise_steps(grads_of, kernel_step, what: str) -> None:
+    """Two kernel steps from the same state give bitwise-equal loss and
+    gradients under ``torch.use_deterministic_algorithms(True)``."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        m_1, g_1 = grads_of(kernel_step)
+        m_2, g_2 = grads_of(kernel_step)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = [k for k in g_1 if torch.equal(g_1[k], g_2[k])]
+    print(f"determinism{what}: {len(same)} of {len(g_1)} gradient leaves "
+          f"bitwise equal over two kernel steps, loss "
+          f"{'equal' if torch.equal(m_1['loss'], m_2['loss']) else 'differs'}"
+          f" (torch.use_deterministic_algorithms(True))", flush=True)
+    if len(same) != len(g_1) or not torch.equal(m_1["loss"], m_2["loss"]):
+        raise AssertionError("two kernel steps gave different gradients")
+
+
 def train_phases(dev: torch.device, res: Results) -> dict[str, int]:
     """Phases 6-10 (see the module docstring). Returns the launch counts
     of the 20-step run."""
@@ -596,10 +785,6 @@ def train_phases(dev: torch.device, res: Results) -> dict[str, int]:
         return metrics, {k: p.grad.clone()
                          for k, p in step.model.named_parameters()}
 
-    def leaf_errors(got, ref):
-        return {k: ((got[k] - ref[k]).norm() / ref[k].norm()).item()
-                for k in ref}
-
     plain_step, kernel_step = factory(False), factory(None)
     print(f"train step: plain windows {list(cfg.windows)}, B={B} N={N}, "
           f"Adam on the staircase schedule, weight decay "
@@ -619,50 +804,11 @@ def train_phases(dev: torch.device, res: Results) -> dict[str, int]:
     # anchored to the f32 gradients
     model32 = SPH3DModelNet(dataclasses.replace(
         cfg, compute_dtype="float32")).to(dev)
-    m_k, g_k = grads_of(kernel_step)
-    m_p, g_p = grads_of(plain_step)
-    _, g_k32 = grads_of(factory(None, model32))
-    _, g_p32 = grads_of(factory(False, model32))
+    compare_steps(grads_of, factory, model32, "train step")
     del model32
-    loss_k, loss_p = m_k["loss"].item(), m_p["loss"].item()
-    e32 = leaf_errors(g_k32, g_p32)
-    e_k, e_p = leaf_errors(g_k, g_p32), leaf_errors(g_p, g_p32)
-    e_kp = leaf_errors(g_k, g_p)
-    bound = {k: BF16_GRAD_SLACK * e_p[k] + BF16_GRAD_ATOL for k in e_p}
-    print(f"train step kernel vs plain: loss {loss_k:.6f} vs {loss_p:.6f} "
-          f"(bf16); relative L2 error per gradient leaf, max / median over "
-          f"{len(e32)} leaves: f32 kernel vs f32 plain "
-          f"{max(e32.values()):.3g} / {float(np.median(list(e32.values()))):.3g} "
-          f"(tolerance {GRAD_TOL}); bf16 kernel vs bf16 plain "
-          f"{max(e_kp.values()):.3g} / "
-          f"{float(np.median(list(e_kp.values()))):.3g}; against the f32 "
-          f"gradients: bf16 kernel {max(e_k.values()):.3g}, bf16 plain "
-          f"{max(e_p.values()):.3g} (tolerance per leaf "
-          f"{BF16_GRAD_SLACK} x plain's + {BF16_GRAD_ATOL})", flush=True)
-    for k in sorted(e_kp, key=e_kp.get, reverse=True)[:5]:
-        print(f"  bf16 kernel vs plain {e_kp[k]:.3g}, vs f32: kernel "
-              f"{e_k[k]:.3g} plain {e_p[k]:.3g}  {k}", flush=True)
-    if abs(loss_k - loss_p) > LOSS_TOL * abs(loss_p):
-        raise AssertionError(f"loss {loss_k} vs plain {loss_p}")
-    bad = [k for k in e32 if not e32[k] <= GRAD_TOL]
-    bad += [k for k in e_k if not e_k[k] <= bound[k]]
-    if bad:
-        raise AssertionError(f"gradient leaves out of tolerance: {bad}")
 
     # 8. determinism: bitwise-equal gradients of two kernel steps
-    torch.use_deterministic_algorithms(True)
-    try:
-        m_1, g_1 = grads_of(kernel_step)
-        m_2, g_2 = grads_of(kernel_step)
-    finally:
-        torch.use_deterministic_algorithms(False)
-    same = [k for k in g_1 if torch.equal(g_1[k], g_2[k])]
-    print(f"determinism: {len(same)} of {len(g_1)} gradient leaves bitwise "
-          f"equal over two kernel steps, loss "
-          f"{'equal' if torch.equal(m_1['loss'], m_2['loss']) else 'differs'}"
-          f" (torch.use_deterministic_algorithms(True))", flush=True)
-    if len(same) != len(g_1) or not torch.equal(m_1["loss"], m_2["loss"]):
-        raise AssertionError("two kernel steps gave different gradients")
+    check_bitwise_steps(grads_of, kernel_step, "")
 
     # 9. steps on the fixed batch
     model.load_state_dict(state0)
@@ -834,22 +980,342 @@ def s3dis_phases(dev: torch.device, res: Results) -> dict[str, int]:
     return launches
 
 
-def kernel_lines(s3: tuple, train: tuple, others: tuple) -> dict:
+def windowed_phases(dev: torch.device, batches: list[np.ndarray],
+                    res_fwd: Results, res_step: Results
+                    ) -> tuple[dict, dict]:
+    """Phases 14-19 (see the module docstring): the per-edge engine of
+    ``modelnet_config(fast=True)`` and the dense engine's fallback to it;
+    ``batches`` are the vote-serving batches of phase 4. Returns the
+    launch counts of the per-edge serving run and of the per-edge train
+    run."""
+    from sph3d_gcn_torch import _build, kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.configs import modelnet_config
+    from sph3d_gcn_torch.data import augment as aug
+    from sph3d_gcn_torch.data.synthetic import surface_clouds
+    from sph3d_gcn_torch.models import SPH3DModelNet
+    from sph3d_gcn_torch.models.common import classic_clone
+    from sph3d_gcn_torch.ops import windowed as W
+    from sph3d_gcn_torch.ops.neighbor import build_sphere_neighbor_and_bins
+    from sph3d_gcn_torch.train.eval import checked_forward, vote_classify
+    from sph3d_gcn_torch.train.schedule import (
+        exponential_decay_lr,
+        make_optimizer,
+    )
+    from sph3d_gcn_torch.train.steps import classification_step_factory
+
+    cfg = modelnet_config(fast=True)
+    gen = torch.Generator().manual_seed(4)
+    model = SPH3DModelNet(cfg, generator=gen)
+    randomize_bn(model, gen)
+    model = model.to(dev).eval()
+    levels = range(len(cfg.radius))
+    print(f"per-edge engine: modelnet_config(fast=True), B={B} N={N}, conv "
+          f"windows {[cfg.enc_window(lv) for lv in levels]} / pool "
+          f"{[cfg.pool_window(lv) for lv in levels]} (the kernels do not "
+          f"depend on them)", flush=True)
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(surface_clouds(rng, B, N)).to(dev)
+
+    def gathers(calls, names=("window_gather", "window_gather_bwd")):
+        return [c for c in calls if c[0] in names]
+
+    # 14. per-kernel parity: one plain forward's K8 calls
+    print("per-kernel parity, per-edge forward (times: median of CUDA "
+          "events)", flush=True)
+    with _build.record_calls() as calls, torch.inference_mode():
+        model(x, use_kernels=False)
+    replay(gathers(calls), res_fwd, {"window_gather": 9})
+    res_fwd.summary("ModelNet per-edge forward")
+    del calls
+
+    # 15. the dense engine's fallback: default-window vote serving
+    dense = SPH3DModelNet(modelnet_config(fast=True, dense=True)).to(dev)
+    dense.load_state_dict(model.state_dict())
+    dense.eval()
+    clone = classic_clone(dense)
+    checked = checked_forward(dense, dev)
+    fell, per_vote = [], []
+
+    def forward(points):
+        reset_kernel_launches()
+        logits = checked(points)
+        launches = kernel_launches()
+        back = not bool(dense.dense_ok)
+        fell.append(back)
+        per_vote.append(launches["window_gather"])
+        want = dict(PER_FORWARD, window_gather=0)
+        if back:
+            want["fps"] += PER_WIN_FORWARD["fps"]
+            want["window_gather"] = PER_WIN_FORWARD["window_gather"]
+            with torch.inference_mode():
+                direct = clone(torch.as_tensor(points, device=dev))
+            if not np.array_equal(direct.float().cpu().numpy(), logits):
+                raise AssertionError("fallback logits != direct per-edge "
+                                     "forward")
+        got = {k: launches.get(k, 0) for k in want}
+        if got != want:
+            raise AssertionError(f"vote launches {got}, want {want}")
+        return logits
+
+    t0 = time.perf_counter()
+    for bi, batch in enumerate(batches):
+        votes = vote_classify(forward, batch, num_votes=VOTES,
+                              rng=np.random.default_rng(100 + bi))
+        if votes.shape != (B, cfg.num_cls) or not np.isfinite(votes).all():
+            raise AssertionError(f"bad vote logits {votes.shape}")
+    wall = time.perf_counter() - t0
+    print(f"default-window vote serving: {BATCHES} batches x {VOTES} votes, "
+          f"{sum(fell)} of {len(fell)} forwards fell back to the per-edge "
+          f"engine (votes {[i for i, f in enumerate(fell) if f]}), each "
+          f"fallback's logits equal to a direct per-edge forward on the "
+          f"same weights, K8 launches per vote {per_vote}; {wall:.3f} s "
+          f"host clock", flush=True)
+    if not any(fell[1:VOTES]) and not any(fell[VOTES + 1:]):
+        raise AssertionError("no rotated vote fell back: the fallback "
+                             "was not exercised")
+    del dense, clone, checked
+
+    # 16. the per-edge forward through the kernels
+    reset_kernel_launches()
+    n_fwd = 4
+    with torch.inference_mode():
+        for _ in range(n_fwd):
+            got = model(x)
+        torch.cuda.synchronize()
+        fwd_launches = kernel_launches()
+        ref = model(x, use_kernels=False)
+        fwd_ms = median_ms(lambda: model(x))
+        plain_fwd_ms = median_ms(lambda: model(x, use_kernels=False),
+                                 reps=3)
+    print(f"launches over {n_fwd} per-edge forwards: {fwd_launches}",
+          flush=True)
+    for name, per in PER_WIN_FORWARD.items():
+        if fwd_launches[name] != per * n_fwd:
+            raise AssertionError(f"{name}: {fwd_launches[name]} launches, "
+                                 f"want {per} per forward")
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"per-edge kernel vs plain logits: max_abs_err {diff:.4g}, argmax "
+          f"agreement {agree:.4f} (|logits| <= {scale:.3g}, tolerance "
+          f"{LOGIT_TOL:g} of that)", flush=True)
+    torch.testing.assert_close(got, ref, rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL * scale)
+    # the sphere query with bins of each level, alone (the levels' clouds
+    # stand in as prefixes of the batch: the query's cost is in N and M)
+    query_ms = []
+    with torch.inference_mode():
+        for lv in levels:
+            pts = x[:, :N // 4 ** lv].contiguous()
+            query_ms.append(median_ms(lambda: build_sphere_neighbor_and_bins(
+                pts, pts, cfg.radius[lv], cfg.nn_uplimit[lv], cfg.kernel)))
+    print(f"per-edge sphere query + bins per level: "
+          f"{[round(t, 3) for t in query_ms]} ms, {sum(query_ms):.2f} ms "
+          f"per forward (CUDA events, median)", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        model(x)
+    torch.cuda.synchronize()
+    fwd_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"per-edge forward B={B} N={N}: {fwd_ms:.2f} ms "
+          f"({B * N / fwd_ms * 1e3:.0f} points/s) with kernels, "
+          f"{plain_fwd_ms:.2f} ms with the plain versions (CUDA events, "
+          f"median); peak device memory {fwd_peak:.2f} GiB", flush=True)
+    profile_forward(model, x, "per-edge")
+
+    # 17. the per-edge train step
+    model.train()
+    labels = torch.from_numpy(np.random.default_rng(31).integers(
+        0, cfg.num_cls, (B,)).astype(np.int64)).to(dev)
+    batch = {"points": x, "label": labels}
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def factory(use_kernels, net=model):
+        opt, sch = make_optimizer(
+            net.parameters(), "adam",
+            exponential_decay_lr(0.001, batch_size=B))
+        return classification_step_factory(
+            net, opt, sch, weight_decay=cfg.weight_decay,
+            use_kernels=use_kernels)
+
+    def dropout_gen():
+        return torch.Generator(device=dev).manual_seed(5)
+
+    def grads_of(step):
+        step.model.load_state_dict(state0)
+        metrics = step.loss_and_grads(batch, dropout_gen())
+        return metrics, {k: p.grad.clone()
+                         for k, p in step.model.named_parameters()}
+
+    model32 = SPH3DModelNet(dataclasses.replace(
+        cfg, compute_dtype="float32")).to(dev)
+    print("per-kernel parity, per-edge train step (K8 and K9 calls of one "
+          "plain bf16 step, then K9 of one plain f32 step)", flush=True)
+    model.load_state_dict(state0)
+    with _build.record_calls() as calls:
+        factory(False).loss_and_grads(batch, dropout_gen())
+    replay(gathers(calls), res_step,
+           {"window_gather": 9, "window_gather_bwd": 9})
+    # the backward's inverse edge lists: one build per neighbourhood (a
+    # level's two convs share theirs), timed alone
+    nbhs = {id(args[1]): args for name, args, _ in calls
+            if name == "window_gather"}
+    built = {id(args[1]) for name, args, _ in calls
+             if name == "window_gather_bwd"}
+    if len(nbhs) != 6 or len(built) != len(nbhs):
+        raise AssertionError(f"{len(built)} edge-list builds for "
+                             f"{len(nbhs)} neighbourhoods, want 6 and 6")
+    lists_ms = [median_ms(lambda a=a: W.edge_lists(a[1], a[2],
+                                                   a[0].shape[1]))
+                for a in nbhs.values()]
+    print(f"inverse edge lists: {len(built)} builds per step, "
+          f"{[round(t, 3) for t in lists_ms]} ms, {sum(lists_ms):.3f} ms "
+          f"per step (CUDA events, median)", flush=True)
+    model32.load_state_dict(state0)
+    with _build.record_calls() as calls:
+        factory(False, model32).loss_and_grads(batch, dropout_gen())
+    res32 = Results()
+    replay(gathers(calls, ("window_gather_bwd",)), res32,
+           {"window_gather_bwd": 9})
+    res_step.err["window_gather_bwd"] = max(
+        res_step.err["window_gather_bwd"], res32.err["window_gather_bwd"])
+    res_step.summary("ModelNet per-edge train step (bf16)")
+    res32.summary("K9 of the per-edge f32 train step")
+    del calls
+
+    compare_steps(grads_of, factory, model32, "per-edge train step")
+    del model32
+    check_bitwise_steps(grads_of, factory(None), " (per-edge)")
+
+    model.load_state_dict(state0)
+    step = factory(None)
+    gen = dropout_gen()
+    step.train_step(batch, gen)            # warm-up
+    model.load_state_dict(state0)
+    step = factory(None)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    for _ in range(WIN_STEPS):
+        t0 = time.perf_counter()
+        metrics = step.train_step(batch, gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    step_launches = kernel_launches()
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = torch.stack(losses).cpu()
+    print(f"{WIN_STEPS} per-edge train steps: loss {loss[0].item():.4f} -> "
+          f"{loss[-1].item():.4f}; launches {step_launches}", flush=True)
+    for name, per in PER_WIN_STEP.items():
+        if step_launches[name] != per * WIN_STEPS:
+            raise AssertionError(f"{name}: {step_launches[name]} launches, "
+                                 f"want {per} per step")
+    if not torch.isfinite(loss).all() or not loss[-1] < loss[0]:
+        raise AssertionError(f"loss did not fall: {loss.tolist()}")
+    step_ms = float(np.median(times)) * 1e3
+    model.load_state_dict(state0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    factory(False).train_step(batch, dropout_gen())
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"per-edge train step B={B} N={N}: {step_ms:.2f} ms median of "
+          f"{WIN_STEPS} (host clock, synchronised; "
+          f"{B * N / step_ms * 1e3:.0f} points/s) with kernels, "
+          f"{plain_ms:.2f} ms for one step with the plain versions; peak "
+          f"device memory {step_peak:.2f} GiB", flush=True)
+
+    # 18. profile of the per-edge train step
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    reps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(1 + reps):
+            with record_function("train_step"):
+                step.train_step(batch, gen)
+                torch.cuda.synchronize()
+    report_trace(trace_events(prof), "per-edge train step", reps,
+                 span="train_step")
+
+    # 19. fit()'s recovery: a half-rotated batch fails the dense
+    # certificate; the batch is re-run from the pre-step state through
+    # StepFactory.classic_fallback(), on the dense model's parameters
+    dense = SPH3DModelNet(modelnet_config(fast=True, dense=True)).to(dev)
+    dense.load_state_dict(state0)
+    # the JAX policy rotates half of a batch about z; draw rotations until
+    # one leaves a cloud outside the default windows (a certificate costs
+    # one inference forward)
+    for tries, seed in enumerate(range(32, 64), 1):
+        rot = x.cpu().numpy().copy()
+        rot[B // 2:] = aug.rotate_point_cloud(rot[B // 2:],
+                                              np.random.default_rng(seed))
+        rot = torch.from_numpy(rot).to(dev)
+        with torch.inference_mode():
+            dense.eval()(rot)
+        if not bool(dense.dense_ok):
+            break
+    else:
+        raise AssertionError("no half-rotated batch failed the dense "
+                             "certificate: no fallback to exercise")
+    print(f"half-rotated batch: rotation seed {seed} fails the dense "
+          f"certificate ({tries} drawn)", flush=True)
+    rot_batch = {"points": rot, "label": labels}
+    dense_step = factory(None, dense)
+    snapshot = [copy.deepcopy(x.state_dict()) for x in
+                (dense, dense_step.optimizer, dense_step.scheduler)]
+    torch.use_deterministic_algorithms(True)
+    try:
+        if bool(dense_step.train_step(rot_batch,
+                                      dropout_gen())["dense_ok"]):
+            raise AssertionError("the half-rotated batch passed the dense "
+                                 "certificate: no fallback to exercise")
+        for x_, state in zip((dense, dense_step.optimizer,
+                              dense_step.scheduler), snapshot):
+            x_.load_state_dict(state)
+        fb = dense_step.classic_fallback()
+        reset_kernel_launches()
+        m_fb = fb.train_step(rot_batch, dropout_gen())
+        fb_launches = kernel_launches()
+        model.load_state_dict(state0)
+        m_ref = factory(None).train_step(rot_batch, dropout_gen())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    after = dense.state_dict()
+    same = [k for k, v in model.state_dict().items()
+            if torch.equal(v, after[k])]
+    print(f"fallback step on a half-rotated batch: dense certificate "
+          f"False, re-run through classic_fallback(): loss "
+          f"{m_fb['loss'].item():.6f} (a separate per-edge step from the "
+          f"same state: {m_ref['loss'].item():.6f}), {len(same)} of "
+          f"{len(state0)} parameters and statistics of the dense model "
+          f"bitwise equal to that step's; launches {fb_launches}",
+          flush=True)
+    if (not bool(m_fb["dense_ok"]) or len(same) != len(state0)
+            or any(fb_launches[k] != v for k, v in PER_WIN_STEP.items())):
+        raise AssertionError("the fallback step did not update the dense "
+                             "model as a per-edge step does")
+    return fwd_launches, step_launches
+
+
+def kernel_lines(runs: dict[str, tuple[Results, dict]],
+                 others: tuple) -> dict:
     """The per-kernel JSON object: each kernel's times, bound and launches
-    from the S3DIS serving path (K1-K4, K7) or the train step (K5, K6),
-    its largest error over every replay. ``s3`` and ``train`` are
-    (Results, launch counts); ``others`` more Results."""
+    from the one path of ``runs`` (path -> (Results, launch counts)) that
+    PATH_OF names for it, its largest error over every replay (``runs``
+    and ``others``, more Results)."""
+    every = [r for r, _ in runs.values()] + list(others)
     kernels = []
     for name, (src, rep) in SOURCES.items():
-        path = "s3dis_serve" if name in PER_SEG_FORWARD else (
-            "modelnet_train_step")
-        r, launches = s3 if name in PER_SEG_FORWARD else train
+        path = PATH_OF[name]
+        r, launches = runs[path]
         bound_ms, bound_by = r.bound(name)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "path": path, "launches": launches[name],
-            "max_abs_err": max(x.err[name]
-                               for x in (s3[0], train[0], *others)),
+            "max_abs_err": max(x.err[name] for x in every),
             "ms": r.ms[name], "plain_ms": r.plain_ms[name],
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": (r.library_ms[name] if name in r.has_library
@@ -980,9 +1446,17 @@ def main() -> None:
     res_s3 = Results()
     s3_launches = s3dis_phases(dev, res_s3)
 
-    print(json.dumps(kernel_lines(
-        (res_s3, s3_launches), (res_train, train_launches),
-        (res, res_plain_win))), flush=True)
+    # 14-19. the per-edge engine and the dense engine's fallback
+    res_win, res_win_step = Results(), Results()
+    win_launches, win_step_launches = windowed_phases(
+        dev, batches, res_win, res_win_step)
+
+    print(json.dumps(kernel_lines({
+        "s3dis_serve": (res_s3, s3_launches),
+        "modelnet_train_step": (res_train, train_launches),
+        "modelnet_per_edge_serve": (res_win, win_launches),
+        "modelnet_per_edge_train_step": (res_win_step, win_step_launches),
+    }, (res, res_plain_win))), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,17 +3,38 @@
 
 from __future__ import annotations
 
+import copy
+import dataclasses
+
 import torch
 from torch import nn
 
 from sph3d_gcn_torch.configs.base import SPH3DConfig
 from sph3d_gcn_torch.nn.layers import SeparableConv3d
 from sph3d_gcn_torch.ops.dense import DenseNeighborhood
+from sph3d_gcn_torch.ops.types import Neighborhood
+from sph3d_gcn_torch.ops.windowed import EdgeLists
 
 
 def compute_dtype(cfg: SPH3DConfig) -> torch.dtype:
     """The torch dtype of ``cfg.compute_dtype`` ('float32' | 'bfloat16')."""
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def classic_clone(model: nn.Module) -> nn.Module:
+    """The model on the SAME parameters and buffers with the dense engine
+    off (``dense_graph=False``): the per-edge engine, exact for every
+    cloud (counterpart of flax's ``model.clone(config=...)`` in
+    ``StepFactory.classic_fallback``). The clone shares the submodules, so
+    an update through either changes both; only ``config`` and the
+    per-forward attributes (``dense_ok``) are its own. A model already on
+    the per-edge engine is returned as it is. The forward of a clone whose
+    per-edge engine is not ported raises NotImplementedError."""
+    if not model.config.dense_graph:
+        return model
+    clone = copy.copy(model)      # shares _parameters, _buffers, _modules
+    clone.config = dataclasses.replace(model.config, dense_graph=False)
+    return clone
 
 
 def normalize_unit_sphere(points: torch.Tensor) -> torch.Tensor:
@@ -53,8 +74,17 @@ class SeparableConvBlock(nn.Module):
             ))
             c = num_out
 
-    def forward(self, net: torch.Tensor, nbh: DenseNeighborhood,
+    def forward(self, net: torch.Tensor,
+                nbh: DenseNeighborhood | Neighborhood,
+                filt_index: torch.Tensor | None = None,
+                window: int | None = None,
                 use_kernels: bool | None = None) -> torch.Tensor:
+        lists = None
+        if isinstance(nbh, Neighborhood) and window is not None:
+            # the convs gather through one neighborhood: one set of
+            # inverse edge lists for all their backwards
+            lists = EdgeLists(nbh.idx, nbh.count)
         for conv in self.children():
-            net = conv(net, nbh, use_kernels=use_kernels)
+            net = conv(net, nbh, filt_index, window=window, lists=lists,
+                       use_kernels=use_kernels)
         return net

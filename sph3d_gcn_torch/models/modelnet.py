@@ -1,13 +1,20 @@
-"""ModelNet40 classification network, dense engine (counterpart of
+"""ModelNet40 classification network (counterpart of
 ``sph3d_gcn_tpu/models/modelnet.py``).
 
 Axis sort -> unit-sphere normalization -> input MLP -> 3 levels of
-{dense sphere graph -> separable conv block -> FPS -> pool graph -> max
-pool} with xyz concatenated onto every level's input -> per-level global
-max features -> global centroid conv (radius 100, kernel (8,2,1), 17 bins)
+{sphere graph -> separable conv block -> FPS -> pool graph -> max pool}
+with xyz concatenated onto every level's input -> per-level global max
+features -> global centroid conv (radius 100, kernel (8,2,1), 17 bins)
 -> FC 512 -> dropout -> FC 256 -> dropout -> logits (ref
 SPH3D_modelnet.py:33-108). ``self.training`` drives batch-statistics BN
 and dropout (``model.train()`` / ``model.eval()``).
+
+Two engines, chosen by ``config.dense_graph`` as in JAX: the dense
+windowed engine (graphs as packed maps, certified by ``dense_ok``) and
+the per-edge engine (edge lists from the sphere query with fused bins,
+the pool graph gathered at the sorted FPS indices, convs and pools
+through the edge gather of ``ops/windowed.py`` at the config's windows,
+or the plain gather without windows). Both hold the same parameters.
 """
 
 from __future__ import annotations
@@ -23,8 +30,10 @@ from sph3d_gcn_torch.models.common import (
 )
 from sph3d_gcn_torch.nn.graph import (
     build_global_graph,
+    build_graph,
     build_graph_dense,
     build_pool_graph_dense,
+    gather_neighborhood,
     gather_points,
 )
 from sph3d_gcn_torch.nn.layers import (
@@ -35,7 +44,11 @@ from sph3d_gcn_torch.nn.layers import (
     pool3d,
 )
 from sph3d_gcn_torch.ops.kernelbin import spherical_kernel
-from sph3d_gcn_torch.ops.locality import permute_points, spatial_sort
+from sph3d_gcn_torch.ops.locality import (
+    permute_points,
+    sort_indices_small,
+    spatial_sort,
+)
 
 _GLOBAL_RADIUS = 100.0       # ref SPH3D_modelnet.py:86 (connects all points)
 _GLOBAL_KERNEL = (8, 2, 1)   # ref SPH3D_modelnet.py:89-90, binSize 17
@@ -47,17 +60,15 @@ class SPH3DModelNet(nn.Module):
     After each forward, ``dense_ok`` holds that forward's window-coverage
     certificate (a bool tensor): True iff every dense graph provably
     covered all in-range neighbors, so the logits equal the classic
-    per-edge engine's.
+    per-edge engine's; always True on the per-edge engine, which is
+    exact for every cloud (``models.common.classic_clone`` re-runs a
+    dense model there).
     """
 
     def __init__(self, config: SPH3DConfig,
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
         cfg = config
-        if not cfg.dense_graph:
-            raise NotImplementedError(
-                "only the dense engine is ported (dense_graph=True)"
-            )
         if cfg.sample != "FPS" or cfg.pool_method != "max":
             raise NotImplementedError("only FPS sampling and max pooling")
         self.config = cfg
@@ -117,29 +128,12 @@ class SPH3DModelNet(nn.Module):
         for level in range(len(cfg.radius)):
             if cfg.use_raw:
                 net = torch.cat([net, xyz.to(net.dtype)], dim=-1)
-            nbh, sample_idx = build_graph_dense(
-                xyz, cfg.radius[level], cfg.nn_uplimit[level],
-                cfg.num_sample[level], sample_method=cfg.sample,
-                kernel=cfg.kernel, window=cfg.enc_window(level),
-                use_kernels=use_kernels,
-            )
-            dense_ok = dense_ok & nbh.ok
-            net = getattr(self, f"conv{level + 1}")(
-                net, nbh, use_kernels=use_kernels
-            )
-            if cfg.num_sample[level] > 1:
-                # FPS indices come back sorted: the coarse cloud stays
-                # axis-sorted for the next dense level
-                xyz_coarse = gather_points(xyz, sample_idx)
-                inter = build_pool_graph_dense(
-                    xyz, xyz_coarse, cfg.radius[level],
-                    cfg.nn_uplimit[level], window=cfg.pool_window(level),
-                    use_kernels=use_kernels,
-                )
-                dense_ok = dense_ok & inter.ok
-                net = pool3d(net, inter, method=cfg.pool_method,
-                             use_kernels=use_kernels)
-                xyz = xyz_coarse
+            if cfg.dense_graph:
+                net, xyz, ok = self._dense_level(net, xyz, level,
+                                                 use_kernels)
+                dense_ok = dense_ok & ok
+            else:
+                net, xyz = self._classic_level(net, xyz, level, use_kernels)
             # multi-scale global max feature (ref SPH3D_modelnet.py:82-83);
             # amax splits the gradient evenly between tied maxima, as
             # jnp.max does (bf16 makes ties common)
@@ -156,6 +150,59 @@ class SPH3DModelNet(nn.Module):
         net = self.fc1_dp(self.fc1(net), generator)
         net = self.fc2_dp(self.fc2(net), generator)
         return self.logits(net)
+
+    def _dense_level(self, net, xyz, level, use_kernels):
+        """One level on the dense engine: (net, coarse xyz, the level's
+        certificate)."""
+        cfg = self.config
+        nbh, sample_idx = build_graph_dense(
+            xyz, cfg.radius[level], cfg.nn_uplimit[level],
+            cfg.num_sample[level], sample_method=cfg.sample,
+            kernel=cfg.kernel, window=cfg.enc_window(level),
+            use_kernels=use_kernels,
+        )
+        ok = nbh.ok
+        net = getattr(self, f"conv{level + 1}")(
+            net, nbh, use_kernels=use_kernels
+        )
+        if cfg.num_sample[level] > 1:
+            # FPS indices come back sorted: the coarse cloud stays
+            # axis-sorted for the next dense level
+            xyz_coarse = gather_points(xyz, sample_idx)
+            inter = build_pool_graph_dense(
+                xyz, xyz_coarse, cfg.radius[level],
+                cfg.nn_uplimit[level], window=cfg.pool_window(level),
+                use_kernels=use_kernels,
+            )
+            ok = ok & inter.ok
+            net = pool3d(net, inter, method=cfg.pool_method,
+                         use_kernels=use_kernels)
+            xyz = xyz_coarse
+        return net, xyz, ok
+
+    def _classic_level(self, net, xyz, level, use_kernels):
+        """One level on the per-edge engine: (net, coarse xyz)."""
+        cfg = self.config
+        nbh, filt_idx, sample_idx = build_graph(
+            xyz, cfg.radius[level], cfg.nn_uplimit[level],
+            cfg.num_sample[level], sample_method=cfg.sample,
+            kernel=cfg.kernel, use_kernels=use_kernels,
+        )
+        net = getattr(self, f"conv{level + 1}")(
+            net, nbh, filt_idx, window=cfg.enc_window(level),
+            use_kernels=use_kernels,
+        )
+        if cfg.num_sample[level] > 1:
+            if cfg.spatial_sort:
+                # ascending order keeps the coarse cloud axis-sorted
+                sample_idx = sort_indices_small(sample_idx)
+            xyz_coarse = gather_points(xyz, sample_idx)
+            inter = gather_neighborhood(nbh, sample_idx)
+            net = pool3d(net, inter, method=cfg.pool_method,
+                         window=cfg.pool_window(level),
+                         use_kernels=use_kernels)
+            xyz = xyz_coarse
+        return net, xyz
 
 
 def classification_item_loss(logits: torch.Tensor,

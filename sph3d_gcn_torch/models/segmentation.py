@@ -147,9 +147,7 @@ class SPH3DSceneSeg(nn.Module):
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
         cfg = config
-        if not cfg.dense_graph:
-            raise NotImplementedError(
-                "only the dense engine is ported (dense_graph=True)")
+        _require_dense(cfg)
         if cfg.sample != "FPS" or cfg.pool_method != "max":
             raise NotImplementedError("only FPS sampling and max pooling")
         if cfg.unpool_method != "mean":
@@ -170,8 +168,11 @@ class SPH3DSceneSeg(nn.Module):
                 use_kernels: bool | None = None) -> torch.Tensor:
         """``use_kernels``: None runs the CUDA kernels on a CUDA device and
         the plain versions on the CPU; False forces the plain versions
-        (for comparing the two)."""
+        (for comparing the two). Raises NotImplementedError on the
+        per-edge engine (``dense_graph=False``, as a classic clone has
+        it)."""
         cfg = self.config
+        _require_dense(cfg)
         if points.shape[1:] != (cfg.num_input, 3 + _IN_CHANNELS):
             raise ValueError(
                 f"expected (B, {cfg.num_input}, {3 + _IN_CHANNELS}) points, "
@@ -188,6 +189,15 @@ class SPH3DSceneSeg(nn.Module):
         logits = self.logits(net)
         # back to the caller's point order
         return logits if rank is None else permute_points(logits, rank)
+
+
+def _require_dense(cfg: SPH3DConfig) -> None:
+    # the per-edge engine (windowed unpool, decoder graphs with radius
+    # growth in the edge-list query, avg pool) is not ported yet
+    if not cfg.dense_graph:
+        raise NotImplementedError(
+            "SPH3DSceneSeg has no per-edge (classic) engine in the port "
+            "yet: only the dense engine (dense_graph=True)")
 
 
 def _nll_points(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Graph construction for the SPH3D pyramids (counterpart of
-``sph3d_gcn_tpu/nn/graph.py``: the dense encoder, pool and decoder graphs
-and the global graph)."""
+``sph3d_gcn_tpu/nn/graph.py``: the per-edge level graph, the dense
+encoder, pool and decoder graphs and the global graph)."""
 
 from __future__ import annotations
 
@@ -8,9 +8,37 @@ import torch
 
 from sph3d_gcn_torch.ops.dense import DenseNeighborhood, build_dense_graph
 from sph3d_gcn_torch.ops.locality import sort_indices_small
-from sph3d_gcn_torch.ops.neighbor import build_sphere_neighbor
+from sph3d_gcn_torch.ops.neighbor import (
+    build_sphere_neighbor,
+    build_sphere_neighbor_and_bins,
+)
 from sph3d_gcn_torch.ops.sample import farthest_point_sample
 from sph3d_gcn_torch.ops.types import Neighborhood
+
+
+def build_graph(
+    xyz: torch.Tensor,
+    radius: float,
+    nn_uplimit: int,
+    num_sample: int | None,
+    sample_method: str | None = None,
+    kernel: tuple[int, int, int] = (8, 2, 2),
+    use_kernels: bool | None = None,
+) -> tuple[Neighborhood, torch.Tensor, torch.Tensor | None]:
+    """Intra-level sphere graph with its spherical bins fused into the
+    query, plus FPS subsample indices in FPS order (ref
+    utils/sph3gcn_util.py:28-49). Returns (Neighborhood, filt_index,
+    sample_index or None). Only FPS is ported."""
+    if num_sample is not None and sample_method != "FPS":
+        raise NotImplementedError(
+            f"sampling method {sample_method!r} is not ported yet (FPS is)"
+        )
+    intra, filt = build_sphere_neighbor_and_bins(xyz, xyz, radius,
+                                                 nn_uplimit, kernel)
+    if num_sample is None:
+        return intra, filt, None
+    return intra, filt, farthest_point_sample(num_sample, xyz,
+                                              use_kernels=use_kernels)
 
 
 def build_graph_dense(
@@ -96,3 +124,13 @@ def gather_points(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Subsample along the point axis: (B, N, ...), (B, S) -> (B, S, ...)."""
     idx_b = idx.long().reshape(idx.shape + (1,) * (x.dim() - 2))
     return torch.gather(x, 1, idx_b.expand(idx.shape + x.shape[2:]))
+
+
+def gather_neighborhood(nbh: Neighborhood, idx: torch.Tensor) -> Neighborhood:
+    """Neighborhood rows at the sampled coarse points (the classic pooling
+    graph)."""
+    return Neighborhood(
+        idx=gather_points(nbh.idx, idx),
+        count=gather_points(nbh.count, idx),
+        dist=None if nbh.dist is None else gather_points(nbh.dist, idx),
+    )

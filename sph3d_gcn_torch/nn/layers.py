@@ -23,7 +23,9 @@ from sph3d_gcn_torch.ops.dense import (
     dense_max_pool3d,
     dense_mean_interpolate,
 )
+from sph3d_gcn_torch.ops.pool import max_pool3d
 from sph3d_gcn_torch.ops.types import Neighborhood
+from sph3d_gcn_torch.ops.windowed import EdgeLists
 
 
 def glorot_uniform(shape: tuple[int, ...],
@@ -152,8 +154,13 @@ class SeparableConv3d(_Dense):
         inputs: torch.Tensor,
         nbh: DenseNeighborhood | Neighborhood,
         filt_index: torch.Tensor | None = None,
+        window: int | None = None,
+        lists: EdgeLists | None = None,
         use_kernels: bool | None = None,
     ) -> torch.Tensor:
+        """``nbh`` a dense graph (bins in its maps), or an edge-list graph
+        with its ``filt_index`` bins, the per-edge engine's ``window``
+        (None: the plain gather) and the gather's shared ``lists``."""
         inputs = inputs.to(self.dtype)
         if isinstance(nbh, DenseNeighborhood):
             # bins live in the packed maps; the pointwise GEMM is folded in
@@ -164,7 +171,8 @@ class SeparableConv3d(_Dense):
         else:
             out = depthwise_conv3d(
                 inputs, self.depthwise_weights, nbh.idx, nbh.count,
-                filt_index,
+                filt_index, window=window, lists=lists,
+                use_kernels=use_kernels,
             )
             out = einsum_f32(
                 "bmc,co->bmo", out, self.weights.to(self.dtype)
@@ -215,16 +223,22 @@ class FullyConnected(_Dense):
 
 def pool3d(
     inputs: torch.Tensor,
-    nbh: DenseNeighborhood,
+    nbh: DenseNeighborhood | Neighborhood,
     method: str = "max",
+    window: int | None = None,
     use_kernels: bool | None = None,
 ) -> torch.Tensor:
-    """Pooling dispatch (ref utils/sph3gcn_util.py:276-297); dense max
-    pooling only for now."""
+    """Pooling dispatch (ref utils/sph3gcn_util.py:276-297): max pooling
+    from a dense graph or an edge-list graph (``window``: the per-edge
+    engine's gather; None: the plain gather)."""
     if method != "max":
         raise NotImplementedError(f"pooling method {method!r} is not ported")
-    out, _ = dense_max_pool3d(inputs, nbh, with_index=False,
-                              use_kernels=use_kernels)
+    if isinstance(nbh, DenseNeighborhood):
+        out, _ = dense_max_pool3d(inputs, nbh, with_index=False,
+                                  use_kernels=use_kernels)
+    else:
+        out, _ = max_pool3d(inputs, nbh.idx, nbh.count, window=window,
+                            use_kernels=use_kernels)
     return out
 
 

@@ -5,7 +5,8 @@ Each (query, neighbor) displacement falls into one of ``n*p*q + 1`` bins:
 azimuth ``atan2(dy, dx)`` folded into [0, 2pi), elevation
 ``atan2(dz, dist2d)`` folded into [0, pi], radial from the sqrt-space
 ``nn_dist``; bin 0 is the self loop (``nn_dist <= 1.01e-3`` with the
-1e-6 margin). Plain PyTorch: it serves ModelNet's global conv only.
+1e-6 margin). Plain PyTorch: it serves ModelNet's global conv and, through
+:func:`bins_from_delta`, the per-edge engine's fused query.
 """
 
 from __future__ import annotations
@@ -40,7 +41,6 @@ def spherical_kernel(
 ) -> torch.Tensor:
     """(B, M, K) int64 bin ids in [0, n*p*q]; padding entries are 0."""
     validate_kernel_size(kernel)
-    n_bins, p_bins, q_bins = kernel
     db = database[..., :3].float()
     q = query[..., :3].float()
     idx, count, dist = neighborhood
@@ -48,7 +48,20 @@ def spherical_kernel(
     gathered = torch.gather(
         db, 1, idx.long().reshape(b, m * k, 1).expand(-1, -1, 3)
     ).reshape(b, m, k, 3)
-    delta = gathered - q[:, :, None, :]
+    return bins_from_delta(gathered - q[:, :, None, :], dist, count, radius,
+                           kernel)
+
+
+def bins_from_delta(
+    delta: torch.Tensor,
+    dist: torch.Tensor,
+    count: torch.Tensor,
+    radius: float,
+    kernel: tuple[int, int, int],
+) -> torch.Tensor:
+    """Bins of (B, M, K, 3) neighbor displacements with their sqrt-space
+    ``dist`` (B, M, K); lanes at or past ``count`` get 0."""
+    n_bins, p_bins, q_bins = kernel
     dx, dy, dz = delta.unbind(-1)
     dist2d = torch.sqrt(dx * dx + dy * dy)
     pi = math.pi
@@ -64,5 +77,6 @@ def spherical_kernel(
     q_id = torch.clamp_max(gamma.to(torch.int64), q_bins - 1)
     bins = q_id * p_bins * n_bins + p_id * n_bins + n_id + 1
     is_far = (dist > _M_EPS) & ((dist - _M_EPS).abs() > _EPS)
-    valid = torch.arange(k, device=idx.device) < count[..., None]
+    k_ids = torch.arange(delta.shape[2], device=delta.device)
+    valid = k_ids < count[..., None]
     return torch.where(is_far & valid, bins, 0)

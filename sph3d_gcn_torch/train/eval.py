@@ -11,9 +11,11 @@
   s3dis_seg/evaluate_s3dis_with_overlap.py:270-302).
 
 The dense engine's window-coverage certificate is enforced by
-:func:`checked_forward`: a forward whose ``dense_ok`` is False raises
-:class:`DenseCoverageError`. The exact classic-engine fallback of the JAX
-package is not ported yet, so nothing is silently re-routed.
+:func:`checked_forward`, as JAX's ``checked_eval_step`` enforces it: a
+forward whose ``dense_ok`` is False is re-run on the model's per-edge
+(classic) engine, on the same parameters, which is exact for every cloud;
+a model whose per-edge engine is not ported yet raises
+:class:`DenseCoverageError` instead.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from sph3d_gcn_torch.data import augment as aug
+from sph3d_gcn_torch.models.common import classic_clone
 
 
 class DenseCoverageError(RuntimeError):
@@ -62,20 +65,36 @@ def checked_forward(
     """A forward for :func:`vote_classify` and :func:`coverage_eval_blocks`:
     numpy points in ((B, N, 3) clouds or (B, N, 9) scene blocks), numpy
     logits out ((B, num_cls) or (B, N, num_cls)), run without gradients on
-    ``device`` (the card unless the caller asks for the CPU); raises
-    DenseCoverageError when the forward's ``dense_ok`` certificate is
-    False. ``block_ids`` (passed by :func:`coverage_eval_blocks`) is
-    unused: these models take no per-block side input."""
+    ``device`` (the card unless the caller asks for the CPU).
+
+    When a forward's ``dense_ok`` certificate is False, the batch is
+    re-run on ``models.common.classic_clone(model)`` (the per-edge
+    engine on the same parameters; one line is printed the first time)
+    and its logits are returned; a model whose per-edge engine is not
+    ported raises DenseCoverageError. ``block_ids`` (passed by
+    :func:`coverage_eval_blocks`) is unused: these models take no
+    per-block side input."""
+    fallback: list[torch.nn.Module] = []
 
     def forward(points: np.ndarray, block_ids=None) -> np.ndarray:
         x = torch.as_tensor(np.asarray(points, np.float32), device=device)
         with torch.inference_mode():
             logits = model(x)
-        if not bool(model.dense_ok):
-            raise DenseCoverageError(
-                "dense window coverage violated: the graph may be wrong, "
-                "and the exact classic-engine fallback is not ported yet"
-            )
+            if not bool(model.dense_ok):
+                first = not fallback
+                if first:
+                    fallback.append(classic_clone(model))
+                try:
+                    logits = fallback[0](x)
+                except NotImplementedError as e:
+                    raise DenseCoverageError(
+                        "dense window coverage violated: the graph may be "
+                        f"wrong, and no exact fallback exists ({e})"
+                    ) from e
+                if first:
+                    print("dense window coverage violated at eval: "
+                          "re-ran on the classic per-edge engine",
+                          flush=True)
         return logits.float().cpu().numpy()
 
     return forward

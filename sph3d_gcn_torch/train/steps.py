@@ -17,6 +17,7 @@ from collections.abc import Callable
 
 import torch
 
+from sph3d_gcn_torch.models.common import classic_clone
 from sph3d_gcn_torch.nn.layers import l2_regularization
 
 # (logits, batch) -> data loss (scalar) or per-item loss (B,)
@@ -81,6 +82,19 @@ class StepFactory:
         self.optimizer.step()
         self.scheduler.step()
         return metrics
+
+    def classic_fallback(self) -> StepFactory:
+        """A StepFactory on the SAME parameters, BN buffers, optimizer and
+        scheduler whose model runs the per-edge engine
+        (``models.common.classic_clone``): the recovery path for a batch
+        whose dense certificate failed, exact for every cloud
+        (``sph3d_gcn_tpu/train/steps.py:227-270``). Returns ``self`` when
+        the model already runs it. A model whose per-edge engine is not
+        ported raises NotImplementedError at the clone's forward."""
+        model = classic_clone(self.model)
+        if model is self.model:
+            return self
+        return dataclasses.replace(self, model=model)
 
     def eval_step(self, batch: dict[str, torch.Tensor]
                   ) -> dict[str, torch.Tensor]:

@@ -114,8 +114,13 @@ def test_converter_rejects_unused_and_missing(variables):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError):
-        SPH3DModelNet(modelnet_config(num_input=N))     # classic engine
+    # the classic (per-edge) engine is ported: it builds and runs
+    classic = SPH3DModelNet(modelnet_config(num_input=N),
+                            generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out = classic.eval()(torch.from_numpy(_points()))
+    assert out.shape == (B, 40) and torch.isfinite(out).all()
+    assert bool(classic.dense_ok)
     with pytest.raises(NotImplementedError):
         SPH3DModelNet(dataclasses.replace(_config("float32"), sample="IDS"))
     model = SPH3DModelNet(_config("float32"))

@@ -323,3 +323,41 @@ def test_reverse_converter_round_trips(variables):
     assert set(back) == set(sd)
     for k in sd:
         assert torch.equal(back[k], sd[k])
+
+
+def test_classic_fallback_shares_parameters():
+    """``StepFactory.classic_fallback()``: the same parameters, buffers,
+    optimizer and scheduler under a model on the per-edge engine. A step
+    through it on a batch whose dense certificate fails changes the dense
+    model's weights and statistics exactly as a step of a separate
+    per-edge model from the same state does (f32, same batch, no
+    dropout)."""
+    cfg = dataclasses.replace(
+        modelnet_config(num_input=512, fast=True, dense=True),
+        windows=(128,), compute_dtype="float32")
+    model = SPH3DModelNet(cfg, generator=torch.Generator().manual_seed(0))
+    other = SPH3DModelNet(dataclasses.replace(cfg, dense_graph=False))
+    other.load_state_dict(model.state_dict())
+    for m in (*model.modules(), *other.modules()):
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    pts = np.random.default_rng(1).standard_normal((2, 512, 3))
+    batch = {"points": torch.from_numpy(pts.astype(np.float32)),
+             "label": torch.tensor([1, 2])}
+    step = classification_step_factory(
+        model, *make_optimizer(model.parameters()), weight_decay=1e-5)
+    assert not bool(step.eval_step(batch)["dense_ok"])
+    fb = step.classic_fallback()
+    assert fb.optimizer is step.optimizer and fb.scheduler is step.scheduler
+    assert fb.model is not model and not fb.model.config.dense_graph
+    assert fb.model.conv1._1.weights is model.conv1._1.weights
+    assert fb.classic_fallback() is fb
+    ref = classification_step_factory(
+        other, *make_optimizer(other.parameters()), weight_decay=1e-5)
+    m_fb, m_ref = fb.train_step(batch), ref.train_step(batch)
+    assert bool(m_fb["dense_ok"]) and torch.equal(m_fb["loss"], m_ref["loss"])
+    got, want = model.state_dict(), other.state_dict()
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert step.scheduler.last_epoch == 1
