@@ -16,7 +16,8 @@ show that its main path really went through the kernels. Inside
 it hands to the kernel or its plain version, so that a run can replay
 exactly its main path's calls through both and compare them; the
 masked-mean unpool (plain PyTorch, no kernel) records its operands as
-``mean_interpolate`` so that a run can time it beside the kernels.
+``mean_interpolate`` (its backward as ``mean_interpolate_bwd``) so that a
+run can time it beside the kernels.
 """
 
 from __future__ import annotations

@@ -1,8 +1,12 @@
 // K4: max pooling from rank-valued neighbor maps (forward).
 //
 // Replaces the TPU kernel sph3d_gcn_tpu/ops/dense.py:1953
-// (_rank_pool_fwd_kernel, via _rank_window_max_for). Plain PyTorch twin:
-// sph3d_gcn_torch/ops/dense.py::rank_pool_plain.
+// (_rank_pool_fwd_kernel, via _rank_window_max_for) and, behind
+// dense_max_pool3d(with_index=True), sph3d_gcn_tpu/ops/dense.py:1792
+// (_dense_pool_fwd_kernel: the masked max over every selected window
+// column with its first attaining column, on rank and bin maps alike;
+// the pool's counts select every nonzero entry of a bin map). Plain
+// PyTorch twin: sph3d_gcn_torch/ops/dense.py::rank_pool_plain.
 //
 //   out[t, c] = max x[s_blk*128 + w, c] over the window columns w of query
 //               row t whose rank pk lies in 1..count[t]; 0 if there is none

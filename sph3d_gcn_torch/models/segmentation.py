@@ -126,7 +126,8 @@ class SegEncoderDecoder(nn.Module):
             dense_ok = dense_ok & intra.ok & inter.ok
             net = getattr(self, f"deconv{level + 1}")(
                 net, intra, use_kernels=use_kernels)
-            net = unpool3d(net, inter, method=cfg.unpool_method)
+            net = unpool3d(net, inter, method=cfg.unpool_method,
+                           use_kernels=use_kernels)
             net = torch.cat([net, encoder[level]], dim=-1)
         return net, dense_ok
 
@@ -165,12 +166,14 @@ class SPH3DSceneSeg(nn.Module):
         self.dense_ok: torch.Tensor | None = None
 
     def forward(self, points: torch.Tensor,
-                use_kernels: bool | None = None) -> torch.Tensor:
+                use_kernels: bool | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """``use_kernels``: None runs the CUDA kernels on a CUDA device and
         the plain versions on the CPU; False forces the plain versions
-        (for comparing the two). Raises NotImplementedError on the
-        per-edge engine (``dense_graph=False``, as a classic clone has
-        it)."""
+        (for comparing the two). ``generator`` is accepted for the train
+        step's call and unused: the model has no dropout. Raises
+        NotImplementedError on the per-edge engine (``dense_graph=False``,
+        as a classic clone has it)."""
         cfg = self.config
         _require_dense(cfg)
         if points.shape[1:] != (cfg.num_input, 3 + _IN_CHANNELS):
@@ -178,7 +181,7 @@ class SPH3DSceneSeg(nn.Module):
                 f"expected (B, {cfg.num_input}, {3 + _IN_CHANNELS}) points, "
                 f"got {tuple(points.shape)}")
         points = points.float()
-        rank = None
+        perm = rank = None
         if cfg.spatial_sort:
             perm, rank = spatial_sort(points, cfg.radius[0])
             points = permute_points(points, perm)
@@ -187,8 +190,10 @@ class SPH3DSceneSeg(nn.Module):
         net = torch.cat([norm_xyz, points[..., 6:]], dim=-1)
         net, self.dense_ok = self.backbone(net, xyz, use_kernels=use_kernels)
         logits = self.logits(net)
-        # back to the caller's point order
-        return logits if rank is None else permute_points(logits, rank)
+        # back to the caller's point order; ``perm`` rides along so the
+        # backward gathers instead of scattering
+        return (logits if rank is None
+                else permute_points(logits, rank, inv=perm))
 
 
 def _require_dense(cfg: SPH3DConfig) -> None:
@@ -212,6 +217,13 @@ def segmentation_item_loss(logits: torch.Tensor,
     """Per-item mean CE over the item's points, (B,), in f32."""
     logp = torch.log_softmax(logits.float(), dim=-1)
     return _nll_points(logp, labels).mean(dim=1)
+
+
+def segmentation_loss(logits: torch.Tensor,
+                      labels: torch.Tensor) -> torch.Tensor:
+    """Plain mean CE over all points (ref SPH3D_ruemonge2014.py:116-123):
+    point counts are fixed per item, so the mean of the per-item losses."""
+    return segmentation_item_loss(logits, labels).mean()
 
 
 def inner_masked_item_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -243,11 +243,12 @@ def pool3d(
 
 
 def unpool3d(inputs: torch.Tensor, nbh: DenseNeighborhood,
-             method: str = "mean") -> torch.Tensor:
+             method: str = "mean",
+             use_kernels: bool | None = None) -> torch.Tensor:
     """Unpooling dispatch (ref utils/sph3gcn_util.py:300-325): the dense
     masked mean of each fine point's coarse neighbors. The 'weighted'
     method needs distance maps, which are not ported yet."""
     if method != "mean":
         raise NotImplementedError(
             f"unpooling method {method!r} is not ported (mean is)")
-    return dense_mean_interpolate(inputs, nbh)
+    return dense_mean_interpolate(inputs, nbh, use_kernels=use_kernels)

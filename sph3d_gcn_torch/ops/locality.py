@@ -67,7 +67,31 @@ def invert_permutation(perm: torch.Tensor) -> torch.Tensor:
     )
 
 
-def permute_points(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """Reorder the point axis: (B, N, ...) x (B, N) -> (B, N, ...)."""
+def permute_points(x: torch.Tensor, perm: torch.Tensor,
+                   inv: torch.Tensor | None = None) -> torch.Tensor:
+    """Reorder the point axis: (B, N, ...) x (B, N) -> (B, N, ...).
+
+    With ``inv`` (the inverse permutation) the backward is a gather by
+    ``inv`` (the JAX op's custom VJP): a permutation's transpose is a
+    permutation, where autograd of the gather would scatter-add (float
+    atomics on a CUDA device)."""
+    if inv is None:
+        return _take_rows(x, perm)
+    return _Permute.apply(x, perm, inv)
+
+
+def _take_rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     idx = perm.to(torch.int64).reshape(perm.shape + (1,) * (x.dim() - 2))
     return torch.gather(x, 1, idx.expand(perm.shape + x.shape[2:]))
+
+
+class _Permute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm, inv):
+        ctx.save_for_backward(inv)
+        return _take_rows(x, perm)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (inv,) = ctx.saved_tensors
+        return _take_rows(grad, inv), None, None

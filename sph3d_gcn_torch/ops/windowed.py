@@ -120,12 +120,18 @@ def edge_lists(idx: torch.Tensor, count: torch.Tensor,
     valid = lane_mask(count, k)
     base = torch.arange(batch, device=idx.device)[:, None, None] * num_in
     key = torch.where(valid, idx + base, rows).to(torch.int32)
-    key = _pad_rows(key, m_pad, value=rows).reshape(-1)
+    return group_by_row(_pad_rows(key, m_pad, value=rows).reshape(-1), rows)
+
+
+def group_by_row(key: torch.Tensor,
+                 rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(order, starts) of :func:`edge_lists` from each edge's flat target
+    row ``key`` (int32, ``rows`` for an invalid edge)."""
     sorted_key, order = torch.sort(key, stable=True)
     # row r's group starts at the first key >= r
     starts = torch.searchsorted(
         sorted_key, torch.arange(rows + 1, dtype=torch.int32,
-                                 device=idx.device))
+                                 device=key.device))
     return order.to(torch.int32), starts.to(torch.int32)
 
 
@@ -152,16 +158,16 @@ def window_gather_bwd_plain(dg: torch.Tensor, order: torch.Tensor,
                             num_in: int) -> torch.Tensor:
     """Plain PyTorch twin of K9: (B, M_pad, K, C) edge gradients ->
     (B, num_in, C) in ``dg``'s dtype, summed in f32 in list order (the
-    kernel's order on the CPU, where ``index_add_`` is sequential) and
-    rounded once."""
+    kernel's order, on every device: the i-th edges of all rows are added
+    in one step, so no two adds meet a row at once) and rounded once."""
     batch, c = dg.shape[0], dg.shape[-1]
     rows = batch * num_in
-    n_valid = int(starts[-1])
-    target = torch.repeat_interleave(
-        torch.arange(rows, device=dg.device), starts.diff().long())
-    src = dg.reshape(-1, c)[order[:n_valid].long()].float()
+    src = dg.reshape(-1, c)
+    first, length = starts[:-1].long(), starts.diff()
     dx = torch.zeros((rows, c), dtype=torch.float32, device=dg.device)
-    dx.index_add_(0, target, src)
+    for i in range(int(length.max()) if rows else 0):
+        live = torch.nonzero(length > i).squeeze(1)
+        dx[live] += src[order[first[live] + i].long()].float()
     return dx.reshape(batch, num_in, c).to(dg.dtype)
 
 

@@ -7,7 +7,9 @@ generator), the data loss plus ``weight_decay * l2_regularization``, the
 backward through every layer (the dense conv and pool through their
 hand-written backward kernels on a CUDA device), one optimizer update and
 one scheduler step. The metrics stay on the device: the step adds no
-host synchronisation of its own.
+host synchronisation of its own, except for a model whose per-edge engine
+is not ported (the scene models), which must check its certificate
+before the update (:meth:`StepFactory.loss_and_grads`).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from sph3d_gcn_torch.models.common import classic_clone
 from sph3d_gcn_torch.nn.layers import l2_regularization
+from sph3d_gcn_torch.train.eval import DenseCoverageError
 
 # (logits, batch) -> data loss (scalar) or per-item loss (B,)
 LossFn = Callable[[torch.Tensor, dict[str, torch.Tensor]], torch.Tensor]
@@ -64,10 +67,25 @@ class StepFactory:
                        ) -> dict[str, torch.Tensor]:
         """The train-mode forward and backward without the update: leaves
         the gradients in each parameter's ``.grad`` (and the running BN
-        statistics updated) and returns the step's metrics."""
+        statistics updated) and returns the step's metrics.
+
+        A model with no per-edge engine in the port cannot re-run a batch
+        whose dense certificate failed (``classic_fallback()``), so for it
+        the certificate is read on the host after the forward; when it is
+        False the running statistics are restored and DenseCoverageError
+        is raised, before any gradient or update."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
+        saved = (None if _has_per_edge_engine(self.model)
+                 else [b.clone() for b in self.model.buffers()])
         total, data_loss, logits = self._losses(batch, generator)
+        if saved is not None and not bool(self.model.dense_ok):
+            with torch.no_grad():
+                for b, s in zip(self.model.buffers(), saved):
+                    b.copy_(s)
+            raise DenseCoverageError(
+                "dense window coverage violated in a train step, and the "
+                "model has no per-edge engine to re-run it on")
         total.backward()
         return {"loss": total.detach(), "data_loss": data_loss.detach(),
                 "logits": logits.detach(), "dense_ok": self.model.dense_ok}
@@ -75,9 +93,9 @@ class StepFactory:
     def train_step(self, batch: dict[str, torch.Tensor],
                    generator: torch.Generator | None = None
                    ) -> dict[str, torch.Tensor]:
-        """One step on ``batch`` (``points`` (B, N, 3), ``label`` (B,)):
-        returns ``loss``, ``data_loss``, ``logits`` and ``dense_ok``, all
-        device tensors."""
+        """One step on ``batch`` (``points``, and the labels the loss
+        reads): returns ``loss``, ``data_loss``, ``logits`` and
+        ``dense_ok``, all device tensors."""
         metrics = self.loss_and_grads(batch, generator)
         self.optimizer.step()
         self.scheduler.step()
@@ -110,6 +128,14 @@ class StepFactory:
         return out
 
 
+def _has_per_edge_engine(model: torch.nn.Module) -> bool:
+    """Whether ``classic_fallback()`` can re-run the model's batches: every
+    model but the scene models, whose per-edge engine is not ported yet."""
+    from sph3d_gcn_torch.models.segmentation import SPH3DSceneSeg
+
+    return not isinstance(model, SPH3DSceneSeg)
+
+
 def classification_step_factory(
     model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -132,4 +158,40 @@ def classification_step_factory(
         item_loss_fn=lambda logits, batch: classification_item_loss(
             logits, batch["label"]),
         use_kernels=use_kernels,
+    )
+
+
+def segmentation_step_factory(
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    scheduler: torch.optim.lr_scheduler.LRScheduler,
+    weight_decay: float | None = None,
+    inner_masked: bool = False,
+    use_kernels: bool | None = None,
+) -> StepFactory:
+    """StepFactory with the per-point CE loss over ``batch["label"]``
+    (B, N): the plain mean, or with ``inner_masked`` the S3DIS / ScanNet
+    loss over the inner points ``batch["inner_label"] > 0``, summed over
+    the batch's items (ref SPH3D_s3dis.py:116-133)."""
+    from sph3d_gcn_torch.models.segmentation import (
+        inner_masked_item_loss,
+        inner_masked_segmentation_loss,
+        segmentation_item_loss,
+        segmentation_loss,
+    )
+
+    if inner_masked:
+        loss_fn = lambda logits, batch: inner_masked_segmentation_loss(
+            logits, batch["label"], batch["inner_label"])
+        item_loss_fn = lambda logits, batch: inner_masked_item_loss(
+            logits, batch["label"], batch["inner_label"])
+    else:
+        loss_fn = lambda logits, batch: segmentation_loss(
+            logits, batch["label"])
+        item_loss_fn = lambda logits, batch: segmentation_item_loss(
+            logits, batch["label"])
+    return StepFactory(
+        model=model, optimizer=optimizer, scheduler=scheduler,
+        loss_fn=loss_fn, weight_decay=weight_decay,
+        item_loss_fn=item_loss_fn, use_kernels=use_kernels,
     )

@@ -129,8 +129,15 @@ def test_dense_max_pool_empty_rows_give_zero():
     empty = tg.count == 0
     assert empty.any() and (~empty).any()
     assert (out[empty] == 0).all() and (out[~empty] < 0).all()
-    with pytest.raises(NotImplementedError):
-        td.dense_max_pool3d(feats, tg, with_index=True)
+    # max_index: the input row holding each maximum; an empty row points
+    # at its window's first row (JAX's column 0)
+    out_i, idx = td.dense_max_pool3d(feats - 10.0, tg, with_index=True)
+    assert torch.equal(out_i, out) and idx.dtype == torch.int32
+    picked = torch.gather(feats - 10.0, 1, idx.long())
+    assert torch.equal(picked[~empty], out[~empty])
+    start = tg.s_blk.repeat_interleave(128, dim=1)[:, :50, None] * 128
+    assert torch.equal(idx[empty].long(),
+                       start.expand(-1, -1, 64)[empty].clamp(max=599))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -19,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from sph3d_gcn_torch import _build, kernel_launches
+from sph3d_gcn_torch import _build, kernel_launches, reset_kernel_launches
 from sph3d_gcn_torch.configs import modelnet_config, s3dis_config
 from sph3d_gcn_torch.data.synthetic import scene_blocks
 from sph3d_gcn_torch.models import SPH3DModelNet, SPH3DSceneSeg
@@ -97,6 +97,8 @@ def test_forced_kernel_on_cpu_raises_before_any_build():
         lambda: D.dense_depthwise_conv3d(feats, filt, intra,
                                          use_kernels=True),
         lambda: D.dense_max_pool3d(feats, pool, use_kernels=True),
+        lambda: D.dense_max_pool3d(feats, pool, with_index=True,
+                                   use_kernels=True),
         lambda: S.farthest_point_sample_kernel(8, t),
         lambda: D.rank_pool_kernel(pool.packed, pool.s_blk,
                                    D.pool_counts(pool), feats),
@@ -138,7 +140,7 @@ def test_port_imports_no_jax():
         "torch_state_dict_from_flax, flax_tree_from_torch\n"
         "from sph3d_gcn_torch.train.schedule import make_optimizer\n"
         "from sph3d_gcn_torch.train.steps import "
-        "classification_step_factory\n"
+        "classification_step_factory, segmentation_step_factory\n"
         "cfg = dataclasses.replace(modelnet_config(num_input=512, fast=True,"
         " dense=True), windows=(512,))\n"
         "m = SPH3DModelNet(cfg, generator=torch.Generator().manual_seed(0))\n"
@@ -298,6 +300,40 @@ def test_record_calls_sees_the_windowed_engine_calls():
         dx = W.window_gather_bwd_plain(*args)
         assert dx.shape[1] == args[3] and torch.isfinite(dx.float()).all()
     assert set(kernel_launches().values()) == {0}
+
+
+def test_segment_sum_plain_versions_add_in_list_order():
+    """K9's plain twin adds each row's edges in list order: bitwise the
+    sequential ``index_add_`` of the CPU. The unpool backward's plain
+    version, whose cloud sum is that twin, within f32 rounding of the
+    scatter-add that autograd of its window gather would run."""
+    rng = np.random.default_rng(5)
+    n, m, k = 700, 300, 16
+    base = np.sort(rng.integers(0, n, (3, m)))
+    idx = torch.from_numpy(np.clip(
+        base[..., None] + rng.integers(-40, 40, (3, m, k)), 0, n - 1))
+    cnt = torch.from_numpy(rng.integers(0, k + 1, (3, m)))
+    order, starts = W.edge_lists(idx, cnt, n)
+    gen = torch.Generator().manual_seed(4)
+    dg = torch.randn(3, 384, k, 35, generator=gen)
+    n_valid = int(starts[-1])
+    target = torch.repeat_interleave(torch.arange(3 * n), starts.diff())
+    ref = torch.zeros(3 * n, 35).index_add_(
+        0, target, dg.reshape(-1, 35)[order[:n_valid].long()])
+    assert torch.equal(W.window_gather_bwd_plain(dg, order, starts, n),
+                       ref.reshape(3, n, 35))
+
+    _, _, pool = _graphs(_cloud(n=700, b=3, seed=2))
+    dout = torch.randn(3, pool.s_blk.shape[1] * 128, 64, generator=gen)
+    got = D.window_mean_bwd(pool.packed, pool.s_blk, dout, 700)
+    rows, valid, b_of_g = D._window_rows(pool.packed, pool.s_blk, 700)
+    mask = (pool.packed > 0).reshape(-1, 128, pool.window).float()
+    dfw = torch.einsum("gtw,gtc->gwc", mask, dout.reshape(-1, 128, 64))
+    ref = torch.zeros(3 * 700, 64).index_put_(
+        ((b_of_g[:, None] * 700 + rows)[valid],), dfw[valid],
+        accumulate=True)
+    torch.testing.assert_close(got, ref.reshape(3, 700, 64), rtol=1e-5,
+                               atol=1e-5)
 
 
 def fallback_case():
@@ -465,6 +501,98 @@ def test_wide_conv_and_pool_kernels_match_plain_on_cuda(cuda_device, dtype):
     out, arg = D.rank_pool_kernel(*a, with_arg=True)
     out_p, arg_p = D.rank_pool_plain(*a, with_arg=True)
     assert torch.equal(out, out_p) and torch.equal(arg, arg_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wide_backward_kernels_match_plain_on_cuda(cuda_device, dtype):
+    """K5 at the S3DIS widths C_in = 512 and 1024 (r = 2, 64-channel
+    chunks) within f32 sum-order tolerance, K6 at C = 512 (two chunks)
+    exactly on integer features; each run twice to the same bits."""
+    pts = _cloud(n=700, b=3, seed=2)
+    t, intra, pool = _graphs(pts, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for c in (512, 1024):
+        x = torch.randn(3, 700, c, device=cuda_device, generator=gen).to(
+            dtype)
+        filt_b, inv = D.conv_operands(
+            x, torch.randn(33, c, 2, device=cuda_device, generator=gen),
+            intra)
+        dout = torch.randn(3, intra.s_blk.shape[1] * 128, 2 * c,
+                           device=cuda_device, generator=gen).to(dtype)
+        a = (intra.packed, intra.s_blk, x, filt_b, inv, dout)
+        dx, dfilt = D.dense_conv_bwd_kernel(*a)
+        dx_p, dfilt_p = D.dense_conv_bwd_plain(*a)
+        torch.testing.assert_close(dx.float(), dx_p.float(), rtol=tol,
+                                   atol=tol * dx_p.abs().max().item())
+        torch.testing.assert_close(dfilt, dfilt_p, rtol=1e-5,
+                                   atol=1e-5 * dfilt_p.abs().max().item())
+        dx2, dfilt2 = D.dense_conv_bwd_kernel(*a)
+        assert torch.equal(dx, dx2) and torch.equal(dfilt, dfilt2)
+    x = torch.randint(-3, 4, (3, 700, 512), device=cuda_device,
+                      generator=gen).to(dtype)
+    a = (pool.packed, pool.s_blk, D.pool_counts(pool), x)
+    out, arg = D.rank_pool_kernel(*a, with_arg=True)
+    dout = torch.randint(-4, 5, out.shape, device=cuda_device,
+                         generator=gen).to(dtype)
+    b = (pool.s_blk, arg, dout, 700, pool.window)
+    dx = D.rank_pool_bwd_kernel(*b)
+    assert torch.equal(dx, D.rank_pool_bwd_plain(*b))
+    assert torch.equal(dx, D.rank_pool_bwd_kernel(*b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_max_index_kernels_match_plain_on_cuda(cuda_device, dtype):
+    """``dense_max_pool3d(with_index=True)`` through K4 (and K6 for its
+    gradient) equal to the plain versions, on a rank map and a bin map,
+    at inference and in training."""
+    pts = _cloud(n=700, b=3, seed=2)
+    t, intra, pool = _graphs(pts, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    for g, c in ((pool, 64), (pool, 512), (intra, 128)):
+        x = torch.randint(-3, 4, (3, 700, c), device=cuda_device,
+                          generator=gen).to(dtype)
+        with torch.no_grad():
+            got = D.dense_max_pool3d(x, g, with_index=True)
+            ref = D.dense_max_pool3d(x, g, with_index=True,
+                                     use_kernels=False)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        cot = torch.randint(-4, 5, got[0].shape, device=cuda_device,
+                            generator=gen).to(dtype)
+        grads = []
+        for use in (None, False):
+            xg = x.clone().requires_grad_()
+            out, idx = D.dense_max_pool3d(xg, g, with_index=True,
+                                          use_kernels=use)
+            assert torch.equal(idx, ref[1])
+            out.backward(cot)
+            grads.append(xg.grad)
+        assert torch.equal(*grads)
+
+
+@pytest.mark.cuda
+def test_unpool_backward_kernel_matches_plain_on_cuda(cuda_device):
+    """The masked-mean unpool's backward, its cloud sum through K9,
+    bitwise equal to its plain version (the same sums in the same list
+    order) and to itself; one K9 launch per backward of the unpool."""
+    pts = _cloud(n=700, b=3, seed=2)
+    _, _, pool = _graphs(pts, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for c in (64, 512):
+        dout = torch.randn(3, pool.s_blk.shape[1] * 128, c,
+                           device=cuda_device, generator=gen)
+        a = (pool.packed, pool.s_blk, dout, 700)
+        dx = D.window_mean_bwd(*a)
+        assert torch.equal(dx, D.window_mean_bwd(*a, use_kernels=False))
+        assert torch.equal(dx, D.window_mean_bwd(*a))
+    x = torch.randn(3, 700, 64, device=cuda_device, generator=gen,
+                    requires_grad=True)
+    reset_kernel_launches()
+    D.dense_mean_interpolate(x.to(torch.bfloat16), pool).float().sum(
+    ).backward()
+    assert kernel_launches()["window_gather_bwd"] == 1
 
 
 @pytest.mark.cuda

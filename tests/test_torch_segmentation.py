@@ -139,6 +139,7 @@ def test_segmentation_losses_match_jax():
     t = [torch.from_numpy(a) for a in (logits, labels, inner)]
     for tf, jf, args in (
         (tseg.segmentation_item_loss, jseg.segmentation_item_loss, 2),
+        (tseg.segmentation_loss, jseg.segmentation_loss, 2),
         (tseg.inner_masked_item_loss, jseg.inner_masked_item_loss, 3),
         (tseg.inner_masked_segmentation_loss,
          jseg.inner_masked_segmentation_loss, 3),
