@@ -154,10 +154,51 @@ inner_masked=True).train_step`` (Adam on the staircase schedule):
     map), through the kernels and the plain versions: values, ids and
     gradients equal, with times and bounds.
 
+Then the config options that read the queries' distance maps, at full
+published width with seeded weights:
+
+26. S3DIS with ``unpool_method="weighted"`` (``s3dis_config(fast=True,
+    dense=True)`` with that field changed; its 4 inter graphs ask K7 for
+    distance maps), B=16, N=8192: 3 forwards through the kernels (launch
+    counts as phase 12), one against the plain versions (argmax agreement
+    >= 0.95, within 1% of the largest |logit|, ``dense_ok`` on both), the
+    4 weighted unpools timed beside the mean unpool on the same graphs;
+27. its train step: kernel step against plain step under phase 21's f32
+    gradient gate (which must reject the planted bf16 fault), two kernel
+    steps bitwise equal, the 4 weighted unpool backwards (their cloud sums
+    through K9) against their plain versions bitwise and timed beside the
+    mean unpool's backward on the same gradients, 4 steps with the launch
+    counts of phase 23 and a falling loss, profile;
+28. ModelNet with ``sample="IDS"`` and ``pool_method="avg"``
+    (``modelnet_config(fast=True, dense=True)`` with those fields; the 3
+    intra graphs ask K2 for distance maps, the avg pools' backwards sum
+    through K9), B=16, N=10000: one kernel train step against the plain
+    step from the same state and the same noise draws (one seeded
+    generator for the IDS noise and the dropout masks), under phase 7's
+    gates; ``dense_ok`` printed, and where the certificate fails a step
+    re-runs from its pre-step state through ``classic_fallback()``, as
+    JAX's ``fit()`` does (the run says so; nothing is widened); the 3
+    avg pools timed beside the rank max pool on the same operands, their
+    backwards (K9) against their plain versions; 3 steps with their
+    launch counts, profile; one per-edge forward of
+    ``modelnet_config(fast=True)`` with the same options (K8 under the
+    avg pool: 9 launches, no FPS) against its plain version;
+29. one ModelNet forward with ``sample="random"`` through
+    ``checked_forward``: finite logits, and a covered dense forward or a
+    fallback to the per-edge engine (printed), with its launch counts;
+30. (a) distance-map replay: the 6 queries of one phase-28 step (3 with
+    maps) and the 4 growth queries of one phase-26 forward through kernel
+    and plain version, bitwise (maps, packed maps, growth steps); each
+    call with a map again without it (packed map and steps bitwise
+    unchanged), with both times, the map's bytes and its bound (bytes
+    over 3.35 TB/s).
+
 Every kernel's line in the per-kernel JSON carries its summed times,
 errors and launches from one path (``path``: the S3DIS serving forward
-for K1-K4 and K7, the S3DIS train step for K5 and K6, the per-edge
-forward for K8, the per-edge train step for K9), its bound
+for K1, K3 and K4, the weighted-unpool S3DIS forward for K7 and the IDS
+ModelNet train step for K2 (both with their distance maps, phase 30),
+the S3DIS train step for K5 and K6, the per-edge forward for K8, the
+per-edge train step for K9), its bound
 (``bound_ms``: per replayed call the larger of its bytes over the card's
 memory rate and its operations over the f32 rate, summed; ``bound_by``
 names the side that binds most of that sum) and ``library_ms``, the time
@@ -225,10 +266,12 @@ S3_STEPS = 10
 PER_WIN_FORWARD = {"fps": 3, "window_gather": 9}
 PER_WIN_STEP = dict(PER_WIN_FORWARD, window_gather_bwd=9)
 WIN_STEPS = 10
+S3W_STEPS = 4                       # the weighted-unpool S3DIS steps
 # the path whose run gives each kernel's launches and times in the JSON line
-PATH_OF = {"fps": "s3dis_serve", "dense_query": "s3dis_serve",
+# (K2 and K7 from the option paths, whose queries write distance maps)
+PATH_OF = {"fps": "s3dis_serve", "dense_query": "modelnet_ids_train_step",
            "dense_conv": "s3dis_serve", "rank_pool": "s3dis_serve",
-           "growth_query": "s3dis_serve",
+           "growth_query": "s3dis_weighted_serve",
            "dense_conv_bwd": "s3dis_train_step",
            "rank_pool_bwd": "s3dis_train_step",
            "window_gather": "modelnet_per_edge_serve",
@@ -237,6 +280,9 @@ PATH_OF = {"fps": "s3dis_serve", "dense_query": "s3dis_serve",
 # float32 outside the tensor cores (every kernel here computes in f32 or
 # integer arithmetic on the CUDA cores)
 MEM_BYTES_PER_S = 3.35e12
+# the plain-PyTorch window sums around K8/K9 (no kernel of their own),
+# timed in the replays: the two unpools and the dense avg pool
+UNPOOLS = ("mean_interpolate", "weighted_interpolate", "avg_pool")
 F32_OPS_PER_S = 67e12
 SOURCES = {
     "fps": ("sph3d_gcn_torch/csrc/fps.cu",
@@ -291,7 +337,10 @@ def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
 
 
 def exact(got: tuple, ref: tuple) -> None:
-    if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+    """Bitwise equal outputs; an output that is None (a query's map
+    not asked for) must be None in both."""
+    if not all(r is None if g is None else torch.equal(g, r)
+               for g, r in zip(got, ref)):
         raise AssertionError("kernel != plain")
 
 
@@ -377,6 +426,10 @@ def work(name: str, args: tuple, kw: dict) -> tuple[int, int]:
             # distance 9, 3 per radius, rank 1; plus the per-row steps
             per = 10 + 3 * (kw["growth_steps"] + 1)
             extra = q_p.shape[0] * q_p.shape[1]
+        # the f32 distance map: 4 more bytes per entry, and a square root
+        # per live candidate
+        out *= 5 if kw.get("need_dist") else 1
+        per += 1 if kw.get("need_dist") else 0
         return nbytes(db_p, q_p, s_blk, u_end) + extra + out, per * live
     if name == "dense_conv":
         packed, s_blk, x, filt_b, inv = args
@@ -405,19 +458,25 @@ def work(name: str, args: tuple, kw: dict) -> tuple[int, int]:
         out = arg.shape[0] * num_in * arg.shape[2] * dout.element_size()
         return (nbytes(s_blk, arg, dout) + out,
                 int((arg >= 0).sum().item()))
-    if name == "mean_interpolate":
+    if name in UNPOOLS:
+        # the weighted unpool reads the distance map, and per entry forms
+        # its weight (a sum and a division)
         x, dnbh = args
         nnz = int((dnbh.packed != 0).sum().item())
         out = dnbh.num_query * x.shape[0] * x.shape[2] * x.element_size()
-        return (nbytes(x, dnbh.packed, dnbh.count) + out,
-                2 * nnz * x.shape[2] + out // x.element_size())
+        weighted = name == "weighted_interpolate"
+        return (nbytes(x, dnbh.packed, dnbh.count,
+                       dnbh.dist if weighted else None) + out,
+                2 * nnz * x.shape[2] + out // x.element_size()
+                + (3 * dnbh.packed.numel() if weighted else 0))
     if name == "mean_interpolate_bwd":
         # an add per selected entry and channel, and one per window row,
         # channel and covering tile into the cloud; dx written in f32
         packed, s_blk, dout, num_in = args
         c = dout.shape[2]
         nnz = int((packed != 0).sum().item())
-        return (nbytes(packed, s_blk, dout) + dout.shape[0] * num_in * c * 4,
+        return (nbytes(packed, s_blk, dout, kw.get("weights"))
+                + dout.shape[0] * num_in * c * 4,
                 2 * nnz * c + packed.shape[0] * packed.shape[1]
                 * packed.shape[3] * c)
     if name == "window_gather":
@@ -487,7 +546,8 @@ def library_call(name: str, args: tuple, kw: dict):
         batch, n_t, _, w = packed.shape
         c = dout.shape[2]
         rows, valid, b_of_g = D._window_rows(packed, s_blk, num_in)
-        mask = (packed > 0).reshape(batch * n_t, 128, w).float()
+        mask = kw.get("weights", packed > 0).reshape(
+            batch * n_t, 128, w).float()
         flat = (b_of_g[:, None] * num_in + rows)[valid]
         g = dout.reshape(batch * n_t, 128, c)
         dx = torch.zeros((batch * num_in, c), device=dout.device)
@@ -512,19 +572,21 @@ def describe(name: str, args: tuple, kw: dict) -> str:
     """A recorded call's shapes, for the log."""
     if name == "fps":
         return f"{args[1].shape[1]} -> {args[0]} points"
+    dist = " +dist" if kw.get("need_dist") else ""
     if name == "dense_query":
         kind = "ranks" if kw["kernel"] is None else "bins"
-        return f"{kind} M_pad={args[1].shape[1]} W={kw['window']}"
+        return f"{kind} M_pad={args[1].shape[1]} W={kw['window']}{dist}"
     if name == "rank_pool_bwd":
         return f"C={args[1].shape[2]} W={args[4]}"
     if name == "growth_query":
         return (f"ranks M_pad={args[1].shape[1]} W={kw['window']} "
-                f"G={kw['growth_steps']}")
-    if name == "mean_interpolate":
+                f"G={kw['growth_steps']}{dist}")
+    if name in UNPOOLS:
         return (f"C={args[0].shape[2]} M={args[1].num_query} "
                 f"W={args[1].window}")
     if name == "mean_interpolate_bwd":
-        return f"C={args[2].shape[2]} N={args[3]} W={args[0].shape[-1]}"
+        return (f"C={args[2].shape[2]} N={args[3]} W={args[0].shape[-1]}"
+                + (" weighted" if "weights" in kw else ""))
     if name == "window_gather":
         lanes = args[0].shape[0] * (-(-args[1].shape[1] // 128) * 128) \
             * args[1].shape[2]
@@ -591,7 +653,7 @@ class Results:
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
         err = max((g.float() - r.float()).abs().max().item()
-                  for g, r in zip(got, ref))
+                  for g, r in zip(got, ref) if g is not None)
         self.err[name] = max(self.err[name], err)
         self.ms[name] += ms
         self.plain_ms[name] += plain_ms
@@ -621,7 +683,9 @@ def replay(calls: list, res: Results, expect: dict[str, int],
     window gather would run as their library call."""
     from sph3d_gcn_torch.ops import dense as D
 
-    unpool = {"mean_interpolate": D.dense_mean_interpolate}
+    unpool = {"mean_interpolate": D.dense_mean_interpolate,
+              "weighted_interpolate": D.dense_weighted_interpolate,
+              "avg_pool": D.dense_avg_pool3d}
     launches_of = {"mean_interpolate_bwd": "window_gather_bwd"}
     seen = {name: 0 for name in expect}
     for name, _, _ in calls:
@@ -690,6 +754,20 @@ def profile_forward(model, x: torch.Tensor, family: str,
                     model(x)
                     torch.cuda.synchronize()
     report_trace(trace_events(prof), f"{family} forward", reps)
+
+
+def profile_steps(step_fn, what: str, reps: int = 3) -> None:
+    """``torch.profiler`` over 1 + ``reps`` synchronised calls of
+    ``step_fn`` (train steps); see :func:`report_trace`."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(1 + reps):
+            with record_function("train_step"):
+                step_fn()
+                torch.cuda.synchronize()
+    report_trace(trace_events(prof), what, reps, span="train_step")
 
 
 def trace_events(prof) -> list:
@@ -950,16 +1028,7 @@ def train_phases(dev: torch.device, res: Results
           flush=True)
 
     # 10. profile of the train step
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    reps = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(1 + reps):
-            with record_function("train_step"):
-                step.train_step(batch, gen)
-                torch.cuda.synchronize()
-    report_trace(trace_events(prof), "train step", reps, span="train_step")
+    profile_steps(lambda: step.train_step(batch, gen), "train step")
     return launches, conv_map
 
 
@@ -1003,7 +1072,7 @@ def s3dis_phases(dev: torch.device, res: Results) -> dict[str, int]:
     with torch.no_grad():
         for name, args, kw in calls:
             if name == "growth_query":
-                _, steps = Q.growth_query_kernel(*args, **kw)
+                _, steps, _ = Q.growth_query_kernel(*args, **kw)
                 hist = torch.bincount(steps.reshape(-1).long()).tolist()
                 print(f"  growth M_pad={args[1].shape[1]}: query rows per "
                       f"growth step 0, 1, ...: {hist}", flush=True)
@@ -1191,17 +1260,7 @@ def s3dis_train_phases(dev: torch.device, res: Results
           f"device memory {peak:.2f} GiB", flush=True)
 
     # 24. profile of the S3DIS train step
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    reps = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(1 + reps):
-            with record_function("train_step"):
-                step.train_step(batch)
-                torch.cuda.synchronize()
-    report_trace(trace_events(prof), "S3DIS train step", reps,
-                 span="train_step")
+    profile_steps(lambda: step.train_step(batch), "S3DIS train step")
     return launches, pool_calls
 
 
@@ -1516,17 +1575,7 @@ def windowed_phases(dev: torch.device, batches: list[np.ndarray],
           f"device memory {step_peak:.2f} GiB", flush=True)
 
     # 18. profile of the per-edge train step
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    reps = 3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(1 + reps):
-            with record_function("train_step"):
-                step.train_step(batch, gen)
-                torch.cuda.synchronize()
-    report_trace(trace_events(prof), "per-edge train step", reps,
-                 span="train_step")
+    profile_steps(lambda: step.train_step(batch, gen), "per-edge train step")
 
     # 19. fit()'s recovery: a half-rotated batch fails the dense
     # certificate; the batch is re-run from the pre-step state through
@@ -1586,6 +1635,429 @@ def windowed_phases(dev: torch.device, batches: list[np.ndarray],
         raise AssertionError("the fallback step did not update the dense "
                              "model as a per-edge step does")
     return fwd_launches, step_launches
+
+
+def s3dis_weighted_phases(dev: torch.device, res: Results
+                          ) -> tuple[dict[str, int], list]:
+    """Phases 26-27 (see the module docstring): S3DIS with the weighted
+    unpool. Returns the launch counts of the served forwards and the
+    recorded growth-query calls (with distance maps) of one forward."""
+    from sph3d_gcn_torch import _build, kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.configs import s3dis_config
+    from sph3d_gcn_torch.data.synthetic import scene_blocks
+    from sph3d_gcn_torch.models import SPH3DSceneSeg
+    from sph3d_gcn_torch.ops import dense as D
+    from sph3d_gcn_torch.train.schedule import (
+        exponential_decay_lr,
+        make_optimizer,
+    )
+    from sph3d_gcn_torch.train.steps import segmentation_step_factory
+
+    cfg = dataclasses.replace(s3dis_config(fast=True, dense=True),
+                              unpool_method="weighted")
+    gen = torch.Generator().manual_seed(8)
+    model = SPH3DSceneSeg(cfg, generator=gen)
+    randomize_bn(model, gen)
+    model = model.to(dev).eval()
+    x = torch.from_numpy(scene_blocks(np.random.default_rng(50), S3_B, S3_N)
+                         ).to(dev)
+    print(f"S3DIS, weighted unpool: B={S3_B} N={S3_N}, inter graphs with "
+          f"distance maps", flush=True)
+
+    # 26. the served forward: kernels against plain versions
+    with _build.record_calls() as calls, torch.inference_mode():
+        ref = model(x, use_kernels=False)
+    ok_p = bool(model.dense_ok)
+    growth = [c for c in calls if c[0] == "growth_query"]
+    unpools = [c for c in calls if c[0] == "weighted_interpolate"]
+    if (len(growth), len(unpools)) != (4, 4) or not all(
+            kw.get("need_dist") for _, _, kw in growth):
+        raise AssertionError(f"recorded {len(growth)} growth queries and "
+                             f"{len(unpools)} weighted unpools, want 4 and "
+                             f"4, all queries with distance maps")
+    del calls
+    n_fwd = 3
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    with torch.inference_mode():
+        for _ in range(n_fwd):
+            got = model(x)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        ok_k = bool(model.dense_ok)
+        fwd_ms = median_ms(lambda: model(x))
+    print(f"launches over {n_fwd} weighted-unpool forwards: {launches}",
+          flush=True)
+    for name, per in PER_SEG_FORWARD.items():
+        if launches[name] != per * n_fwd:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches, want {per} per forward")
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"S3DIS weighted kernel vs plain logits: dense_ok {ok_k} / "
+          f"{ok_p}, max_abs_err {diff:.4g}, argmax agreement {agree:.4f} "
+          f"(|logits| <= {scale:.3g}, tolerance {LOGIT_TOL:g} of that); "
+          f"forward {fwd_ms:.2f} ms with kernels", flush=True)
+    if not (ok_k and ok_p) or agree < 0.95:
+        raise AssertionError("weighted S3DIS forward: certificate or argmax")
+    torch.testing.assert_close(got, ref, rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL * scale)
+    print("weighted unpool forward beside the mean unpool on the same "
+          "graphs and features (torch, CUDA events, median):", flush=True)
+    with torch.no_grad():
+        for _, args, kw in unpools:
+            w_ms = median_ms(lambda: D.dense_weighted_interpolate(*args))
+            m_ms = median_ms(lambda: D.dense_mean_interpolate(*args))
+            res.ms["weighted_interpolate"] += w_ms
+            res.ms["mean_interpolate"] += m_ms
+            name = "weighted_interpolate"
+            print(f"  {describe(name, args, kw):30s} weighted {w_ms:.3f} "
+                  f"ms  mean {m_ms:.3f} ms  weighted "
+                  f"{res.add_bound(name, work(name, args, kw))}",
+                  flush=True)
+    print(f"  sums: weighted {res.ms['weighted_interpolate']:.3f} ms, mean "
+          f"{res.ms['mean_interpolate']:.3f} ms", flush=True)
+    del unpools
+
+    # 27. the train step: kernel step against plain step, determinism,
+    # steps with their launches, the unpool backwards
+    rng = np.random.default_rng(51)
+    batch = {
+        "points": torch.from_numpy(scene_blocks(rng, S3_B, S3_N)).to(dev),
+        "label": torch.from_numpy(rng.integers(
+            0, cfg.num_cls, (S3_B, S3_N)).astype(np.int64)).to(dev),
+        "inner_label": torch.from_numpy(rng.integers(
+            0, 2, (S3_B, S3_N)).astype(np.int32)).to(dev),
+    }
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def factory(use_kernels, net=model):
+        opt, sch = make_optimizer(
+            net.parameters(), "adam",
+            exponential_decay_lr(0.001, batch_size=S3_B))
+        return segmentation_step_factory(net, opt, sch, inner_masked=True,
+                                         use_kernels=use_kernels)
+
+    def grads_of(step):
+        step.model.load_state_dict(state0)
+        metrics = step.loss_and_grads(batch)
+        if not bool(metrics["dense_ok"]):
+            raise AssertionError("dense_ok False on the weighted S3DIS "
+                                 "train batch")
+        return metrics, {k: p.grad.clone()
+                         for k, p in step.model.named_parameters()}
+
+    model32 = SPH3DSceneSeg(dataclasses.replace(
+        cfg, compute_dtype="float32")).to(dev)
+    compare_steps(grads_of, factory, model32, "S3DIS weighted train step")
+    del model32
+    check_bitwise_steps(grads_of, factory(None), " (S3DIS weighted step)")
+
+    model.load_state_dict(state0)
+    with _build.record_calls() as calls:
+        factory(None).loss_and_grads(batch)
+    bwd = [c for c in calls if c[0] == "mean_interpolate_bwd"]
+    del calls
+    if len(bwd) != 4 or not all("weights" in kw for _, _, kw in bwd):
+        raise AssertionError(f"{len(bwd)} weighted unpool backwards, want 4")
+    print("weighted unpool backward (K9 cloud sum) against its plain "
+          "version, and the mean unpool's backward on the same gradients:",
+          flush=True)
+    replay(bwd, res, {"window_gather_bwd": 4}, plain_reps=1)
+    with torch.no_grad():
+        mean_bwd = sum(median_ms(lambda a=args: D.window_mean_bwd(*a))
+                       for _, args, _ in bwd)
+    print(f"  backward sums: weighted {res.ms['mean_interpolate_bwd']:.3f} "
+          f"ms, mean {mean_bwd:.3f} ms", flush=True)
+    del bwd
+
+    model.load_state_dict(state0)
+    step = factory(None)
+    step.train_step(batch)                 # warm-up
+    model.load_state_dict(state0)
+    step = factory(None)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    for _ in range(S3W_STEPS):
+        t0 = time.perf_counter()
+        metrics = step.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    step_launches = kernel_launches()
+    loss = torch.stack(losses).cpu()
+    print(f"{S3W_STEPS} weighted S3DIS train steps: loss "
+          f"{[round(v, 3) for v in loss.tolist()]}, step "
+          f"{float(np.median(times)) * 1e3:.2f} ms median (host clock, "
+          f"synchronised); launches {step_launches}", flush=True)
+    for name, per in PER_SEG_STEP.items():
+        if step_launches[name] != per * S3W_STEPS:
+            raise AssertionError(f"{name}: {step_launches[name]} launches, "
+                                 f"want {per} per step")
+    if not torch.isfinite(loss).all() or not loss[-1] < loss[0]:
+        raise AssertionError(f"loss did not fall: {loss.tolist()}")
+    profile_steps(lambda: step.train_step(batch), "S3DIS weighted step")
+    return launches, growth
+
+
+def modelnet_option_phases(dev: torch.device, res: Results
+                           ) -> tuple[dict[str, int], list]:
+    """Phase 28 (see the module docstring): ModelNet with IDS sampling and
+    the avg pool. Returns the launch counts of the train steps and the
+    recorded dense-query calls of one step."""
+    from sph3d_gcn_torch import _build, kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.configs import modelnet_config
+    from sph3d_gcn_torch.data.synthetic import surface_clouds
+    from sph3d_gcn_torch.models import SPH3DModelNet
+    from sph3d_gcn_torch.ops import dense as D
+    from sph3d_gcn_torch.train.schedule import (
+        exponential_decay_lr,
+        make_optimizer,
+    )
+    from sph3d_gcn_torch.train.steps import classification_step_factory
+
+    options = dict(sample="IDS", pool_method="avg")
+    cfg = dataclasses.replace(modelnet_config(fast=True, dense=True),
+                              **options)
+    gen = torch.Generator().manual_seed(9)
+    model = SPH3DModelNet(cfg, generator=gen)
+    randomize_bn(model, gen)
+    model = model.to(dev)
+    rng = np.random.default_rng(60)
+    batch = {
+        "points": torch.from_numpy(surface_clouds(rng, B, N)).to(dev),
+        "label": torch.from_numpy(
+            rng.integers(0, cfg.num_cls, (B,)).astype(np.int64)).to(dev),
+    }
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    print(f"ModelNet, IDS sampling and avg pool: B={B} N={N}, windows "
+          f"{list(cfg.windows)}; the IDS noise and the dropout masks from "
+          f"one seeded generator, the same draws for every step compared",
+          flush=True)
+
+    def factory(use_kernels, net=model):
+        opt, sch = make_optimizer(
+            net.parameters(), "adam",
+            exponential_decay_lr(0.001, batch_size=B))
+        return classification_step_factory(
+            net, opt, sch, weight_decay=cfg.weight_decay,
+            use_kernels=use_kernels)
+
+    def noise_gen():
+        return torch.Generator(device=dev).manual_seed(10)
+
+    fell = []
+
+    def guarded(step, gen):
+        """One step's forward and backward, re-run from the pre-step state
+        through classic_fallback() when the certificate fails (as JAX's
+        fit() does)."""
+        before = {k: v.clone() for k, v in step.model.state_dict().items()}
+        seed = gen.get_state()
+        metrics = step.loss_and_grads(batch, gen)
+        fell.append(not bool(metrics["dense_ok"]))
+        if fell[-1]:
+            step.model.load_state_dict(before)
+            gen.set_state(seed)
+            metrics = step.classic_fallback().loss_and_grads(batch, gen)
+        return metrics
+
+    def grads_of(step):
+        step.model.load_state_dict(state0)
+        metrics = guarded(step, noise_gen())
+        return metrics, {k: p.grad.clone()
+                         for k, p in step.model.named_parameters()}
+
+    model32 = SPH3DModelNet(dataclasses.replace(
+        cfg, compute_dtype="float32")).to(dev)
+    compare_steps(grads_of, factory, model32, "ModelNet IDS/avg train step")
+    del model32
+    print(f"ModelNet IDS/avg: dense_ok {not fell[0]} on the train batch"
+          + (" (the certificate failed on the config's windows: each step "
+             "re-ran through classic_fallback())" if fell[0] else ""),
+          flush=True)
+    model.load_state_dict(state0)
+    with _build.record_calls() as calls:
+        factory(None).loss_and_grads(batch, noise_gen())
+    queries = [c for c in calls if c[0] == "dense_query"]
+    pools = [c for c in calls if c[0] == "avg_pool"]
+    pool_bwd = [c for c in calls if c[0] == "mean_interpolate_bwd"]
+    del calls
+    if len(queries) != 6 or sum(bool(kw.get("need_dist"))
+                                for _, _, kw in queries) != 3:
+        raise AssertionError("want 6 dense queries, 3 with distance maps")
+    if (len(pools), len(pool_bwd)) != (3, 3):
+        raise AssertionError(f"{len(pools)} avg pools and {len(pool_bwd)} "
+                             f"backwards recorded on the dense engine, "
+                             f"want 3 and 3")
+    print("dense avg pool forward beside the rank max pool (K4) on the same "
+          "graphs and features (CUDA events, median):", flush=True)
+    with torch.no_grad():
+        for _, args, kw in pools:
+            a_ms = median_ms(lambda: D.dense_avg_pool3d(*args))
+            m_ms = median_ms(lambda: D.dense_max_pool3d(*args))
+            res.ms["avg_pool"] += a_ms
+            res.ms["max_pool"] += m_ms
+            print(f"  {describe('avg_pool', args, kw):30s} avg "
+                  f"{a_ms:.3f} ms  max {m_ms:.3f} ms  avg "
+                  f"{res.add_bound('avg_pool', work('avg_pool', args, kw))}",
+                  flush=True)
+    print(f"  sums: avg {res.ms['avg_pool']:.3f} ms, max "
+          f"{res.ms['max_pool']:.3f} ms", flush=True)
+    print("dense avg pool backward (K9 cloud sum) against its plain "
+          "version:", flush=True)
+    replay(pool_bwd, res, {"window_gather_bwd": 3}, plain_reps=1)
+    del pools, pool_bwd
+
+    model.load_state_dict(state0)
+    step = factory(None)
+    gen = noise_gen()
+    n_steps, times, losses = 3, [], []
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    fell.clear()
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        metrics = guarded(step, gen)
+        step.optimizer.step()
+        step.scheduler.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    launches = kernel_launches()
+    n_fb = sum(fell)
+    per_dense = {"fps": 0, "dense_query": 6, "dense_conv": 6,
+                 "rank_pool": 0, "dense_conv_bwd": 6, "rank_pool_bwd": 0}
+    want = {k: v * n_steps for k, v in per_dense.items()}
+    # a dense step's backward sums its 3 avg pools into the cloud by K9; a
+    # step that fell back ran the dense forward, then the per-edge
+    # engine's 9 gathers and their 9 backwards
+    want["dense_conv_bwd"] -= 6 * n_fb
+    want["window_gather"] = 9 * n_fb
+    want["window_gather_bwd"] = 3 * (n_steps - n_fb) + 9 * n_fb
+    loss = torch.stack(losses).cpu()
+    print(f"{n_steps} ModelNet IDS/avg train steps ({n_fb} through the "
+          f"fallback): loss {[round(v, 4) for v in loss.tolist()]}, step "
+          f"{float(np.median(times)) * 1e3:.2f} ms median (host clock, "
+          f"synchronised); launches {launches}", flush=True)
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"launches {got}, want {want}")
+    if not torch.isfinite(loss).all():
+        raise AssertionError(f"non-finite loss: {loss.tolist()}")
+
+    def one_step():
+        guarded(step, gen)
+        step.optimizer.step()
+        step.scheduler.step()
+
+    profile_steps(one_step, "ModelNet IDS/avg step")
+
+    # the per-edge engine with the same options: K8 under the avg pool
+    pe = SPH3DModelNet(dataclasses.replace(modelnet_config(fast=True),
+                                           **options)).to(dev).eval()
+    pe.load_state_dict(state0)
+    x = batch["points"]
+    with torch.inference_mode():
+        reset_kernel_launches()
+        got = pe(x, generator=noise_gen())
+        torch.cuda.synchronize()
+        pe_launches = kernel_launches()
+        ref = pe(x, use_kernels=False, generator=noise_gen())
+        pe_ms = median_ms(lambda: pe(x, generator=noise_gen()))
+    diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"per-edge IDS/avg forward: kernel vs plain logits max_abs_err "
+          f"{diff:.4g} (|logits| <= {scale:.3g}), {pe_ms:.2f} ms with "
+          f"kernels; launches {pe_launches}", flush=True)
+    if pe_launches["window_gather"] != 9 or pe_launches["fps"] != 0:
+        raise AssertionError(f"per-edge launches {pe_launches}")
+    torch.testing.assert_close(got, ref, rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL * scale)
+    return launches, queries
+
+
+def random_sample_phase(dev: torch.device) -> None:
+    """Phase 29: one served ModelNet forward with random sampling (with
+    replacement) through ``checked_forward``: finite logits, and either a
+    covered dense forward or a fallback to the per-edge engine."""
+    from sph3d_gcn_torch import kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.configs import modelnet_config
+    from sph3d_gcn_torch.data.synthetic import surface_clouds
+    from sph3d_gcn_torch.models import SPH3DModelNet
+    from sph3d_gcn_torch.train.eval import checked_forward
+
+    cfg = dataclasses.replace(modelnet_config(fast=True, dense=True),
+                              sample="random")
+    gen = torch.Generator().manual_seed(11)
+    model = SPH3DModelNet(cfg, generator=gen)
+    randomize_bn(model, gen)
+    model = model.to(dev).eval()
+    pts = surface_clouds(np.random.default_rng(70), B, N)
+    torch.manual_seed(12)
+    reset_kernel_launches()
+    logits = checked_forward(model, dev)(pts)
+    launches = kernel_launches()
+    covered = bool(model.dense_ok)
+    print(f"ModelNet random sampling: dense certificate {covered}"
+          + ("" if covered else ", served by the per-edge engine")
+          + f"; logits {logits.shape} finite "
+          f"{bool(np.isfinite(logits).all())}; launches {launches}",
+          flush=True)
+    want = {"fps": 0, "dense_query": 6, "dense_conv": 6, "rank_pool": 3,
+            "window_gather": 0 if covered else 9}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"random-sampling launches {launches}, want "
+                             f"{want}")
+    if logits.shape != (B, cfg.num_cls) or not np.isfinite(logits).all():
+        raise AssertionError("bad random-sampling logits")
+
+
+def dist_map_replay(calls: list, res: Results) -> None:
+    """Phase 30 (a): every recorded query call of the option paths through
+    its kernel and its plain version (the distance map bitwise, the
+    packed map and growth steps too), and each call with a map once more
+    without it: the packed map and steps bitwise unchanged, the kernel's
+    time without the map, the map's bytes and its bound (bytes over the
+    card's memory rate)."""
+    table = versions()
+    bare_ms = collections.defaultdict(float)     # the map calls without it
+    map_bound = collections.defaultdict(float)
+    print("distance-map replay (K2, K7; times: median of CUDA events)",
+          flush=True)
+    with torch.no_grad():
+        for name, args, kw in calls:
+            kern, plain, _ = table[name]
+            what = describe(name, args, kw)
+            got = kern(*args, **kw)
+            res.add(name, what, got, plain(*args, **kw),
+                    median_ms(lambda: kern(*args, **kw)),
+                    median_ms(lambda: plain(*args, **kw), 1), exact,
+                    work(name, args, kw))
+            if not kw.get("need_dist"):
+                continue
+            bare = {k: v for k, v in kw.items() if k != "need_dist"}
+            alone = kern(*args, **bare)
+            exact(got[:-1] + (None,), alone)
+            ms = median_ms(lambda: kern(*args, **bare))
+            map_bytes = got[-1].numel() * got[-1].element_size()
+            bound = map_bytes / MEM_BYTES_PER_S * 1e3
+            bare_ms[name] += ms
+            map_bound[name] += bound
+            print(f"    without the map {ms:.3f} ms (packed"
+                  f"{' and steps' if len(alone) > 2 else ''} bitwise "
+                  f"unchanged); the map {map_bytes / 1e6:.1f} MB, its "
+                  f"bound {bound:.4f} ms", flush=True)
+    for name in ("dense_query", "growth_query"):
+        if res.calls[name]:
+            print(f"  {name}: {res.calls[name]} calls, {res.ms[name]:.3f} ms "
+                  f"with the maps, {bare_ms[name]:.3f} ms for the calls "
+                  f"with a map without it; the maps' bound "
+                  f"{map_bound[name]:.4f} ms", flush=True)
+    res.summary("distance-map replay (K2: one ModelNet IDS step's queries; "
+                "K7: one weighted S3DIS forward's)")
 
 
 def kernel_lines(runs: dict[str, tuple[Results, dict]],
@@ -1745,13 +2217,26 @@ def main() -> None:
     max_index_replay(dev, pool_calls, conv_map, res_index)
     del pool_calls, conv_map
 
+    # 26-30. the options that read distance maps, the avg pools, IDS and
+    # random sampling, and the distance-map replay of their queries
+    res_weighted, res_ids, res_dist = Results(), Results(), Results()
+    weighted_launches, growth_calls = s3dis_weighted_phases(dev,
+                                                           res_weighted)
+    ids_launches, query_calls = modelnet_option_phases(dev, res_ids)
+    random_sample_phase(dev)
+    dist_map_replay(query_calls + growth_calls, res_dist)
+    del query_calls, growth_calls
+
     print(json.dumps(kernel_lines({
         "s3dis_serve": (res_s3, s3_launches),
         "modelnet_train_step": (res_train, train_launches),
         "s3dis_train_step": (res_s3_step, s3_step_launches),
         "modelnet_per_edge_serve": (res_win, win_launches),
         "modelnet_per_edge_train_step": (res_win_step, win_step_launches),
-    }, (res, res_plain_win, res_index))), flush=True)
+        "modelnet_ids_train_step": (res_dist, ids_launches),
+        "s3dis_weighted_serve": (res_dist, weighted_launches),
+    }, (res, res_plain_win, res_index, res_weighted, res_ids))),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

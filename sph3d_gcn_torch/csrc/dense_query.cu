@@ -1,8 +1,8 @@
 // K2: dense windowed sphere query -> packed int8 neighbor maps.
 //
 // Replaces the TPU kernel sph3d_gcn_tpu/ops/pallas/query_kernel.py:245
-// (_query_kernel, reached via dense_query_pallas), without distance maps.
-// The radius-growth query of the decoders' inter graphs is K7,
+// (_query_kernel, reached via dense_query_pallas), with its need_dist map
+// (:296-299). The radius-growth query of the decoders' inter graphs is K7,
 // csrc/growth_query.cu. Plain PyTorch twin:
 // sph3d_gcn_torch/ops/query.py::dense_query_plain.
 //
@@ -20,15 +20,24 @@
 // (8, 2, q) kernel (compare-only form of _bins_822); mode 2 the same bin
 // SORT-GROUPED by the cloud's sort axis.
 //
+// Distance map (optional, dist != nullptr): an f32 (B, nT, 128, W) map
+// beside the int8 one, sqrtf(d3) where the entry is selected and 0
+// everywhere else (past u_end and past the K-th neighbor too). d3 is
+// already the Euclidean distance, so the map holds the reference's
+// sqrt-space distance (ref tf_nnquery_gpu.cu:54). Lane i stores column
+// c0+i, so each warp store is 128 contiguous bytes. The map is a template
+// branch: a launch without it runs the code of the int8-only kernel.
+//
 // What bounds it on the H100: instruction throughput of the
 // per-candidate arithmetic (distance, sqrt, radius test, bin compares:
 // ~40 instructions for each of B*M*W candidates); device memory traffic
-// is the int8 map write, B*M*W bytes. Warps stop computing once their
-// row has K neighbors.
+// is the int8 map write, B*M*W bytes (five times that with the f32
+// distance map). Warps stop computing once their row has K neighbors.
 //
 // Numerics: sqrt((dx*dx + dy*dy) + dz*dz) is written without FMA
 // contraction (sum_sq3) and sqrtf is IEEE-rounded, so radius tests and
-// radial bins equal the plain version's bit for bit.
+// radial bins equal the plain version's bit for bit; the map's sqrtf is
+// IEEE-rounded too (no --use_fast_math), so it equals torch.sqrt's.
 #include "common.cuh"
 
 namespace {
@@ -73,15 +82,16 @@ __device__ __forceinline__ int bin822(float dx, float dy, float dz, float d3,
   return d3 > bp.far_thr ? gid - 1 : 8 * bp.q_bins;
 }
 
+template <bool kDist>
 __global__ void __launch_bounds__(kWarps * 32)
     dense_query_kernel(const float* __restrict__ db,
                        const float* __restrict__ q,
                        const int* __restrict__ s_blk,
                        const int* __restrict__ u_end,
                        const int* __restrict__ axis,
-                       int8_t* __restrict__ out, int n_pad, int n_t,
-                       int window, int k, int mode, BinParams bp,
-                       float radius) {
+                       int8_t* __restrict__ out, float* __restrict__ dist,
+                       int n_pad, int n_t, int window, int k, int mode,
+                       BinParams bp, float radius) {
   extern __shared__ float win[];
   const int g = blockIdx.x;  // b * n_t + tile
   const int b = g / n_t;
@@ -107,10 +117,12 @@ __global__ void __launch_bounds__(kWarps * 32)
     const size_t row = static_cast<size_t>(g) * kTile + t;
     const float qx = q[3 * row], qy = q[3 * row + 1], qz = q[3 * row + 2];
     int8_t* orow = out + row * window;
+    float* drow = kDist ? dist + row * window : nullptr;
     int off = 0;  // in-range candidates in earlier columns
     for (int c0 = 0; c0 < window; c0 += 32) {
       const int w = c0 + lane;
       int val = 0;
+      float dval = 0.f;
       if (c0 < live && off < k) {  // warp-uniform
         const float dx = wx[w] - qx, dy = wy[w] - qy, dz = wz[w] - qz;
         const float d3 = sqrtf(sph3d::sum_sq3(dx, dy, dz));
@@ -119,29 +131,48 @@ __global__ void __launch_bounds__(kWarps * 32)
         const int rank = off + __popc(bal & le_mask);
         if (in_r && rank <= k) {
           val = mode == 0 ? rank : bin822(dx, dy, dz, d3, bp) + 1;
+          if (kDist) dval = sqrtf(d3);
         }
         off += __popc(bal);
       }
       orow[w] = static_cast<int8_t>(val);
+      if (kDist) drow[w] = dval;
     }
   }
 }
 
-}  // namespace
-
-extern "C" int sph3d_dense_query_launch(
-    const float* db, const float* q, const int* s_blk, const int* u_end,
-    const int* axis, int8_t* out, int batch, int n_pad, int n_t, int window,
-    int k, int mode, int q_bins, float radius, float thr1, float thr2,
-    float thr3, float far_thr, void* stream) {
-  BinParams bp{0, 0, q_bins, {thr1, thr2, thr3}, far_thr};
+template <bool kDist>
+cudaError_t launch(const float* db, const float* q, const int* s_blk,
+                   const int* u_end, const int* axis, int8_t* out,
+                   float* dist, int grid, int n_pad, int n_t, int window,
+                   int k, int mode, const BinParams& bp, float radius,
+                   cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(float) * 3 * window);
   cudaError_t err = cudaFuncSetAttribute(
-      dense_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      dense_query_kernel<kDist>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dense_query_kernel<<<batch * n_t, kWarps * 32, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      db, q, s_blk, u_end, axis, out, n_pad, n_t, window, k, mode, bp,
+  dense_query_kernel<kDist><<<grid, kWarps * 32, smem, stream>>>(
+      db, q, s_blk, u_end, axis, out, dist, n_pad, n_t, window, k, mode, bp,
       radius);
   return cudaGetLastError();
+}
+
+}  // namespace
+
+// dist: the f32 distance map, or nullptr for the int8 map alone.
+extern "C" int sph3d_dense_query_launch(
+    const float* db, const float* q, const int* s_blk, const int* u_end,
+    const int* axis, int8_t* out, float* dist, int batch, int n_pad,
+    int n_t, int window, int k, int mode, int q_bins, float radius,
+    float thr1, float thr2, float thr3, float far_thr, void* stream) {
+  BinParams bp{0, 0, q_bins, {thr1, thr2, thr3}, far_thr};
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dist == nullptr) {
+    return launch<false>(db, q, s_blk, u_end, axis, out, nullptr,
+                         batch * n_t, n_pad, n_t, window, k, mode, bp,
+                         radius, st);
+  }
+  return launch<true>(db, q, s_blk, u_end, axis, out, dist, batch * n_t,
+                      n_pad, n_t, window, k, mode, bp, radius, st);
 }

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel sph3d_gcn_tpu/ops/pallas/query_kernel.py:307
 // (_growth_kernel, reached via dense_query_pallas with growth_steps > 0),
-// without distance maps. Plain PyTorch twin:
+// with its need_dist map (:365-369). Plain PyTorch twin:
 // sph3d_gcn_torch/ops/query.py::growth_query_plain.
 //
 // The decoders' fine->coarse inter graphs grow the radius of a query with
@@ -15,6 +15,11 @@
 //   in(w) = alive and g(w) <= g*   (the in-range set at radius r_{g*})
 //   rank  = inclusive count of in along the window; packed = in and
 //           rank <= K ? rank : 0;  step[row] = alive ? g* : 0
+//
+// Distance map (optional, dist != nullptr): f32 (B, nT, 128, W), written
+// in pass 2 beside the ranks: sqrtf(d3) where the column is selected at
+// the row's grown radius (in(w) and rank <= K), 0 everywhere else. As in
+// K2 it is a template branch, one coalesced store per lane and column.
 //
 // Columns at or past u_end chunks of 128 are zero (the slab-end bound at
 // the largest radius proves they hold no candidate at any step).
@@ -35,11 +40,12 @@
 // What bounds it on the H100: instruction throughput. Each live candidate
 // costs the distance (9 operations), G+1 range tests (3 each) in pass 1,
 // and again in pass 2 until the row has K neighbors; device memory traffic
-// is the int8 map write, B*M*W bytes.
+// is the int8 map write, B*M*W bytes (five times that with the f32
+// distance map).
 //
 // Numerics: sqrt((dx*dx + dy*dy) + dz*dz) without FMA contraction
-// (sum_sq3) and an IEEE-rounded sqrtf, so every range test equals the
-// plain version's bit for bit.
+// (sum_sq3) and an IEEE-rounded sqrtf, so every range test, and the
+// distance map, equals the plain version's bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -69,14 +75,15 @@ __device__ __forceinline__ int growth_of(float d3, const Radii& rd,
   return g;
 }
 
+template <bool kDist>
 __global__ void __launch_bounds__(kWarps * 32)
     growth_query_kernel(const float* __restrict__ db,
                         const float* __restrict__ q,
                         const int* __restrict__ s_blk,
                         const int* __restrict__ u_end,
                         int8_t* __restrict__ out, int8_t* __restrict__ steps,
-                        int n_pad, int n_t, int window, int k, int n_radii,
-                        Radii rd) {
+                        float* __restrict__ dist, int n_pad, int n_t,
+                        int window, int k, int n_radii, Radii rd) {
   extern __shared__ float win[];
   const int g = blockIdx.x;  // b * n_t + tile
   const int b = g / n_t;
@@ -115,42 +122,63 @@ __global__ void __launch_bounds__(kWarps * 32)
 
     // pass 2: ranks of the columns in range at radius r_{g*}
     int8_t* orow = out + row * window;
+    float* drow = kDist ? dist + row * window : nullptr;
     int off = 0;  // selected columns before this step
     for (int c0 = 0; c0 < window; c0 += 32) {
       const int w = c0 + lane;
       int val = 0;
+      float dval = 0.f;
       if (alive && c0 < live && off < k) {  // warp-uniform
         const float dx = wx[w] - qx, dy = wy[w] - qy, dz = wz[w] - qz;
         const float d3 = sqrtf(sph3d::sum_sq3(dx, dy, dz));
         const bool in_g = growth_of(d3, rd, n_radii) <= gstar;
         const unsigned bal = __ballot_sync(kFullMask, in_g);
         const int rank = off + __popc(bal & le_mask);
-        if (in_g && rank <= k) val = rank;
+        if (in_g && rank <= k) {
+          val = rank;
+          if (kDist) dval = sqrtf(d3);
+        }
         off += __popc(bal);
       }
       orow[w] = static_cast<int8_t>(val);
+      if (kDist) drow[w] = dval;
     }
     if (lane == 0) steps[row] = static_cast<int8_t>(alive ? gstar : 0);
   }
 }
 
+template <bool kDist>
+cudaError_t launch(const float* db, const float* q, const int* s_blk,
+                   const int* u_end, int8_t* out, int8_t* steps, float* dist,
+                   int grid, int n_pad, int n_t, int window, int k,
+                   int n_radii, const Radii& rd, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(float) * 3 * window);
+  cudaError_t err = cudaFuncSetAttribute(
+      growth_query_kernel<kDist>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  growth_query_kernel<kDist><<<grid, kWarps * 32, smem, stream>>>(
+      db, q, s_blk, u_end, out, steps, dist, n_pad, n_t, window, k, n_radii,
+      rd);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // radii: a HOST array of the n_radii = G + 1 radii, copied into the
-// kernel's parameters.
+// kernel's parameters. dist: the f32 distance map, or nullptr.
 extern "C" int sph3d_growth_query_launch(
     const float* db, const float* q, const int* s_blk, const int* u_end,
-    int8_t* out, int8_t* steps, const float* radii, int batch, int n_pad,
-    int n_t, int window, int k, int n_radii, void* stream) {
+    int8_t* out, int8_t* steps, float* dist, const float* radii, int batch,
+    int n_pad, int n_t, int window, int k, int n_radii, void* stream) {
   if (n_radii < 1 || n_radii > kMaxRadii) return cudaErrorInvalidValue;
   Radii rd{};
   for (int i = 0; i < n_radii; ++i) rd.r[i] = radii[i];
-  const int smem = static_cast<int>(sizeof(float) * 3 * window);
-  cudaError_t err = cudaFuncSetAttribute(
-      growth_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  growth_query_kernel<<<batch * n_t, kWarps * 32, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      db, q, s_blk, u_end, out, steps, n_pad, n_t, window, k, n_radii, rd);
-  return cudaGetLastError();
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (dist == nullptr) {
+    return launch<false>(db, q, s_blk, u_end, out, steps, nullptr,
+                         batch * n_t, n_pad, n_t, window, k, n_radii, rd, st);
+  }
+  return launch<true>(db, q, s_blk, u_end, out, steps, dist, batch * n_t,
+                      n_pad, n_t, window, k, n_radii, rd, st);
 }

@@ -7,7 +7,10 @@ with xyz concatenated onto every level's input -> per-level global max
 features -> global centroid conv (radius 100, kernel (8,2,1), 17 bins)
 -> FC 512 -> dropout -> FC 256 -> dropout -> logits (ref
 SPH3D_modelnet.py:33-108). ``self.training`` drives batch-statistics BN
-and dropout (``model.train()`` / ``model.eval()``).
+and dropout (``model.train()`` / ``model.eval()``). The config's
+``sample`` (FPS, IDS, random) and ``pool_method`` (max, avg) choose the
+sampler and the pool of every level; IDS and random sampling draw their
+noise in both modes, as the reference's sampling ops do.
 
 Two engines, chosen by ``config.dense_graph`` as in JAX: the dense
 windowed engine (graphs as packed maps, certified by ``dense_ok``) and
@@ -69,8 +72,6 @@ class SPH3DModelNet(nn.Module):
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
         cfg = config
-        if cfg.sample != "FPS" or cfg.pool_method != "max":
-            raise NotImplementedError("only FPS sampling and max pooling")
         self.config = cfg
         dt = compute_dtype(cfg)
         common = dict(with_bn=cfg.with_bn, with_bias=cfg.with_bias, dtype=dt,
@@ -102,11 +103,15 @@ class SPH3DModelNet(nn.Module):
 
     def forward(self, points: torch.Tensor,
                 use_kernels: bool | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                sample_noise: list[torch.Tensor] | None = None
+                ) -> torch.Tensor:
         """``use_kernels``: None runs the CUDA kernels on a CUDA device and
         the plain versions on the CPU; False forces the plain versions
-        (for comparing the two). ``generator`` draws the dropout masks in
-        train mode."""
+        (for comparing the two). ``generator`` draws the sampling noise of
+        IDS and random sampling (level by level, before the dropout masks)
+        and the dropout masks in train mode. ``sample_noise``: per level,
+        the sampler's draws to use instead (``nn.graph.build_graph``)."""
         cfg = self.config
         if points.dim() != 3 or points.shape[1] != cfg.num_input:
             raise ValueError(
@@ -128,12 +133,16 @@ class SPH3DModelNet(nn.Module):
         for level in range(len(cfg.radius)):
             if cfg.use_raw:
                 net = torch.cat([net, xyz.to(net.dtype)], dim=-1)
+            sampling = dict(
+                generator=generator,
+                noise=None if sample_noise is None else sample_noise[level])
             if cfg.dense_graph:
-                net, xyz, ok = self._dense_level(net, xyz, level,
+                net, xyz, ok = self._dense_level(net, xyz, level, sampling,
                                                  use_kernels)
                 dense_ok = dense_ok & ok
             else:
-                net, xyz = self._classic_level(net, xyz, level, use_kernels)
+                net, xyz = self._classic_level(net, xyz, level, sampling,
+                                               use_kernels)
             # multi-scale global max feature (ref SPH3D_modelnet.py:82-83);
             # amax splits the gradient evenly between tied maxima, as
             # jnp.max does (bf16 makes ties common)
@@ -151,7 +160,7 @@ class SPH3DModelNet(nn.Module):
         net = self.fc2_dp(self.fc2(net), generator)
         return self.logits(net)
 
-    def _dense_level(self, net, xyz, level, use_kernels):
+    def _dense_level(self, net, xyz, level, sampling, use_kernels):
         """One level on the dense engine: (net, coarse xyz, the level's
         certificate)."""
         cfg = self.config
@@ -159,14 +168,14 @@ class SPH3DModelNet(nn.Module):
             xyz, cfg.radius[level], cfg.nn_uplimit[level],
             cfg.num_sample[level], sample_method=cfg.sample,
             kernel=cfg.kernel, window=cfg.enc_window(level),
-            use_kernels=use_kernels,
+            use_kernels=use_kernels, **sampling,
         )
         ok = nbh.ok
         net = getattr(self, f"conv{level + 1}")(
             net, nbh, use_kernels=use_kernels
         )
         if cfg.num_sample[level] > 1:
-            # FPS indices come back sorted: the coarse cloud stays
+            # the sample indices come back sorted: the coarse cloud stays
             # axis-sorted for the next dense level
             xyz_coarse = gather_points(xyz, sample_idx)
             inter = build_pool_graph_dense(
@@ -180,13 +189,13 @@ class SPH3DModelNet(nn.Module):
             xyz = xyz_coarse
         return net, xyz, ok
 
-    def _classic_level(self, net, xyz, level, use_kernels):
+    def _classic_level(self, net, xyz, level, sampling, use_kernels):
         """One level on the per-edge engine: (net, coarse xyz)."""
         cfg = self.config
         nbh, filt_idx, sample_idx = build_graph(
             xyz, cfg.radius[level], cfg.nn_uplimit[level],
             cfg.num_sample[level], sample_method=cfg.sample,
-            kernel=cfg.kernel, use_kernels=use_kernels,
+            kernel=cfg.kernel, use_kernels=use_kernels, **sampling,
         )
         net = getattr(self, f"conv{level + 1}")(
             net, nbh, filt_idx, window=cfg.enc_window(level),

@@ -3,13 +3,15 @@
 ``SPH3DSceneSeg``, the S3DIS / ScanNet model).
 
 Axis sort -> xy-center normalization -> input MLP -> encoder {dense
-sphere graph -> separable conv block -> FPS -> pool graph -> max pool} x
+sphere graph -> separable conv block -> sample -> pool graph -> pool} x
 L -> mirrored decoder {coarse intra graph + fine->coarse inter graph with
-radius growth -> conv block at the coarse level -> masked-mean unpool to
-the finer level -> skip concat} -> pointwise logits -> unsort to the
-input order (ref SPH3D_s3dis.py:35-112). The decoder indexes reversed
-copies of the config lists (the reference reverses them in place,
-ref SPH3D_s3dis.py:79-84).
+radius growth -> conv block at the coarse level -> unpool to the finer
+level -> skip concat} -> pointwise logits -> unsort to the input order
+(ref SPH3D_s3dis.py:35-112). The config's ``sample`` (FPS, IDS, random),
+``pool_method`` (max, avg) and ``unpool_method`` (mean, or weighted: the
+inter graphs then carry distance maps) choose the sampler, pool and
+unpool. The decoder indexes reversed copies of the config lists (the
+reference reverses them in place, ref SPH3D_s3dis.py:79-84).
 """
 
 from __future__ import annotations
@@ -70,8 +72,13 @@ class SegEncoderDecoder(nn.Module):
         self.out_channels = c
 
     def forward(self, net: torch.Tensor, xyz: torch.Tensor,
-                use_kernels: bool | None = None
+                use_kernels: bool | None = None,
+                generator: torch.Generator | None = None,
+                sample_noise: list[torch.Tensor] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
+        """``generator`` draws the noise of IDS and random sampling, level
+        by level, unless ``sample_noise`` holds each level's draws
+        (``nn.graph.build_graph_dense``)."""
         cfg = self.config
         num_levels = len(cfg.radius)
         net = self.mlp1(net)
@@ -85,6 +92,8 @@ class SegEncoderDecoder(nn.Module):
                 xyz, cfg.radius[level], cfg.nn_uplimit[level],
                 cfg.num_sample[level], sample_method=cfg.sample,
                 kernel=cfg.kernel, window=cfg.enc_window(level),
+                generator=generator,
+                noise=None if sample_noise is None else sample_noise[level],
                 use_kernels=use_kernels,
             )
             dense_ok = dense_ok & nbh.ok
@@ -92,8 +101,8 @@ class SegEncoderDecoder(nn.Module):
                 net, nbh, use_kernels=use_kernels)
             encoder.append(net)
             if cfg.num_sample[level] > 1:
-                # FPS indices come back sorted: the coarse cloud stays
-                # axis-sorted for the next dense level
+                # the sample indices come back sorted: the coarse cloud
+                # stays axis-sorted for the next dense level
                 xyz_coarse = gather_points(xyz, sample_idx)
                 inter = build_pool_graph_dense(
                     xyz, xyz_coarse, cfg.radius[level],
@@ -120,6 +129,7 @@ class SegEncoderDecoder(nn.Module):
                 xyz_coarse, xyz_fine, radius_r[level], nn_uplimit_r[level],
                 kernel=cfg.kernel,
                 window=cfg.dec_window(num_levels - 1 - level),
+                need_dist=cfg.unpool_method == "weighted",
                 dec_margin=cfg.dec_margin, growth_steps=cfg.growth_steps,
                 use_kernels=use_kernels,
             )
@@ -149,12 +159,6 @@ class SPH3DSceneSeg(nn.Module):
         super().__init__()
         cfg = config
         _require_dense(cfg)
-        if cfg.sample != "FPS" or cfg.pool_method != "max":
-            raise NotImplementedError("only FPS sampling and max pooling")
-        if cfg.unpool_method != "mean":
-            raise NotImplementedError(
-                "only the mean unpool is ported (weighted needs distance "
-                "maps)")
         self.config = cfg
         self.backbone = SegEncoderDecoder(cfg, _IN_CHANNELS, generator)
         # the classifier: no activation, no BN, f32 (the JAX layer's
@@ -167,11 +171,14 @@ class SPH3DSceneSeg(nn.Module):
 
     def forward(self, points: torch.Tensor,
                 use_kernels: bool | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None,
+                sample_noise: list[torch.Tensor] | None = None
+                ) -> torch.Tensor:
         """``use_kernels``: None runs the CUDA kernels on a CUDA device and
         the plain versions on the CPU; False forces the plain versions
-        (for comparing the two). ``generator`` is accepted for the train
-        step's call and unused: the model has no dropout. Raises
+        (for comparing the two). ``generator`` draws the noise of IDS and
+        random sampling (the model has no dropout), unless
+        ``sample_noise`` holds each level's draws. Raises
         NotImplementedError on the per-edge engine (``dense_graph=False``,
         as a classic clone has it)."""
         cfg = self.config
@@ -188,7 +195,9 @@ class SPH3DSceneSeg(nn.Module):
         xyz = points[..., 0:3]
         norm_xyz = normalize_xy_center_z_floor(xyz) if cfg.normalize else xyz
         net = torch.cat([norm_xyz, points[..., 6:]], dim=-1)
-        net, self.dense_ok = self.backbone(net, xyz, use_kernels=use_kernels)
+        net, self.dense_ok = self.backbone(
+            net, xyz, use_kernels=use_kernels, generator=generator,
+            sample_noise=sample_noise)
         logits = self.logits(net)
         # back to the caller's point order; ``perm`` rides along so the
         # backward gathers instead of scattering
@@ -197,8 +206,8 @@ class SPH3DSceneSeg(nn.Module):
 
 
 def _require_dense(cfg: SPH3DConfig) -> None:
-    # the per-edge engine (windowed unpool, decoder graphs with radius
-    # growth in the edge-list query, avg pool) is not ported yet
+    # the per-edge engine (windowed unpools, decoder graphs from the
+    # edge-list query) is not ported yet (ROADMAP Queue 1 item 3)
     if not cfg.dense_graph:
         raise NotImplementedError(
             "SPH3DSceneSeg has no per-edge (classic) engine in the port "

@@ -6,14 +6,41 @@ from __future__ import annotations
 
 import torch
 
-from sph3d_gcn_torch.ops.dense import DenseNeighborhood, build_dense_graph
+from sph3d_gcn_torch.ops.dense import (
+    DenseNeighborhood,
+    build_dense_graph,
+    dense_ids_prob,
+)
 from sph3d_gcn_torch.ops.locality import sort_indices_small
 from sph3d_gcn_torch.ops.neighbor import (
     build_sphere_neighbor,
     build_sphere_neighbor_and_bins,
 )
-from sph3d_gcn_torch.ops.sample import farthest_point_sample
+from sph3d_gcn_torch.ops.sample import (
+    farthest_point_sample,
+    inverse_density_sample,
+    random_sample,
+)
 from sph3d_gcn_torch.ops.types import Neighborhood
+
+
+def _sample(xyz, num_sample, sample_method, prob_fn, generator, noise,
+            use_kernels):
+    """Subsample indices (B, S) int64 by ``sample_method`` (ref
+    utils/sph3gcn_util.py:33-41): FPS, IDS on ``prob_fn()`` (the mean
+    neighbor distance) or random with replacement; ``generator`` draws
+    the noise of IDS and random sampling unless ``noise`` holds the
+    draws ((B, N) uniforms in [tiny, 1) for IDS, (B, S) indices for
+    random)."""
+    if sample_method == "FPS":
+        return farthest_point_sample(num_sample, xyz,
+                                     use_kernels=use_kernels)
+    if sample_method == "IDS":
+        return inverse_density_sample(num_sample, prob_fn(), generator,
+                                      uniform=noise)
+    if sample_method == "random":
+        return random_sample(num_sample, xyz, generator, indices=noise)
+    raise ValueError(f"Unknown sampling method: {sample_method!r}")
 
 
 def build_graph(
@@ -23,22 +50,27 @@ def build_graph(
     num_sample: int | None,
     sample_method: str | None = None,
     kernel: tuple[int, int, int] = (8, 2, 2),
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
     use_kernels: bool | None = None,
 ) -> tuple[Neighborhood, torch.Tensor, torch.Tensor | None]:
     """Intra-level sphere graph with its spherical bins fused into the
-    query, plus FPS subsample indices in FPS order (ref
-    utils/sph3gcn_util.py:28-49). Returns (Neighborhood, filt_index,
-    sample_index or None). Only FPS is ported."""
-    if num_sample is not None and sample_method != "FPS":
-        raise NotImplementedError(
-            f"sampling method {sample_method!r} is not ported yet (FPS is)"
-        )
-    intra, filt = build_sphere_neighbor_and_bins(xyz, xyz, radius,
-                                                 nn_uplimit, kernel)
+    query, plus subsample indices in the sampler's order (ref
+    utils/sph3gcn_util.py:28-49): FPS, IDS (on the edges' sqrt-space
+    distances) or random, their noise from ``generator`` or ``noise`` (see
+    :func:`_sample`). Returns (Neighborhood, filt_index, sample_index or
+    None)."""
+    intra, filt = build_sphere_neighbor_and_bins(
+        xyz, xyz, radius, nn_uplimit, kernel, self_graph=True)
     if num_sample is None:
         return intra, filt, None
-    return intra, filt, farthest_point_sample(num_sample, xyz,
-                                              use_kernels=use_kernels)
+
+    def prob():
+        return intra.dist.sum(dim=-1) / torch.clamp_min(intra.count,
+                                                        1).float()
+
+    return intra, filt, _sample(xyz, num_sample, sample_method, prob,
+                                generator, noise, use_kernels)
 
 
 def build_graph_dense(
@@ -49,21 +81,24 @@ def build_graph_dense(
     sample_method: str | None = None,
     kernel: tuple[int, int, int] = (8, 2, 2),
     window: int = 1024,
+    generator: torch.Generator | None = None,
+    noise: torch.Tensor | None = None,
     use_kernels: bool | None = None,
 ) -> tuple[DenseNeighborhood, torch.Tensor | None]:
-    """Intra-level dense graph plus FPS subsample indices, returned SORTED
-    so the coarser cloud stays axis-sorted. Only FPS is ported."""
-    if num_sample is not None and sample_method != "FPS":
-        raise NotImplementedError(
-            f"sampling method {sample_method!r} is not ported yet (FPS is)"
-        )
+    """Intra-level dense graph plus subsample indices (FPS, IDS or random,
+    as :func:`build_graph`), returned SORTED so the coarser cloud stays
+    axis-sorted. IDS asks the query for its distance map
+    (``dense_ids_prob``)."""
+    need_dist = sample_method == "IDS" and num_sample is not None
     dnbh = build_dense_graph(
         xyz, xyz, radius, nn_uplimit, kernel, window=window,
-        self_graph=True, use_kernels=use_kernels,
+        self_graph=True, need_dist=need_dist, use_kernels=use_kernels,
     )
     if num_sample is None:
         return dnbh, None
-    idx = farthest_point_sample(num_sample, xyz, use_kernels=use_kernels)
+    idx = _sample(xyz, num_sample, sample_method,
+                  lambda: dense_ids_prob(dnbh), generator, noise,
+                  use_kernels)
     return dnbh, sort_indices_small(idx)
 
 
@@ -90,12 +125,14 @@ def build_graph_deconv_dense(
     nn_uplimit: int,
     kernel: tuple[int, int, int],
     window: int,
+    need_dist: bool = False,
     dec_margin: int = 384,
     growth_steps: int = 12,
     use_kernels: bool | None = None,
 ) -> tuple[DenseNeighborhood, DenseNeighborhood]:
     """Decoder graphs: the coarse cloud's intra graph (bin maps) and the
-    fine->coarse inter graph for unpooling (rank maps). The inter graph
+    fine->coarse inter graph for unpooling (rank maps, with its distance
+    map when ``need_dist``: the weighted unpool). The inter graph
     reproduces the reference's +0.05 radius growth for fine points with
     no coarse neighbor (ref tf_nnquery_gpu.cu:30-60) in a window widened
     by ``dec_margin`` rows, re-certified at each tile's grown radius."""
@@ -105,7 +142,7 @@ def build_graph_deconv_dense(
     )
     inter = build_dense_graph(
         xyz, xyz_unpool, radius, nn_uplimit, None,
-        window=window + dec_margin, self_graph=False,
+        window=window + dec_margin, self_graph=False, need_dist=need_dist,
         growth_steps=growth_steps, use_kernels=use_kernels,
     )
     return intra, inter

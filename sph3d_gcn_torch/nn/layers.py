@@ -19,11 +19,13 @@ from torch import nn
 from sph3d_gcn_torch.ops.conv import depthwise_conv3d, einsum_f32
 from sph3d_gcn_torch.ops.dense import (
     DenseNeighborhood,
+    dense_avg_pool3d,
     dense_depthwise_conv3d,
     dense_max_pool3d,
     dense_mean_interpolate,
+    dense_weighted_interpolate,
 )
-from sph3d_gcn_torch.ops.pool import max_pool3d
+from sph3d_gcn_torch.ops.pool import avg_pool3d, max_pool3d
 from sph3d_gcn_torch.ops.types import Neighborhood
 from sph3d_gcn_torch.ops.windowed import EdgeLists
 
@@ -228,27 +230,40 @@ def pool3d(
     window: int | None = None,
     use_kernels: bool | None = None,
 ) -> torch.Tensor:
-    """Pooling dispatch (ref utils/sph3gcn_util.py:276-297): max pooling
-    from a dense graph or an edge-list graph (``window``: the per-edge
-    engine's gather; None: the plain gather)."""
-    if method != "max":
-        raise NotImplementedError(f"pooling method {method!r} is not ported")
+    """Pooling dispatch (ref utils/sph3gcn_util.py:276-297): max or average
+    pooling from a dense graph or an edge-list graph (``window``: the
+    per-edge engine's gather; None: the plain gather)."""
+    if method not in ("max", "avg"):
+        raise ValueError(f"Unknown pooling method {method!r}")
     if isinstance(nbh, DenseNeighborhood):
+        if method == "avg":
+            return dense_avg_pool3d(inputs, nbh, use_kernels=use_kernels)
         out, _ = dense_max_pool3d(inputs, nbh, with_index=False,
                                   use_kernels=use_kernels)
-    else:
-        out, _ = max_pool3d(inputs, nbh.idx, nbh.count, window=window,
-                            use_kernels=use_kernels)
+        return out
+    if method == "avg":
+        return avg_pool3d(inputs, nbh.idx, nbh.count, window=window,
+                          use_kernels=use_kernels)
+    out, _ = max_pool3d(inputs, nbh.idx, nbh.count, window=window,
+                        use_kernels=use_kernels)
     return out
 
 
 def unpool3d(inputs: torch.Tensor, nbh: DenseNeighborhood,
              method: str = "mean",
              use_kernels: bool | None = None) -> torch.Tensor:
-    """Unpooling dispatch (ref utils/sph3gcn_util.py:300-325): the dense
-    masked mean of each fine point's coarse neighbors. The 'weighted'
-    method needs distance maps, which are not ported yet."""
-    if method != "mean":
+    """Unpooling dispatch (ref utils/sph3gcn_util.py:300-325) on a dense
+    graph: the masked mean of each fine point's coarse neighbors, or their
+    distance-weighted sum (the graph built with ``need_dist``). The
+    per-edge unpools are not ported yet: the scene models have no
+    per-edge engine in the port (ROADMAP Queue 1 item 3)."""
+    if method not in ("mean", "weighted"):
+        raise ValueError(f"Unknown unpooling method {method!r}")
+    if not isinstance(nbh, DenseNeighborhood):
         raise NotImplementedError(
-            f"unpooling method {method!r} is not ported (mean is)")
+            f"the per-edge {method} unpool is not ported yet: it comes with "
+            "the scene models' per-edge engine (ROADMAP Queue 1 item 3)")
+    if method == "weighted":
+        return dense_weighted_interpolate(inputs, nbh,
+                                          use_kernels=use_kernels)
     return dense_mean_interpolate(inputs, nbh, use_kernels=use_kernels)

@@ -10,13 +10,17 @@ edge index list:
 
   conv   out[t, c*r+j] = sum_w x[win(w), c] * filt[packed[t,w]-1, c, j]
                          / max(count[t], 1)
-  pool   out[t, c]     = max over selected w of x[win(w), c] (0 if none)
-  unpool out[t, c]     = mean over selected w of x[win(w), c]
+  pool   out[t, c]     = max (or mean) over selected w of x[win(w), c]
+                         (0 if none)
+  unpool out[t, c]     = mean over selected w of x[win(w), c], or the
+                         distance-weighted sum (``dist`` maps)
 
 The certificate ``ok`` (JAX: ``DenseNeighborhood.ok``) is True when the
 provable window bound held: the database is sorted along some axis and
 every tile's [min - r, max + r] slab fits its window. Results then equal
-the classic per-edge ops exactly.
+the classic per-edge ops exactly. On request the query also writes an f32
+distance map beside the packed one (``DenseNeighborhood.dist``), which
+the weighted unpool and IDS sampling read.
 
 Kernels: the query and the growth query are ``ops/query.py``; the conv
 (``csrc/dense_conv.cu``), its backward (``csrc/dense_conv_bwd.cu``), the
@@ -26,8 +30,9 @@ wrapped here, each beside its plain PyTorch version. The conv and the pool are
 ``torch.autograd.Function``s whose backward runs the backward kernel (or,
 for a CPU tensor, its plain version): both backwards give every output
 row one owner and sum in a fixed order, so gradients are bitwise
-reproducible. The masked-mean unpool is a batched matmul over the
-gathered windows (the JAX package leaves it to XLA as well); its backward
+reproducible. The masked-mean unpool, the avg pool (the same masked mean)
+and the distance-weighted unpool are a batched matmul over the gathered
+windows (the JAX package leaves them to XLA as well); their backward
 sums the window gradients into the cloud through the per-edge engine's
 segment sum (``csrc/window_gather_bwd.cu``, ``ops/windowed.py``), again
 one owner per row. ``dense_max_pool3d(with_index=True)``
@@ -96,6 +101,9 @@ class DenseNeighborhood:
       s_blk:  (B, nT) int64 window start in TILE rows.
       count:  (B, M) int32 = min(in-range count, nn_sample).
       ok:     () bool tensor — the window-coverage certificate.
+      dist:   (B, nT, TILE, W) f32 sqrt-space distance of each selected
+              entry, 0 elsewhere; None unless the graph was built with
+              ``need_dist`` (IDS sampling, the weighted unpool).
       axis:   (B,) int32 per-cloud sort axis (grouped bin maps only).
       num_query, num_db: M and N.
       k_max:  K when ``packed`` holds ranks, else 0.
@@ -106,6 +114,7 @@ class DenseNeighborhood:
     s_blk: torch.Tensor
     count: torch.Tensor
     ok: torch.Tensor
+    dist: torch.Tensor | None = None
     axis: torch.Tensor | None = None
     num_query: int = 0
     num_db: int = 0
@@ -249,15 +258,16 @@ def build_dense_graph(
                 (``ops.query.growth_query``). The certificate then also
                 checks each tile's slab at its grown radius. Selection-only
                 graphs (``kernel=None``) only.
-      need_dist, query_shard: not ported yet (raise).
+      need_dist: also build the f32 distance map (``dist``), in the same
+                query launch (at each row's grown radius with growth).
+      query_shard: point-axis sharding, not ported yet (raises).
 
     Returns:
       DenseNeighborhood.
     """
-    if need_dist or query_shard is not None:
+    if query_shard is not None:
         raise NotImplementedError(
-            "distance maps and query sharding of the dense graph are not "
-            "ported yet"
+            "query sharding of the dense graph is not ported yet"
         )
     if growth_steps and kernel is not None:
         raise ValueError(
@@ -268,16 +278,16 @@ def build_dense_graph(
                             growth_steps)
     k = int(nn_sample)
     if growth_steps:
-        packed, steps = growth_query(
+        packed, steps, dist = growth_query(
             plan.db_p, plan.q_p, plan.s_blk, plan.u_end, radius=radius, k=k,
             window=plan.window, growth_steps=growth_steps,
-            use_kernels=use_kernels,
+            need_dist=need_dist, use_kernels=use_kernels,
         )
     else:
-        packed = dense_query(
+        packed, dist = dense_query(
             plan.db_p, plan.q_p, plan.s_blk, plan.u_end, plan.axis,
             radius=radius, k=k, kernel=kernel, window=plan.window,
-            use_kernels=use_kernels,
+            need_dist=need_dist, use_kernels=use_kernels,
         )
     batch = packed.shape[0]
     count = (packed > 0).sum(dim=-1, dtype=torch.int32).reshape(batch, -1)
@@ -304,6 +314,7 @@ def build_dense_graph(
         s_blk=plan.s_blk,
         count=count,
         ok=ok,
+        dist=dist,
         axis=plan.axis,
         num_query=plan.num_query,
         num_db=plan.num_db,
@@ -786,24 +797,28 @@ def dense_max_pool3d(
     return out, max_index.to(torch.int32)
 
 
-def window_mean_bwd(packed, s_blk, dout, num_in, use_kernels=None):
-    """Backward of the unpool's masked window sum: (B, num_in, C) f32
-    from ``dout`` (B, M_pad, C) f32.
+def window_mean_bwd(packed, s_blk, dout, num_in, weights=None,
+                    use_kernels=None):
+    """Backward of the masked window sum of the unpools and the avg pool:
+    (B, num_in, C) f32 from ``dout`` (B, M_pad, C) f32.
 
-    The window gradients ``mask^T . dout`` (a batched matmul per tile)
-    are summed into the cloud by the per-edge engine's segment sum over
-    inverse lists (K9, ``windowed.window_gather_bwd_kernel``; its plain
-    version on a CPU tensor or with ``use_kernels=False``): window row w
-    of tile t is cloud row ``s_blk[t] * 128 + w``, so every cloud row has
-    one owner and its terms one fixed order (reproducible), and the work
-    grows with the windows, not with the cloud times the tiles. Autograd
-    of the window gather would scatter-add them instead: float atomics on
-    a CUDA device, or a sorting path under
+    The window gradients ``lhs^T . dout`` (a batched matmul per tile, lhs
+    the 0/1 mask of the selected entries, or the weighted unpool's
+    ``weights`` (B, nT, TILE, W), 0 off the selection) are summed into the
+    cloud by the per-edge engine's segment sum over inverse lists (K9,
+    ``windowed.window_gather_bwd_kernel``; its plain version on a CPU
+    tensor or with ``use_kernels=False``): window row w of tile t is cloud
+    row ``s_blk[t] * 128 + w``, so every cloud row has one owner and its
+    terms one fixed order (reproducible), and the work grows with the
+    windows, not with the cloud times the tiles. Autograd of the window
+    gather would scatter-add them instead: float atomics on a CUDA
+    device, or a sorting path under
     ``torch.use_deterministic_algorithms``."""
     batch, n_t, _, w = packed.shape
-    mask = (packed > 0).reshape(batch * n_t, TILE, w)
+    lhs = (packed > 0) if weights is None else weights
     c = dout.shape[-1]
-    dfw = einsum_f32("gtw,gtc->gwc", mask, dout.reshape(batch * n_t, TILE, c))
+    dfw = einsum_f32("gtw,gtc->gwc", lhs.reshape(batch * n_t, TILE, w),
+                     dout.reshape(batch * n_t, TILE, c))
     dfw = dfw.reshape(batch, n_t, w, c)
     rows, valid, b_of_g = _window_rows(packed, s_blk, num_in)
     key = torch.where(valid, b_of_g[:, None] * num_in + rows, batch * num_in)
@@ -814,31 +829,48 @@ def window_mean_bwd(packed, s_blk, dout, num_in, use_kernels=None):
     return windowed.window_gather_bwd_plain(*args)
 
 
-class _WindowMeanSum(torch.autograd.Function):
-    """The unpool's masked window sum ``sum_w mask[t, w] x[win(w)]`` per
-    query row, in f32 (B, M_pad, C), with :func:`window_mean_bwd` as its
-    backward. The map is a constant."""
+class _WindowSum(torch.autograd.Function):
+    """The masked window sum ``sum_w lhs[t, w] x[win(w)]`` per query row, in
+    f32 (B, M_pad, C): lhs the 0/1 mask of the selected entries or the
+    given ``weights``. :func:`window_mean_bwd` is its backward; the map
+    and the weights are constants."""
 
     @staticmethod
-    def forward(ctx, inputs, packed, s_blk, use_kernels):
+    def forward(ctx, inputs, packed, s_blk, weights, use_kernels):
         batch, n_t, _, w = packed.shape
         num_in = inputs.shape[1]
         rows, valid, b_of_g = _window_rows(packed, s_blk, num_in)
         fw = inputs[b_of_g[:, None], rows].masked_fill(~valid[..., None], 0)
-        mask = (packed > 0).reshape(batch * n_t, TILE, w)
-        ctx.save_for_backward(packed, s_blk)
+        lhs = (packed > 0) if weights is None else weights
+        ctx.save_for_backward(packed, s_blk, weights)
         ctx.num_in, ctx.dtype = num_in, inputs.dtype
         ctx.use_kernels = use_kernels
-        return einsum_f32("gtw,gwc->gtc", mask, fw).reshape(
-            batch, n_t * TILE, -1)
+        return einsum_f32("gtw,gwc->gtc", lhs.reshape(batch * n_t, TILE, w),
+                          fw).reshape(batch, n_t * TILE, -1)
 
     @staticmethod
     def backward(ctx, dout):
-        packed, s_blk = ctx.saved_tensors
+        packed, s_blk, weights = ctx.saved_tensors
         args = (packed, s_blk, dout.contiguous(), ctx.num_in)
-        _build.record("mean_interpolate_bwd", *args)
-        dx = window_mean_bwd(*args, use_kernels=ctx.use_kernels)
-        return dx.to(ctx.dtype), None, None, None
+        kw = {} if weights is None else {"weights": weights}
+        _build.record("mean_interpolate_bwd", *args, **kw)
+        dx = window_mean_bwd(*args, **kw, use_kernels=ctx.use_kernels)
+        return dx.to(ctx.dtype), None, None, None, None
+
+
+def _masked_mean(inputs, dnbh, use_kernels, name):
+    """Each query row's mean over its selected window entries: the sum in
+    f32, rounded to the input dtype, then scaled by ``1 / max(count, 1)``
+    computed in the input dtype (the JAX op's rounding points,
+    ``ops/dense.py:2398-2436``)."""
+    _build.record(name, inputs, dnbh)
+    n_t = dnbh.packed.shape[1]
+    dtype = inputs.dtype
+    out = _WindowSum.apply(inputs, dnbh.packed, dnbh.s_blk, None,
+                           use_kernels)
+    cnt_p = F.pad(dnbh.count, (0, n_t * TILE - dnbh.num_query))
+    inv = 1.0 / torch.clamp_min(cnt_p, 1).to(dtype)
+    return (out.to(dtype) * inv[..., None])[:, :dnbh.num_query]
 
 
 def dense_mean_interpolate(
@@ -847,19 +879,77 @@ def dense_mean_interpolate(
 ) -> torch.Tensor:
     """Mean unpooling: each fine point's masked mean over its selected
     coarse neighbors (ref tf_unpool3d_gpu.cu:5-22): one batched matmul of
-    the 0/1 maps with the gathered feature windows, summed in f32, rounded
-    to the input dtype, then scaled by ``1 / max(count, 1)`` computed in
-    the input dtype (the JAX op's rounding points,
-    ``ops/dense.py:2398-2436``). Differentiable in ``inputs`` through
-    :func:`window_mean_bwd`, whose cloud sum runs K9 (``use_kernels`` as
-    the other wrappers take it); the forward is plain PyTorch, as the JAX
-    package leaves this op to XLA, with no Pallas kernel.
+    the 0/1 maps with the gathered feature windows (:func:`_masked_mean`).
+    Differentiable in ``inputs`` through :func:`window_mean_bwd`, whose
+    cloud sum runs K9 (``use_kernels`` as the other wrappers take it); the
+    forward is plain PyTorch, as the JAX package leaves this op to XLA,
+    with no Pallas kernel.
 
     Returns (B, M, C) in the input dtype."""
-    _build.record("mean_interpolate", inputs, dnbh)
-    n_t = dnbh.packed.shape[1]
-    dtype = inputs.dtype
-    out = _WindowMeanSum.apply(inputs, dnbh.packed, dnbh.s_blk, use_kernels)
-    cnt_p = F.pad(dnbh.count, (0, n_t * TILE - dnbh.num_query))
-    inv = 1.0 / torch.clamp_min(cnt_p, 1).to(dtype)
-    return (out.to(dtype) * inv[..., None])[:, :dnbh.num_query]
+    return _masked_mean(inputs, dnbh, use_kernels, "mean_interpolate")
+
+
+def dense_avg_pool3d(
+    inputs: torch.Tensor, dnbh: DenseNeighborhood,
+    use_kernels: bool | None = None,
+) -> torch.Tensor:
+    """Average pooling from dense maps: the masked mean over the selected
+    neighbors (ref tf_pool3d_gpu.cu:53-70), the same function as
+    :func:`dense_mean_interpolate` (the JAX package aliases the two).
+    Rows with no selected neighbor give 0. Returns (B, M, C) in the input
+    dtype."""
+    return _masked_mean(inputs, dnbh, use_kernels, "avg_pool")
+
+
+_WEIGHT_EPS = 1e-7   # ref utils/sph3gcn_util.py:317-321
+
+
+def interpolation_weights(dnbh: DenseNeighborhood) -> torch.Tensor:
+    """The weighted unpool's f32 weights (B, nT, TILE, W): per selected
+    entry ``(dist + 1e-7) / (sum of the row's selected dist + 1e-7)``,
+    0 elsewhere: proportional to the sqrt-space distance, the reference's
+    quirk (ref utils/sph3gcn_util.py:317-321)."""
+    if dnbh.dist is None:
+        raise ValueError(
+            "the weighted unpool needs distance maps: build the graph with "
+            "need_dist=True")
+    sel = dnbh.packed > 0
+    dist = torch.where(sel, dnbh.dist, 0.0)
+    sum_dist = dist.sum(dim=-1, keepdim=True)
+    return torch.where(sel, (dist + _WEIGHT_EPS) / (sum_dist + _WEIGHT_EPS),
+                       0.0)
+
+
+def dense_weighted_interpolate(
+    inputs: torch.Tensor, dnbh: DenseNeighborhood,
+    use_kernels: bool | None = None,
+) -> torch.Tensor:
+    """Distance-weighted unpooling (ref utils/sph3gcn_util.py:300-325): per
+    fine point the sum of its selected coarse neighbors' features times
+    :func:`interpolation_weights`, the weights rounded to the input dtype
+    before the product, summed in f32 and rounded once (the JAX op's
+    rounding points, ``ops/dense.py:2416-2418,2443-2460``). Needs a graph
+    built with ``need_dist``. Differentiable in ``inputs`` through
+    :func:`window_mean_bwd` with the weights in place of the 0/1 mask (the
+    cloud sum runs K9); the forward is plain PyTorch, as the JAX package
+    leaves this op to XLA.
+
+    Returns (B, M, C) in the input dtype."""
+    weights = interpolation_weights(dnbh).to(inputs.dtype)
+    _build.record("weighted_interpolate", inputs, dnbh)
+    out = _WindowSum.apply(inputs, dnbh.packed, dnbh.s_blk, weights,
+                           use_kernels)
+    return out.to(inputs.dtype)[:, :dnbh.num_query]
+
+
+def dense_ids_prob(dnbh: DenseNeighborhood) -> torch.Tensor:
+    """IDS sampling probability (B, M) f32: per query the sum of its
+    selected sqrt-space distances over its count (ref
+    utils/sph3gcn_util.py:37-39). Needs a graph built with ``need_dist``."""
+    if dnbh.dist is None:
+        raise ValueError("dense_ids_prob needs distance maps: build the "
+                         "graph with need_dist=True")
+    batch = dnbh.packed.shape[0]
+    dist_sum = torch.where(dnbh.packed > 0, dnbh.dist, 0.0).sum(dim=-1)
+    dist_sum = dist_sum.reshape(batch, -1)[:, :dnbh.num_query]
+    return dist_sum / torch.clamp_min(dnbh.count, 1).float()

@@ -7,27 +7,36 @@ Reproduced quirks (ref tf_nnquery_gpu.cu):
   margin (:49), distances from the matmul form ``|q|^2 - 2 q.db + |db|^2``
   as the JAX op computes its in-range mask;
 - the stored distance is ``sqrt(euclidean)`` from the difference form (:54);
-- ``count = min(total_in_range, K)`` (:56-62).
+- ``count = min(total_in_range, K)`` (:56-62);
+- a query with no neighbor in range grows its radius by +0.05 until it
+  has one (:30-60), up to the JAX op's 512 steps, unless
+  ``self_graph=True`` says every query is in the database (a self graph
+  never grows: each query finds itself).
 
 The query runs over tiles of queries whose (B, T, N) f32 distance block
 fits 128 MiB, as the JAX op's ``_query_tile_size`` cuts them, and picks
 the first K in-range points of each row by a cumulative count of the
 in-range mask and a binary search for the counts 1..K (no sort of whole
-rows). Plain PyTorch: the JAX op is XLA, not a Pallas kernel. The
-reference's radius growth for zero-neighbor queries (:30-60) is not
-ported: such a query keeps count 0, as the JAX op's ``self_graph=True``
-form gives. Every query of a self graph (the level graphs) finds itself,
-and the global graph (radius 100) finds every point.
+rows). Plain PyTorch: the JAX op is XLA, not a Pallas kernel. The grown
+radius is found without a loop: the in-range test is monotone in the
+radius and in the distance, so a row's radius is the first of the f32
+running sums ``r, r + 0.05, ...`` (the JAX loop's own rounding) at which
+its nearest point is in range; no host synchronisation.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from sph3d_gcn_torch.ops.kernelbin import bins_from_delta, validate_kernel_size
 from sph3d_gcn_torch.ops.types import Neighborhood
 
 _BOUNDARY_EPS = 1e-6
+_GROW_STEP = 0.05                 # ref tf_nnquery_gpu.cu:59
+_MAX_GROW_ITERS = 512             # the JAX op's bound on the growth loop
 _TILE_BYTES = 128 * 1024 * 1024   # one (B, T, N) f32 distance block
 
 
@@ -41,17 +50,42 @@ def _query_tile_size(batch: int, num_db: int, num_query: int) -> int:
     return t
 
 
+def _in_range(d: torch.Tensor, r) -> torch.Tensor:
+    """The reference's strict ``<`` with the 1e-6 boundary margin."""
+    return (d < r) & ((d - r).abs() > _BOUNDARY_EPS)
+
+
+@functools.lru_cache(maxsize=None)
+def _grown_radii(radius: float) -> np.ndarray:
+    """The growth loop's radii: ``r_0 = f32(radius)``, ``r_{i+1} =
+    f32(r_i + f32(0.05))`` for the loop's 512 steps."""
+    radii = [np.float32(radius)]
+    for _ in range(_MAX_GROW_ITERS):
+        radii.append(np.float32(radii[-1] + np.float32(_GROW_STEP)))
+    radii = np.array(radii, np.float32)
+    radii.setflags(write=False)
+    return radii
+
+
 def _first_k(q: torch.Tensor, db: torch.Tensor, radius: float,
-             k: int) -> tuple[torch.Tensor, torch.Tensor]:
+             k: int, self_graph: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, T, 3) queries x (B, N, 3) database -> (idx (B, T, K) int64 of
     the first K in-range points in point order, 0 past the count; count
-    (B, T) int64 = min(in-range total, K))."""
+    (B, T) int64 = min(in-range total, K)). Without ``self_graph`` a row
+    with no point in range takes the first grown radius at which its
+    nearest point is in range (the JAX op's growth loop)."""
     cross = torch.einsum("btc,bnc->btn", q, db)
     d2 = (q * q).sum(-1, keepdim=True) - 2.0 * cross + (db * db).sum(-1)[
         :, None, :
     ]
     d = torch.sqrt(torch.clamp_min(d2, 0.0))                  # (B, T, N)
-    mask = (d < radius) & ((d - radius).abs() > _BOUNDARY_EPS)
+    if self_graph:
+        mask = _in_range(d, radius)
+    else:
+        radii = torch.from_numpy(_grown_radii(radius).copy()).to(d.device)
+        steps = (~_in_range(d.amin(dim=-1, keepdim=True), radii)).sum(-1)
+        r = radii[steps.clamp_max(_MAX_GROW_ITERS)]           # (B, T)
+        mask = _in_range(d, r[..., None])
     csum = torch.cumsum(mask, dim=-1, dtype=torch.int32)
     targets = torch.arange(1, k + 1, dtype=torch.int32, device=q.device)
     # the t-th in-range point is the first column whose running count is t
@@ -64,7 +98,7 @@ def _first_k(q: torch.Tensor, db: torch.Tensor, radius: float,
 
 
 def _sphere_query(database: torch.Tensor, query: torch.Tensor,
-                  radius: float, nn_sample: int
+                  radius: float, nn_sample: int, self_graph: bool
                   ) -> tuple[Neighborhood, torch.Tensor]:
     """The query and its displacements: (Neighborhood with K = nn_sample,
     delta (B, M, k, 3) f32 of the k = min(nn_sample, N) searched lanes)."""
@@ -74,7 +108,7 @@ def _sphere_query(database: torch.Tensor, query: torch.Tensor,
     num_q = q.shape[1]
     k = min(int(nn_sample), num_db)
     t = _query_tile_size(batch, num_db, num_q)
-    parts = [_first_k(q[:, s:s + t], db, float(radius), k)
+    parts = [_first_k(q[:, s:s + t], db, float(radius), k, self_graph)
              for s in range(0, num_q, t)]
     idx = torch.cat([p[0] for p in parts], dim=1)
     count = torch.cat([p[1] for p in parts], dim=1)
@@ -98,10 +132,12 @@ def build_sphere_neighbor(
     query: torch.Tensor,
     radius: float = 0.1,
     nn_sample: int = 100,
+    self_graph: bool = False,
 ) -> Neighborhood:
     """(B, N, 3+) database, (B, M, 3+) queries -> Neighborhood with
-    (B, M, K) idx/dist and (B, M) count; padding entries are 0."""
-    nbh, _ = _sphere_query(database, query, radius, nn_sample)
+    (B, M, K) idx/dist and (B, M) count; padding entries are 0.
+    ``self_graph``: every query is a database point (no radius growth)."""
+    nbh, _ = _sphere_query(database, query, radius, nn_sample, self_graph)
     return nbh
 
 
@@ -111,13 +147,15 @@ def build_sphere_neighbor_and_bins(
     radius: float,
     nn_sample: int,
     kernel: tuple[int, int, int] = (8, 2, 2),
+    self_graph: bool = False,
 ) -> tuple[Neighborhood, torch.Tensor]:
     """The query plus the spherical kernel bins of its edges from the same
     gathered displacements: equal to ``build_sphere_neighbor`` followed by
     ``ops.kernelbin.spherical_kernel``. Returns (Neighborhood, (B, M, K)
     int64 bins, 0 = self loop and padding)."""
     validate_kernel_size(kernel)
-    nbh, delta = _sphere_query(database, query, radius, nn_sample)
+    nbh, delta = _sphere_query(database, query, radius, nn_sample,
+                               self_graph)
     k = delta.shape[2]
     bins = bins_from_delta(delta, nbh.dist[..., :k], nbh.count, radius,
                            kernel)

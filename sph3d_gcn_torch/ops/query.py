@@ -1,7 +1,8 @@
-"""Dense windowed sphere query: packed int8 neighbor maps (counterpart of
-``sph3d_gcn_tpu/ops/pallas/query_kernel.py``: ``_query_kernel`` without
-distance maps, and ``_growth_kernel``, the radius-growth query of the
-decoders' inter graphs, see :func:`growth_query`).
+"""Dense windowed sphere query: packed int8 neighbor maps and, on request,
+their f32 distance maps (counterpart of
+``sph3d_gcn_tpu/ops/pallas/query_kernel.py``: ``_query_kernel`` and
+``_growth_kernel``, the radius-growth query of the decoders' inter
+graphs, see :func:`growth_query`).
 
 For every 128-query tile and every column ``w`` of the tile's window of
 axis-sorted database rows ``[s_blk*128, s_blk*128 + W)``:
@@ -11,6 +12,12 @@ axis-sorted database rows ``[s_blk*128, s_blk*128 + W)``:
   rank  = inclusive count of in_r along the window (point order)
   sel   = in_r and rank <= K                     (first K in point order)
   packed = sel ? (kernel ? bin + 1 : rank) : 0
+  dist   = sel ? sqrt(d3) : 0                    (``need_dist`` only)
+
+The distance map holds the square root of the Euclidean distance d3: the
+reference's sqrt-space quirk (ref tf_nnquery_gpu.cu:54), which JAX's
+per-edge ``Neighborhood.dist`` has too. It is what the weighted unpool
+and IDS sampling read.
 
 Columns at or past ``u_end`` chunks of 128 are zero (the slab-end bound
 proves they hold no in-range candidate). Bins follow the compare-only
@@ -42,12 +49,12 @@ _PLAIN_BUDGET = 1 << 24
 
 QUERY_KERNEL = _build.register(
     "dense_query", "sph3d_dense_query_launch",
-    [_build.PTR] * 6 + [_build.INT] * 7 + [_build.FLOAT] * 5
+    [_build.PTR] * 7 + [_build.INT] * 7 + [_build.FLOAT] * 5
     + [_build.PTR],
 )
 GROWTH_KERNEL = _build.register(
     "growth_query", "sph3d_growth_query_launch",
-    [_build.PTR] * 7 + [_build.INT] * 6 + [_build.PTR],
+    [_build.PTR] * 8 + [_build.INT] * 6 + [_build.PTR],
 )
 _RADII = ctypes.c_float * (_MAX_GROWTH + 1)    # host array of the radii
 
@@ -145,8 +152,9 @@ def dense_query(
     k: int,
     kernel: tuple[int, int, int] | None,
     window: int,
+    need_dist: bool = False,
     use_kernels: bool | None = None,
-) -> torch.Tensor:
+) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Packed maps of one level graph.
 
     Args:
@@ -157,15 +165,19 @@ def dense_query(
         (clamped to [1, W/TILE] by either version).
       axis: (B,) per-cloud sort axis for SORT-GROUPED bin ids, or None.
       radius, k, kernel, window: as ``ops.dense.build_dense_graph``.
+      need_dist: also return the f32 distance map.
 
     Returns:
-      (B, nT, TILE, W) int8.
+      (packed (B, nT, TILE, W) int8, dist): ``dist`` is the f32
+      (B, nT, TILE, W) distance map with ``need_dist``, else None.
     """
     _check_kernel(kernel)
     if not 1 <= k <= 127:
         raise ValueError(f"int8 maps need 1 <= K <= 127, got {k}")
     args = (db_p, q_p, s_blk, u_end, axis)
     kw = dict(radius=radius, k=k, kernel=kernel, window=window)
+    if need_dist:
+        kw["need_dist"] = True
     _build.record("dense_query", *args, **kw)
     if _build.use_kernel(db_p, use_kernels):
         return dense_query_kernel(*args, **kw)
@@ -173,7 +185,7 @@ def dense_query(
 
 
 def dense_query_plain(db_p, q_p, s_blk, u_end, axis, *, radius, k, kernel,
-                      window):
+                      window, need_dist=False):
     """Plain PyTorch query, chunked over tiles to bound memory."""
     batch, m_pad, _ = q_p.shape
     n_t = m_pad // TILE
@@ -187,6 +199,8 @@ def dense_query_plain(db_p, q_p, s_blk, u_end, axis, *, radius, k, kernel,
     live = cols[None, :] < u_end.reshape(g_all, 1).long() * TILE
     r32 = torch.tensor(radius, dtype=torch.float32, device=dev)
     out = torch.empty((g_all, TILE, window), dtype=torch.int8, device=dev)
+    dist = (torch.empty((g_all, TILE, window), dtype=torch.float32,
+                        device=dev) if need_dist else None)
     step = max(1, _PLAIN_BUDGET // (TILE * window))
     for g0 in range(0, g_all, step):
         sl = slice(g0, g0 + step)
@@ -208,14 +222,19 @@ def dense_query_plain(db_p, q_p, s_blk, u_end, axis, *, radius, k, kernel,
                 ga = axis.long()[b_of_g[sl]].reshape(-1, 1, 1)
             val = bins_822(dx, dy, dz, d3, radius, kernel, ga) + 1
         out[sl] = torch.where(keep, val, 0).to(torch.int8)
-    return out.reshape(batch, n_t, TILE, window)
+        if need_dist:
+            dist[sl] = torch.where(keep, torch.sqrt(d3), 0.0)
+    if need_dist:
+        dist = dist.reshape(batch, n_t, TILE, window)
+    return out.reshape(batch, n_t, TILE, window), dist
 
 
 def dense_query_kernel(db_p, q_p, s_blk, u_end, axis, *, radius, k, kernel,
-                       window):
+                       window, need_dist=False):
     """The query through ``csrc/dense_query.cu``: one block per
     (cloud, query tile), the window's coordinates staged in shared
-    memory, one warp per query row with a ballot/popc prefix count."""
+    memory, one warp per query row with a ballot/popc prefix count; with
+    ``need_dist`` the same launch writes the distance map."""
     _build.check(db_p, "db_p", torch.float32, 3)
     _build.check(q_p, "q_p", torch.float32, 3)
     batch, n_pad, _ = db_p.shape
@@ -241,14 +260,17 @@ def dense_query_kernel(db_p, q_p, s_blk, u_end, axis, *, radius, k, kernel,
     radial = (radial + [0.0] * _MAX_Q_BINS)[: _MAX_Q_BINS - 1]
     out = torch.empty((batch, n_t, TILE, window), dtype=torch.int8,
                       device=db_p.device)
+    dist = (torch.empty((batch, n_t, TILE, window), dtype=torch.float32,
+                        device=db_p.device) if need_dist else None)
     QUERY_KERNEL.launch(
         _build.ptr(db_p), _build.ptr(q_p), _build.ptr(sb), _build.ptr(ue),
         _build.ptr(ax), _build.ptr(out),
+        None if dist is None else _build.ptr(dist),
         batch, n_pad, n_t, window, k, mode, q_bins,
         float(np.float32(radius)), *radial, far,
         _build.stream(db_p),
     )
-    return out
+    return out, dist
 
 
 def growth_radii(radius: float, growth_steps: int) -> np.ndarray:
@@ -271,8 +293,9 @@ def growth_query(
     k: int,
     window: int,
     growth_steps: int,
+    need_dist: bool = False,
     use_kernels: bool | None = None,
-) -> tuple[torch.Tensor, torch.Tensor]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """Rank maps of a selection-only graph whose zero-neighbor queries
     grow their radius by +0.05 (ref tf_nnquery_gpu.cu:30-60), densely
     in-window, for up to ``growth_steps`` steps.
@@ -289,7 +312,9 @@ def growth_query(
 
     Returns:
       (packed (B, nT, TILE, W) int8 ranks, steps (B, nT, TILE) int8: each
-      row's growth step, 0 for rows that select nothing).
+      row's growth step, 0 for rows that select nothing, dist): ``dist``
+      is the f32 (B, nT, TILE, W) distance map of the selected columns at
+      each row's grown radius with ``need_dist``, else None.
     """
     if not 1 <= k <= 127:
         raise ValueError(f"int8 maps need 1 <= K <= 127, got {k}")
@@ -298,6 +323,8 @@ def growth_query(
             f"growth_steps must be in 1..{_MAX_GROWTH}, got {growth_steps}")
     args = (db_p, q_p, s_blk, u_end)
     kw = dict(radius=radius, k=k, window=window, growth_steps=growth_steps)
+    if need_dist:
+        kw["need_dist"] = True
     _build.record("growth_query", *args, **kw)
     if _build.use_kernel(db_p, use_kernels):
         return growth_query_kernel(*args, **kw)
@@ -305,7 +332,7 @@ def growth_query(
 
 
 def growth_query_plain(db_p, q_p, s_blk, u_end, *, radius, k, window,
-                       growth_steps):
+                       growth_steps, need_dist=False):
     """Plain PyTorch growth query, chunked over tiles to bound memory."""
     batch, m_pad, _ = q_p.shape
     n_t = m_pad // TILE
@@ -321,6 +348,8 @@ def growth_query_plain(db_p, q_p, s_blk, u_end, *, radius, k, window,
     never = growth_steps + 1
     out = torch.empty((g_all, TILE, window), dtype=torch.int8, device=dev)
     steps = torch.empty((g_all, TILE), dtype=torch.int8, device=dev)
+    dist = (torch.empty((g_all, TILE, window), dtype=torch.float32,
+                        device=dev) if need_dist else None)
     step = max(1, _PLAIN_BUDGET // (TILE * window))
     for g0 in range(0, g_all, step):
         sl = slice(g0, g0 + step)
@@ -339,18 +368,24 @@ def growth_query_plain(db_p, q_p, s_blk, u_end, *, radius, k, window,
         alive = gstar < never
         in_g = (g_cand <= gstar) & alive
         rank = torch.cumsum(in_g.to(torch.int32), dim=-1)
-        out[sl] = torch.where(in_g & (rank <= k), rank, 0).to(torch.int8)
+        keep = in_g & (rank <= k)
+        out[sl] = torch.where(keep, rank, 0).to(torch.int8)
         steps[sl] = torch.where(alive, gstar, 0)[..., 0].to(torch.int8)
+        if need_dist:
+            dist[sl] = torch.where(keep, torch.sqrt(d3), 0.0)
+    if need_dist:
+        dist = dist.reshape(batch, n_t, TILE, window)
     return (out.reshape(batch, n_t, TILE, window),
-            steps.reshape(batch, n_t, TILE))
+            steps.reshape(batch, n_t, TILE), dist)
 
 
 def growth_query_kernel(db_p, q_p, s_blk, u_end, *, radius, k, window,
-                        growth_steps):
+                        growth_steps, need_dist=False):
     """The growth query through ``csrc/growth_query.cu``: one block per
     (cloud, query tile), the live window staged in shared memory, one
     warp per query row; pass 1 finds the row's step with a warp min,
-    pass 2 recomputes the distances and writes the ranks."""
+    pass 2 recomputes the distances and writes the ranks (and, with
+    ``need_dist``, the distance map)."""
     _build.check(db_p, "db_p", torch.float32, 3)
     _build.check(q_p, "q_p", torch.float32, 3)
     batch, n_pad, _ = db_p.shape
@@ -371,10 +406,13 @@ def growth_query_kernel(db_p, q_p, s_blk, u_end, *, radius, k, window,
                       device=db_p.device)
     steps = torch.empty((batch, n_t, TILE), dtype=torch.int8,
                         device=db_p.device)
+    dist = (torch.empty((batch, n_t, TILE, window), dtype=torch.float32,
+                        device=db_p.device) if need_dist else None)
     GROWTH_KERNEL.launch(
         _build.ptr(db_p), _build.ptr(q_p), _build.ptr(sb), _build.ptr(ue),
-        _build.ptr(out), _build.ptr(steps), radii,
+        _build.ptr(out), _build.ptr(steps),
+        None if dist is None else _build.ptr(dist), radii,
         batch, n_pad, n_t, window, k, growth_steps + 1,
         _build.stream(db_p),
     )
-    return out, steps
+    return out, steps, dist

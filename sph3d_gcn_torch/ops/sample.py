@@ -1,12 +1,16 @@
-"""Farthest-point sampling (counterpart of ``sph3d_gcn_tpu/ops/sample.py``
-and its Pallas kernel ``ops/pallas/fps_kernel.py``).
+"""Point sampling (counterpart of ``sph3d_gcn_tpu/ops/sample.py`` and its
+Pallas kernel ``ops/pallas/fps_kernel.py``).
 
-Reference semantics: seed at index 0, min-distance buffer initialised to
-1e38, running minimum of SQUARED distances ``(dx*dx + dy*dy) + dz*dz``,
-argmax with ties going to the lowest index.
+Farthest-point sampling, reference semantics: seed at index 0,
+min-distance buffer initialised to 1e38, running minimum of SQUARED
+distances ``(dx*dx + dy*dy) + dz*dz``, argmax with ties going to the
+lowest index. A CUDA tensor goes to the kernel ``csrc/fps.cu``, a CPU
+tensor to :func:`farthest_point_sample_plain`.
 
-A CUDA tensor goes to the kernel ``csrc/fps.cu``, a CPU tensor to
-:func:`farthest_point_sample_plain`.
+Inverse-density and random sampling draw noise (plain PyTorch, as the
+JAX package leaves them to XLA). Each takes an explicit
+``torch.Generator`` or the draws themselves: torch cannot reproduce
+JAX's PRNG, so tests hand both sides the same draws.
 """
 
 from __future__ import annotations
@@ -75,3 +79,69 @@ def farthest_point_sample_kernel(
         _build.stream(xyz),
     )
     return out.to(torch.int64)
+
+
+# the smallest normal f32: the lower end of IDS's uniform draws, as JAX's
+# ``jax.random.uniform(minval=jnp.finfo(jnp.float32).tiny)``
+_TINY = float(torch.finfo(torch.float32).tiny)
+
+
+def inverse_density_sample(
+    npoint: int,
+    probability: torch.Tensor,
+    generator: torch.Generator | None = None,
+    uniform: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Sample ``npoint`` indices per cloud with probability ~
+    ``probability`` by Gumbel-max (ref tf_sample.py:27-41): the top
+    ``npoint`` of ``log(prob) + Gumbel(u)``, ``u`` uniform in
+    ``[tiny, 1)``.
+
+    Args:
+      npoint: S.
+      probability: (B, N) f32 non-negative weights (the mean neighbor
+        distance, an inverse-density proxy, ref utils/sph3gcn_util.py:37-39).
+      generator: draws ``u`` (on ``probability``'s device; None: PyTorch's
+        default generator) unless ``uniform`` is given.
+      uniform: (B, N) draws in ``[tiny, 1)`` to use instead.
+
+    Returns:
+      (B, S) int64 indices in descending order of the perturbed log
+      probability. Ties (equal keys: ``log 0 = -inf`` rows) go to the lower
+      index, as ``lax.top_k`` breaks them: a stable descending sort
+      (``torch.topk`` on CUDA promises no order among ties).
+    """
+    num = probability.shape[1]
+    if not 1 <= npoint <= num:
+        raise ValueError(f"npoint must be in [1, num_points={num}], got "
+                         f"{npoint}")
+    if uniform is None:
+        uniform = torch.rand(probability.shape, generator=generator,
+                             device=probability.device).clamp_min(_TINY)
+    elif uniform.shape != probability.shape:
+        raise ValueError(f"uniform draws {tuple(uniform.shape)} for "
+                         f"probabilities {tuple(probability.shape)}")
+    u = uniform.to(device=probability.device, dtype=torch.float32)
+    key = torch.log(probability.float()) - torch.log(-torch.log(u))
+    order = torch.sort(key, dim=1, descending=True, stable=True).indices
+    return order[:, :npoint]
+
+
+def random_sample(
+    npoint: int,
+    database: torch.Tensor,
+    generator: torch.Generator | None = None,
+    indices: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Uniform random sampling with replacement (ref tf_sample.py:44-49):
+    (B, npoint) int64 indices in [0, N), drawn from ``generator`` (on
+    ``database``'s device; None: PyTorch's default) unless ``indices``
+    (the draws themselves) is given."""
+    batch, num = database.shape[0], database.shape[1]
+    if indices is None:
+        return torch.randint(0, num, (batch, npoint), generator=generator,
+                             device=database.device)
+    if indices.shape != (batch, npoint):
+        raise ValueError(f"indices {tuple(indices.shape)}, want "
+                         f"{(batch, npoint)}")
+    return indices.to(device=database.device, dtype=torch.int64)

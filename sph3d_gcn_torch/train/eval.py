@@ -60,7 +60,8 @@ def vote_classify(
 
 
 def checked_forward(
-    model: torch.nn.Module, device: torch.device | str = "cuda"
+    model: torch.nn.Module, device: torch.device | str = "cuda",
+    generator: torch.Generator | None = None,
 ) -> Callable[..., np.ndarray]:
     """A forward for :func:`vote_classify` and :func:`coverage_eval_blocks`:
     numpy points in ((B, N, 3) clouds or (B, N, 9) scene blocks), numpy
@@ -71,21 +72,27 @@ def checked_forward(
     re-run on ``models.common.classic_clone(model)`` (the per-edge
     engine on the same parameters; one line is printed the first time)
     and its logits are returned; a model whose per-edge engine is not
-    ported raises DenseCoverageError. ``block_ids`` (passed by
+    ported raises DenseCoverageError. ``generator`` (on ``device``;
+    None: the device's default generator) draws the sampling noise of IDS
+    or random sampling; the re-run starts from its state before the dense
+    forward, so both answer for the same sample. ``block_ids`` (passed by
     :func:`coverage_eval_blocks`) is unused: these models take no
     per-block side input."""
     fallback: list[torch.nn.Module] = []
+    gen = generator if generator is not None else _default_generator(device)
 
     def forward(points: np.ndarray, block_ids=None) -> np.ndarray:
         x = torch.as_tensor(np.asarray(points, np.float32), device=device)
         with torch.inference_mode():
-            logits = model(x)
+            state = gen.get_state()
+            logits = model(x, generator=gen)
             if not bool(model.dense_ok):
                 first = not fallback
                 if first:
                     fallback.append(classic_clone(model))
+                gen.set_state(state)
                 try:
-                    logits = fallback[0](x)
+                    logits = fallback[0](x, generator=gen)
                 except NotImplementedError as e:
                     raise DenseCoverageError(
                         "dense window coverage violated: the graph may be "
@@ -98,6 +105,18 @@ def checked_forward(
         return logits.float().cpu().numpy()
 
     return forward
+
+
+def _default_generator(device: torch.device | str) -> torch.Generator:
+    """The generator that draws a device's random numbers when none is
+    given."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return torch.default_generator
+    torch.cuda.init()
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return torch.cuda.default_generators[index]
 
 
 def resample_block(

@@ -2,14 +2,15 @@
 ``sph3d_gcn_tpu/train/steps.py``).
 
 One train step: the train-mode forward (batch-statistics BN, which
-updates the running statistics in place, and dropout from an explicit
-generator), the data loss plus ``weight_decay * l2_regularization``, the
-backward through every layer (the dense conv and pool through their
-hand-written backward kernels on a CUDA device), one optimizer update and
-one scheduler step. The metrics stay on the device: the step adds no
-host synchronisation of its own, except for a model whose per-edge engine
-is not ported (the scene models), which must check its certificate
-before the update (:meth:`StepFactory.loss_and_grads`).
+updates the running statistics in place; dropout, and the noise of IDS
+or random sampling, from one explicit generator), the data loss plus
+``weight_decay * l2_regularization``, the backward through every layer
+(the dense conv and pool through their hand-written backward kernels on
+a CUDA device), one optimizer update and one scheduler step. The metrics
+stay on the device: the step adds no host synchronisation of its own,
+except for a model whose per-edge engine is not ported (the scene
+models), which must check its certificate before the update
+(:meth:`StepFactory.loss_and_grads`).
 """
 
 from __future__ import annotations
@@ -53,9 +54,9 @@ class StepFactory:
     item_loss_fn: LossFn | None = None
     use_kernels: bool | None = None
 
-    def _losses(self, batch, generator):
+    def _losses(self, batch, generator, sample_noise=None):
         logits = self.model(batch["points"], use_kernels=self.use_kernels,
-                            generator=generator)
+                            generator=generator, sample_noise=sample_noise)
         data_loss = self.loss_fn(logits, batch)
         total = data_loss
         if self.weight_decay is not None:
@@ -63,11 +64,15 @@ class StepFactory:
         return total, data_loss, logits
 
     def loss_and_grads(self, batch: dict[str, torch.Tensor],
-                       generator: torch.Generator | None = None
+                       generator: torch.Generator | None = None,
+                       sample_noise: list[torch.Tensor] | None = None
                        ) -> dict[str, torch.Tensor]:
         """The train-mode forward and backward without the update: leaves
         the gradients in each parameter's ``.grad`` (and the running BN
-        statistics updated) and returns the step's metrics.
+        statistics updated) and returns the step's metrics. ``generator``
+        draws the dropout masks and the sampling noise (IDS, random);
+        ``sample_noise`` gives each level's sampling draws instead (the
+        model's forward).
 
         A model with no per-edge engine in the port cannot re-run a batch
         whose dense certificate failed (``classic_fallback()``), so for it
@@ -78,7 +83,8 @@ class StepFactory:
         self.optimizer.zero_grad(set_to_none=True)
         saved = (None if _has_per_edge_engine(self.model)
                  else [b.clone() for b in self.model.buffers()])
-        total, data_loss, logits = self._losses(batch, generator)
+        total, data_loss, logits = self._losses(batch, generator,
+                                                sample_noise)
         if saved is not None and not bool(self.model.dense_ok):
             with torch.no_grad():
                 for b, s in zip(self.model.buffers(), saved):
@@ -106,7 +112,8 @@ class StepFactory:
         scheduler whose model runs the per-edge engine
         (``models.common.classic_clone``): the recovery path for a batch
         whose dense certificate failed, exact for every cloud
-        (``sph3d_gcn_tpu/train/steps.py:227-270``). Returns ``self`` when
+        (``sph3d_gcn_tpu/train/steps.py:227-270``). The clone keeps the
+        config's sampling and pooling options. Returns ``self`` when
         the model already runs it. A model whose per-edge engine is not
         ported raises NotImplementedError at the clone's forward."""
         model = classic_clone(self.model)

@@ -64,7 +64,7 @@ def test_sphere_query_first_k(offset):
     jn = j_sphere(jnp.asarray(db), jnp.asarray(q), radius=0.25, nn_sample=12,
                   self_graph=True)
     tn = build_sphere_neighbor(torch.from_numpy(db), torch.from_numpy(q),
-                               radius=0.25, nn_sample=12)
+                               radius=0.25, nn_sample=12, self_graph=True)
     _assert_nbh(tn, jn)
     assert int(tn.count.max()) == 12
     assert (int(tn.count.min()) == 0) == (offset > 0)
@@ -80,6 +80,6 @@ def test_zero_neighbor_queries_keep_count_zero():
     jn = j_sphere(jnp.asarray(db), jnp.asarray(q), radius=0.1, nn_sample=4,
                   self_graph=True)
     tn = build_sphere_neighbor(torch.from_numpy(db), torch.from_numpy(q),
-                               radius=0.1, nn_sample=4)
+                               radius=0.1, nn_sample=4, self_graph=True)
     _assert_nbh(tn, jn)
     assert (tn.count == 0).all() and (tn.idx == 0).all()

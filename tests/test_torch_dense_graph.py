@@ -127,10 +127,15 @@ def test_grouped_perm_matches_jax():
 
 
 def test_unported_options_raise():
+    # distance maps are ported (tests/test_torch_dist_maps.py); query
+    # sharding is not
     pts = torch.zeros(1, 128, 3)
-    for kw in ({"need_dist": True}, {"query_shard": ("p", 2)}):
-        with pytest.raises(NotImplementedError):
-            td.build_dense_graph(pts, pts, 0.1, 8, None, window=128, **kw)
+    with pytest.raises(NotImplementedError):
+        td.build_dense_graph(pts, pts, 0.1, 8, None, window=128,
+                             query_shard=("p", 2))
+    g = td.build_dense_graph(pts, pts, 0.1, 8, None, window=128,
+                             need_dist=True)
+    assert g.dist.shape == g.packed.shape
 
 
 def growth_case(name):
@@ -163,7 +168,7 @@ def test_growth_graph(case, expect_ok):
     assert bool(plan.ok)                 # the base-radius slabs are covered
     zero_rows = int((got.count == 0).sum())
     assert (zero_rows > 0) is (case == "exhausted")
-    _, row_steps = growth_query_plain(
+    _, row_steps, _ = growth_query_plain(
         plan.db_p, plan.q_p, plan.s_blk, plan.u_end, radius=radius, k=k,
         window=plan.window, growth_steps=steps)
     assert int(row_steps.max()) > 0     # some rows grew
@@ -180,7 +185,7 @@ def test_growth_query_matches_the_jax_kernel(case):
     db, q, radius, k, window, steps = growth_case(case)
     plan = td.plan_dense_query(torch.from_numpy(db), torch.from_numpy(q),
                                radius, None, window, steps)
-    packed, row_steps = growth_query_plain(
+    packed, row_steps, _ = growth_query_plain(
         plan.db_p, plan.q_p, plan.s_blk, plan.u_end, radius=radius, k=k,
         window=plan.window, growth_steps=steps)
     ref, _, gmax = dense_query_pallas(

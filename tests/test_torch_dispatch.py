@@ -90,6 +90,12 @@ def test_forced_kernel_on_cpu_raises_before_any_build():
             torch.zeros(2, 128, 16, 64), *W.edge_lists(nbr, cnt, 512), 512),
         lambda: Q.growth_query(*gargs, **gkw, use_kernels=True),
         lambda: Q.growth_query_kernel(*gargs, **gkw),
+        lambda: Q.growth_query(*gargs, **gkw, need_dist=True,
+                               use_kernels=True),
+        lambda: Q.dense_query_kernel(plan.db_p, plan.q_p, plan.s_blk,
+                                     plan.u_end, plan.axis, radius=0.25,
+                                     k=16, kernel=(8, 2, 2), window=256,
+                                     need_dist=True),
         lambda: S.farthest_point_sample(8, t, use_kernels=True),
         lambda: Q.dense_query(plan.db_p, plan.q_p, plan.s_blk, plan.u_end,
                               plan.axis, radius=0.25, k=16, kernel=(8, 2, 2),
@@ -392,8 +398,8 @@ def test_kernels_match_plain_on_cuda(cuda_device, dtype):
         plan = D.plan_dense_query(db, q, 0.25, kernel, w)
         args = (plan.db_p, plan.q_p, plan.s_blk, plan.u_end, plan.axis)
         kw = dict(radius=0.25, k=16, kernel=kernel, window=plan.window)
-        assert torch.equal(Q.dense_query_kernel(*args, **kw),
-                           Q.dense_query_plain(*args, **kw))
+        assert torch.equal(Q.dense_query_kernel(*args, **kw)[0],
+                           Q.dense_query_plain(*args, **kw)[0])
     for c, mult in ((35, 2), (131, 1)):
         x = torch.randn(3, 700, c, device=cuda_device).to(dtype)
         filt_b, inv = D.conv_operands(
@@ -463,8 +469,8 @@ def test_growth_kernel_matches_plain_on_cuda(cuda_device):
     args = (plan.db_p, plan.q_p, plan.s_blk, plan.u_end)
     for steps in (1, 3, 12, 15):
         kw = dict(radius=0.01, k=16, window=plan.window, growth_steps=steps)
-        got, got_steps = Q.growth_query_kernel(*args, **kw)
-        ref, ref_steps = Q.growth_query_plain(*args, **kw)
+        got, got_steps, _ = Q.growth_query_kernel(*args, **kw)
+        ref, ref_steps, _ = Q.growth_query_plain(*args, **kw)
         assert torch.equal(got, ref) and torch.equal(got_steps, ref_steps)
         assert int(ref_steps.max()) > 0
     t = torch.from_numpy(pts).to(cuda_device)
@@ -475,6 +481,67 @@ def test_growth_kernel_matches_plain_on_cuda(cuda_device):
                               growth_steps=12, use_kernels=False)
     assert torch.equal(g_k.packed, g_p.packed)
     assert bool(g_k.ok) == bool(g_p.ok)
+
+
+@pytest.mark.cuda
+def test_dist_map_kernels_match_plain_on_cuda(cuda_device):
+    """K2 (rank, grouped-bin and ungrouped-bin maps) and K7 (growth depths
+    3 and 12) with ``need_dist``: the f32 distance map bitwise equal to the
+    plain version's, and the packed maps and growth steps bitwise equal to
+    the same launch without the map. On a CUDA tensor the wrapper
+    launches the kernel (its count goes up) and takes the plain version
+    only with ``use_kernels=False``."""
+    pts = _cloud(n=700, b=3, seed=2)
+    t = torch.from_numpy(pts).to(cuda_device)
+    for db, q, kernel, w, grouped in (
+            (t, t, (8, 2, 2), 256, True), (t, t, (8, 2, 2), 256, False),
+            (t, t[:, ::4], None, 384, False)):
+        plan = D.plan_dense_query(db, q, 0.25, kernel, w)
+        args = (plan.db_p, plan.q_p, plan.s_blk, plan.u_end,
+                plan.axis if grouped else None)
+        kw = dict(radius=0.25, k=16, kernel=kernel, window=plan.window)
+        packed, dist = Q.dense_query_kernel(*args, **kw, need_dist=True)
+        ref, ref_dist = Q.dense_query_plain(*args, **kw, need_dist=True)
+        assert torch.equal(packed, ref) and torch.equal(dist, ref_dist)
+        assert Q.dense_query_kernel(*args, **kw)[1] is None
+        assert torch.equal(packed, Q.dense_query_kernel(*args, **kw)[0])
+        assert (dist[packed == 0] == 0).all() and (dist > 0).any()
+        reset_kernel_launches()
+        Q.dense_query(*args, **kw, need_dist=True)
+        assert kernel_launches()["dense_query"] == 1
+        Q.dense_query(*args, **kw, need_dist=True, use_kernels=False)
+        assert kernel_launches()["dense_query"] == 1
+    gplan = _growth_plan(pts, cuda_device)
+    gargs = (gplan.db_p, gplan.q_p, gplan.s_blk, gplan.u_end)
+    for steps in (3, 12):
+        kw = dict(radius=0.01, k=16, window=gplan.window, growth_steps=steps)
+        got = Q.growth_query_kernel(*gargs, **kw, need_dist=True)
+        ref = Q.growth_query_plain(*gargs, **kw, need_dist=True)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+        alone = Q.growth_query_kernel(*gargs, **kw)
+        assert torch.equal(got[0], alone[0]) and torch.equal(got[1],
+                                                             alone[1])
+        assert alone[2] is None
+        reset_kernel_launches()
+        Q.growth_query(*gargs, **kw, need_dist=True)
+        assert kernel_launches()["growth_query"] == 1
+    # the graph build and the ops that read the map, through the kernels
+    db = t[:, ::3].contiguous()
+    g_k = D.build_dense_graph(db, t, 0.01, 16, None, window=512,
+                              growth_steps=12, need_dist=True)
+    g_p = D.build_dense_graph(db, t, 0.01, 16, None, window=512,
+                              growth_steps=12, need_dist=True,
+                              use_kernels=False)
+    assert torch.equal(g_k.dist, g_p.dist)
+    x = torch.randn(3, db.shape[1], 64, device=cuda_device,
+                    requires_grad=True)
+    reset_kernel_launches()
+    D.dense_weighted_interpolate(x, g_k).sum().backward()
+    assert kernel_launches()["window_gather_bwd"] == 1
+    grad = x.grad.clone()
+    x.grad = None
+    D.dense_weighted_interpolate(x, g_p, use_kernels=False).sum().backward()
+    assert torch.equal(grad, x.grad)
 
 
 @pytest.mark.cuda

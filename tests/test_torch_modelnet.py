@@ -121,8 +121,13 @@ def test_unported_configs_raise():
         out = classic.eval()(torch.from_numpy(_points()))
     assert out.shape == (B, 40) and torch.isfinite(out).all()
     assert bool(classic.dense_ok)
-    with pytest.raises(NotImplementedError):
-        SPH3DModelNet(dataclasses.replace(_config("float32"), sample="IDS"))
+    # every sampler and pool of the config is ported
+    # (tests/test_torch_sampling_options.py); an unknown one is refused
+    for ported in ({"sample": "IDS"}, {"sample": "random"},
+                   {"pool_method": "avg"}):
+        SPH3DModelNet(dataclasses.replace(_config("float32"), **ported))
+    with pytest.raises(ValueError, match="sampling"):
+        dataclasses.replace(_config("float32"), sample="bogus")
     model = SPH3DModelNet(_config("float32"))
     with pytest.raises(ValueError):
         model(torch.zeros(1, 512, 3))

@@ -185,10 +185,14 @@ def test_coverage_eval_blocks_matches_jax(n_model, batch):
 
 
 def test_unported_options_raise():
+    # the weighted unpool, IDS / random sampling and the avg pool are
+    # ported (tests/test_torch_sampling_options.py); the per-edge engine
+    # is not
     cfg = _config("float32")
-    for bad in ({"dense_graph": False}, {"unpool_method": "weighted"},
-                {"sample": "IDS"}):
-        with pytest.raises(NotImplementedError):
-            SPH3DSceneSeg(dataclasses.replace(cfg, **bad))
+    with pytest.raises(NotImplementedError):
+        SPH3DSceneSeg(dataclasses.replace(cfg, dense_graph=False))
+    for ported in ({"unpool_method": "weighted"}, {"sample": "IDS"},
+                   {"pool_method": "avg"}):
+        SPH3DSceneSeg(dataclasses.replace(cfg, **ported))
     with pytest.raises(ValueError):
         SPH3DSceneSeg(cfg)(torch.zeros(1, 512, 9))
