@@ -7,7 +7,8 @@ weights from a seeded ``torch.Generator``) under ``vote_classify`` —
 through the hand-written CUDA kernels, in phases:
 
 1. header: the card's name and power limit, torch and CUDA versions;
-2. build: compile ``sph3d_gcn_torch/csrc/*.cu`` (seconds);
+2. build: compile ``sph3d_gcn_torch/csrc/*.cu`` (seconds); each kernel's
+   ``-Xptxas -v`` report (registers, spills, shared memory);
 3. per-kernel parity and timing: one forward of the plain versions on a
    ``surface_clouds`` batch records the operands of every kernel-wrapped
    call of the main path (``_build.record_calls``); each recorded call is
@@ -51,7 +52,12 @@ schedule, weight decay):
    conv backward's ``dx`` (bf16) within rtol 1e-2 and 1e-3 of its largest
    magnitude (f32 sums in another order, one bf16 rounding), its f32
    filter gradient within 1e-4 of its largest magnitude (sums of up to
-   ~10^6 products in another order). These times go into the JSON line;
+   ~10^6 products in another order). These times go into the JSON line.
+   Each call's line shows its time beside the library call and the bound
+   (share = bound / time); each pool backward's is followed by its device
+   time and ``scatter_add_``'s in a ``torch.profiler`` trace, without the
+   host's time before the launch that a single call's span holds
+   (:func:`device_ms`);
 7. one kernel step against one plain step from the same state, batch and
    dropout seed, ``dense_ok`` True: loss within 1%; with f32 activations
    (same weights, graphs and masks) every gradient leaf's L2 error within
@@ -152,7 +158,10 @@ inner_masked=True).train_step`` (Adam on the staircase schedule):
 25. ``max_index``: ``dense_max_pool3d(with_index=True)`` on the 4 pool
     operands of phase 20 (rank maps) and one conv map of phase 6 (a bin
     map), through the kernels and the plain versions: values, ids and
-    gradients equal, with times and bounds.
+    gradients equal, with times, device times and bounds; then K6 on
+    adversarial operands (:func:`pool_bwd_stress`: scattered windows and
+    one row taking every row of 15 tiles), bitwise equal to its plain
+    version and to itself.
 
 Then the config options that read the queries' distance maps, at full
 published width with seeded weights:
@@ -320,6 +329,48 @@ def median_ms(fn, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fns: list, reps: int = REPS) -> list[float | None]:
+    """Device time of one call of each of ``fns``: the summed durations
+    of the kernels that the call launches (found, as in
+    :func:`report_trace`, by the correlation ids of the launches inside
+    its ``record_function`` span), median over the calls whose kernels
+    the trace holds; None where it holds none. One ``torch.profiler``
+    session times them all, ``reps`` rounds after a warm-up call of each.
+    Unlike :func:`median_ms` it leaves out the host's time before the
+    launch (the wrapper's Python and the launch call), during which a
+    single call's CUDA-event span has the device wait."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for i, fn in enumerate(fns):
+                with record_function(f"device_ms {i}"):
+                    fn()
+        torch.cuda.synchronize()
+    events = trace_events(prof)
+    launches = [(e["ts"], e["args"]["correlation"]) for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})]
+    kernels = collections.defaultdict(float)
+    for e in events:
+        if e.get("cat") == "kernel":
+            kernels[e["args"]["correlation"]] += e["dur"]
+    per_call = collections.defaultdict(list)
+    for e in events:
+        if (e.get("cat") == "user_annotation"
+                and e.get("name", "").startswith("device_ms ")):
+            a, b = e["ts"], e["ts"] + e["dur"]
+            us = sum(kernels.get(c, 0.0) for t, c in launches if a <= t < b)
+            if us > 0:
+                per_call[int(e["name"].split()[1])].append(us)
+    return [float(np.median(per_call[i])) / 1e3 if per_call[i] else None
+            for i in range(len(fns))]
 
 
 def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
@@ -603,6 +654,16 @@ def describe(name: str, args: tuple, kw: dict) -> str:
     return f"C={args[3].shape[2]} W={w}" + (" +arg" if kw else "")
 
 
+def bound_of(work_done: tuple[int, int]) -> tuple[float, str]:
+    """The least time (ms) of a call, and the side that binds it: its
+    bytes over the memory rate or its operations over the f32 rate,
+    whichever is larger."""
+    data, ops = work_done
+    t_bytes = data / MEM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 class Results:
     """Per-kernel parity errors, times and bounds, summed over the main
     path's calls of one forward (or one train step)."""
@@ -613,20 +674,25 @@ class Results:
         self.plain_ms = collections.defaultdict(float)
         self.library_ms = collections.defaultdict(float)
         self.has_library = set()
+        # the pool backward's device time beside its library call's, and
+        # the calls that have both (profiler; the single-call spans above
+        # hold the host's time too)
+        self.device = collections.defaultdict(lambda: [0.0, 0.0, 0])
+        self.device_queue = []
         self.calls = collections.Counter()
         # the bound's summed time, split by which side binds each call
         self.bound_ms = collections.defaultdict(
             lambda: {"bytes": 0.0, "operations": 0.0})
 
-    def add_bound(self, name, work_done):
+    def add_bound(self, name, work_done, ms):
+        """Add one call's bound; its log text, with the share of the
+        bound that the call's ``ms`` reached."""
+        t, side = bound_of(work_done)
         data, ops = work_done
-        t_bytes = data / MEM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
-        side = "bytes" if t_bytes >= t_ops else "operations"
-        self.bound_ms[name][side] += max(t_bytes, t_ops)
+        self.bound_ms[name][side] += t
         self.calls[name] += 1
-        return (f"bound {max(t_bytes, t_ops):.4f} ms ({side}: "
-                f"{data / 1e6:.1f} MB, {ops / 1e9:.3f} Gop)")
+        return (f"bound {t:.4f} ms ({side}: {data / 1e6:.1f} MB, "
+                f"{ops / 1e9:.3f} Gop) share {t / ms:.3f}")
 
     def bound(self, name) -> tuple[float, str]:
         parts = self.bound_ms[name]
@@ -635,6 +701,7 @@ class Results:
     def summary(self, what: str) -> None:
         """Per kernel, the sums over the path's calls: kernel, plain and
         library time, the bound and the kernel's share of it."""
+        self.time_device()
         print(f"summary, {what} (sums over its calls; share = bound / "
               f"kernel ms):", flush=True)
         for name in self.calls:
@@ -647,6 +714,39 @@ class Results:
                   f"{self.ms[name]:8.3f} ms  {plain}  {lib}  bound "
                   f"{bound_ms:.4f} ms ({bound_by})  share "
                   f"{bound_ms / self.ms[name]:.3f}", flush=True)
+            if name in self.device:
+                k_ms, l_ms, n = self.device[name]
+                print(f"  {name:16s} device time (profiler), {n} of "
+                      f"{self.calls[name]} calls: kernel {k_ms:.4f} ms  "
+                      f"library {l_ms:.4f} ms", flush=True)
+
+    def add_device(self, name, what, kern, lib, work_done) -> None:
+        """Queue one call's kernel and library call for
+        :meth:`time_device`."""
+        self.device_queue.append((name, what, kern, lib, work_done))
+
+    def time_device(self) -> None:
+        """The queued calls' device times (:func:`device_ms`, one profiler
+        session), each beside its library call's and its bound."""
+        if not self.device_queue:
+            return
+        times = device_ms([f for q in self.device_queue for f in q[2:4]])
+        print("device times (profiler; the spans above also hold the "
+              "host's time before each launch):", flush=True)
+        for i, (name, what, _, _, work_done) in enumerate(self.device_queue):
+            k_ms, l_ms = times[2 * i], times[2 * i + 1]
+            if k_ms is None or l_ms is None:
+                print(f"  {name:14s} {what:30s} not measured: the trace "
+                      f"holds no kernel of the call", flush=True)
+                continue
+            acc = self.device[name]
+            acc[0] += k_ms
+            acc[1] += l_ms
+            acc[2] += 1
+            print(f"  {name:14s} {what:30s} kernel {k_ms:.4f} ms  library "
+                  f"{l_ms:.4f} ms  share {bound_of(work_done)[0] / k_ms:.3f}",
+                  flush=True)
+        self.device_queue = []
 
     def add(self, name, what, got, ref, ms, plain_ms, check, work_done,
             library_ms=None):
@@ -661,8 +761,9 @@ class Results:
         if library_ms is not None:
             self.has_library.add(name)
             self.library_ms[name] += library_ms
-            lib = f"  library {library_ms:.3f} ms"
-        bound = self.add_bound(name, work_done)
+            lib = (f"  library {library_ms:.3f} ms (kernel/library "
+                   f"{ms / library_ms:.2f})")
+        bound = self.add_bound(name, work_done, ms)
         print(f"  {name:14s} {what:30s} max_abs_err {err:.3g}  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms{lib}  {bound}",
               flush=True)
@@ -702,7 +803,7 @@ def replay(calls: list, res: Results, expect: dict[str, int],
                 ms = median_ms(lambda: unpool[name](*args))
                 res.ms[name] += ms
                 print(f"  {name:14s} {what:30s} torch {ms:.3f} ms  "
-                      f"{res.add_bound(name, work(name, args, kw))}",
+                      f"{res.add_bound(name, work(name, args, kw), ms)}",
                       flush=True)
                 continue
             kern, plain, check = table[name]
@@ -714,6 +815,9 @@ def replay(calls: list, res: Results, expect: dict[str, int],
                               min(reps, plain_reps)), check,
                     work(name, args, kw),
                     None if lib is None else median_ms(lib, reps))
+            if name == "rank_pool_bwd":
+                res.add_device(name, what, functools.partial(kern, *args),
+                               lib, work(name, args, kw))
 
 
 def kernel_parity(model, x: torch.Tensor, res: Results, what: str) -> None:
@@ -1324,7 +1428,69 @@ def max_index_replay(dev: torch.device, pool_calls: list, conv_map: tuple,
                 grads[1], median_ms(lambda: D.rank_pool_bwd_kernel(*args)),
                 median_ms(lambda: D.rank_pool_bwd_plain(*args), 1), exact,
                 work("rank_pool_bwd", args, {}), median_ms(lib))
+        res.add_device("rank_pool_bwd", what,
+                       functools.partial(D.rank_pool_bwd_kernel, *args), lib,
+                       work("rank_pool_bwd", args, {}))
     res.summary("max_index replay (rank_pool: the whole entry)")
+
+
+def pool_bwd_operands(rng, batch: int, num_in: int, n_t: int, window: int,
+                      c: int, crowded: bool):
+    """K6's adversarial operands, as ``tests/test_torch_pool_bwd.py`` makes
+    them: (s_blk, arg, integer-valued f32 dout) as numpy arrays. Windows
+    start anywhere in the cloud, 10% of the rows and 5% of the entries
+    are empty (-1); ``crowded``: every row of tiles 1..n_t-1 shares tile
+    1's window and routes to its last cloud row."""
+    n_blk = -(-num_in // 128)
+    s_blk = rng.integers(0, n_blk, (batch, n_t)).astype(np.int32)
+    reach = np.minimum(window, num_in - s_blk * 128)[..., None, None]
+    arg = (rng.random((batch, n_t, 128, c)) * reach).astype(np.int32)
+    if crowded:
+        s_blk[:, 1:] = s_blk[:, 1:2]
+        arg[:, 1:] = reach[:, 1:2] - 1
+    empty = rng.random((batch, n_t, 128, 1)) < 0.1
+    arg[empty | (rng.random(arg.shape) < 0.05)] = -1
+    dout = rng.integers(-4, 5, arg.shape).astype(np.float32)
+    shape = (batch, n_t * 128, c)
+    return s_blk, arg.reshape(shape), dout.reshape(shape)
+
+
+def pool_bwd_stress(dev: torch.device) -> None:
+    """Phase 25b: K6 on adversarial operands at the S3DIS step's level-0
+    size (B=16, 16 tiles, C=128), with a cloud of 8155 rows (no multiple
+    of 128) and 2304-row windows (18 blocks): windows scattered over the
+    cloud, and a crowded case in which one row per cloud and channel takes
+    every row of 15 tiles. K6 must equal its plain version and a second K6
+    run bitwise, in f32 and bf16; times and device times beside
+    ``scatter_add_``, and the bound."""
+    from sph3d_gcn_torch.ops import dense as D
+
+    print("pool backward (K6) on adversarial operands, kernel vs plain "
+          "version bitwise:", flush=True)
+    rng = np.random.default_rng(11)
+    num_in, window = S3_N - 37, 2304
+    res = Results()
+    for crowded in (False, True):
+        ops = pool_bwd_operands(rng, S3_B, num_in, 16, window, 128, crowded)
+        for dtype in (torch.float32, torch.bfloat16):
+            s_blk, arg, dout = (torch.from_numpy(a).to(dev) for a in ops)
+            # int64, as a graph holds s_blk (no conversion in the timing)
+            args = (s_blk.long(), arg, dout.to(dtype), num_in, window)
+            what = (f"{'crowded' if crowded else 'scattered'} "
+                    f"{str(dtype)[6:]} N={num_in} W={window}")
+            dx = D.rank_pool_bwd_kernel(*args)
+            exact((dx,), (D.rank_pool_bwd_kernel(*args),))
+            lib = library_call("rank_pool_bwd", args, {})
+            res.add("rank_pool_bwd", what, dx, D.rank_pool_bwd_plain(*args),
+                    median_ms(functools.partial(D.rank_pool_bwd_kernel,
+                                                *args)),
+                    median_ms(functools.partial(D.rank_pool_bwd_plain,
+                                                *args), 1),
+                    exact, work("rank_pool_bwd", args, {}), median_ms(lib))
+            res.add_device("rank_pool_bwd", what,
+                           functools.partial(D.rank_pool_bwd_kernel, *args),
+                           lib, work("rank_pool_bwd", args, {}))
+    res.time_device()
 
 
 def windowed_phases(dev: torch.device, batches: list[np.ndarray],
@@ -1714,7 +1880,7 @@ def s3dis_weighted_phases(dev: torch.device, res: Results
             name = "weighted_interpolate"
             print(f"  {describe(name, args, kw):30s} weighted {w_ms:.3f} "
                   f"ms  mean {m_ms:.3f} ms  weighted "
-                  f"{res.add_bound(name, work(name, args, kw))}",
+                  f"{res.add_bound(name, work(name, args, kw), w_ms)}",
                   flush=True)
     print(f"  sums: weighted {res.ms['weighted_interpolate']:.3f} ms, mean "
           f"{res.ms['mean_interpolate']:.3f} ms", flush=True)
@@ -1900,9 +2066,10 @@ def modelnet_option_phases(dev: torch.device, res: Results
             m_ms = median_ms(lambda: D.dense_max_pool3d(*args))
             res.ms["avg_pool"] += a_ms
             res.ms["max_pool"] += m_ms
+            bound = res.add_bound("avg_pool", work("avg_pool", args, kw),
+                                  a_ms)
             print(f"  {describe('avg_pool', args, kw):30s} avg "
-                  f"{a_ms:.3f} ms  max {m_ms:.3f} ms  avg "
-                  f"{res.add_bound('avg_pool', work('avg_pool', args, kw))}",
+                  f"{a_ms:.3f} ms  max {m_ms:.3f} ms  avg {bound}",
                   flush=True)
     print(f"  sums: avg {res.ms['avg_pool']:.3f} ms, max "
           f"{res.ms['max_pool']:.3f} ms", flush=True)
@@ -2117,7 +2284,7 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {nvcc_s:.1f} s) "
           f"-> {lib}", flush=True)
     for line in (lib.parent / "ptxas.log").read_text().splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(k in line for k in ("Compiling entry", "spill", "registers")):
             print("  ptxas:", line.strip(), flush=True)
 
     cfg_plain = modelnet_config(fast=True, dense=True)
@@ -2215,6 +2382,7 @@ def main() -> None:
     res_s3_step, res_index = Results(), Results()
     s3_step_launches, pool_calls = s3dis_train_phases(dev, res_s3_step)
     max_index_replay(dev, pool_calls, conv_map, res_index)
+    pool_bwd_stress(dev)
     del pool_calls, conv_map
 
     # 26-30. the options that read distance maps, the avg pools, IDS and

@@ -213,8 +213,9 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def stream(t: torch.Tensor) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``t``'s device."""
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    """PyTorch's current stream on ``t``'s device, as its raw handle (a
+    ``torch.cuda.Stream`` object costs several microseconds a launch)."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(t.device.index))
 
 
 def use_kernel(t: torch.Tensor, use_kernels: bool | None) -> bool:

@@ -63,9 +63,8 @@ from sph3d_gcn_torch.ops.query import (
 # candidate block per tile chunk (f32: 256 MB)
 _PLAIN_BUDGET = 1 << 26
 _MAX_CONV_C = 1024     # the conv kernel: 4 chunks of 8 32-lane slots
-_MAX_POOL_C = 512      # the pool kernel: 2 chunks
+_MAX_POOL_C = 512      # the pool kernel (2 chunks), and so its backward
 _MAX_CONV_BWD_C = 1024  # the conv backward kernel: 64-channel chunks
-_MAX_POOL_BWD_C = 512   # the pool backward kernel: 2 chunks
 _POOL_ALL = 127        # "every nonzero entry" count for bin maps
 
 CONV_KERNEL = _build.register(
@@ -684,23 +683,24 @@ def rank_pool_bwd_plain(s_blk, arg, dout, num_in, window):
 
 
 def rank_pool_bwd_kernel(s_blk, arg, dout, num_in, window):
-    """The pool backward through ``csrc/rank_pool_bwd.cu``: one thread
-    block per (cloud, 128-row block of the input) owns that block's
-    gradient rows and adds, in tile and row order, the output gradients
-    whose first attaining column lands in it. Returns as the plain
-    version."""
+    """The pool backward through ``csrc/rank_pool_bwd.cu``, one launch
+    with no float atomics: a thread block per (8 consecutive 128-row
+    blocks of the input, cloud, 32-channel slice) stages each tile whose
+    window meets those blocks once, and one warp per input block adds, in
+    tile and row order, the output gradients whose first attaining column
+    lands in its block. Returns as the plain version."""
     _build.check(arg, "arg", torch.int32, 3)
     _build.check(dout, "dout", (torch.float32, torch.bfloat16), 3)
     batch, m_pad, c = arg.shape
     n_t = s_blk.shape[1]
-    if not 1 <= c <= _MAX_POOL_BWD_C:
+    if not 1 <= c <= _MAX_POOL_C:
         raise ValueError(
-            f"rank pool backward kernel takes C <= {_MAX_POOL_BWD_C}, got {c}")
+            f"rank pool backward kernel takes C <= {_MAX_POOL_C}, got {c}")
     if dout.shape != arg.shape or m_pad != n_t * TILE or window % TILE:
         raise ValueError(
             f"bad pool backward shapes: arg {tuple(arg.shape)}, dout "
             f"{tuple(dout.shape)}, {n_t} tiles, window {window}")
-    sb = s_blk.to(torch.int32).contiguous()
+    sb = s_blk.to(torch.int64).contiguous()  # as the graph holds it
     dx = torch.empty((batch, num_in, c), dtype=dout.dtype,
                      device=dout.device)
     POOL_BWD_KERNEL.launch(
