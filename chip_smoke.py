@@ -260,14 +260,18 @@ LOSS_TOL = 1e-2      # kernel step vs plain step, of the loss
 GRAD_TOL = 2e-3
 BF16_GRAD_SLACK, BF16_GRAD_ATOL = 2.0, 0.05   # bf16 steps vs the f32 grads
 PER_FORWARD = {"fps": 3, "dense_query": 6, "dense_conv": 6, "rank_pool": 3}
-PER_STEP = dict(PER_FORWARD, dense_conv_bwd=6, rank_pool_bwd=3)
+# launches per step: a conv backward (K5) launches three kernels (the
+# dfilt partials of each query tile, their sum over tiles, dx)
+K5_PER_CALL = 3
+PER_STEP = dict(PER_FORWARD, dense_conv_bwd=6 * K5_PER_CALL, rank_pool_bwd=3)
 S3_B, S3_N = 16, 8192               # the S3DIS serving batch
 S3_BLOCKS, S3_P = 32, 10000         # served blocks and their points
 S3_PLAIN_REPS = 1                   # the plain versions of the S3DIS replay
 PER_SEG_FORWARD = {"fps": 4, "dense_query": 12, "growth_query": 4,
                    "dense_conv": 16, "rank_pool": 4}
 # the unpool backwards sum their window gradients into the cloud by K9
-PER_SEG_STEP = dict(PER_SEG_FORWARD, dense_conv_bwd=16, rank_pool_bwd=4,
+PER_SEG_STEP = dict(PER_SEG_FORWARD, dense_conv_bwd=16 * K5_PER_CALL,
+                    rank_pool_bwd=4,
                     window_gather_bwd=4)
 S3_STEPS = 10
 # the per-edge (windowed) engine: per level 2 conv gathers and 1 pool
@@ -716,25 +720,29 @@ class Results:
                   f"{bound_ms / self.ms[name]:.3f}", flush=True)
             if name in self.device:
                 k_ms, l_ms, n = self.device[name]
+                lib = (f"library {l_ms:.4f} ms" if name in self.has_library
+                       else "library none")
                 print(f"  {name:16s} device time (profiler), {n} of "
                       f"{self.calls[name]} calls: kernel {k_ms:.4f} ms  "
-                      f"library {l_ms:.4f} ms", flush=True)
+                      f"{lib}", flush=True)
 
     def add_device(self, name, what, kern, lib, work_done) -> None:
-        """Queue one call's kernel and library call for
-        :meth:`time_device`."""
+        """Queue one call's kernel and library call (None where PyTorch
+        has none) for :meth:`time_device`."""
         self.device_queue.append((name, what, kern, lib, work_done))
 
     def time_device(self) -> None:
         """The queued calls' device times (:func:`device_ms`, one profiler
-        session), each beside its library call's and its bound."""
+        session), each beside its library call's, if any, and its bound."""
         if not self.device_queue:
             return
-        times = device_ms([f for q in self.device_queue for f in q[2:4]])
+        fns = [f for q in self.device_queue for f in q[2:4] if f is not None]
+        times = iter(device_ms(fns))
         print("device times (profiler; the spans above also hold the "
               "host's time before each launch):", flush=True)
-        for i, (name, what, _, _, work_done) in enumerate(self.device_queue):
-            k_ms, l_ms = times[2 * i], times[2 * i + 1]
+        for name, what, _, lib, work_done in self.device_queue:
+            k_ms = next(times)
+            l_ms = next(times) if lib is not None else 0.0
             if k_ms is None or l_ms is None:
                 print(f"  {name:14s} {what:30s} not measured: the trace "
                       f"holds no kernel of the call", flush=True)
@@ -743,8 +751,10 @@ class Results:
             acc[0] += k_ms
             acc[1] += l_ms
             acc[2] += 1
-            print(f"  {name:14s} {what:30s} kernel {k_ms:.4f} ms  library "
-                  f"{l_ms:.4f} ms  share {bound_of(work_done)[0] / k_ms:.3f}",
+            lib_text = (f"library {l_ms:.4f} ms" if lib is not None
+                        else "library none")
+            print(f"  {name:14s} {what:30s} kernel {k_ms:.4f} ms  "
+                  f"{lib_text}  share {bound_of(work_done)[0] / k_ms:.3f}",
                   flush=True)
         self.device_queue = []
 
@@ -778,10 +788,12 @@ def replay(calls: list, res: Results, expect: dict[str, int],
     """Replay recorded kernel-wrapped calls through the kernel and its
     plain version: compare the two and time both (and the library call,
     where one exists). ``expect`` is the number of launches of each
-    kernel the recorded run must have made. Recorded masked-mean unpools
+    kernel the recorded run's calls make (a wrapper's ``per_call`` a
+    call). Recorded masked-mean unpools
     (plain PyTorch, no kernel) are timed; their backwards launch K9 and
     are replayed as kernels, with the scatter-add that autograd of the
     window gather would run as their library call."""
+    from sph3d_gcn_torch import _build
     from sph3d_gcn_torch.ops import dense as D
 
     unpool = {"mean_interpolate": D.dense_mean_interpolate,
@@ -792,7 +804,7 @@ def replay(calls: list, res: Results, expect: dict[str, int],
     for name, _, _ in calls:
         if name not in unpool:
             name = launches_of.get(name, name)
-            seen[name] = seen.get(name, 0) + 1
+            seen[name] = seen.get(name, 0) + _build.KERNELS[name].per_call
     if seen != expect:
         raise AssertionError(f"recorded calls {seen}, want {expect}")
     table = versions()
@@ -815,7 +827,7 @@ def replay(calls: list, res: Results, expect: dict[str, int],
                               min(reps, plain_reps)), check,
                     work(name, args, kw),
                     None if lib is None else median_ms(lib, reps))
-            if name == "rank_pool_bwd":
+            if name in ("rank_pool_bwd", "dense_conv_bwd"):
                 res.add_device(name, what, functools.partial(kern, *args),
                                lib, work(name, args, kw))
 
@@ -1493,6 +1505,56 @@ def pool_bwd_stress(dev: torch.device) -> None:
     res.time_device()
 
 
+def conv_bwd_stress(dev: torch.device) -> None:
+    """Phase 25c: K5 on a crowded operand at the S3DIS step's level-0
+    shapes (B=16, N=8192, 64 query tiles, W=1664, C_in 64 and 128, r=2,
+    bf16, the 33 bins of kernel (8, 2, 2)): 64 selected entries in every
+    query row's window, as real scene blocks fill up to ``nn_uplimit`` =
+    64 (the synthetic scene maps of the step hold about 6). The windows
+    are centred on their tiles, as a sorted cloud's are. K5 against its
+    plain version under ``conv_grads_close`` and against a second K5 run
+    bitwise; times (span and device) and the bound."""
+    from sph3d_gcn_torch.ops import dense as D
+
+    print("conv backward (K5) on a crowded operand (64 entries a row), "
+          "S3DIS level-0 shapes:", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    n_t = n_blk = S3_N // 128
+    window, f_bins = 1664, 33
+    nbw = window // 128
+    s_blk = (torch.arange(n_t, device=dev) - nbw // 2).clamp(
+        0, n_blk - nbw).expand(S3_B, n_t).contiguous()
+    scores = torch.rand((S3_B, n_t, 128, window), generator=gen, device=dev)
+    top = scores.topk(64, dim=-1).indices
+    del scores
+    bins = torch.randint(1, f_bins + 1, top.shape, generator=gen,
+                         device=dev).to(torch.int8)
+    packed = torch.zeros((S3_B, n_t, 128, window), dtype=torch.int8,
+                         device=dev).scatter_(-1, top, bins)
+    del top, bins
+    inv = torch.full((S3_B, n_t * 128), 1 / 64, device=dev)
+    res = Results()
+    for c in (64, 128):
+        x = torch.randn((S3_B, S3_N, c), generator=gen,
+                        device=dev).bfloat16()
+        filt_b = torch.randn((S3_B, f_bins, c, 2), generator=gen, device=dev)
+        dout = torch.randn((S3_B, n_t * 128, 2 * c), generator=gen,
+                           device=dev).bfloat16()
+        args = (packed, s_blk, x, filt_b, inv, dout)
+        what = f"crowded bf16 C={c} r=2 W={window}"
+        got = D.dense_conv_bwd_kernel(*args)
+        exact(got, D.dense_conv_bwd_kernel(*args))
+        res.add("dense_conv_bwd", what, got, D.dense_conv_bwd_plain(*args),
+                median_ms(functools.partial(D.dense_conv_bwd_kernel, *args)),
+                median_ms(functools.partial(D.dense_conv_bwd_plain, *args),
+                          1),
+                conv_grads_close, work("dense_conv_bwd", args, {}))
+        res.add_device("dense_conv_bwd", what,
+                       functools.partial(D.dense_conv_bwd_kernel, *args),
+                       None, work("dense_conv_bwd", args, {}))
+    res.time_device()
+
+
 def windowed_phases(dev: torch.device, batches: list[np.ndarray],
                     res_fwd: Results, res_step: Results
                     ) -> tuple[dict, dict]:
@@ -2096,12 +2158,13 @@ def modelnet_option_phases(dev: torch.device, res: Results
     launches = kernel_launches()
     n_fb = sum(fell)
     per_dense = {"fps": 0, "dense_query": 6, "dense_conv": 6,
-                 "rank_pool": 0, "dense_conv_bwd": 6, "rank_pool_bwd": 0}
+                 "rank_pool": 0, "dense_conv_bwd": 6 * K5_PER_CALL,
+                 "rank_pool_bwd": 0}
     want = {k: v * n_steps for k, v in per_dense.items()}
     # a dense step's backward sums its 3 avg pools into the cloud by K9; a
     # step that fell back ran the dense forward, then the per-edge
     # engine's 9 gathers and their 9 backwards
-    want["dense_conv_bwd"] -= 6 * n_fb
+    want["dense_conv_bwd"] -= 6 * K5_PER_CALL * n_fb
     want["window_gather"] = 9 * n_fb
     want["window_gather_bwd"] = 3 * (n_steps - n_fb) + 9 * n_fb
     loss = torch.stack(losses).cpu()
@@ -2383,6 +2446,7 @@ def main() -> None:
     s3_step_launches, pool_calls = s3dis_train_phases(dev, res_s3_step)
     max_index_replay(dev, pool_calls, conv_map, res_index)
     pool_bwd_stress(dev)
+    conv_bwd_stress(dev)
     del pool_calls, conv_map
 
     # 26-30. the options that read distance maps, the avg pools, IDS and

@@ -132,12 +132,15 @@ def library() -> ctypes.CDLL:
 
 
 class Kernel:
-    """One C launcher of the library, with its count of launches."""
+    """One C launcher of the library, with its count of device kernel
+    launches (``per_call`` of them each call)."""
 
-    def __init__(self, name: str, symbol: str, argtypes: list) -> None:
+    def __init__(self, name: str, symbol: str, argtypes: list,
+                 per_call: int = 1) -> None:
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
+        self.per_call = per_call   # device kernels one call launches
         self.launches = 0
         self._fn = None
 
@@ -154,14 +157,15 @@ class Kernel:
                 f"kernel {self.name} ({self.symbol}) failed to launch: "
                 f"CUDA error {err}: {msg}"
             )
-        self.launches += 1
+        self.launches += self.per_call
 
 
 KERNELS: dict[str, Kernel] = {}
 
 
-def register(name: str, symbol: str, argtypes: list) -> Kernel:
-    k = Kernel(name, symbol, argtypes)
+def register(name: str, symbol: str, argtypes: list,
+             per_call: int = 1) -> Kernel:
+    k = Kernel(name, symbol, argtypes, per_call)
     KERNELS[name] = k
     return k
 

@@ -2,53 +2,52 @@
 //
 // Replaces BOTH TPU kernels sph3d_gcn_tpu/ops/dense.py:692
 // (_dense_conv_bwd_kernel, the backward of the C_in <= 128 conv) and
-// sph3d_gcn_tpu/ops/dense.py:1183 (_dense_conv_rm_bwd_kernel, C_in > 128):
-// one function in two TPU layouts, as K3 (dense_conv.cu) serves both
+// sph3d_gcn_tpu/ops/dense.py:1183 (_dense_conv_rm_bwd_kernel, C_in > 128),
+// and their S-recomputing twins :768 and :1233 (the same function): one
+// function in several TPU layouts, as K3 (dense_conv.cu) serves both
 // forwards. Plain PyTorch twin: sph3d_gcn_torch/ops/dense.py::
 // dense_conv_bwd_plain.
 //
-// With g[t, c, j] = inv[t] * dout[t, c*r + j] and the map entry pk of
-// query row t at window column w (0: not selected, else bin + 1):
+// With k = c*r + j an output channel, g[t, k] = inv[t] * dout[t, k] and the
+// map entry pk of query row t at window column w (a hit where
+// 1 <= pk <= F; its bin is pk - 1):
 //
-//   dx[n, c]          = sum over (t, w) with pk != 0 and s_blk*128 + w = n
-//                       of sum_j g[t, c, j] * filt_b[pk - 1, c, j]
-//   dfilt_b[b, f, c, j] = sum over (t, w) of cloud b with pk = f + 1
-//                       of g[t, c, j] * x[s_blk*128 + w, c]
+//   dx[n, c]       = sum over hits (t, w) with s_blk*128 + w = n
+//                    of sum_j g[t, c*r + j] * filt_b[pk - 1, c*r + j]
+//   dfilt_b[b, f, k] = sum over cloud b's hits of bin f
+//                    of g[t, k] * x[s_blk*128 + w, k / r]
 //
 // Sums are f32; dx is rounded once to the feature dtype, dfilt stays f32.
+// No float atomics: every sum runs in an order fixed by the data layout, so
+// the result is bitwise reproducible. Three launches a call:
 //
-// Design: the windows of neighbouring query tiles overlap, so a feature
-// row receives gradient from several tiles. Instead of scattering (float
-// atomics: run-to-run different sums), every 128-row block of x has ONE
-// owner for each channel chunk: a thread block per (x block, cloud,
-// channel chunk). It walks the query tiles whose window covers its block
-// in tile order; for each it stages the tile's 128 x 128 map slice (the
-// columns over its block), its chunk of the dout rows and the inverse
-// counts in shared memory. Its warps are (channel slot, column group)
-// pairs: lane = channel, and the G column groups take the block's columns
-// i = g, g + G, ... Each warp scans its columns (a ballot over 32 query
-// rows at a time), accumulating the column's dx in a register and its
-// group's dfilt partial in shared memory; the G partials are summed in
-// group order at the end. Every sum runs in one fixed order (tile,
-// column, query row; then group), so the result is bitwise reproducible;
-// chunking the channels changes no channel's order. The per-block dfilt
-// partials (B, n_blk, F, C, r) are reduced over blocks by the caller, in
-// a fixed order too.
+// 1. dfilt_tile_kernel, a block per (query tile, cloud, slice of up to 256
+//    output channels k): the map is read once per call at the widths of
+//    every model here (C*r <= 256), once per 256 output channels past that.
+//    The tile's rows are decoded 512 map bytes a warp and step (16-byte
+//    loads, the next step's in flight) into a hit list (row, bin, column)
+//    in shared memory, in (warp, word, byte) order; then the block's warps
+//    take the list as (group, 32-channel slot) pairs, lane = k: each group
+//    takes a fixed share of the list and adds g * x of every hit into its
+//    own (F, slice) partial, the groups summed in order at the end. Its cost
+//    follows the hits, not the window.
+// 2. dfilt_reduce_kernel sums the tiles' partials (B, n_t, F, C*r) over
+//    tiles, in tile order.
+// 3. dx_kernel keeps one owner per (128-row block of x, cloud, slice of up
+//    to 128 output channels): it walks the query tiles whose window covers
+//    its block ([s_blk, s_blk + W/128)), in tile order, with a three-stage
+//    ring of cp.async copies, so that the map slices (128 x 128 bytes) and
+//    inverse counts of the next two tiles arrive while one is scanned. Each
+//    warp owns 16 of the block's rows, as registers acc[16][slot]: it reads
+//    its 16 columns of the slice with 16-byte loads, lists the hits in
+//    (column, query row) order, then takes them 2-8 at a time with their
+//    dout rows and filter rows loaded together, adding each column's run of
+//    hits to its register.
 //
-// Shared memory holds the chunk's filter and G partials (F x chunk x r
-// f32 each), so it grows with the chunk width: a row of up to 256
-// channels stays in one block when it fits with at least two column
-// groups (every ModelNet conv); a wider row (the S3DIS convs reach
-// C_in = 1024, all with r = 2) is cut into chunks of 64 channels (the
-// grid's z index), which fit with four groups in bf16 and f32 alike (at
-// most 196 KB).
-//
-// No S stash, no one-hot matmul: the TPU kernels re-contracted a one-hot
-// (F*128, W) bin matrix per tile to feed its matrix unit; here only the
-// selected entries cost arithmetic. What bounds it on the H100: the
-// per-warp serial scan of the covering slices (about W/128 tiles x
-// 128/G columns x 4 ballots per warp), repeated once per channel chunk,
-// and the few warps a block's shared memory leaves resident per SM.
+// The earlier K5 (one block per x block carrying the dfilt partials in
+// shared memory, operands copied one element at a time with no load in
+// flight, the map re-scanned per 64 channels) reached 1.5% of its bound on
+// the S3DIS train step. What bounds this design on the H100 is in PERF.md.
 #include "common.cuh"
 
 namespace {
@@ -56,218 +55,571 @@ namespace {
 using sph3d::kFullMask;
 using sph3d::kTile;
 
-constexpr int kRowPad = kTile + 4;  // map slice row stride: no bank conflicts
-
-constexpr int kMaxGroups = 4;
-constexpr size_t kMaxSmem = 227 * 1024;
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
 constexpr int kMaxC = 1024;
-constexpr int kRowChunk = 256;   // widest row kept in one block
-constexpr int kWideChunk = 64;   // chunk width of wider rows
+constexpr int kMaxDevices = 16;           // devices whose attribute is kept
 
-// Dynamic shared memory of one block with a chunk of cw channels and G
-// column groups: f32 filter (F, cw, R) and G dfilt partials of that
-// shape, f32 dx accumulator (128, cw), 1/count (128,), the tile's dout
-// rows (128, cw*R) in the feature dtype and its map slice (128, 132) int8.
-size_t smem_bytes(int cw, int f_bins, int r, int elem, int groups) {
-  return ((1 + groups) * static_cast<size_t>(f_bins) * cw * r + kTile * cw +
-          kTile) * 4 +
-         static_cast<size_t>(kTile) * cw * r * elem + kTile * kRowPad;
+// dfilt: 16-byte map words a lane decodes a step, and the hits a step can
+// list (16 a word)
+constexpr int kWordsPerLane = 2;
+constexpr int kStepWords = 32 * kWordsPerLane;
+constexpr int kStepCap = kWarps * kStepWords * 16;
+constexpr int kBatchF = 4;               // hits whose loads are in flight
+
+// dx: rows of the owned block per warp, ring stages, map slice row stride
+// (144: 16-byte reads of eight rows hit distinct banks), per-warp hit list
+constexpr int kCols = kTile / kWarps;
+constexpr int kStages = 3;
+constexpr int kSliceStride = kTile + 16;
+constexpr int kSliceBytes = kTile * kSliceStride;
+constexpr int kDxList = 4 * kTile;
+constexpr int kMaxDxSlots = 4;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One bit per byte of v (4 bytes) that holds a hit: 1 <= byte <= F
+// (fmax4: F in every byte; a negative int8 is >= 128 unsigned).
+__device__ __forceinline__ unsigned hit_bits4(unsigned v, unsigned fmax4) {
+  const unsigned m = __vcmpgeu4(v, 0x01010101u) & __vcmpleu4(v, fmax4);
+  return ((m >> 7) & 1u) | ((m >> 14) & 2u) | ((m >> 21) & 4u) |
+         ((m >> 28) & 8u);
+}
+
+// Bit i: byte i of the 16-byte word holds a hit.
+__device__ __forceinline__ unsigned hit_bits16(uint4 v, unsigned fmax4) {
+  return hit_bits4(v.x, fmax4) | (hit_bits4(v.y, fmax4) << 4) |
+         (hit_bits4(v.z, fmax4) << 8) | (hit_bits4(v.w, fmax4) << 12);
+}
+
+__device__ __forceinline__ int word_byte(uint4 v, int i) {
+  const unsigned w = i < 8 ? (i < 4 ? v.x : v.y) : (i < 12 ? v.z : v.w);
+  return static_cast<int>((w >> (8 * (i & 3))) & 0xffu);
+}
+
+// Exclusive prefix sum over the warp's lanes, and the warp's total.
+__device__ __forceinline__ int warp_scan(int v, int lane, int* total) {
+  int inc = v;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(kFullMask, inc, d);
+    if (lane >= d) inc += y;
+  }
+  *total = __shfl_sync(kFullMask, inc, 31);
+  return inc - v;
+}
+
+// A list entry: query row t (7 bits), bin f (7 bits), window column w.
+__device__ __forceinline__ int pack_hit(int t, int f, int w) {
+  return t | (f << 7) | (w << 14);
 }
 
 template <typename T, int R>
-__global__ void dense_conv_bwd_kernel(
-    const int8_t* __restrict__ packed, const int* __restrict__ s_blk,
-    const T* __restrict__ x, const float* __restrict__ filt,
-    const float* __restrict__ inv, const T* __restrict__ dout,
-    T* __restrict__ dx, float* __restrict__ dfilt_part, int n_t, int n,
-    int c, int cc, int f_bins, int window, int n_blk, int groups) {
-  extern __shared__ float smem[];
-  const int c0 = blockIdx.z * cc;         // this block's first channel
-  const int cw = min(cc, c - c0);         // channels of this chunk
-  const int fcr = f_bins * cw * R;        // the chunk's filter entries
-  const int cwr = cw * R;
+__global__ void __launch_bounds__(kThreads)
+    dfilt_tile_kernel(const int8_t* __restrict__ packed,
+                      const int64_t* __restrict__ s_blk,
+                      const T* __restrict__ x, const float* __restrict__ inv,
+                      const T* __restrict__ dout, float* __restrict__ part,
+                      int n_t, int n, int c, int f_bins, int window,
+                      int slots) {
+  extern __shared__ float4 smem4[];
+  const int groups = kWarps / slots;
+  const int cw = 32 * slots;                      // output channels a block
+  const int fcw = f_bins * cw;
+  float* slab = reinterpret_cast<float*>(smem4);  // (groups, F, cw)
+  int* list = reinterpret_cast<int*>(slab + groups * fcw);  // kStepCap
+  float* inv_s = reinterpret_cast<float*>(list + kStepCap);  // (128,)
+  __shared__ int count_s[kWarps];
+
   const int cr = c * R;
-  float* filt_s = smem;                  // (F, cw, R) this cloud's filter
-  float* part_s = filt_s + fcr;          // (G, F, cw, R) the groups' dfilt
-  float* acc_s = part_s + groups * fcr;  // (128, cw) dx of the block's rows
-  float* inv_s = acc_s + kTile * cw;     // (128,) the tile's 1/count
-  T* dout_s = reinterpret_cast<T*>(inv_s + kTile);           // (128, cw*R)
-  int8_t* pk_s = reinterpret_cast<int8_t*>(dout_s + kTile * cwr);
-
-  const int nb = blockIdx.x;
-  const int b = blockIdx.y;
+  const int k0 = blockIdx.x * cw;
+  const int g = blockIdx.z * n_t + blockIdx.y;    // b * n_t + tile
+  const int b = blockIdx.z;
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int slots = cc / 32;
-  const int grp = (tid >> 5) / slots;     // this warp's column group
-  const int chl = ((tid >> 5) % slots) * 32 + lane;  // channel in the chunk
-  const int ch = c0 + chl;                // channel in the row
-  const bool live = chl < cw;
-  float* dfilt_s = part_s + grp * fcr;    // (F, cw, R) this group's partial
-  const int m_pad = n_t * kTile;
-  const int nbw = window / kTile;
-  const int row0 = nb * kTile;
-  const int rows = min(kTile, n - row0);
-  const T* xb = x + (static_cast<size_t>(b) * n + row0) * c;
+  const int base_row = static_cast<int>(s_blk[g]) * kTile;
+  const int reach = n - base_row;                 // columns in the cloud
+  for (int e = tid; e < groups * fcw; e += kThreads) slab[e] = 0.f;
+  if (tid < kTile) inv_s[tid] = inv[static_cast<size_t>(g) * kTile + tid];
 
-  const float* fb = filt + static_cast<size_t>(b) * f_bins * cr + c0 * R;
-  for (int k = tid; k < fcr; k += blockDim.x) {
-    const int f = k / cwr;
-    filt_s[k] = fb[static_cast<size_t>(f) * cr + (k - f * cwr)];
+  // this warp decodes rows warp, warp + 8, ...: word u of that sequence is
+  // word u % wpr of row warp + 8 * (u / wpr)
+  const int wpr = window / 16;
+  const int words = (kTile / kWarps) * wpr;
+  const int steps = (words + kStepWords - 1) / kStepWords;
+  const unsigned fmax4 = 0x01010101u * static_cast<unsigned>(f_bins);
+  const int8_t* pg = packed + static_cast<size_t>(g) * kTile * window;
+  auto load = [&](int u) {
+    if (u >= words) return make_uint4(0u, 0u, 0u, 0u);
+    const int rr = u / wpr;
+    return __ldg(reinterpret_cast<const uint4*>(
+        pg + static_cast<size_t>(warp + kWarps * rr) * window +
+        (u - rr * wpr) * 16));
+  };
+
+  // this warp's share of each step's list, and its output channel
+  const int grp = warp / slots;
+  const int kl = (warp - grp * slots) * 32 + lane;
+  const int k = k0 + kl;
+  const bool live = k < cr;
+  float* my_slab = slab + grp * fcw + kl;
+  const T* xk = x + static_cast<size_t>(b) * n * c + (live ? k / R : 0);
+  const T* dk = dout + static_cast<size_t>(g) * kTile * cr + (live ? k : 0);
+
+  uint4 cur[kWordsPerLane];
+#pragma unroll
+  for (int h = 0; h < kWordsPerLane; ++h) cur[h] = load(h * 32 + lane);
+  for (int step = 0; step < steps; ++step) {
+    const int u0 = step * kStepWords;
+    uint4 nxt[kWordsPerLane];
+#pragma unroll
+    for (int h = 0; h < kWordsPerLane; ++h) {
+      nxt[h] = load(u0 + kStepWords + h * 32 + lane);
+    }
+    unsigned bits[kWordsPerLane];
+    int row[kWordsPerLane], col[kWordsPerLane], pos[kWordsPerLane];
+    int total = 0;
+#pragma unroll
+    for (int h = 0; h < kWordsPerLane; ++h) {
+      const int u = u0 + h * 32 + lane;
+      const int rr = u / wpr;
+      row[h] = warp + kWarps * rr;
+      col[h] = (u - rr * wpr) * 16;
+      // bytes past the cloud's end are never hits
+      const int in = min(max(reach - col[h], 0), 16);
+      bits[h] = u < words ? hit_bits16(cur[h], fmax4) & ((1u << in) - 1u)
+                          : 0u;
+      int sum;
+      pos[h] = total + warp_scan(__popc(bits[h]), lane, &sum);
+      total += sum;
+    }
+    if (lane == 0) count_s[warp] = total;
+    __syncthreads();  // the counts; the previous step's list is read
+    int base = 0, n_hits = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int v = count_s[w];
+      base += w < warp ? v : 0;
+      n_hits += v;
+    }
+#pragma unroll
+    for (int h = 0; h < kWordsPerLane; ++h) {
+      int p = base + pos[h];
+      for (unsigned m = bits[h]; m; m &= m - 1u) {
+        const int i = __ffs(m) - 1;
+        list[p++] = pack_hit(row[h], word_byte(cur[h], i) - 1, col[h] + i);
+      }
+    }
+    __syncthreads();  // the list
+
+    // group grp adds entries [e0, e1) of the list, in list order
+    const int share = (n_hits + groups - 1) / groups;
+    const int e0 = grp * share;
+    const int e1 = min(n_hits, e0 + share);
+    if (live) {
+      for (int e = e0; e < e1; e += kBatchF) {
+        int ent[kBatchF];
+        float xv[kBatchF], gv[kBatchF];
+#pragma unroll
+        for (int q = 0; q < kBatchF; ++q) {
+          ent[q] = e + q < e1 ? list[e + q] : 0;
+          const int t = ent[q] & 0x7f;
+          const int w = ent[q] >> 14;
+          xv[q] = e + q < e1
+                      ? sph3d::to_float(xk[static_cast<size_t>(base_row + w) * c])
+                      : 0.f;
+          gv[q] = e + q < e1
+                      ? inv_s[t] * sph3d::to_float(dk[static_cast<size_t>(t) * cr])
+                      : 0.f;
+        }
+#pragma unroll
+        for (int q = 0; q < kBatchF; ++q) {
+          if (e + q < e1) {
+            float* s = my_slab + ((ent[q] >> 7) & 0x7f) * cw;
+            *s = fmaf(gv[q], xv[q], *s);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < kWordsPerLane; ++h) cur[h] = nxt[h];
   }
-  for (int k = tid; k < groups * fcr; k += blockDim.x) part_s[k] = 0.f;
-  for (int k = tid; k < kTile * cw; k += blockDim.x) acc_s[k] = 0.f;
+  __syncthreads();
 
-  for (int tile = 0; tile < n_t; ++tile) {
-    const int g = b * n_t + tile;
-    const int sb = s_blk[g];
-    if (nb < sb || nb >= sb + nbw) continue;  // uniform across the block
-    const int off = (nb - sb) * kTile;        // window column of block row 0
-    __syncthreads();  // the previous tile's operands are no longer read
-    const int* src = reinterpret_cast<const int*>(
-        packed + static_cast<size_t>(g) * kTile * window + off);
-    for (int k = tid; k < kTile * (kTile / 4); k += blockDim.x) {
-      const int t = k / (kTile / 4);
-      const int q = k % (kTile / 4);
-      reinterpret_cast<int*>(pk_s + t * kRowPad)[q] =
-          src[static_cast<size_t>(t) * (window / 4) + q];
-    }
-    const size_t qrow = static_cast<size_t>(b) * m_pad + tile * kTile;
-    for (int k = tid; k < kTile; k += blockDim.x) inv_s[k] = inv[qrow + k];
-    const T* db = dout + qrow * cr + c0 * R;
-    for (int k = tid; k < kTile * cwr; k += blockDim.x) {
-      const int t = k / cwr;
-      dout_s[k] = db[static_cast<size_t>(t) * cr + (k - t * cwr)];
-    }
-    __syncthreads();
+  // the tile's partial: the groups' slabs summed in group order
+  float* pt = part + static_cast<size_t>(g) * f_bins * cr + k0;
+  for (int e = tid; e < fcw; e += kThreads) {
+    const int f = e / cw;
+    const int ke = e - f * cw;
+    if (k0 + ke >= cr) continue;
+    float sum = slab[e];
+    for (int q = 1; q < groups; ++q) sum += slab[q * fcw + e];
+    pt[static_cast<size_t>(f) * cr + ke] = sum;
+  }
+}
 
-    for (int i = grp; i < rows; i += groups) {
-      const float xv = live ? sph3d::to_float(xb[i * c + ch]) : 0.f;
-      float acc = 0.f;
+// dfilt[b, e] = sum over tiles, in tile order, of part[b, tile, e]
+__global__ void __launch_bounds__(kThreads)
+    dfilt_reduce_kernel(const float* __restrict__ part,
+                        float* __restrict__ dfilt, int n_t, int fcr,
+                        int total) {
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= total) return;
+  const int b = e / fcr;
+  const float* p = part + static_cast<size_t>(b) * n_t * fcr + (e - b * fcr);
+  float sum = p[0];
+#pragma unroll 4
+  for (int t = 1; t < n_t; ++t) sum += p[static_cast<size_t>(t) * fcr];
+  dfilt[e] = sum;
+}
+
+// S slots a thread: its accumulators acc[16][S] and kBatch hits' loads
+// stay in registers, enough for three blocks an SM at S <= 2, two at S > 2
+template <typename T, int R, int S>
+__global__ void __launch_bounds__(kThreads, S <= 2 ? 3 : 2)
+    dx_kernel(const int8_t* __restrict__ packed,
+              const int64_t* __restrict__ s_blk,
+              const float* __restrict__ filt, const float* __restrict__ inv,
+              const T* __restrict__ dout, T* __restrict__ dx, int n_t, int n,
+              int c, int f_bins, int window) {
+  constexpr int kBatch = S == 1 ? 8 : S == 2 ? 4 : 2;  // hits loaded at once
+  extern __shared__ float4 smem4[];
+  int8_t* slices = reinterpret_cast<int8_t*>(smem4);  // (stages, 128, 144)
+  float* inv_s = reinterpret_cast<float*>(slices + kStages * kSliceBytes);
+  int* lists = reinterpret_cast<int*>(inv_s + kStages * kTile);
+  int2* cover = reinterpret_cast<int2*>(lists + kWarps * kDxList);  // n_t
+  __shared__ int n_cover_s;
+
+  const int cr = c * R;
+  const int k0 = blockIdx.x * 32 * S;
+  const int nb = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int nbw = window / kTile;
+  if (warp == 0) {
+    // (tile, window column of this block's row 0) of every tile whose
+    // window covers the block, in tile order
+    int count = 0;
+    for (int t0 = 0; t0 < n_t; t0 += 32) {
+      const int tile = t0 + lane;
+      const int sb =
+          tile < n_t
+              ? static_cast<int>(s_blk[static_cast<size_t>(b) * n_t + tile])
+              : 0;
+      const bool covers = tile < n_t && sb <= nb && nb < sb + nbw;
+      const unsigned bal = __ballot_sync(kFullMask, covers);
+      if (covers) {
+        cover[count + __popc(bal & ((1u << lane) - 1u))] =
+            make_int2(tile, (nb - sb) * kTile);
+      }
+      count += __popc(bal);
+    }
+    if (lane == 0) n_cover_s = count;
+  }
+  __syncthreads();
+  const int n_cover = n_cover_s;
+
+  // copy listed tile k's map slice and inverse counts into stage k % 3
+  auto issue = [&](int k) {
+    if (k < n_cover) {
+      const int2 cv = cover[k];
+      const size_t g = static_cast<size_t>(b) * n_t + cv.x;
+      const int8_t* src = packed + g * kTile * window + cv.y;
+      int8_t* dst = slices + (k % kStages) * kSliceBytes;
+      for (int i = tid; i < kTile * 8; i += kThreads) {
+        const int t = i >> 3;
+        const int q = i & 7;
+        cp_async16(dst + t * kSliceStride + 16 * q,
+                   src + static_cast<size_t>(t) * window + 16 * q);
+      }
+      if (tid < kTile / 4) {
+        cp_async16(inv_s + (k % kStages) * kTile + 4 * tid,
+                   inv + g * kTile + 4 * tid);
+      }
+    }
+    cp_async_commit();  // an empty group past the list keeps the count
+  };
+
+  int kk[S];
+  bool live[S];
 #pragma unroll
-      for (int t0 = 0; t0 < kTile; t0 += 32) {
-        const int pk = pk_s[(t0 + lane) * kRowPad + i];
-        unsigned bal = __ballot_sync(kFullMask, pk != 0);
-        while (bal) {
-          const int src_lane = __ffs(bal) - 1;
-          bal &= bal - 1;
-          const int f = __shfl_sync(kFullMask, pk, src_lane) - 1;
-          const int t = t0 + src_lane;
-          if (live) {
-            const float iv = inv_s[t];
-            const T* dr = dout_s + t * cwr + chl * R;
-            const float* fr = filt_s + (f * cw + chl) * R;
-            float* pr = dfilt_s + (f * cw + chl) * R;
+  for (int s = 0; s < S; ++s) {
+    kk[s] = k0 + 32 * s + lane;
+    live[s] = kk[s] < cr;
+  }
+  const float* fb = filt + static_cast<size_t>(b) * f_bins * cr;
+  const unsigned fmax4 = 0x01010101u * static_cast<unsigned>(f_bins);
+  int* list = lists + warp * kDxList;
+  const unsigned lower = (1u << lane) - 1u;
+
+  float acc[kCols][S];
 #pragma unroll
-            for (int j = 0; j < R; ++j) {
-              const float gv = iv * sph3d::to_float(dr[j]);
-              acc = fmaf(gv, fr[j], acc);
-              pr[j] = fmaf(gv, xv, pr[j]);
+  for (int q = 0; q < kCols; ++q) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) acc[q][s] = 0.f;
+  }
+  float run[S] = {};
+  int cur = -1;  // the column whose hits run[] is summing
+  auto flush = [&]() {
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) {
+      if (q == cur) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) acc[q][s] += run[s];
+      }
+    }
+  };
+
+  for (int k = 0; k < kStages - 1; ++k) issue(k);
+  for (int k = 0; k < n_cover; ++k) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile k has landed; stage (k - 1) % 3 is free
+    issue(k + kStages - 1);
+    const int8_t* sl = slices + (k % kStages) * kSliceBytes + warp * kCols;
+    const float* iv_s = inv_s + (k % kStages) * kTile;
+    const T* dt = dout + (static_cast<size_t>(b) * n_t + cover[k].x) *
+                             kTile * cr;
+
+    // adds the listed hits [0, fill) in list order, kBatch at a time
+    auto drain = [&](int fill) {
+      __syncwarp();
+      for (int h0 = 0; h0 < fill; h0 += kBatch) {
+        int ent[kBatch];
+        float gv[kBatch][S], fv[kBatch][S];
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          const bool ok = h0 + q < fill;
+          ent[q] = ok ? list[h0 + q] : 0;
+          const int t = ent[q] & 0xff;
+          const int f = (ent[q] >> 8) & 0xff;
+          const float iv = ok ? iv_s[t] : 0.f;
+#pragma unroll
+          for (int s = 0; s < S; ++s) {
+            const bool use = ok && live[s];
+            gv[q][s] = use ? iv * sph3d::to_float(
+                                      dt[static_cast<size_t>(t) * cr + kk[s]])
+                           : 0.f;
+            fv[q][s] = use ? __ldg(fb + static_cast<size_t>(f) * cr + kk[s])
+                           : 0.f;
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          if (h0 + q < fill) {
+            const int i = ent[q] >> 16;
+            if (i != cur) {
+              flush();
+              cur = i;
+#pragma unroll
+              for (int s = 0; s < S; ++s) run[s] = 0.f;
+            }
+#pragma unroll
+            for (int s = 0; s < S; ++s) {
+              run[s] = fmaf(gv[q][s], fv[q][s], run[s]);
             }
           }
         }
       }
-      if (live) acc_s[i * cw + chl] += acc;
+      __syncwarp();
+    };
+
+    // this lane's query rows lane + 32q, the warp's 16 columns
+    unsigned bits[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      bits[q] = hit_bits16(*reinterpret_cast<const uint4*>(
+                               sl + (lane + 32 * q) * kSliceStride),
+                           fmax4);
     }
+    unsigned cols =
+        __reduce_or_sync(kFullMask, bits[0] | bits[1] | bits[2] | bits[3]);
+    int fill = 0;
+    while (cols) {
+      const int i = __ffs(cols) - 1;
+      cols &= cols - 1u;
+      if (fill + kTile > kDxList) {
+        drain(fill);
+        fill = 0;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool hit = (bits[q] >> i) & 1u;
+        const unsigned bal = __ballot_sync(kFullMask, hit);
+        if (hit) {
+          const int t = lane + 32 * q;
+          list[fill + __popc(bal & lower)] =
+              t | ((sl[t * kSliceStride + i] - 1) << 8) | (i << 16);
+        }
+        fill += __popc(bal);
+      }
+    }
+    drain(fill);
+    flush();
+    cur = -1;
   }
 
-  // the accumulators were zeroed by other threads than their readers,
-  // and group 0 reads every group's partial
-  __syncthreads();
-  if (live) {
-    T* dxb = dx + (static_cast<size_t>(b) * n + row0) * c;
-    for (int i = grp; i < rows; i += groups) {
-      dxb[i * c + ch] = sph3d::from_float<T>(acc_s[i * cw + chl]);
-    }
-  }
-  if (live && grp == 0) {
-    float* part = dfilt_part +
-                  (static_cast<size_t>(b) * n_blk + nb) * f_bins * cr;
-    for (int f = 0; f < f_bins; ++f) {
+  // the block's rows, rounded once; with r = 2 the lane pair (2c, 2c + 1)
+  // holds channel c's two terms
+  const int row0 = nb * kTile + warp * kCols;
+  T* dxb = dx + static_cast<size_t>(b) * n * c;
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int k = (f * cw + chl) * R + j;
-        float sum = part_s[k];
-        for (int g = 1; g < groups; ++g) sum += part_s[g * fcr + k];
-        part[(f * c + ch) * R + j] = sum;
+  for (int q = 0; q < kCols; ++q) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      float v = acc[q][s];
+      if (R == 2) v += __shfl_xor_sync(kFullMask, v, 1);
+      if (row0 + q < n && live[s] && (R == 1 || (lane & 1) == 0)) {
+        dxb[static_cast<size_t>(row0 + q) * c + kk[s] / R] =
+            sph3d::from_float<T>(v);
       }
     }
   }
 }
 
-// The most column groups (at least min_groups) whose shared memory for a
-// chunk of cw channels fits a block, with that size; 0 if none fits.
-template <typename T, int R>
-int groups_for(int cw, int f_bins, int min_groups, size_t* smem) {
-  for (int g = kMaxGroups; g >= min_groups; g /= 2) {
-    *smem = smem_bytes(cw, f_bins, R, sizeof(T), g);
-    if (*smem <= kMaxSmem) return g;
-  }
-  return 0;
-}
-
-// The block shape for a row of c channels, as described above: the chunk
-// width cc (a multiple of 32), the column groups G (0 when no shape fits)
-// and the shared memory of the widest chunk, min(cc, c) channels.
-template <typename T, int R>
-void plan(int c, int f_bins, int* cc, int* groups, size_t* smem) {
-  *cc = (c + 31) / 32 * 32;
-  *groups = *cc <= kRowChunk ? groups_for<T, R>(c, f_bins, 2, smem) : 0;
-  if (*groups == 0) {
-    if (*cc > kWideChunk) *cc = kWideChunk;
-    *groups = groups_for<T, R>(*cc < c ? *cc : c, f_bins, 1, smem);
-  }
-}
-
-template <typename T, int R>
-cudaError_t launch(const int8_t* packed, const int* s_blk, const void* x,
-                   const float* filt, const float* inv, const void* dout,
-                   void* dx, float* dfilt_part, int batch, int n_t, int n,
-                   int c, int f_bins, int window, cudaStream_t stream) {
-  const int n_blk = (n + kTile - 1) / kTile;
-  int cc, groups;
-  size_t smem;
-  plan<T, R>(c, f_bins, &cc, &groups, &smem);
-  if (groups == 0) return cudaErrorInvalidValue;  // too wide for a block
-  auto kernel = dense_conv_bwd_kernel<T, R>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+// Raise a kernel's dynamic shared memory limit where a launch needs more
+// than was set before on this device (the host call costs more than a
+// small launch). allowed: the limit set so far on each device.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem,
+                       size_t (&allowed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid(n_blk, batch, (c + cc - 1) / cc);
-  kernel<<<grid, cc * groups, smem, stream>>>(
-      packed, s_blk, static_cast<const T*>(x), filt, inv,
-      static_cast<const T*>(dout), static_cast<T*>(dx), dfilt_part, n_t, n,
-      c, cc, f_bins, window, n_blk, groups);
+  if (dev < kMaxDevices && smem <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = smem;
+  return err;
+}
+
+template <typename T, int R>
+cudaError_t launch_dfilt(const int8_t* packed, const int64_t* s_blk,
+                         const void* x, const float* inv, const void* dout,
+                         float* part, float* dfilt, int batch, int n_t, int n,
+                         int c, int f_bins, int window, int slots,
+                         cudaStream_t stream) {
+  const int cw = 32 * slots;
+  const size_t smem =
+      (static_cast<size_t>(kWarps / slots) * f_bins * cw + kStepCap + kTile) *
+      4;
+  auto kernel = dfilt_tile_kernel<T, R>;
+  static size_t allowed[kMaxDevices] = {};
+  cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  const int cr = c * R;
+  kernel<<<dim3((cr + cw - 1) / cw, n_t, batch), kThreads, smem, stream>>>(
+      packed, s_blk, static_cast<const T*>(x), inv,
+      static_cast<const T*>(dout), part, n_t, n, c, f_bins, window, slots);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int total = batch * f_bins * cr;
+  dfilt_reduce_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0,
+                        stream>>>(part, dfilt, n_t, f_bins * cr, total);
   return cudaGetLastError();
+}
+
+template <typename T, int R, int S>
+cudaError_t launch_dx(const int8_t* packed, const int64_t* s_blk,
+                      const float* filt, const float* inv, const void* dout,
+                      void* dx, int batch, int n_t, int n, int c, int f_bins,
+                      int window, int chunks, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(kStages) * kSliceBytes +
+                      (kStages * kTile + kWarps * kDxList) * 4 +
+                      static_cast<size_t>(n_t) * sizeof(int2);
+  auto kernel = dx_kernel<T, R, S>;
+  static size_t allowed[kMaxDevices] = {};
+  const cudaError_t err = allow_smem(kernel, smem, allowed);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(chunks, (n + kTile - 1) / kTile, batch), kThreads, smem,
+           stream>>>(packed, s_blk, filt, inv, static_cast<const T*>(dout),
+                     static_cast<T*>(dx), n_t, n, c, f_bins, window);
+  return cudaGetLastError();
+}
+
+template <typename T, int R>
+cudaError_t launch(const int8_t* packed, const int64_t* s_blk, const void* x,
+                   const float* filt, const float* inv, const void* dout,
+                   void* dx, float* dfilt, float* part, int batch, int n_t,
+                   int n, int c, int f_bins, int window, int dx_slots,
+                   int dx_chunks, int df_slots, cudaStream_t stream) {
+  cudaError_t err = launch_dfilt<T, R>(packed, s_blk, x, inv, dout, part,
+                                       dfilt, batch, n_t, n, c, f_bins,
+                                       window, df_slots, stream);
+  if (err != cudaSuccess) return err;
+  switch (dx_slots) {
+    case 1:
+      return launch_dx<T, R, 1>(packed, s_blk, filt, inv, dout, dx, batch,
+                                n_t, n, c, f_bins, window, dx_chunks, stream);
+    case 2:
+      return launch_dx<T, R, 2>(packed, s_blk, filt, inv, dout, dx, batch,
+                                n_t, n, c, f_bins, window, dx_chunks, stream);
+    case 3:
+      return launch_dx<T, R, 3>(packed, s_blk, filt, inv, dout, dx, batch,
+                                n_t, n, c, f_bins, window, dx_chunks, stream);
+    default:
+      return launch_dx<T, R, 4>(packed, s_blk, filt, inv, dout, dx, batch,
+                                n_t, n, c, f_bins, window, dx_chunks, stream);
+  }
 }
 
 }  // namespace
 
-// dx: (B, N, C) in the feature dtype; dfilt_part: (B, ceil(N/128), F, C, r)
-// f32, one partial per x block (the caller sums them over blocks).
+// s_blk: (B, n_t) int64; filt: (B, F, C*r) f32; inv: (B, n_t*128) f32;
+// dout: (B, n_t*128, C*r); dx: (B, N, C) in the feature dtype; dfilt:
+// (B, F, C*r) f32; part: (B, n_t, F, C*r) f32 scratch. packed and inv
+// 16-byte aligned. The layout (dx_slots 32-channel slots in each of
+// dx_chunks dx blocks; df_slots in 1, 2, 4, 8 for a dfilt block) is the
+// wrapper's (ops/dense.py::conv_bwd_layout). Launches three kernels.
 extern "C" int sph3d_dense_conv_bwd_launch(
-    const int8_t* packed, const int* s_blk, const void* x, const float* filt,
-    const float* inv, const void* dout, void* dx, float* dfilt_part,
-    int batch, int n_t, int n, int c, int f_bins, int window, int mult,
-    int is_bf16, void* stream) {
-  if (c < 1 || c > kMaxC || (mult != 1 && mult != 2) ||
-      window % kTile != 0) {
+    const int8_t* packed, const int64_t* s_blk, const void* x,
+    const float* filt, const float* inv, const void* dout, void* dx,
+    float* dfilt, float* part, int batch, int n_t, int n, int c, int f_bins,
+    int window, int mult, int is_bf16, int dx_slots, int dx_chunks,
+    int df_slots, void* stream) {
+  const int cr = c * mult;
+  if (c < 1 || c > kMaxC || (mult != 1 && mult != 2) || batch < 1 ||
+      n < 1 || n_t < 1 || n_t > 65535 || batch > 65535 || f_bins < 1 ||
+      f_bins > 127 || window < kTile || window % kTile != 0 ||
+      window >= (1 << 17) || dx_slots < 1 || dx_slots > kMaxDxSlots ||
+      dx_chunks * 32 * dx_slots < cr ||
+      (df_slots != 1 && df_slots != 2 && df_slots != 4 && df_slots != 8) ||
+      reinterpret_cast<uintptr_t>(packed) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(inv) % 16 != 0) {
     return cudaErrorInvalidValue;
   }
   const auto st = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return mult == 1
         ? launch<__nv_bfloat16, 1>(packed, s_blk, x, filt, inv, dout, dx,
-                                   dfilt_part, batch, n_t, n, c, f_bins,
-                                   window, st)
+                                   dfilt, part, batch, n_t, n, c, f_bins,
+                                   window, dx_slots, dx_chunks, df_slots, st)
         : launch<__nv_bfloat16, 2>(packed, s_blk, x, filt, inv, dout, dx,
-                                   dfilt_part, batch, n_t, n, c, f_bins,
-                                   window, st);
+                                   dfilt, part, batch, n_t, n, c, f_bins,
+                                   window, dx_slots, dx_chunks, df_slots, st);
   }
   return mult == 1
-      ? launch<float, 1>(packed, s_blk, x, filt, inv, dout, dx, dfilt_part,
-                         batch, n_t, n, c, f_bins, window, st)
-      : launch<float, 2>(packed, s_blk, x, filt, inv, dout, dx, dfilt_part,
-                         batch, n_t, n, c, f_bins, window, st);
+      ? launch<float, 1>(packed, s_blk, x, filt, inv, dout, dx, dfilt, part,
+                         batch, n_t, n, c, f_bins, window, dx_slots,
+                         dx_chunks, df_slots, st)
+      : launch<float, 2>(packed, s_blk, x, filt, inv, dout, dx, dfilt, part,
+                         batch, n_t, n, c, f_bins, window, dx_slots,
+                         dx_chunks, df_slots, st);
 }

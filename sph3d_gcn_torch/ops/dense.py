@@ -64,7 +64,7 @@ from sph3d_gcn_torch.ops.query import (
 _PLAIN_BUDGET = 1 << 26
 _MAX_CONV_C = 1024     # the conv kernel: 4 chunks of 8 32-lane slots
 _MAX_POOL_C = 512      # the pool kernel (2 chunks), and so its backward
-_MAX_CONV_BWD_C = 1024  # the conv backward kernel: 64-channel chunks
+_MAX_CONV_BWD_C = 1024  # the conv backward kernel
 _POOL_ALL = 127        # "every nonzero entry" count for bin maps
 
 CONV_KERNEL = _build.register(
@@ -75,9 +75,11 @@ POOL_KERNEL = _build.register(
     "rank_pool", "sph3d_rank_pool_launch",
     [_build.PTR] * 6 + [_build.INT] * 6 + [_build.PTR],
 )
+# the conv backward launches three kernels a call: the dfilt partials of
+# each query tile, their sum over tiles, and dx
 CONV_BWD_KERNEL = _build.register(
     "dense_conv_bwd", "sph3d_dense_conv_bwd_launch",
-    [_build.PTR] * 8 + [_build.INT] * 8 + [_build.PTR],
+    [_build.PTR] * 9 + [_build.INT] * 11 + [_build.PTR], per_call=3,
 )
 POOL_BWD_KERNEL = _build.register(
     "rank_pool_bwd", "sph3d_rank_pool_bwd_launch",
@@ -472,12 +474,36 @@ def dense_conv_bwd_plain(packed, s_blk, inputs, filt_b, inv, dout):
     return dx.reshape(batch, num_in, c).to(inputs.dtype), dfilt
 
 
+def conv_bwd_layout(c: int, mult: int) -> tuple[int, int, int]:
+    """How ``csrc/dense_conv_bwd.cu`` splits the ``C*r`` output channels
+    (k = c*r + j) into 32-lane slots: (dx_slots, dx_chunks, df_slots).
+
+    A dx owner holds ``dx_slots`` slots (at most 4: its accumulators are
+    registers, 16 rows x slots a thread) and the row takes ``dx_chunks``
+    owners, as even as the slots allow; a dfilt block holds ``df_slots``
+    slots (1, 2, 4 or 8: its eight warps are slots x groups), so every
+    model here (C*r <= 256) reads its map once a call for dfilt."""
+    cr = c * mult
+    dx_chunks = -(-cr // 128)
+    per_chunk = -(-cr // dx_chunks)
+    dx_slots = -(-per_chunk // 32)
+    df_slots = next(s for s in (1, 2, 4, 8) if 32 * s >= min(cr, 256))
+    return dx_slots, dx_chunks, df_slots
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a copy where its data is not 16-byte aligned (the
+    kernel reads it with 16-byte copies)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def dense_conv_bwd_kernel(packed, s_blk, inputs, filt_b, inv, dout):
-    """The conv backward through ``csrc/dense_conv_bwd.cu``: one thread
-    block per (cloud, 128-row block of ``inputs``) owns that block's
-    gradient rows and walks the query tiles whose window covers it, in
-    tile order. Its per-block dfilt partials are summed over blocks here
-    (a fixed-order reduction). Returns (dx, dfilt_b) as the plain
+    """The conv backward through ``csrc/dense_conv_bwd.cu``, three
+    launches: the dfilt partials of each query tile (a block per tile walks
+    its rows' windows once), their sum over tiles in tile order, and dx,
+    whose rows have one owner per 128-row block of ``inputs`` that walks
+    the query tiles whose window covers it, in tile order, with the next
+    tiles' map slices in flight. Returns (dx, dfilt_b) as the plain
     version."""
     _build.check(packed, "packed", torch.int8, 4)
     _build.check(inputs, "inputs", (torch.float32, torch.bfloat16), 3)
@@ -498,20 +524,25 @@ def dense_conv_bwd_kernel(packed, s_blk, inputs, filt_b, inv, dout):
         raise ValueError(f"bad inverse-count shape {tuple(inv.shape)}")
     if dout.shape != (batch, n_t * TILE, c * mult):
         raise ValueError(f"bad output-gradient shape {tuple(dout.shape)}")
-    n_blk = -(-num_in // TILE)
-    sb = s_blk.to(torch.int32).contiguous()
+    if s_blk.shape != (batch, n_t):
+        raise ValueError(f"bad window-start shape {tuple(s_blk.shape)}")
+    sb = s_blk.contiguous() if s_blk.dtype == torch.int64 else s_blk.long()
+    packed, inv = _aligned(packed), _aligned(inv)
+    dx_slots, dx_chunks, df_slots = conv_bwd_layout(c, mult)
     dx = torch.empty_like(inputs)
-    part = torch.empty((batch, n_blk, f_bins, c, mult), dtype=torch.float32,
+    dfilt = torch.empty((batch, f_bins, c, mult), dtype=torch.float32,
+                        device=inputs.device)
+    part = torch.empty((batch, n_t, f_bins, c * mult), dtype=torch.float32,
                        device=inputs.device)
     CONV_BWD_KERNEL.launch(
         _build.ptr(packed), _build.ptr(sb), _build.ptr(inputs),
         _build.ptr(filt_b), _build.ptr(inv), _build.ptr(dout),
-        _build.ptr(dx), _build.ptr(part),
+        _build.ptr(dx), _build.ptr(dfilt), _build.ptr(part),
         batch, n_t, num_in, c, f_bins, w, mult,
-        int(inputs.dtype == torch.bfloat16),
+        int(inputs.dtype == torch.bfloat16), dx_slots, dx_chunks, df_slots,
         _build.stream(inputs),
     )
-    return dx, part.sum(dim=1)
+    return dx, dfilt
 
 
 class _DenseConv(torch.autograd.Function):
