@@ -54,10 +54,11 @@ schedule, weight decay):
    filter gradient within 1e-4 of its largest magnitude (sums of up to
    ~10^6 products in another order). These times go into the JSON line.
    Each call's line shows its time beside the library call and the bound
-   (share = bound / time); each pool backward's is followed by its device
-   time and ``scatter_add_``'s in a ``torch.profiler`` trace, without the
-   host's time before the launch that a single call's span holds
-   (:func:`device_ms`);
+   (share = bound / time); each pool and conv backward's is followed by
+   its device time (the pool backward's beside ``scatter_add_``'s; the
+   conv backward's three kernels summed) in a ``torch.profiler`` trace,
+   without the host's time before the launch that a single call's span
+   holds (:func:`device_ms`);
 7. one kernel step against one plain step from the same state, batch and
    dropout seed, ``dense_ok`` True: loss within 1%; with f32 activations
    (same weights, graphs and masks) every gradient leaf's L2 error within
@@ -78,7 +79,9 @@ schedule, weight decay):
    (cuBLAS's workspace is fixed before CUDA starts);
 9. 20 steps on the fixed batch: finite loss, lower at the end, ``dense_ok``
    on every step, launch counts of exactly 3 FPS, 6 query, 6 conv, 3 pool,
-   6 conv-backward and 3 pool-backward per step; median step time and
+   18 conv-backward (6 calls of 3 kernels: the dfilt partials of each
+   query tile, their sum over tiles, dx) and 3 pool-backward per step;
+   median step time and
    points/s with the kernels, and one plain step's time;
 10. profile of the train step (:func:`report_trace`).
 
@@ -151,8 +154,8 @@ inner_masked=True).train_step`` (Adam on the staircase schedule):
 22. two kernel steps bitwise equal, as phase 8;
 23. 10 steps on the fixed batch: ``dense_ok`` on every step, a falling
     loss, launch counts of exactly 4 FPS, 12 query, 4 growth query, 16
-    conv, 4 pool, 16 conv-backward, 4 pool-backward and 4 K9 (the unpool
-    backwards) per step; median
+    conv, 4 pool, 48 conv-backward (16 calls of 3 kernels), 4
+    pool-backward and 4 K9 (the unpool backwards) per step; median
     step time, points/s, one plain step's time, peak device memory;
 24. profile of the S3DIS train step (:func:`report_trace`);
 25. ``max_index``: ``dense_max_pool3d(with_index=True)`` on the 4 pool
@@ -161,7 +164,10 @@ inner_masked=True).train_step`` (Adam on the staircase schedule):
     gradients equal, with times, device times and bounds; then K6 on
     adversarial operands (:func:`pool_bwd_stress`: scattered windows and
     one row taking every row of 15 tiles), bitwise equal to its plain
-    version and to itself.
+    version and to itself; and K5 on a crowded operand at the step's
+    level-0 shapes (:func:`conv_bwd_stress`: 64 selected entries in every
+    query row, as real scene blocks have) against its plain version and
+    itself, timed with its device time and bound.
 
 Then the config options that read the queries' distance maps, at full
 published width with seeded weights:

@@ -65,12 +65,11 @@ constexpr int kMaxDevices = 16;           // devices whose attribute is kept
 constexpr int kWordsPerLane = 2;
 constexpr int kStepWords = 32 * kWordsPerLane;
 constexpr int kStepCap = kWarps * kStepWords * 16;
-constexpr int kBatchF = 4;               // hits whose loads are in flight
 
 // dx: rows of the owned block per warp, ring stages, map slice row stride
 // (144: 16-byte reads of eight rows hit distinct banks), per-warp hit list
 constexpr int kCols = kTile / kWarps;
-constexpr int kStages = 3;
+constexpr int kStages = 2;
 constexpr int kSliceStride = kTile + 16;
 constexpr int kSliceBytes = kTile * kSliceStride;
 constexpr int kDxList = 4 * kTile;
@@ -128,39 +127,73 @@ __device__ __forceinline__ int pack_hit(int t, int f, int w) {
   return t | (f << 7) | (w << 14);
 }
 
-template <typename T, int R>
+
+// The r terms (c*r + j, j < R) of one channel of a gradient row, in f32:
+// adjacent in memory, and for R = 2 read as one aligned pair (the row
+// stride C*r and the offset c*r are even).
+template <int R>
+__device__ __forceinline__ void load_terms(const float* p, float (&v)[R]) {
+  if constexpr (R == 2) {
+    const float2 u = *reinterpret_cast<const float2*>(p);
+    v[0] = u.x;
+    v[1] = u.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void load_terms(const __nv_bfloat16* p,
+                                           float (&v)[R]) {
+  if constexpr (R == 2) {
+    const __nv_bfloat162 u = *reinterpret_cast<const __nv_bfloat162*>(p);
+    v[0] = __low2float(u);
+    v[1] = __high2float(u);
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+
+// dfilt of one query tile (or of 128 / split of its rows), for a slice of
+// 32 * M channels: lane = channel c0 + 32 m + lane (m < M), both terms j
+// in the thread. The rows are decoded a step at a time into the list;
+// warp w adds the hits of bins f with f % 8 == w, in list order, into the
+// block's one (F, 32 M, R) slab, so no two warps touch one entry.
+template <typename T, int R, int M>
 __global__ void __launch_bounds__(kThreads)
     dfilt_tile_kernel(const int8_t* __restrict__ packed,
                       const int64_t* __restrict__ s_blk,
                       const T* __restrict__ x, const float* __restrict__ inv,
                       const T* __restrict__ dout, float* __restrict__ part,
                       int n_t, int n, int c, int f_bins, int window,
-                      int slots) {
+                      int split) {
+  constexpr int kw = 32 * M;                      // channels a block
+  constexpr int kBatch = M == 1 ? 8 : M == 2 ? 4 : 2;  // hits loaded at once
   extern __shared__ float4 smem4[];
-  const int groups = kWarps / slots;
-  const int cw = 32 * slots;                      // output channels a block
-  const int fcw = f_bins * cw;
-  float* slab = reinterpret_cast<float*>(smem4);  // (groups, F, cw)
-  int* list = reinterpret_cast<int*>(slab + groups * fcw);  // kStepCap
+  float* slab = reinterpret_cast<float*>(smem4);  // (F, kw, R)
+  int* list = reinterpret_cast<int*>(slab + f_bins * kw * R);  // kStepCap
   float* inv_s = reinterpret_cast<float*>(list + kStepCap);  // (128,)
   __shared__ int count_s[kWarps];
 
   const int cr = c * R;
-  const int k0 = blockIdx.x * cw;
-  const int g = blockIdx.z * n_t + blockIdx.y;    // b * n_t + tile
+  const int c0 = blockIdx.x * kw;
+  const int tile = blockIdx.y / split;
   const int b = blockIdx.z;
+  const int g = b * n_t + tile;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int base_row = static_cast<int>(s_blk[g]) * kTile;
   const int reach = n - base_row;                 // columns in the cloud
-  for (int e = tid; e < groups * fcw; e += kThreads) slab[e] = 0.f;
+  for (int e = tid; e < f_bins * kw * R; e += kThreads) slab[e] = 0.f;
   if (tid < kTile) inv_s[tid] = inv[static_cast<size_t>(g) * kTile + tid];
 
-  // this warp decodes rows warp, warp + 8, ...: word u of that sequence is
-  // word u % wpr of row warp + 8 * (u / wpr)
+  // the block takes rows [row0, row0 + 128 / split) of the tile; this warp
+  // decodes rows row0 + warp + 8 * rr: word u of that sequence is word
+  // u % wpr of row rr = u / wpr
+  const int row0 = (blockIdx.y - tile * split) * (kTile / split);
   const int wpr = window / 16;
-  const int words = (kTile / kWarps) * wpr;
+  const int words = (kTile / kWarps / split) * wpr;
   const int steps = (words + kStepWords - 1) / kStepWords;
   const unsigned fmax4 = 0x01010101u * static_cast<unsigned>(f_bins);
   const int8_t* pg = packed + static_cast<size_t>(g) * kTile * window;
@@ -168,18 +201,17 @@ __global__ void __launch_bounds__(kThreads)
     if (u >= words) return make_uint4(0u, 0u, 0u, 0u);
     const int rr = u / wpr;
     return __ldg(reinterpret_cast<const uint4*>(
-        pg + static_cast<size_t>(warp + kWarps * rr) * window +
+        pg + static_cast<size_t>(row0 + warp + kWarps * rr) * window +
         (u - rr * wpr) * 16));
   };
 
-  // this warp's share of each step's list, and its output channel
-  const int grp = warp / slots;
-  const int kl = (warp - grp * slots) * 32 + lane;
-  const int k = k0 + kl;
-  const bool live = k < cr;
-  float* my_slab = slab + grp * fcw + kl;
-  const T* xk = x + static_cast<size_t>(b) * n * c + (live ? k / R : 0);
-  const T* dk = dout + static_cast<size_t>(g) * kTile * cr + (live ? k : 0);
+  bool live[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) live[m] = c0 + 32 * m + lane < c;
+  const T* xb = x + (static_cast<size_t>(b) * n + base_row) * c + c0 + lane;
+  const T* db =
+      dout + static_cast<size_t>(g) * kTile * cr + (c0 + lane) * R;
+  float* sl = slab + lane * R;
 
   uint4 cur[kWordsPerLane];
 #pragma unroll
@@ -198,7 +230,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int h = 0; h < kWordsPerLane; ++h) {
       const int u = u0 + h * 32 + lane;
       const int rr = u / wpr;
-      row[h] = warp + kWarps * rr;
+      row[h] = row0 + warp + kWarps * rr;
       col[h] = (u - rr * wpr) * 16;
       // bytes past the cloud's end are never hits
       const int in = min(max(reach - col[h], 0), 16);
@@ -227,31 +259,56 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();  // the list
 
-    // group grp adds entries [e0, e1) of the list, in list order
-    const int share = (n_hits + groups - 1) / groups;
-    const int e0 = grp * share;
-    const int e1 = min(n_hits, e0 + share);
-    if (live) {
-      for (int e = e0; e < e1; e += kBatchF) {
-        int ent[kBatchF];
-        float xv[kBatchF], gv[kBatchF];
+    // this warp's hits, 32 entries of the list at a time, kBatch of them
+    // with their x and dout rows loaded together
+    for (int e0 = 0; e0 < n_hits; e0 += 32) {
+      const int ent = e0 + lane < n_hits ? list[e0 + lane] : 0;
+      unsigned mine = __ballot_sync(
+          kFullMask, e0 + lane < n_hits && ((ent >> 7) & 7) == warp);
+      while (mine) {
+        int hit[kBatch];
+        bool ok[kBatch];
+        float xv[kBatch][M], dv[kBatch][M][R];
 #pragma unroll
-        for (int q = 0; q < kBatchF; ++q) {
-          ent[q] = e + q < e1 ? list[e + q] : 0;
-          const int t = ent[q] & 0x7f;
-          const int w = ent[q] >> 14;
-          xv[q] = e + q < e1
-                      ? sph3d::to_float(xk[static_cast<size_t>(base_row + w) * c])
-                      : 0.f;
-          gv[q] = e + q < e1
-                      ? inv_s[t] * sph3d::to_float(dk[static_cast<size_t>(t) * cr])
-                      : 0.f;
+        for (int q = 0; q < kBatch; ++q) {
+          ok[q] = mine != 0u;
+          hit[q] = __shfl_sync(kFullMask, ent, ok[q] ? __ffs(mine) - 1 : 0);
+          mine &= mine - 1u;
+          const int t = hit[q] & 0x7f;
+          const int w = hit[q] >> 14;
+#pragma unroll
+          for (int m = 0; m < M; ++m) {
+            if (ok[q] && live[m]) {
+              xv[q][m] = sph3d::to_float(
+                  xb[static_cast<size_t>(w) * c + 32 * m]);
+              load_terms<R>(db + static_cast<size_t>(t) * cr + 32 * m * R,
+                            dv[q][m]);
+            } else {
+              xv[q][m] = 0.f;
+#pragma unroll
+              for (int j = 0; j < R; ++j) dv[q][m][j] = 0.f;
+            }
+          }
         }
 #pragma unroll
-        for (int q = 0; q < kBatchF; ++q) {
-          if (e + q < e1) {
-            float* s = my_slab + ((ent[q] >> 7) & 0x7f) * cw;
-            *s = fmaf(gv[q], xv[q], *s);
+        for (int q = 0; q < kBatch; ++q) {
+          if (ok[q]) {
+            const float iv = inv_s[hit[q] & 0x7f];
+            float* sf = sl + ((hit[q] >> 7) & 0x7f) * kw * R;
+#pragma unroll
+            for (int m = 0; m < M; ++m) {
+              if (!live[m]) continue;
+              if constexpr (R == 2) {
+                float2* s = reinterpret_cast<float2*>(sf + 64 * m);
+                float2 v = *s;
+                v.x = fmaf(iv * dv[q][m][0], xv[q][m], v.x);
+                v.y = fmaf(iv * dv[q][m][1], xv[q][m], v.y);
+                *s = v;
+              } else {
+                float* s = sf + 32 * m;
+                *s = fmaf(iv * dv[q][m][0], xv[q][m], *s);
+              }
+            }
           }
         }
       }
@@ -261,52 +318,56 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
 
-  // the tile's partial: the groups' slabs summed in group order
-  float* pt = part + static_cast<size_t>(g) * f_bins * cr + k0;
-  for (int e = tid; e < fcw; e += kThreads) {
-    const int f = e / cw;
-    const int ke = e - f * cw;
-    if (k0 + ke >= cr) continue;
-    float sum = slab[e];
-    for (int q = 1; q < groups; ++q) sum += slab[q * fcw + e];
-    pt[static_cast<size_t>(f) * cr + ke] = sum;
+  // the block's partial, (F, kw, R) of part[b, tile * split + part_row]
+  float* pt = part + (static_cast<size_t>(b) * n_t * split + blockIdx.y) *
+                         f_bins * cr + c0 * R;
+  const int kr = min(kw, c - c0) * R;             // live terms of a bin
+  for (int e = tid; e < f_bins * kw * R; e += kThreads) {
+    const int f = e / (kw * R);
+    const int ke = e - f * kw * R;
+    if (ke < kr) pt[static_cast<size_t>(f) * cr + ke] = slab[e];
   }
 }
 
-// dfilt[b, e] = sum over tiles, in tile order, of part[b, tile, e]
+// dfilt[b, e] = sum over partials p, in order, of part[b, p, e]
 __global__ void __launch_bounds__(kThreads)
     dfilt_reduce_kernel(const float* __restrict__ part,
-                        float* __restrict__ dfilt, int n_t, int fcr,
+                        float* __restrict__ dfilt, int n_part, int fcr,
                         int total) {
   const int e = blockIdx.x * kThreads + threadIdx.x;
   if (e >= total) return;
   const int b = e / fcr;
-  const float* p = part + static_cast<size_t>(b) * n_t * fcr + (e - b * fcr);
+  const float* p =
+      part + static_cast<size_t>(b) * n_part * fcr + (e - b * fcr);
   float sum = p[0];
 #pragma unroll 4
-  for (int t = 1; t < n_t; ++t) sum += p[static_cast<size_t>(t) * fcr];
+  for (int t = 1; t < n_part; ++t) sum += p[static_cast<size_t>(t) * fcr];
   dfilt[e] = sum;
 }
 
-// S slots a thread: its accumulators acc[16][S] and kBatch hits' loads
-// stay in registers, enough for three blocks an SM at S <= 2, two at S > 2
+// dx of one 128-row block of x, for a slice of 32 * S channels: lane =
+// channel c0 + 32 s + lane, both terms j in the thread. Its accumulators
+// acc[16][S] and kBatch hits' dout terms (12-16 a thread) stay in
+// registers: three blocks an SM where S * R <= 2, two above.
 template <typename T, int R, int S>
-__global__ void __launch_bounds__(kThreads, S <= 2 ? 3 : 2)
+__global__ void __launch_bounds__(kThreads, S * R <= 2 ? 3 : 2)
     dx_kernel(const int8_t* __restrict__ packed,
               const int64_t* __restrict__ s_blk,
               const float* __restrict__ filt, const float* __restrict__ inv,
               const T* __restrict__ dout, T* __restrict__ dx, int n_t, int n,
               int c, int f_bins, int window) {
-  constexpr int kBatch = S == 1 ? 8 : S == 2 ? 4 : 2;  // hits loaded at once
+  constexpr int kBatch = S * R == 1 ? 16 : S * R == 2 ? 6 : S * R <= 4 ? 4 : 2;
+  constexpr int kw = 32 * S;                 // channels a block
   extern __shared__ float4 smem4[];
   int8_t* slices = reinterpret_cast<int8_t*>(smem4);  // (stages, 128, 144)
   float* inv_s = reinterpret_cast<float*>(slices + kStages * kSliceBytes);
-  int* lists = reinterpret_cast<int*>(inv_s + kStages * kTile);
+  float* filt_s = inv_s + kStages * kTile;   // (F, kw, R) the block's filter
+  int* lists = reinterpret_cast<int*>(filt_s + f_bins * kw * R);
   int2* cover = reinterpret_cast<int2*>(lists + kWarps * kDxList);  // n_t
   __shared__ int n_cover_s;
 
   const int cr = c * R;
-  const int k0 = blockIdx.x * 32 * S;
+  const int c0 = blockIdx.x * kw;
   const int nb = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
@@ -333,10 +394,18 @@ __global__ void __launch_bounds__(kThreads, S <= 2 ? 3 : 2)
     }
     if (lane == 0) n_cover_s = count;
   }
+  // the block's filter terms, (F, kw, R) from filt_b (B, F, C, R)
+  const int kr = min(kw, c - c0) * R;
+  const float* fb = filt + static_cast<size_t>(b) * f_bins * cr + c0 * R;
+  for (int e = tid; e < f_bins * kw * R; e += kThreads) {
+    const int f = e / (kw * R);
+    const int ke = e - f * kw * R;
+    filt_s[e] = ke < kr ? fb[static_cast<size_t>(f) * cr + ke] : 0.f;
+  }
   __syncthreads();
   const int n_cover = n_cover_s;
 
-  // copy listed tile k's map slice and inverse counts into stage k % 3
+  // copy listed tile k's map slice and inverse counts into stage k % 2
   auto issue = [&](int k) {
     if (k < n_cover) {
       const int2 cv = cover[k];
@@ -357,14 +426,10 @@ __global__ void __launch_bounds__(kThreads, S <= 2 ? 3 : 2)
     cp_async_commit();  // an empty group past the list keeps the count
   };
 
-  int kk[S];
   bool live[S];
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    kk[s] = k0 + 32 * s + lane;
-    live[s] = kk[s] < cr;
-  }
-  const float* fb = filt + static_cast<size_t>(b) * f_bins * cr;
+  for (int s = 0; s < S; ++s) live[s] = c0 + 32 * s + lane < c;
+  const float* fl = filt_s + lane * R;
   const unsigned fmax4 = 0x01010101u * static_cast<unsigned>(f_bins);
   int* list = lists + warp * kDxList;
   const unsigned lower = (1u << lane) - 1u;
@@ -390,34 +455,33 @@ __global__ void __launch_bounds__(kThreads, S <= 2 ? 3 : 2)
   for (int k = 0; k < kStages - 1; ++k) issue(k);
   for (int k = 0; k < n_cover; ++k) {
     cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile k has landed; stage (k - 1) % 3 is free
+    __syncthreads();  // tile k has landed; stage (k - 1) % 2 is free
     issue(k + kStages - 1);
     const int8_t* sl = slices + (k % kStages) * kSliceBytes + warp * kCols;
     const float* iv_s = inv_s + (k % kStages) * kTile;
     const T* dt = dout + (static_cast<size_t>(b) * n_t + cover[k].x) *
-                             kTile * cr;
+                             kTile * cr + (c0 + lane) * R;
 
     // adds the listed hits [0, fill) in list order, kBatch at a time
     auto drain = [&](int fill) {
       __syncwarp();
       for (int h0 = 0; h0 < fill; h0 += kBatch) {
         int ent[kBatch];
-        float gv[kBatch][S], fv[kBatch][S];
+        float gv[kBatch][S][R];
 #pragma unroll
         for (int q = 0; q < kBatch; ++q) {
           const bool ok = h0 + q < fill;
           ent[q] = ok ? list[h0 + q] : 0;
           const int t = ent[q] & 0xff;
-          const int f = (ent[q] >> 8) & 0xff;
-          const float iv = ok ? iv_s[t] : 0.f;
 #pragma unroll
           for (int s = 0; s < S; ++s) {
-            const bool use = ok && live[s];
-            gv[q][s] = use ? iv * sph3d::to_float(
-                                      dt[static_cast<size_t>(t) * cr + kk[s]])
-                           : 0.f;
-            fv[q][s] = use ? __ldg(fb + static_cast<size_t>(f) * cr + kk[s])
-                           : 0.f;
+            if (ok && live[s]) {
+              load_terms<R>(dt + static_cast<size_t>(t) * cr + 32 * s * R,
+                            gv[q][s]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < R; ++j) gv[q][s][j] = 0.f;
+            }
           }
         }
 #pragma unroll
@@ -430,9 +494,17 @@ __global__ void __launch_bounds__(kThreads, S <= 2 ? 3 : 2)
 #pragma unroll
               for (int s = 0; s < S; ++s) run[s] = 0.f;
             }
+            const float iv = iv_s[ent[q] & 0xff];
+            const float* fr = fl + ((ent[q] >> 8) & 0xff) * kw * R;
 #pragma unroll
             for (int s = 0; s < S; ++s) {
-              run[s] = fmaf(gv[q][s], fv[q][s], run[s]);
+              if (!live[s]) continue;
+              float ft[R];
+              load_terms<R>(fr + 32 * s * R, ft);
+#pragma unroll
+              for (int j = 0; j < R; ++j) {
+                run[s] = fmaf(iv * gv[q][s][j], ft[j], run[s]);
+              }
             }
           }
         }
@@ -475,19 +547,16 @@ __global__ void __launch_bounds__(kThreads, S <= 2 ? 3 : 2)
     cur = -1;
   }
 
-  // the block's rows, rounded once; with r = 2 the lane pair (2c, 2c + 1)
-  // holds channel c's two terms
+  // the block's rows, rounded once
   const int row0 = nb * kTile + warp * kCols;
-  T* dxb = dx + static_cast<size_t>(b) * n * c;
+  T* dxb = dx + static_cast<size_t>(b) * n * c + c0 + lane;
 #pragma unroll
   for (int q = 0; q < kCols; ++q) {
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      float v = acc[q][s];
-      if (R == 2) v += __shfl_xor_sync(kFullMask, v, 1);
-      if (row0 + q < n && live[s] && (R == 1 || (lane & 1) == 0)) {
-        dxb[static_cast<size_t>(row0 + q) * c + kk[s] / R] =
-            sph3d::from_float<T>(v);
+      if (row0 + q < n && live[s]) {
+        dxb[static_cast<size_t>(row0 + q) * c + 32 * s] =
+            sph3d::from_float<T>(acc[q][s]);
       }
     }
   }
@@ -510,29 +579,29 @@ cudaError_t allow_smem(Kernel kernel, size_t smem,
   return err;
 }
 
-template <typename T, int R>
+template <typename T, int R, int M>
 cudaError_t launch_dfilt(const int8_t* packed, const int64_t* s_blk,
                          const void* x, const float* inv, const void* dout,
                          float* part, float* dfilt, int batch, int n_t, int n,
-                         int c, int f_bins, int window, int slots,
+                         int c, int f_bins, int window, int split,
                          cudaStream_t stream) {
-  const int cw = 32 * slots;
+  constexpr int kw = 32 * M;
   const size_t smem =
-      (static_cast<size_t>(kWarps / slots) * f_bins * cw + kStepCap + kTile) *
-      4;
-  auto kernel = dfilt_tile_kernel<T, R>;
+      (static_cast<size_t>(f_bins) * kw * R + kStepCap + kTile) * 4;
+  auto kernel = dfilt_tile_kernel<T, R, M>;
   static size_t allowed[kMaxDevices] = {};
   cudaError_t err = allow_smem(kernel, smem, allowed);
   if (err != cudaSuccess) return err;
-  const int cr = c * R;
-  kernel<<<dim3((cr + cw - 1) / cw, n_t, batch), kThreads, smem, stream>>>(
-      packed, s_blk, static_cast<const T*>(x), inv,
-      static_cast<const T*>(dout), part, n_t, n, c, f_bins, window, slots);
+  kernel<<<dim3((c + kw - 1) / kw, n_t * split, batch), kThreads, smem,
+           stream>>>(packed, s_blk, static_cast<const T*>(x), inv,
+                     static_cast<const T*>(dout), part, n_t, n, c, f_bins,
+                     window, split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int total = batch * f_bins * cr;
+  const int total = batch * f_bins * c * R;
   dfilt_reduce_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0,
-                        stream>>>(part, dfilt, n_t, f_bins * cr, total);
+                        stream>>>(part, dfilt, n_t * split, f_bins * c * R,
+                                  total);
   return cudaGetLastError();
 }
 
@@ -541,9 +610,10 @@ cudaError_t launch_dx(const int8_t* packed, const int64_t* s_blk,
                       const float* filt, const float* inv, const void* dout,
                       void* dx, int batch, int n_t, int n, int c, int f_bins,
                       int window, int chunks, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kStages) * kSliceBytes +
-                      (kStages * kTile + kWarps * kDxList) * 4 +
-                      static_cast<size_t>(n_t) * sizeof(int2);
+  const size_t smem =
+      static_cast<size_t>(kStages) * kSliceBytes +
+      (kStages * kTile + f_bins * 32 * S * R + kWarps * kDxList) * 4 +
+      static_cast<size_t>(n_t) * sizeof(int2);
   auto kernel = dx_kernel<T, R, S>;
   static size_t allowed[kMaxDevices] = {};
   const cudaError_t err = allow_smem(kernel, smem, allowed);
@@ -559,10 +629,25 @@ cudaError_t launch(const int8_t* packed, const int64_t* s_blk, const void* x,
                    const float* filt, const float* inv, const void* dout,
                    void* dx, float* dfilt, float* part, int batch, int n_t,
                    int n, int c, int f_bins, int window, int dx_slots,
-                   int dx_chunks, int df_slots, cudaStream_t stream) {
-  cudaError_t err = launch_dfilt<T, R>(packed, s_blk, x, inv, dout, part,
-                                       dfilt, batch, n_t, n, c, f_bins,
-                                       window, df_slots, stream);
+                   int dx_chunks, int df_slots, int df_split,
+                   cudaStream_t stream) {
+  cudaError_t err;
+  switch (df_slots) {
+    case 1:
+      err = launch_dfilt<T, R, 1>(packed, s_blk, x, inv, dout, part, dfilt,
+                                  batch, n_t, n, c, f_bins, window, df_split,
+                                  stream);
+      break;
+    case 2:
+      err = launch_dfilt<T, R, 2>(packed, s_blk, x, inv, dout, part, dfilt,
+                                  batch, n_t, n, c, f_bins, window, df_split,
+                                  stream);
+      break;
+    default:
+      err = launch_dfilt<T, R, 4>(packed, s_blk, x, inv, dout, part, dfilt,
+                                  batch, n_t, n, c, f_bins, window, df_split,
+                                  stream);
+  }
   if (err != cudaSuccess) return err;
   switch (dx_slots) {
     case 1:
@@ -582,25 +667,28 @@ cudaError_t launch(const int8_t* packed, const int64_t* s_blk, const void* x,
 
 }  // namespace
 
-// s_blk: (B, n_t) int64; filt: (B, F, C*r) f32; inv: (B, n_t*128) f32;
+// s_blk: (B, n_t) int64; filt: (B, F, C, r) f32; inv: (B, n_t*128) f32;
 // dout: (B, n_t*128, C*r); dx: (B, N, C) in the feature dtype; dfilt:
-// (B, F, C*r) f32; part: (B, n_t, F, C*r) f32 scratch. packed and inv
-// 16-byte aligned. The layout (dx_slots 32-channel slots in each of
-// dx_chunks dx blocks; df_slots in 1, 2, 4, 8 for a dfilt block) is the
-// wrapper's (ops/dense.py::conv_bwd_layout). Launches three kernels.
+// (B, F, C, r) f32; part: (B, n_t * df_split, F, C*r) f32 scratch.
+// packed and inv 16-byte aligned. The layout (dx_slots 32-channel slots
+// in each of dx_chunks dx owners; df_slots in 1, 2, 4 for a dfilt block,
+// which takes 128 / df_split rows of a tile, df_split in 1, 2, 4, 8) is
+// the wrapper's (ops/dense.py::conv_bwd_layout). Launches three kernels.
 extern "C" int sph3d_dense_conv_bwd_launch(
     const int8_t* packed, const int64_t* s_blk, const void* x,
     const float* filt, const float* inv, const void* dout, void* dx,
     float* dfilt, float* part, int batch, int n_t, int n, int c, int f_bins,
     int window, int mult, int is_bf16, int dx_slots, int dx_chunks,
-    int df_slots, void* stream) {
-  const int cr = c * mult;
+    int df_slots, int df_split, void* stream) {
+  const auto pow2_to = [](int v, int top) {
+    return v == 1 || v == 2 || v == 4 || v == top;
+  };
   if (c < 1 || c > kMaxC || (mult != 1 && mult != 2) || batch < 1 ||
-      n < 1 || n_t < 1 || n_t > 65535 || batch > 65535 || f_bins < 1 ||
-      f_bins > 127 || window < kTile || window % kTile != 0 ||
+      n < 1 || n_t < 1 || n_t * df_split > 65535 || batch > 65535 ||
+      f_bins < 1 || f_bins > 127 || window < kTile || window % kTile != 0 ||
       window >= (1 << 17) || dx_slots < 1 || dx_slots > kMaxDxSlots ||
-      dx_chunks * 32 * dx_slots < cr ||
-      (df_slots != 1 && df_slots != 2 && df_slots != 4 && df_slots != 8) ||
+      dx_chunks * 32 * dx_slots < c || !pow2_to(df_slots, 4) ||
+      !pow2_to(df_split, 8) ||
       reinterpret_cast<uintptr_t>(packed) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(inv) % 16 != 0) {
     return cudaErrorInvalidValue;
@@ -610,16 +698,18 @@ extern "C" int sph3d_dense_conv_bwd_launch(
     return mult == 1
         ? launch<__nv_bfloat16, 1>(packed, s_blk, x, filt, inv, dout, dx,
                                    dfilt, part, batch, n_t, n, c, f_bins,
-                                   window, dx_slots, dx_chunks, df_slots, st)
+                                   window, dx_slots, dx_chunks, df_slots,
+                                   df_split, st)
         : launch<__nv_bfloat16, 2>(packed, s_blk, x, filt, inv, dout, dx,
                                    dfilt, part, batch, n_t, n, c, f_bins,
-                                   window, dx_slots, dx_chunks, df_slots, st);
+                                   window, dx_slots, dx_chunks, df_slots,
+                                   df_split, st);
   }
   return mult == 1
       ? launch<float, 1>(packed, s_blk, x, filt, inv, dout, dx, dfilt, part,
                          batch, n_t, n, c, f_bins, window, dx_slots,
-                         dx_chunks, df_slots, st)
+                         dx_chunks, df_slots, df_split, st)
       : launch<float, 2>(packed, s_blk, x, filt, inv, dout, dx, dfilt, part,
                          batch, n_t, n, c, f_bins, window, dx_slots,
-                         dx_chunks, df_slots, st);
+                         dx_chunks, df_slots, df_split, st);
 }

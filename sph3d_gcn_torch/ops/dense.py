@@ -79,7 +79,7 @@ POOL_KERNEL = _build.register(
 # each query tile, their sum over tiles, and dx
 CONV_BWD_KERNEL = _build.register(
     "dense_conv_bwd", "sph3d_dense_conv_bwd_launch",
-    [_build.PTR] * 9 + [_build.INT] * 11 + [_build.PTR], per_call=3,
+    [_build.PTR] * 9 + [_build.INT] * 12 + [_build.PTR], per_call=3,
 )
 POOL_BWD_KERNEL = _build.register(
     "rank_pool_bwd", "sph3d_rank_pool_bwd_launch",
@@ -474,21 +474,51 @@ def dense_conv_bwd_plain(packed, s_blk, inputs, filt_b, inv, dout):
     return dx.reshape(batch, num_in, c).to(inputs.dtype), dfilt
 
 
-def conv_bwd_layout(c: int, mult: int) -> tuple[int, int, int]:
-    """How ``csrc/dense_conv_bwd.cu`` splits the ``C*r`` output channels
-    (k = c*r + j) into 32-lane slots: (dx_slots, dx_chunks, df_slots).
+# the card's SMs: the dx owners of a call should give each one at least a
+# block, and the dfilt blocks four; the shared memory of the dx owner's
+# filter slice and of the dfilt block's partial that keep two blocks or
+# more on an SM
+_SMS = 132
+_DX_FILTER_BYTES = 36 * 1024
+_DF_SLAB_BYTES = 36 * 1024
+
+
+def conv_bwd_layout(c: int, mult: int, f_bins: int, owners: int,
+                    tiles: int) -> tuple[int, int, int, int]:
+    """How ``csrc/dense_conv_bwd.cu`` lays out its blocks for ``C``
+    channels (a lane holds a channel and its r terms; 32-lane slots),
+    ``F`` bins, ``owners`` = B * ceil(N / 128) dx owners per slice of
+    channels and ``tiles`` = B * n_t query tiles: (dx_slots, dx_chunks,
+    df_slots, df_split).
 
     A dx owner holds ``dx_slots`` slots (at most 4: its accumulators are
-    registers, 16 rows x slots a thread) and the row takes ``dx_chunks``
-    owners, as even as the slots allow; a dfilt block holds ``df_slots``
-    slots (1, 2, 4 or 8: its eight warps are slots x groups), so every
-    model here (C*r <= 256) reads its map once a call for dfilt."""
-    cr = c * mult
-    dx_chunks = -(-cr // 128)
-    per_chunk = -(-cr // dx_chunks)
-    dx_slots = -(-per_chunk // 32)
-    df_slots = next(s for s in (1, 2, 4, 8) if 32 * s >= min(cr, 256))
-    return dx_slots, dx_chunks, df_slots
+    registers, 16 rows x slots a thread; fewer where its (F, 32 slots, r)
+    filter slice outgrows ``_DX_FILTER_BYTES``), the most that still give
+    an owner to each SM, and the row takes ``dx_chunks`` owners, as even as
+    the slots allow. A dfilt block holds ``df_slots`` slots (1, 2 or 4;
+    fewer where its (F, 32 slots, r) partial outgrows ``_DF_SLAB_BYTES``),
+    so the map is read once per 128 channels for dfilt at F <= 33, and
+    takes 128 / ``df_split`` rows of a tile: the fewest parts that give
+    four blocks an SM (more than one part on the small decoder clouds).
+    Measured on the card (PERF.md, PR 9): 8 slots a dfilt block and a
+    dx owner per SM fewer than these were slower."""
+    def fits(slots, limit):
+        return f_bins * 32 * slots * mult * 4 <= limit
+
+    top = next((s for s in (4, 3, 2) if fits(s, _DX_FILTER_BYTES)), 1)
+    for max_slots in range(top, 0, -1):
+        dx_chunks = -(-c // (32 * max_slots))
+        per_chunk = -(-c // dx_chunks)
+        dx_slots = -(-per_chunk // 32)
+        if dx_chunks * owners >= _SMS:
+            break
+    df_slots = next(s for s in (1, 2, 4) if 32 * s >= min(c, 128))
+    while df_slots > 1 and not fits(df_slots, _DF_SLAB_BYTES):
+        df_slots //= 2
+    df_chunks = -(-c // (32 * df_slots))
+    df_split = next((s for s in (1, 2, 4)
+                     if df_chunks * tiles * s >= 4 * _SMS), 8)
+    return dx_slots, dx_chunks, df_slots, df_split
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -497,14 +527,18 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def dense_conv_bwd_kernel(packed, s_blk, inputs, filt_b, inv, dout):
+def dense_conv_bwd_kernel(packed, s_blk, inputs, filt_b, inv, dout,
+                          layout=None):
     """The conv backward through ``csrc/dense_conv_bwd.cu``, three
-    launches: the dfilt partials of each query tile (a block per tile walks
-    its rows' windows once), their sum over tiles in tile order, and dx,
+    launches: the dfilt partials of each query tile (a block per tile, or
+    per part of its rows, walks the rows' windows once), their sum over
+    tiles in tile order, and dx,
     whose rows have one owner per 128-row block of ``inputs`` that walks
     the query tiles whose window covers it, in tile order, with the next
-    tiles' map slices in flight. Returns (dx, dfilt_b) as the plain
-    version."""
+    tiles' map slices in flight. ``layout``: the blocks' layout
+    (:func:`conv_bwd_layout`'s by default; any other covers every channel
+    too, and sums in another fixed order). Returns (dx, dfilt_b) as the
+    plain version."""
     _build.check(packed, "packed", torch.int8, 4)
     _build.check(inputs, "inputs", (torch.float32, torch.bfloat16), 3)
     _build.check(filt_b, "filt_b", torch.float32, 4)
@@ -528,19 +562,20 @@ def dense_conv_bwd_kernel(packed, s_blk, inputs, filt_b, inv, dout):
         raise ValueError(f"bad window-start shape {tuple(s_blk.shape)}")
     sb = s_blk.contiguous() if s_blk.dtype == torch.int64 else s_blk.long()
     packed, inv = _aligned(packed), _aligned(inv)
-    dx_slots, dx_chunks, df_slots = conv_bwd_layout(c, mult)
+    dx_slots, dx_chunks, df_slots, df_split = layout or conv_bwd_layout(
+        c, mult, f_bins, batch * -(-num_in // TILE), batch * n_t)
     dx = torch.empty_like(inputs)
     dfilt = torch.empty((batch, f_bins, c, mult), dtype=torch.float32,
                         device=inputs.device)
-    part = torch.empty((batch, n_t, f_bins, c * mult), dtype=torch.float32,
-                       device=inputs.device)
+    part = torch.empty((batch, n_t * df_split, f_bins, c * mult),
+                       dtype=torch.float32, device=inputs.device)
     CONV_BWD_KERNEL.launch(
         _build.ptr(packed), _build.ptr(sb), _build.ptr(inputs),
         _build.ptr(filt_b), _build.ptr(inv), _build.ptr(dout),
         _build.ptr(dx), _build.ptr(dfilt), _build.ptr(part),
         batch, n_t, num_in, c, f_bins, w, mult,
         int(inputs.dtype == torch.bfloat16), dx_slots, dx_chunks, df_slots,
-        _build.stream(inputs),
+        df_split, _build.stream(inputs),
     )
     return dx, dfilt
 

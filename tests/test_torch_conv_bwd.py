@@ -163,27 +163,41 @@ def test_operands_cover_the_cases():
     assert packed.shape[-1] == 2304 and CASES["wide"][1] % TILE
 
 
-def test_layout_covers_every_channel_once():
+@pytest.mark.parametrize("f_bins", [33, 127])
+@pytest.mark.parametrize("owners,tiles", [(1024, 1024), (48, 48), (16, 16)])
+def test_layout_covers_every_channel_once(owners, tiles, f_bins):
     """``conv_bwd_layout`` against a numpy enumeration of the lanes: every
-    output channel k < C*r lies in exactly one (chunk, slot, lane) of the
-    dx owners, no chunk is empty, at most 4 slots (registers); r = 2 keeps
-    a channel's two terms in one lane pair; a dfilt block takes 1, 2, 4 or
-    8 slots and reads the map once per 256 output channels."""
+    channel c < C lies in exactly one (chunk, slot, lane) of the dx owners,
+    no chunk is empty, at most 4 slots, and the filter slice within its
+    shared memory; the dx owners give each of the card's 132 SMs one
+    unless the narrowest layout gives fewer; a dfilt block takes 1, 2 or 4
+    slots, its partial within its shared memory, reads the map once per
+    128 channels where that fits, and its tile is split into the fewest
+    parts that give 528 blocks (four an SM)."""
     for mult in (1, 2):
         for c in range(1, 1025):
-            cr = c * mult
-            dx_slots, dx_chunks, df_slots = D.conv_bwd_layout(c, mult)
-            k = np.arange(dx_chunks * 32 * dx_slots).reshape(
+            dx_slots, dx_chunks, df_slots, df_split = D.conv_bwd_layout(
+                c, mult, f_bins, owners, tiles)
+            lanes = np.arange(dx_chunks * 32 * dx_slots).reshape(
                 dx_chunks, dx_slots, 32)
-            live = k < cr
+            live = lanes < c
             assert 1 <= dx_slots <= 4
-            assert live.sum() == cr and live.reshape(dx_chunks, -1).any(1).all()
-            assert dx_chunks == -(-cr // 128)
-            if mult == 2:
-                assert (k[..., ::2] % 2 == 0).all()
-            assert df_slots in (1, 2, 4, 8)
-            assert -(-cr // (32 * df_slots)) == -(-cr // 256)
-            assert 32 * df_slots < 2 * cr or df_slots == 1
+            assert live.sum() == c
+            assert live.reshape(dx_chunks, -1).any(1).all()
+            assert f_bins * 32 * dx_slots * mult * 4 <= 36 * 1024 or (
+                dx_slots == 1)
+            assert dx_chunks * owners >= 132 or dx_chunks == -(-c // 32)
+            assert df_slots in (1, 2, 4)
+            slab = f_bins * 32 * df_slots * mult * 4
+            assert slab <= 36 * 1024 or df_slots == 1
+            df_chunks = -(-c // (32 * df_slots))
+            if f_bins == 33:
+                assert df_chunks == -(-c // 128)
+                assert 32 * df_slots < 2 * c or df_slots == 1
+            assert df_split in (1, 2, 4, 8)
+            blocks = df_chunks * tiles * np.array([1, 2, 4, 8])
+            assert df_split == 8 or blocks[int(np.log2(df_split))] >= 528
+            assert df_split == 1 or blocks[int(np.log2(df_split)) - 1] < 528
 
 
 @pytest.fixture
@@ -198,20 +212,30 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain_on_cuda(cuda_device, dtype, case):
     """K5 at every width and depth multiplier against the plain version
-    (chip_smoke.py's gate), a second run bitwise, and the float64 sums."""
+    (chip_smoke.py's gate), a second run bitwise, and the float64 sums; in
+    its own layout and in each dx slot count with each dfilt slot count
+    and row split (these small clouds alone would take one dx slot and
+    eight parts)."""
     for c in CHANNELS:
         for mult in (1, 2):
             f_bins = (17, 33)[CHANNELS.index(c) % 2]
             ops = _operands(c + mult, case, c, mult, f_bins, dtype)
             args = _torch_args(ops, dtype, cuda_device)
-            dx, dfilt = D.dense_conv_bwd_kernel(*args)
             dx_p, dfilt_p = D.dense_conv_bwd_plain(*args)
-            torch.testing.assert_close(
-                dx.float(), dx_p.float(), rtol=DX_RTOL,
-                atol=DX_ATOL * dx_p.abs().max().item())
-            torch.testing.assert_close(
-                dfilt, dfilt_p, rtol=DFILT_TOL,
-                atol=DFILT_TOL * dfilt_p.abs().max().item())
-            dx2, dfilt2 = D.dense_conv_bwd_kernel(*args)
-            assert torch.equal(dx, dx2) and torch.equal(dfilt, dfilt2), c
-            _assert_near_reference(dx, dfilt, _brute_force(*ops), dtype)
+            ref = _brute_force(*ops)
+            layouts = [None] + [
+                (s, -(-c // (32 * s)), df_slots, split)
+                for s, df_slots, split in ((1, 1, 1), (2, 2, 2), (3, 4, 4),
+                                           (4, 4, 8))]
+            for layout in layouts:
+                dx, dfilt = D.dense_conv_bwd_kernel(*args, layout=layout)
+                torch.testing.assert_close(
+                    dx.float(), dx_p.float(), rtol=DX_RTOL,
+                    atol=DX_ATOL * dx_p.abs().max().item())
+                torch.testing.assert_close(
+                    dfilt, dfilt_p, rtol=DFILT_TOL,
+                    atol=DFILT_TOL * dfilt_p.abs().max().item())
+                dx2, dfilt2 = D.dense_conv_bwd_kernel(*args, layout=layout)
+                assert torch.equal(dx, dx2), (c, layout)
+                assert torch.equal(dfilt, dfilt2), (c, layout)
+                _assert_near_reference(dx, dfilt, ref, dtype)
