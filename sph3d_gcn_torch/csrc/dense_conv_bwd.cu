@@ -1,53 +1,58 @@
 // K5: backward of the depthwise spherical conv from packed bin maps.
 //
-// Replaces BOTH TPU kernels sph3d_gcn_tpu/ops/dense.py:692
+// Replaces the TPU kernels sph3d_gcn_tpu/ops/dense.py:692
 // (_dense_conv_bwd_kernel, the backward of the C_in <= 128 conv) and
 // sph3d_gcn_tpu/ops/dense.py:1183 (_dense_conv_rm_bwd_kernel, C_in > 128),
 // and their S-recomputing twins :768 and :1233 (the same function): one
 // function in several TPU layouts, as K3 (dense_conv.cu) serves both
-// forwards. Plain PyTorch twin: sph3d_gcn_torch/ops/dense.py::
+// forwards. The TPU kernels expand each tile's bins into a one-hot (F*128,
+// W) matrix for the matrix unit; here only the selected entries cost
+// work. Plain PyTorch twin: sph3d_gcn_torch/ops/dense.py::
 // dense_conv_bwd_plain.
 //
-// With k = c*r + j an output channel, g[t, k] = inv[t] * dout[t, k] and the
-// map entry pk of query row t at window column w (a hit where
-// 1 <= pk <= F; its bin is pk - 1):
+// With g[t, c, j] = inv[t] * dout[t, c*r + j] and the map entry pk of
+// query row t at window column w (a hit where 1 <= pk <= F; bin pk - 1):
 //
-//   dx[n, c]       = sum over hits (t, w) with s_blk*128 + w = n
-//                    of sum_j g[t, c*r + j] * filt_b[pk - 1, c*r + j]
-//   dfilt_b[b, f, k] = sum over cloud b's hits of bin f
-//                    of g[t, k] * x[s_blk*128 + w, k / r]
+//   dx[n, c]          = sum over hits (t, w) with s_blk*128 + w = n
+//                       of sum_j g[t, c, j] * filt_b[pk - 1, c, j]
+//   dfilt_b[b, f, c, j] = sum over cloud b's hits of bin f
+//                       of g[t, c, j] * x[s_blk*128 + w, c]
 //
 // Sums are f32; dx is rounded once to the feature dtype, dfilt stays f32.
-// No float atomics: every sum runs in an order fixed by the data layout, so
-// the result is bitwise reproducible. Three launches a call:
+// No float atomics: every sum runs in an order fixed by the data layout,
+// so the result is bitwise reproducible. A lane holds a channel and both
+// its r terms, in 32-channel slots. Three launches a call:
 //
-// 1. dfilt_tile_kernel, a block per (query tile, cloud, slice of up to 256
-//    output channels k): the map is read once per call at the widths of
-//    every model here (C*r <= 256), once per 256 output channels past that.
-//    The tile's rows are decoded 512 map bytes a warp and step (16-byte
-//    loads, the next step's in flight) into a hit list (row, bin, column)
-//    in shared memory, in (warp, word, byte) order; then the block's warps
-//    take the list as (group, 32-channel slot) pairs, lane = k: each group
-//    takes a fixed share of the list and adds g * x of every hit into its
-//    own (F, slice) partial, the groups summed in order at the end. Its cost
-//    follows the hits, not the window.
-// 2. dfilt_reduce_kernel sums the tiles' partials (B, n_t, F, C*r) over
-//    tiles, in tile order.
-// 3. dx_kernel keeps one owner per (128-row block of x, cloud, slice of up
-//    to 128 output channels): it walks the query tiles whose window covers
-//    its block ([s_blk, s_blk + W/128)), in tile order, with a three-stage
-//    ring of cp.async copies, so that the map slices (128 x 128 bytes) and
-//    inverse counts of the next two tiles arrive while one is scanned. Each
-//    warp owns 16 of the block's rows, as registers acc[16][slot]: it reads
-//    its 16 columns of the slice with 16-byte loads, lists the hits in
-//    (column, query row) order, then takes them 2-8 at a time with their
-//    dout rows and filter rows loaded together, adding each column's run of
-//    hits to its register.
+// 1. dfilt_tile_kernel, a block per (query tile, or 1/2-1/8 of its rows
+//    where the tiles are few; cloud; 32, 64 or 128 channels): the rows'
+//    windows are decoded 512 map bytes a warp and step (16-byte loads, the
+//    next step's in flight) into a hit list (row, bin, column) in shared
+//    memory; warp w then takes the hits of the bins f with f % 8 == w, in
+//    list order, 2-8 at a time with their x and dout rows loaded together,
+//    and adds g * x for all the block's channels into the block's one
+//    (F, channels, r) partial: no two warps touch one entry.
+// 2. dfilt_reduce_kernel sums the partials over tiles (and row parts), in
+//    order.
+// 3. dx_kernel, one owner per (128-row block of x, cloud, slice of up to
+//    128 channels): it walks the query tiles whose window covers its
+//    block ([s_blk, s_blk + W/128)), in tile order, through a two-stage
+//    cp.async ring, so that the next tile's map slice (128 x 128 bytes)
+//    and inverse counts arrive while one is scanned; its filter slice
+//    stays in shared memory. Each warp owns 16 of the block's rows as
+//    registers acc[16][slot]: it reads its 16 columns of the slice with
+//    16-byte loads, lists the hits in (column, query row) order, and takes
+//    them 2-16 at a time with their dout rows loaded together.
 //
-// The earlier K5 (one block per x block carrying the dfilt partials in
-// shared memory, operands copied one element at a time with no load in
-// flight, the map re-scanned per 64 channels) reached 1.5% of its bound on
-// the S3DIS train step. What bounds this design on the H100 is in PERF.md.
+// What bounds it on the H100 (PERF.md): on dense maps (ModelNet, 47 hits
+// a row) the work of each hit, a gather of an x or a dout row and some
+// thirty instructions for the warp that takes it, far below the card's
+// f32 rate; on sparse maps (the S3DIS scenes, about 6 a row) the two
+// scans of the map, each reading every map byte. The layout answers the
+// first (a hit costs one warp for up to 128 channels), the ring and the
+// step prefetch the second. Before this design K5 kept the dfilt partials
+// in the dx owner's shared memory (one block an SM), copied its operands
+// one element at a time with no load in flight and re-scanned the map
+// per 64 channels: 1.5% of its bound on the S3DIS train step.
 #include "common.cuh"
 
 namespace {

@@ -500,8 +500,8 @@ def conv_bwd_layout(c: int, mult: int, f_bins: int, owners: int,
     so the map is read once per 128 channels for dfilt at F <= 33, and
     takes 128 / ``df_split`` rows of a tile: the fewest parts that give
     four blocks an SM (more than one part on the small decoder clouds).
-    Measured on the card (PERF.md, PR 9): 8 slots a dfilt block and a
-    dx owner per SM fewer than these were slower."""
+    Measured on the card (PERF.md): 8 slots a dfilt block, and fewer
+    than one dx owner an SM, were slower."""
     def fits(slots, limit):
         return f_bins * 32 * slots * mult * 4 <= limit
 
@@ -532,13 +532,13 @@ def dense_conv_bwd_kernel(packed, s_blk, inputs, filt_b, inv, dout,
     """The conv backward through ``csrc/dense_conv_bwd.cu``, three
     launches: the dfilt partials of each query tile (a block per tile, or
     per part of its rows, walks the rows' windows once), their sum over
-    tiles in tile order, and dx,
-    whose rows have one owner per 128-row block of ``inputs`` that walks
-    the query tiles whose window covers it, in tile order, with the next
-    tiles' map slices in flight. ``layout``: the blocks' layout
-    (:func:`conv_bwd_layout`'s by default; any other covers every channel
-    too, and sums in another fixed order). Returns (dx, dfilt_b) as the
-    plain version."""
+    tiles in tile order, and dx, whose rows have one owner per 128-row
+    block of ``inputs`` that walks the query tiles whose window covers
+    it, in tile order, with the next tile's map slice in flight.
+    ``layout``: the blocks' layout (:func:`conv_bwd_layout`'s by default;
+    the tests pass others to reach every compiled variant: each covers
+    every channel and sums in its own fixed order). Returns (dx,
+    dfilt_b) as the plain version."""
     _build.check(packed, "packed", torch.int8, 4)
     _build.check(inputs, "inputs", (torch.float32, torch.bfloat16), 3)
     _build.check(filt_b, "filt_b", torch.float32, 4)
@@ -560,7 +560,8 @@ def dense_conv_bwd_kernel(packed, s_blk, inputs, filt_b, inv, dout,
         raise ValueError(f"bad output-gradient shape {tuple(dout.shape)}")
     if s_blk.shape != (batch, n_t):
         raise ValueError(f"bad window-start shape {tuple(s_blk.shape)}")
-    sb = s_blk.contiguous() if s_blk.dtype == torch.int64 else s_blk.long()
+    sb = s_blk.to(torch.int64).contiguous()   # a graph's, as it is
+    _build.check(sb, "s_blk", torch.int64, 2)
     packed, inv = _aligned(packed), _aligned(inv)
     dx_slots, dx_chunks, df_slots, df_split = layout or conv_bwd_layout(
         c, mult, f_bins, batch * -(-num_in // TILE), batch * n_t)
