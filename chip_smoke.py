@@ -167,7 +167,11 @@ inner_masked=True).train_step`` (Adam on the staircase schedule):
     version and to itself; and K5 on a crowded operand at the step's
     level-0 shapes (:func:`conv_bwd_stress`: 64 selected entries in every
     query row, as real scene blocks have) against its plain version and
-    itself, timed with its device time and bound.
+    itself, timed with its device time and bound; and K1 on adversarial
+    operands (:func:`fps_stress`: npoint 1 and N, all-equal, lattice and
+    duplicated points, a 6-channel and a strided database, N at the
+    kernel's cap, B=64 with clusters in more than one wave, every
+    instance of the kernel) bitwise equal to its plain version.
 
 Then the config options that read the queries' distance maps, at full
 published width with seeded weights:
@@ -207,6 +211,13 @@ published width with seeded weights:
     call with a map again without it (packed map and steps bitwise
     unchanged), with both times, the map's bytes and its bound (bytes
     over 3.35 TB/s).
+
+Each replayed K1 call prints its launch plan (cluster size, threads,
+points a thread) and its time per greedy step, of the span and of the
+device alone. ``python3 chip_smoke.py --fps-plans`` instead times every
+launch plan of K1 on each served shape (each checked bitwise against the
+plain version) and the per-step latency of each mode's chain, then
+exits.
 
 Every kernel's line in the per-kernel JSON carries its summed times,
 errors and launches from one path (``path``: the S3DIS serving forward
@@ -471,9 +482,9 @@ def work(name: str, args: tuple, kw: dict) -> tuple[int, int]:
     if name == "fps":
         num, xyz = args
         b, n, _ = xyz.shape
-        # per step and point: a distance (8) and a running min (1) and
-        # argmax (1)
-        return nbytes(xyz) + 4 * b * num, 10 * b * num * n
+        # the x, y, z of every point read, the int64 indices written; per
+        # step and point a distance (8), a running min (1) and argmax (1)
+        return 12 * b * n + 8 * b * num, 10 * b * num * n
     if name in ("dense_query", "growth_query"):
         db_p, q_p, s_blk, u_end = args[:4]
         w = kw["window"]
@@ -632,7 +643,11 @@ def library_call(name: str, args: tuple, kw: dict):
 def describe(name: str, args: tuple, kw: dict) -> str:
     """A recorded call's shapes, for the log."""
     if name == "fps":
-        return f"{args[1].shape[1]} -> {args[0]} points"
+        from sph3d_gcn_torch.ops import sample as S
+
+        b, n = args[1].shape[:2]
+        plan = S.fps_plan(b, n, S.max_active_clusters)
+        return f"{n} -> {args[0]} points, {plan}"
     dist = " +dist" if kw.get("need_dist") else ""
     if name == "dense_query":
         kind = "ranks" if kw["kernel"] is None else "bins"
@@ -690,6 +705,7 @@ class Results:
         self.device = collections.defaultdict(lambda: [0.0, 0.0, 0])
         self.device_queue = []
         self.calls = collections.Counter()
+        self.last_ms = 0.0             # the kernel time of the last add()
         # the bound's summed time, split by which side binds each call
         self.bound_ms = collections.defaultdict(
             lambda: {"bytes": 0.0, "operations": 0.0})
@@ -732,10 +748,12 @@ class Results:
                       f"{self.calls[name]} calls: kernel {k_ms:.4f} ms  "
                       f"{lib}", flush=True)
 
-    def add_device(self, name, what, kern, lib, work_done) -> None:
+    def add_device(self, name, what, kern, lib, work_done,
+                   steps=None) -> None:
         """Queue one call's kernel and library call (None where PyTorch
-        has none) for :meth:`time_device`."""
-        self.device_queue.append((name, what, kern, lib, work_done))
+        has none) for :meth:`time_device`; ``steps``: K1's greedy steps,
+        for its time a step."""
+        self.device_queue.append((name, what, kern, lib, work_done, steps))
 
     def time_device(self) -> None:
         """The queued calls' device times (:func:`device_ms`, one profiler
@@ -746,7 +764,7 @@ class Results:
         times = iter(device_ms(fns))
         print("device times (profiler; the spans above also hold the "
               "host's time before each launch):", flush=True)
-        for name, what, _, lib, work_done in self.device_queue:
+        for name, what, _, lib, work_done, steps in self.device_queue:
             k_ms = next(times)
             l_ms = next(times) if lib is not None else 0.0
             if k_ms is None or l_ms is None:
@@ -759,9 +777,11 @@ class Results:
             acc[2] += 1
             lib_text = (f"library {l_ms:.4f} ms" if lib is not None
                         else "library none")
+            step = (f"  {k_ms * 1e3 / steps:.3f} us a greedy step"
+                    if steps else "")
             print(f"  {name:14s} {what:30s} kernel {k_ms:.4f} ms  "
-                  f"{lib_text}  share {bound_of(work_done)[0] / k_ms:.3f}",
-                  flush=True)
+                  f"{lib_text}  share {bound_of(work_done)[0] / k_ms:.3f}"
+                  f"{step}", flush=True)
         self.device_queue = []
 
     def add(self, name, what, got, ref, ms, plain_ms, check, work_done,
@@ -772,6 +792,7 @@ class Results:
                   for g, r in zip(got, ref) if g is not None)
         self.err[name] = max(self.err[name], err)
         self.ms[name] += ms
+        self.last_ms = ms
         self.plain_ms[name] += plain_ms
         lib = ""
         if library_ms is not None:
@@ -836,6 +857,13 @@ def replay(calls: list, res: Results, expect: dict[str, int],
             if name in ("rank_pool_bwd", "dense_conv_bwd"):
                 res.add_device(name, what, functools.partial(kern, *args),
                                lib, work(name, args, kw))
+            if name == "fps":
+                steps = max(args[0] - 1, 1)
+                print(f"  {'':14s} {what:30s} "
+                      f"{res.last_ms * 1e3 / steps:.3f} us a greedy step "
+                      f"(span)", flush=True)
+                res.add_device(name, what, functools.partial(kern, *args),
+                               None, work(name, args, kw), steps)
 
 
 def kernel_parity(model, x: torch.Tensor, res: Results, what: str) -> None:
@@ -1559,6 +1587,169 @@ def conv_bwd_stress(dev: torch.device) -> None:
                        functools.partial(D.dense_conv_bwd_kernel, *args),
                        None, work("dense_conv_bwd", args, {}))
     res.time_device()
+
+
+def lattice_cloud(batch: int, side: int, rng) -> np.ndarray:
+    """(batch, side**3, 3) f32: an integer lattice scaled by 1/8 (exact in
+    f32), each cloud in its own order: FPS meets exact distance ties at
+    every step."""
+    g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3).astype(np.float32) / 8
+    return np.stack([g[rng.permutation(len(g))] for _ in range(batch)])
+
+
+def fps_operands(rng) -> list:
+    """K1's adversarial operands: (what, npoint, database as numpy, plan
+    or None for the default plan)."""
+    from sph3d_gcn_torch.ops import sample as S
+
+    rand = rng.random((2, 2000, 3), dtype=np.float32)
+    dup = np.repeat(rng.random((2, 2500, 3), dtype=np.float32), 4, axis=1)
+    cases = [
+        ("npoint = 1", 1, rand, None),
+        ("npoint = N", 2000, rand, None),
+        ("all-equal points", 300, np.full((2, 3000, 3), 0.5, np.float32),
+         None),
+        ("lattice, exact ties", 500, lattice_cloud(2, 20, rng), None),
+        ("each point 4 times", 2500, dup, None),
+        ("6-channel database", 2500,
+         rng.random((2, 10000, 6), dtype=np.float32), None),
+        ("N at the cap", 1024,
+         rng.random((2, S.FPS_MAX_POINTS, 3), dtype=np.float32), None),
+        ("B=64", 2500, rng.random((64, N, 3), dtype=np.float32), None),
+        ("B=64, 8-CTA clusters in waves", 2500, None,
+         S.FpsPlan(8, 128, 10)),
+    ]
+    # every instance of the kernel: each points-a-thread size in each
+    # mode, on a cloud that leaves some of the last slots padded
+    small = lattice_cloud(3, 12, rng)[:, :1500]
+    for ppt in S.PPT_SIZES:
+        for plan in (S.FpsPlan(1, 32, ppt), S.FpsPlan(1, 128, ppt),
+                     S.FpsPlan(4, 128, ppt)):
+            n = min(plan.cluster * plan.threads * ppt - 7, 1500)
+            cases.append((f"instance {plan}", min(n, 200), small[:, :n],
+                          plan))
+    return cases
+
+
+def fps_stress(dev: torch.device) -> None:
+    """Phase 25d: K1 on adversarial operands (:func:`fps_operands`), each
+    bitwise equal to its plain version; a 6-channel database is read in
+    place, a strided one converted first."""
+    from sph3d_gcn_torch.ops import sample as S
+
+    print("FPS (K1) on adversarial operands, kernel vs plain version "
+          "bitwise:", flush=True)
+    rng = np.random.default_rng(13)
+    prev = None
+    for what, npoint, pts, plan in fps_operands(rng):
+        t = prev if pts is None else torch.from_numpy(pts).to(dev)
+        prev = t
+        got = S.farthest_point_sample_kernel(npoint, t, plan)
+        ref = S.farthest_point_sample_plain(npoint, t)
+        used = plan or S.fps_plan(t.shape[0], t.shape[1],
+                                  S.max_active_clusters)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"K1 {what} ({used}): kernel != plain")
+        print(f"  {what:34s} B={t.shape[0]} N={t.shape[1]} -> {npoint} "
+              f"{used}: equal", flush=True)
+    strided = prev.transpose(1, 2).contiguous().transpose(1, 2)
+    if not torch.equal(S.farthest_point_sample_kernel(600, strided),
+                       S.farthest_point_sample_plain(600, strided)):
+        raise AssertionError("K1 on a strided database: kernel != plain")
+    print("  strided database (converted): equal", flush=True)
+
+
+def fps_plan_candidates(n: int) -> list:
+    """Every launch plan of K1 that covers ``n`` points: per cluster size
+    (1 for the warp and block modes) and bound on the warps a CTA, the
+    fewest points a thread, then the fewest warps."""
+    from sph3d_gcn_torch.ops import sample as S
+
+    plans = []
+    for cluster in range(1, S.MAX_CLUSTER + 1):
+        for warps in (1, 2, 4, 8, 16, 32):
+            if cluster > 1 and cluster * warps > S.MAX_CANDIDATES:
+                continue
+            plan = S.fit_plan(n, cluster, warps)
+            if plan is not None and plan not in plans:
+                plans.append(plan)
+                if plan.cluster > 1:
+                    plans.append(dataclasses.replace(plan, exchange=0))
+    return plans
+
+
+def events_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``calls`` calls of
+    ``fn`` back to back, a call (the queue stays full, so a short call's
+    time is the device's, not the launch's)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
+def fps_plan_sweep(dev: torch.device) -> None:
+    """``--fps-plans``: every launch plan of K1 on each served shape (B=16:
+    ModelNet 10000 -> 2500 -> 625 -> 156, S3DIS 8192 -> 2048 -> 768 -> 384
+    -> 128; and B=64 at N=10000), each checked bitwise against the plain
+    version and timed (:func:`events_ms`), beside the default plan; the
+    clusters the device runs at once per size; and the latency of each
+    mode's chain: a step at one point a thread."""
+    from sph3d_gcn_torch.ops import sample as S
+
+    print("clusters the device runs at once (one CTA an SM):", flush=True)
+    for cluster in range(2, S.MAX_CLUSTER + 1):
+        plan = S.fit_plan(10000, cluster, S.MAX_CANDIDATES // cluster)
+        print(f"  {plan}: {S.max_active_clusters(plan)}", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    shapes = [(16, 10000, 2500), (16, 2500, 625), (16, 625, 156),
+              (16, 8192, 2048), (16, 2048, 768), (16, 768, 384),
+              (16, 384, 128), (64, 10000, 2500)]
+    for b, n, npoint in shapes:
+        t = torch.rand((b, n, 3), generator=gen, device=dev)
+        ref = S.farthest_point_sample_plain(npoint, t)
+        default = S.fps_plan(b, n, S.max_active_clusters)
+        print(f"B={b} N={n} -> {npoint} (default {default}):", flush=True)
+        rows = []
+        for plan in fps_plan_candidates(n):
+            if not torch.equal(S.farthest_point_sample_kernel(npoint, t,
+                                                               plan), ref):
+                raise AssertionError(f"K1 {plan} B={b} N={n}: kernel != "
+                                     f"plain")
+            ms = events_ms(functools.partial(
+                S.farthest_point_sample_kernel, npoint, t, plan))
+            rows.append((ms, plan))
+        for ms, plan in sorted(rows, key=lambda r: r[0]):
+            mark = "  <- default" if plan == default else ""
+            print(f"  {str(plan):18s} {plan.mode:7s} {ms:8.4f} ms  "
+                  f"{ms * 1e3 / (npoint - 1):.3f} us a step{mark}",
+                  flush=True)
+    print("chain latency: a step at one point a thread (B=16, npoint = N):",
+          flush=True)
+    for plan in (S.FpsPlan(1, 32, 1), S.FpsPlan(1, 128, 1),
+                 S.FpsPlan(1, 1024, 1), S.FpsPlan(2, 512, 1),
+                 S.FpsPlan(2, 512, 1, 0), S.FpsPlan(4, 256, 1),
+                 S.FpsPlan(4, 256, 1, 0), S.FpsPlan(6, 128, 1),
+                 S.FpsPlan(6, 128, 1, 0), S.FpsPlan(6, 32, 1),
+                 S.FpsPlan(6, 32, 1, 0)):
+        n = plan.cluster * plan.threads
+        t = torch.rand((16, n, 3), generator=gen, device=dev)
+        got = S.farthest_point_sample_kernel(n, t, plan)
+        if not torch.equal(got, S.farthest_point_sample_plain(n, t)):
+            raise AssertionError(f"K1 {plan} npoint = N: kernel != plain")
+        ms = events_ms(functools.partial(S.farthest_point_sample_kernel,
+                                         n, t, plan))
+        print(f"  {str(plan):18s} {plan.mode:7s} N={n:5d} {ms:8.4f} ms  "
+              f"{ms * 1e3 / (n - 1):.3f} us a step", flush=True)
 
 
 def windowed_phases(dev: torch.device, batches: list[np.ndarray],
@@ -2355,6 +2546,9 @@ def main() -> None:
     for line in (lib.parent / "ptxas.log").read_text().splitlines():
         if any(k in line for k in ("Compiling entry", "spill", "registers")):
             print("  ptxas:", line.strip(), flush=True)
+    if "--fps-plans" in sys.argv[1:]:
+        fps_plan_sweep(dev)
+        return
 
     cfg_plain = modelnet_config(fast=True, dense=True)
     cfg = modelnet_config(fast=True, dense=True, family="hard")
@@ -2453,6 +2647,7 @@ def main() -> None:
     max_index_replay(dev, pool_calls, conv_map, res_index)
     pool_bwd_stress(dev)
     conv_bwd_stress(dev)
+    fps_stress(dev)
     del pool_calls, conv_map
 
     # 26-30. the options that read distance maps, the avg pools, IDS and

@@ -209,6 +209,7 @@ MAX_DYNAMIC_SMEM = 227 * 1024 - 1024
 # ctypes argument shorthands for the launchers' signatures
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+LONG = ctypes.c_longlong
 FLOAT = ctypes.c_float
 
 

@@ -1,118 +1,413 @@
-// K1: farthest-point sampling, one thread block per cloud.
+// K1: farthest-point sampling, each cloud held in registers, spread over
+// a thread block cluster at large N.
 //
 // Replaces the TPU kernel sph3d_gcn_tpu/ops/pallas/fps_kernel.py:44
 // (_fps_kernel, reached via farthest_point_sample_pallas). Plain PyTorch
 // twin: sph3d_gcn_torch/ops/sample.py::farthest_point_sample_plain.
 //
-// Semantics: seed index 0, min-distance buffer initialised to 1e38,
-// running minimum of squared distances (dx*dx + dy*dy) + dz*dz, argmax
-// with ties to the lowest index. Output (B, npoint) int32.
+// Semantics: seed index 0, min-distance initialised to 1e38, running
+// minimum of squared distances (dx*dx + dy*dy) + dz*dz, argmax with ties
+// to the lowest index. Reads the f32 coordinates of a (B, N, C >= 3)
+// tensor with its strides; writes (B, npoint) int64.
 //
-// What bounds it on the H100: latency, not bytes or FLOPs. The npoint-1
-// greedy steps are sequential; each is an O(N) distance update plus a
-// block-wide argmax (warp shuffles, then one warp over the per-warp
-// winners) and two barriers. Coordinates and min-distances of the cloud
-// (16 bytes a point, 160 KB at N = 10000) stay in dynamic shared memory,
-// so the loop touches device memory only to write the output. One block
-// per cloud occupies B of the 132 SMs; splitting a cloud across a thread
-// block cluster (distributed shared memory) is later work.
+// What bounds it on the H100: the chain, not bytes or FLOPs. The npoint-1
+// greedy steps are sequential, and each ends in an argmax over the whole
+// cloud that the next step needs. A step costs the distance update of the
+// points one SM holds (issue-bound: about 15 instructions a point over an
+// SM's 4 schedulers) plus the latency of the reduction and of the barrier
+// that publishes the winner. The previous kernel (one 1024-thread block a
+// cloud, the cloud in shared memory) paid 4 shared-memory accesses a point
+// through one SM and two block barriers a step: about 1.4 us a step.
+//
+// What the design does about it:
+//  - The cloud lives in registers: a thread holds P points (x, y, z and
+//    running minimum), P a template parameter, so the arrays unroll and a
+//    step's update touches no memory. Padded slots hold -1 as their
+//    minimum and never win.
+//  - The argmax is exact in any order: non-negative floats order as their
+//    bits do as signed integers (-1 below them all), so a warp takes
+//    __reduce_max_sync of the bits, then __reduce_min_sync of the index
+//    among the lanes that hold the maximum. Every index is distinct (a
+//    padded slot's too), so one lane holds each winner. A candidate
+//    carries the winner's coordinates: nothing re-reads device memory.
+//  - Three modes, chosen on the host from (B, N) alone
+//    (ops/sample.py::fps_plan). One warp: no barrier, the winner's
+//    coordinates come by shuffle. One block: each warp's winner goes into
+//    a slot of a parity-indexed shared array, one __syncthreads, then
+//    every warp reduces the slots itself. A cluster of C CTAs: each warp's
+//    winner goes straight into its slot in every CTA of the cluster
+//    through distributed shared memory (st.shared::cluster), then one
+//    barrier.cluster arrive.release / wait.acquire, and every warp of
+//    every CTA reduces the same C x warps candidates (at most 32, one a
+//    lane) to the same winner. No CTA-level reduction and no block
+//    barrier: one cluster barrier a step. Slots alternate with the step's
+//    parity, so a fast warp's next write never meets a slow warp's read.
+//  - A cluster CTA asks for more than half an SM's shared memory (unused)
+//    so that each SM holds one CTA: a cluster spreads its cloud over C
+//    SMs, and B clouds over up to 8B of the 132. C is the largest size
+//    whose B clusters run in one wave (cudaOccupancyMaxActiveClusters,
+//    queried once a shape): a second wave would double the time.
 //
 // Numerics: the distance is written with __fmul_rn/__fadd_rn (no FMA
 // contraction), so the indices equal the plain version's bit for bit.
+#include <climits>
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace {
 
 using sph3d::kFullMask;
 
-constexpr int kThreads = 1024;
+// the points a thread may hold; ops/sample.py::PPT_SIZES mirrors the list
+#define SPH3D_FPS_PPT(X) X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(10) X(12) X(16)
 
-__device__ __forceinline__ void take_max(float& bv, int& bi, float ov,
-                                         int oi) {
-  if (ov > bv || (ov == bv && oi < bi)) {
-    bv = ov;
-    bi = oi;
+constexpr int kMaxCands = 32;      // candidates a step reduces: one a lane
+constexpr int kMaxCluster = 8;     // the portable cluster size
+constexpr int kMaxDevices = 16;    // devices whose attribute is kept
+// dynamic shared memory a cluster CTA reserves and leaves unused: more
+// than half an SM's 228 KB, so an SM holds one CTA of a cluster
+constexpr int kSoloSmem = 116 * 1024;
+
+enum Mode { kWarp, kBlock, kCluster, kClusterTx };
+constexpr uint32_t kCandBytes = sizeof(int2) + sizeof(float4);
+
+// threads a block may have at P points a thread: up to 6 points a thread
+// fit 64 registers (1024 threads), up to 16 fit 128 (512 threads); the
+// kernel's launch bounds say the same
+constexpr int max_threads(int p) {
+  return p <= 6 ? 1024 : 512;
+}
+
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return static_cast<int>(r);
+}
+
+// every thread of the cluster arrives (its shared-memory writes, remote
+// ones included, released) and waits for all the others (acquired)
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n\t"
+      "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(const uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+// the local arrival of a phase, which then also waits for `bytes`
+__device__ __forceinline__ void mbar_expect_tx(const uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(const uint64_t* bar,
+                                          uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(smem_addr(bar)), "r"(parity) : "memory");
   }
 }
 
-__device__ __forceinline__ void warp_argmax(float& bv, int& bi) {
+// the address of the same shared variable in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t at_rank(const void* p, int rank) {
+  uint32_t remote;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  return remote;
+}
+
+// a store into another CTA's shared memory that counts its bytes on that
+// CTA's mbarrier `bar`
+__device__ __forceinline__ void st_async(uint32_t addr, int2 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.s32 "
+      "[%0], {%1, %2}, [%3];"
+      :: "r"(addr), "r"(v.x), "r"(v.y), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+      "[%0], {%1, %2, %3, %4}, [%5];"
+      :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, int2 v) {
+  asm volatile("st.shared::cluster.v2.s32 [%0], {%1, %2};"
+               :: "r"(addr), "r"(v.x), "r"(v.y) : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// Thread t of CTA `rank` holds points rank * T * P + k * T + t, k < P.
+// cluster: the CTAs a cloud spreads over (1 outside kCluster).
+template <int P, Mode M>
+__global__ void __launch_bounds__(P <= 6 ? 1024 : 512)
+    fps_kernel(const float* __restrict__ xyz, long long batch_stride,
+               long long row_stride, long long* __restrict__ out, int n,
+               int npoint, int cluster) {
+  __shared__ int2 s_key[2][kMaxCands];    // (value bits, index)
+  __shared__ float4 s_pos[2][kMaxCands];  // the candidate's x, y, z
+  __shared__ uint64_t s_bar[2];           // kClusterTx: a step's arrivals
+  constexpr bool kClustered = M == kCluster || M == kClusterTx;
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int nw = blockDim.x >> 5;
+  int rank = 0;
+  int cloud = blockIdx.x;
+  if constexpr (kClustered) {
+    rank = cluster_rank();
+    cloud = blockIdx.x / cluster;
+  }
+  const float* p = xyz + cloud * batch_stride;
+  long long* o = out + static_cast<long long>(cloud) * npoint;
+  const int first = rank * static_cast<int>(blockDim.x) * P + t;
+
+  float x[P], y[P], z[P], md[P];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_down_sync(kFullMask, bv, off);
-    const int oi = __shfl_down_sync(kFullMask, bi, off);
-    take_max(bv, bi, ov, oi);
+  for (int k = 0; k < P; ++k) {
+    const int i = first + k * static_cast<int>(blockDim.x);
+    const float* q = p + (i < n ? i : 0) * row_stride;
+    x[k] = q[0];
+    y[k] = q[1];
+    z[k] = q[2];
+    md[k] = i < n ? 1e38f : -1.0f;
   }
+  float xo = p[0], yo = p[1], zo = p[2];
+  const bool writer = rank == 0 && t == 0;
+  if (writer) o[0] = 0;
+  const int slot = rank * nw + (t >> 5);
+  const int n_cand = (kClustered ? cluster : 1) * nw;
+  if constexpr (M == kClusterTx) {
+    if (t == 0) {
+      mbar_init(&s_bar[0], 1);
+      mbar_init(&s_bar[1], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+  }
+  // every CTA of the cluster runs before any writes into its shared memory
+  if constexpr (kClustered) cluster_barrier();
+
+  for (int j = 1; j < npoint; ++j) {
+    float bv = 0.0f, bx = 0.0f, by = 0.0f, bz = 0.0f;
+    int bk = 0;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float m = fminf(
+          md[k], sph3d::sum_sq3(x[k] - xo, y[k] - yo, z[k] - zo));
+      md[k] = m;
+      if (k == 0 || m > bv) {  // k increases: strict > keeps the lowest
+        bv = m;
+        bk = k;
+        bx = x[k];
+        by = y[k];
+        bz = z[k];
+      }
+    }
+    const int bi = first + bk * static_cast<int>(blockDim.x);
+    const int bits = __float_as_int(bv);
+    const int wv = __reduce_max_sync(kFullMask, bits);
+    int win = __reduce_min_sync(kFullMask, bits == wv ? bi : INT_MAX);
+    if constexpr (M == kWarp) {
+      const int src = __ffs(__ballot_sync(kFullMask, bi == win)) - 1;
+      xo = __shfl_sync(kFullMask, bx, src);
+      yo = __shfl_sync(kFullMask, by, src);
+      zo = __shfl_sync(kFullMask, bz, src);
+    } else {
+      const int par = j & 1;
+      if constexpr (M == kBlock) {
+        if (bi == win) {  // the warp's winner publishes its candidate
+          s_key[par][slot] = make_int2(wv, win);
+          s_pos[par][slot] = make_float4(bx, by, bz, 0.0f);
+        }
+        __syncthreads();
+      } else {
+        // lane r sends the warp's candidate to CTA r of the cluster
+        const int src = __ffs(__ballot_sync(kFullMask, bi == win)) - 1;
+        const int2 key = make_int2(wv, win);
+        const float4 pos = make_float4(__shfl_sync(kFullMask, bx, src),
+                                       __shfl_sync(kFullMask, by, src),
+                                       __shfl_sync(kFullMask, bz, src),
+                                       0.0f);
+        if constexpr (M == kClusterTx) {
+          if (t == 0) mbar_expect_tx(&s_bar[par], n_cand * kCandBytes);
+          if (lane < cluster) {
+            const uint32_t bar = at_rank(&s_bar[par], lane);
+            st_async(at_rank(&s_key[par][slot], lane), key, bar);
+            st_async(at_rank(&s_pos[par][slot], lane), pos, bar);
+          }
+          // the k-th use of a parity's barrier waits for phase k
+          mbar_wait(&s_bar[par], ((j - 1) >> 1) & 1);
+        } else {
+          if (lane < cluster) {
+            st_cluster(at_rank(&s_key[par][slot], lane), key);
+            st_cluster(at_rank(&s_pos[par][slot], lane), pos);
+          }
+          __syncwarp();
+          cluster_barrier();
+        }
+      }
+      const int2 c =
+          lane < n_cand ? s_key[par][lane] : make_int2(INT_MIN, INT_MAX);
+      const int cv = __reduce_max_sync(kFullMask, c.x);
+      win = __reduce_min_sync(kFullMask, c.x == cv ? c.y : INT_MAX);
+      const int src = __ffs(__ballot_sync(kFullMask, c.y == win)) - 1;
+      const float4 w = s_pos[par][src];
+      xo = w.x;
+      yo = w.y;
+      zo = w.z;
+    }
+    if (writer) o[j] = win;
+  }
+  // no CTA leaves while another may still write into its shared memory
+  if constexpr (kClustered) cluster_barrier();
 }
 
-__global__ void __launch_bounds__(kThreads)
-    fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n,
-               int npoint) {
-  extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + n;
-  float* sz = sy + n;
-  float* md = sz + n;
-  __shared__ float red_v[kThreads / 32];
-  __shared__ int red_i[kThreads / 32];
-  __shared__ int s_best;
+// A cluster instance's shared-memory reservation, set once a device.
+template <int P, Mode M>
+cudaError_t allow_solo() {
+  static bool allowed[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kMaxDevices && allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(fps_kernel<P, M>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSoloSmem);
+  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
+  return err;
+}
 
-  const float* p = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
-  int* o = out + static_cast<size_t>(blockIdx.x) * npoint;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    sx[i] = p[3 * i];
-    sy[i] = p[3 * i + 1];
-    sz[i] = p[3 * i + 2];
-    md[i] = 1e38f;
-  }
-  if (threadIdx.x == 0) o[0] = 0;
-  __syncthreads();
+struct Args {
+  const float* xyz;
+  long long batch_stride, row_stride;
+  long long* out;
+  int batch, n, npoint, cluster, threads;
+  cudaStream_t stream;
+};
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int old = 0;
-  for (int j = 1; j < npoint; ++j) {
-    const float xo = sx[old], yo = sy[old], zo = sz[old];
-    float bv = -1.0f;  // min-distances are >= 0: any point beats this
-    int bi = n;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const float d = sph3d::sum_sq3(sx[i] - xo, sy[i] - yo, sz[i] - zo);
-      const float m = fminf(md[i], d);
-      md[i] = m;
-      if (m > bv) {  // i increases: strict > keeps the lowest index
-        bv = m;
-        bi = i;
-      }
-    }
-    warp_argmax(bv, bi);
-    if (lane == 0) {
-      red_v[warp] = bv;
-      red_i[warp] = bi;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      bv = lane < nwarps ? red_v[lane] : -1.0f;
-      bi = lane < nwarps ? red_i[lane] : n;
-      warp_argmax(bv, bi);
-      if (lane == 0) {
-        s_best = bi;
-        o[j] = bi;
-      }
-    }
-    __syncthreads();
-    old = s_best;
+cudaLaunchConfig_t cluster_config(int grid, int threads, int cluster,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = kSoloSmem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int P, Mode M>
+cudaError_t launch(const Args& a) {
+  if constexpr (M == kWarp || M == kBlock) {
+    fps_kernel<P, M><<<a.batch, a.threads, 0, a.stream>>>(
+        a.xyz, a.batch_stride, a.row_stride, a.out, a.n, a.npoint, 1);
+  } else {
+    cudaError_t err = allow_solo<P, M>();
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = cluster_config(
+        a.batch * a.cluster, a.threads, a.cluster, a.stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, fps_kernel<P, M>, a.xyz,
+                             a.batch_stride, a.row_stride, a.out, a.n,
+                             a.npoint, a.cluster);
+    if (err != cudaSuccess) return err;
   }
+  return cudaGetLastError();
+}
+
+template <Mode M>
+cudaError_t launch_mode(int ppt, const Args& a) {
+  switch (ppt) {
+#define SPH3D_FPS_CASE(p) \
+  case p:                 \
+    return launch<p, M>(a);
+    SPH3D_FPS_PPT(SPH3D_FPS_CASE)
+#undef SPH3D_FPS_CASE
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int P>
+cudaError_t max_active(int cluster, int threads, int* count) {
+  cudaError_t err = allow_solo<P, kCluster>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(cluster, threads, cluster, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(
+      count, reinterpret_cast<const void*>(fps_kernel<P, kCluster>), &cfg);
+}
+
+bool valid_plan(int n, int cluster, int threads, int ppt) {
+  return cluster >= 1 && cluster <= kMaxCluster && threads >= 32 &&
+         threads % 32 == 0 && threads <= max_threads(ppt) &&
+         (cluster == 1 || cluster * (threads / 32) <= kMaxCands) &&
+         static_cast<long long>(cluster) * threads * ppt >= n;
 }
 
 }  // namespace
 
-extern "C" int sph3d_fps_launch(const float* xyz, int* out, int batch, int n,
-                                int npoint, void* stream) {
-  const int smem = static_cast<int>(sizeof(float) * 4 * n);
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  fps_kernel<<<batch, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      xyz, out, n, npoint);
-  return cudaGetLastError();
+// xyz: (B, N, C >= 3) f32 with the given strides (elements); out: (B,
+// npoint) int64. The plan: `cluster` CTAs a cloud (1: one block, a single
+// warp when threads == 32), `threads` a CTA, `ppt` points a thread.
+extern "C" int sph3d_fps_launch(const float* xyz, long long batch_stride,
+                                long long row_stride, long long* out,
+                                int batch, int n, int npoint, int cluster,
+                                int threads, int ppt, int exchange,
+                                void* stream) {
+  if (!valid_plan(n, cluster, threads, ppt)) return cudaErrorInvalidValue;
+  const Args a{xyz,   batch_stride, row_stride, out,     batch,
+               n,     npoint,       cluster,    threads,
+               static_cast<cudaStream_t>(stream)};
+  if (cluster > 1) {
+    return exchange ? launch_mode<kClusterTx>(ppt, a)
+                    : launch_mode<kCluster>(ppt, a);
+  }
+  if (threads == 32) return launch_mode<kWarp>(ppt, a);
+  return launch_mode<kBlock>(ppt, a);
+}
+
+// How many clusters of `cluster` CTAs of `threads` threads (one CTA an SM)
+// the current device runs at once.
+extern "C" int sph3d_fps_max_active_clusters(int cluster, int threads,
+                                             int ppt, int* count) {
+  if (cluster < 2 || !valid_plan(0, cluster, threads, ppt)) {
+    return cudaErrorInvalidValue;
+  }
+  switch (ppt) {
+#define SPH3D_FPS_CASE(p) \
+  case p:                 \
+    return max_active<p>(cluster, threads, count);
+    SPH3D_FPS_PPT(SPH3D_FPS_CASE)
+#undef SPH3D_FPS_CASE
+  }
+  return cudaErrorInvalidValue;
 }

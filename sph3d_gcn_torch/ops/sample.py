@@ -15,15 +15,126 @@ JAX's PRNG, so tests hand both sides the same draws.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+from typing import Callable
+
 import torch
 
 from sph3d_gcn_torch import _build
 
 FPS_KERNEL = _build.register(
     "fps", "sph3d_fps_launch",
-    [_build.PTR, _build.PTR, _build.INT, _build.INT, _build.INT,
-     _build.PTR],
+    [_build.PTR, _build.LONG, _build.LONG, _build.PTR, _build.INT,
+     _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
+     _build.INT, _build.PTR],
 )
+
+# points a thread may hold in registers (csrc/fps.cu, SPH3D_FPS_PPT)
+PPT_SIZES = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16)
+MAX_CLUSTER = 8          # CTAs a cloud spreads over: the portable size
+MAX_CANDIDATES = 32      # warp winners a step reduces: one a lane
+# the largest cloud: 8 CTAs of 4 warps, 16 points a thread
+FPS_MAX_POINTS = MAX_CLUSTER * MAX_CANDIDATES // MAX_CLUSTER * 32 * 16
+WARP_MAX_POINTS = 256    # a cloud this small takes one warp
+BLOCK_MAX_POINTS = 2048  # ... this small one block, a larger one a cluster
+BLOCK_WARPS = 8          # the warps of a block plan, at most
+
+
+def max_threads(ppt: int) -> int:
+    """Threads a CTA may have at ``ppt`` points a thread (the kernel's
+    launch bounds: 64 registers a thread up to 6 points, 128 above)."""
+    return 1024 if ppt <= 6 else 512
+
+
+@dataclasses.dataclass(frozen=True)
+class FpsPlan:
+    """How K1 lays out a cloud: ``cluster`` CTAs (1: one block, one warp
+    when ``threads`` is 32), ``threads`` a CTA, ``ppt`` points a thread.
+    Thread t of CTA r holds points ``r * threads * ppt + k * threads + t``
+    for k < ppt."""
+
+    cluster: int
+    threads: int
+    ppt: int
+    exchange: int = 1   # a cluster's: 1 mbarriers, 0 a cluster barrier
+
+    @property
+    def mode(self) -> str:
+        if self.cluster > 1:
+            return "cluster"
+        return "warp" if self.threads == 32 else "block"
+
+    def __str__(self) -> str:
+        x = "" if self.cluster == 1 else f" X={self.exchange}"
+        return f"C={self.cluster} T={self.threads} P={self.ppt}{x}"
+
+
+def fit_plan(n: int, cluster: int, warps: int) -> FpsPlan | None:
+    """The plan of at most ``cluster`` CTAs of at most ``warps`` warps that
+    covers ``n`` points with the fewest points a thread, then the fewest
+    warps, then the fewest CTAs (none without a point)."""
+    for ppt in PPT_SIZES:
+        w = -(-n // (cluster * 32 * ppt))
+        if w <= warps and 32 * w <= max_threads(ppt):
+            return FpsPlan(-(-n // (32 * w * ppt)), 32 * w, ppt)
+    return None
+
+
+def fps_plan(batch: int, n: int,
+             max_active: Callable[[FpsPlan], int]) -> FpsPlan:
+    """K1's launch plan for ``batch`` clouds of ``n`` points, from the
+    shapes alone. A small cloud takes one warp (no barrier), a middling
+    one a block, a large one a cluster: the largest cluster size whose
+    ``batch`` clusters run in one wave (``max_active(plan)``: clusters the
+    device runs at once), else the one with the fewest waves."""
+    if not 1 <= n <= FPS_MAX_POINTS:
+        raise ValueError(f"the FPS kernel takes 1 to {FPS_MAX_POINTS} "
+                         f"points a cloud, got N={n}")
+    if n <= WARP_MAX_POINTS:
+        return fit_plan(n, 1, 1)
+    if n <= BLOCK_MAX_POINTS:
+        return fit_plan(n, 1, BLOCK_WARPS)
+    best, best_waves = None, None
+    for cluster in range(MAX_CLUSTER, 1, -1):
+        plan = fit_plan(n, cluster, MAX_CANDIDATES // cluster)
+        active = max_active(plan) if plan is not None else 0
+        if active < 1:
+            continue
+        waves = -(-batch // active)
+        if best is None or waves < best_waves:
+            best, best_waves = plan, waves
+    if best is None:
+        best = fit_plan(n, 1, 32)
+    if best is None:
+        raise ValueError(f"no cluster of the FPS kernel runs on this "
+                         f"device, and one block holds fewer than N={n} "
+                         f"points")
+    return best
+
+
+_MAX_ACTIVE: dict[tuple, int] = {}
+
+
+def max_active_clusters(plan: FpsPlan) -> int:
+    """Clusters of ``plan`` that the current device runs at once, one CTA
+    an SM (``cudaOccupancyMaxActiveClusters``), queried once a plan."""
+    key = (torch.cuda.current_device(), plan)
+    if key not in _MAX_ACTIVE:
+        fn = _build.library().sph3d_fps_max_active_clusters
+        fn.argtypes = [_build.INT] * 3 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        count = ctypes.c_int(0)
+        err = fn(plan.cluster, plan.threads, plan.ppt, ctypes.byref(count))
+        if err != 0:
+            msg = _build.library().sph3d_error_string(err).decode()
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters for the FPS "
+                               f"kernel ({plan}): CUDA error {err}: {msg}")
+        _MAX_ACTIVE[key] = count.value
+    return _MAX_ACTIVE[key]
+
+
+_PLANS: dict[tuple, FpsPlan] = {}
 
 
 def farthest_point_sample(
@@ -61,24 +172,32 @@ def farthest_point_sample_plain(
 
 
 def farthest_point_sample_kernel(
-    npoint: int, database: torch.Tensor
+    npoint: int, database: torch.Tensor, plan: FpsPlan | None = None
 ) -> torch.Tensor:
-    """FPS through the CUDA kernel (one block per cloud, coordinates and
-    min-distances in shared memory)."""
-    xyz = database[..., :3].float().contiguous()
-    _build.check(xyz, "xyz", torch.float32, 3)
-    batch, num, _ = xyz.shape
-    if 16 * num > _build.MAX_DYNAMIC_SMEM:
-        raise ValueError(
-            f"the FPS kernel keeps a cloud in shared memory: N={num} points "
-            f"exceed {_build.MAX_DYNAMIC_SMEM // 16}"
-        )
-    out = torch.empty((batch, npoint), dtype=torch.int32, device=xyz.device)
+    """FPS through the CUDA kernel: (B, N, 3+) coordinates -> (B, npoint)
+    int64 indices. A contiguous f32 ``database`` is read as it is (its
+    first 3 channels), any other is converted first. ``plan``: the launch
+    plan (:func:`fps_plan`'s for the shapes by default)."""
+    if database.dtype != torch.float32 or not database.is_contiguous():
+        database = database[..., :3].float().contiguous()
+    _build.check(database, "database", torch.float32, 3)
+    batch, num, chans = database.shape
+    if chans < 3 or not 1 <= npoint <= num:
+        raise ValueError(f"want (B, N, 3+) coordinates and 1 <= npoint <= "
+                         f"N, got {tuple(database.shape)} and {npoint}")
+    if plan is None:
+        key = (database.device.index, batch, num)
+        plan = _PLANS.get(key)
+        if plan is None:
+            plan = _PLANS[key] = fps_plan(batch, num, max_active_clusters)
+    out = torch.empty((batch, npoint), dtype=torch.int64,
+                      device=database.device)
     FPS_KERNEL.launch(
-        _build.ptr(xyz), _build.ptr(out), batch, num, npoint,
-        _build.stream(xyz),
+        _build.ptr(database), num * chans, chans, _build.ptr(out), batch,
+        num, npoint, plan.cluster, plan.threads, plan.ppt, plan.exchange,
+        _build.stream(database),
     )
-    return out.to(torch.int64)
+    return out
 
 
 # the smallest normal f32: the lower end of IDS's uniform draws, as JAX's
