@@ -1661,21 +1661,25 @@ def fps_stress(dev: torch.device) -> None:
 
 
 def fps_plan_candidates(n: int) -> list:
-    """Every launch plan of K1 that covers ``n`` points: per cluster size
-    (1 for the warp and block modes) and bound on the warps a CTA, the
-    fewest points a thread, then the fewest warps."""
+    """Launch plans of K1 that cover ``n`` points: per cluster size (1 for
+    the warp and block modes) and count of warps a CTA, the fewest points
+    a thread, then the fewest CTAs."""
     from sph3d_gcn_torch.ops import sample as S
 
     plans = []
     for cluster in range(1, S.MAX_CLUSTER + 1):
-        for warps in (1, 2, 4, 8, 16, 32):
+        for warps in (1, 2, 4, 8, 12, 16, 24, 32):
             if cluster > 1 and cluster * warps > S.MAX_CANDIDATES:
                 continue
-            plan = S.fit_plan(n, cluster, warps)
-            if plan is not None and plan not in plans:
-                plans.append(plan)
-                if plan.cluster > 1:
-                    plans.append(dataclasses.replace(plan, exchange=0))
+            for ppt in S.PPT_SIZES:
+                if 32 * warps > S.max_threads(ppt):
+                    break
+                if cluster * 32 * warps * ppt >= n:
+                    plan = S.FpsPlan(-(-n // (32 * warps * ppt)),
+                                     32 * warps, ppt)
+                    if plan not in plans:
+                        plans.append(plan)
+                    break
     return plans
 
 
@@ -1708,7 +1712,8 @@ def fps_plan_sweep(dev: torch.device) -> None:
 
     print("clusters the device runs at once (one CTA an SM):", flush=True)
     for cluster in range(2, S.MAX_CLUSTER + 1):
-        plan = S.fit_plan(10000, cluster, S.MAX_CANDIDATES // cluster)
+        plan = S.fit_plan(10000, cluster, S.MAX_CANDIDATES // cluster,
+                          S.PPT_SIZES[-1])
         print(f"  {plan}: {S.max_active_clusters(plan)}", flush=True)
     gen = torch.Generator(device=dev).manual_seed(14)
     shapes = [(16, 10000, 2500), (16, 2500, 625), (16, 625, 156),
@@ -1720,7 +1725,9 @@ def fps_plan_sweep(dev: torch.device) -> None:
         default = S.fps_plan(b, n, S.max_active_clusters)
         print(f"B={b} N={n} -> {npoint} (default {default}):", flush=True)
         rows = []
-        for plan in fps_plan_candidates(n):
+        for plan in fps_plan_candidates(n) + [default]:
+            if any(plan == p for _, p in rows):
+                continue
             if not torch.equal(S.farthest_point_sample_kernel(npoint, t,
                                                                plan), ref):
                 raise AssertionError(f"K1 {plan} B={b} N={n}: kernel != "
@@ -1733,16 +1740,16 @@ def fps_plan_sweep(dev: torch.device) -> None:
             print(f"  {str(plan):18s} {plan.mode:7s} {ms:8.4f} ms  "
                   f"{ms * 1e3 / (npoint - 1):.3f} us a step{mark}",
                   flush=True)
-    print("chain latency: a step at one point a thread (B=16, npoint = N):",
-          flush=True)
-    for plan in (S.FpsPlan(1, 32, 1), S.FpsPlan(1, 128, 1),
-                 S.FpsPlan(1, 1024, 1), S.FpsPlan(2, 512, 1),
-                 S.FpsPlan(2, 512, 1, 0), S.FpsPlan(4, 256, 1),
-                 S.FpsPlan(4, 256, 1, 0), S.FpsPlan(6, 128, 1),
-                 S.FpsPlan(6, 128, 1, 0), S.FpsPlan(6, 32, 1),
-                 S.FpsPlan(6, 32, 1, 0)):
-        n = plan.cluster * plan.threads
-        t = torch.rand((16, n, 3), generator=gen, device=dev)
+    # 15 clouds: 8-CTA clusters run in one wave (15 at once on an H100)
+    print("chain latency: a step at few points a thread (B=15, npoint = "
+          "N):", flush=True)
+    for plan in (S.FpsPlan(1, 32, 4), S.FpsPlan(1, 128, 1),
+                 S.FpsPlan(1, 1024, 1), S.FpsPlan(2, 128, 1),
+                 S.FpsPlan(2, 512, 1), S.FpsPlan(4, 128, 1),
+                 S.FpsPlan(4, 256, 1), S.FpsPlan(6, 128, 1),
+                 S.FpsPlan(8, 128, 1)):
+        n = plan.cluster * plan.threads * plan.ppt
+        t = torch.rand((15, n, 3), generator=gen, device=dev)
         got = S.farthest_point_sample_kernel(n, t, plan)
         if not torch.equal(got, S.farthest_point_sample_plain(n, t)):
             raise AssertionError(f"K1 {plan} npoint = N: kernel != plain")

@@ -60,17 +60,22 @@ namespace {
 using sph3d::kFullMask;
 
 // the points a thread may hold; ops/sample.py::PPT_SIZES mirrors the list
-#define SPH3D_FPS_PPT(X) X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(10) X(12) X(16)
+#define SPH3D_FPS_PPT(X) \
+  X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(10) X(12) X(14) X(16)
 
 constexpr int kMaxCands = 32;      // candidates a step reduces: one a lane
 constexpr int kMaxCluster = 8;     // the portable cluster size
+constexpr int kMaxPoints = 16384;  // ops/sample.py::FPS_MAX_POINTS
 constexpr int kMaxDevices = 16;    // devices whose attribute is kept
-// dynamic shared memory a cluster CTA reserves and leaves unused: more
-// than half an SM's 228 KB, so an SM holds one CTA of a cluster
+constexpr int kCopyBatch = 16;     // words of the cloud a thread loads at once
+// dynamic shared memory: the cloud's x, y and z (12 bytes a point), and at
+// least more than half an SM's 228 KB for a cluster CTA, so that an SM
+// holds one CTA of a cluster
+constexpr int kCloudBytes = 12;
 constexpr int kSoloSmem = 116 * 1024;
+constexpr int kMaxSmem = kCloudBytes * kMaxPoints;
 
-enum Mode { kWarp, kBlock, kCluster, kClusterTx };
-constexpr uint32_t kCandBytes = sizeof(int2) + sizeof(float4);
+enum Mode { kWarp, kBlock, kCluster };
 
 // threads a block may have at P points a thread: up to 6 points a thread
 // fit 64 registers (1024 threads), up to 16 fit 128 (512 threads); the
@@ -85,8 +90,8 @@ __device__ __forceinline__ int cluster_rank() {
   return static_cast<int>(r);
 }
 
-// every thread of the cluster arrives (its shared-memory writes, remote
-// ones included, released) and waits for all the others (acquired)
+// every thread of the cluster arrives (its writes released) and waits for
+// all the others (acquired)
 __device__ __forceinline__ void cluster_barrier() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n\t"
@@ -95,6 +100,14 @@ __device__ __forceinline__ void cluster_barrier() {
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the address of the same shared variable in CTA `rank` of the cluster
+__device__ __forceinline__ uint32_t at_rank(const void* p, int rank) {
+  uint32_t remote;
+  asm("mapa.shared::cluster.u32 %0, %1, %2;"
+      : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
+  return remote;
 }
 
 __device__ __forceinline__ void mbar_init(const uint64_t* bar, int count) {
@@ -121,14 +134,6 @@ __device__ __forceinline__ void mbar_wait(const uint64_t* bar,
   }
 }
 
-// the address of the same shared variable in CTA `rank` of the cluster
-__device__ __forceinline__ uint32_t at_rank(const void* p, int rank) {
-  uint32_t remote;
-  asm("mapa.shared::cluster.u32 %0, %1, %2;"
-      : "=r"(remote) : "r"(smem_addr(p)), "r"(rank));
-  return remote;
-}
-
 // a store into another CTA's shared memory that counts its bytes on that
 // CTA's mbarrier `bar`
 __device__ __forceinline__ void st_async(uint32_t addr, int2 v,
@@ -139,26 +144,6 @@ __device__ __forceinline__ void st_async(uint32_t addr, int2 v,
       :: "r"(addr), "r"(v.x), "r"(v.y), "r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void st_async(uint32_t addr, float4 v,
-                                         uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
-      "[%0], {%1, %2, %3, %4}, [%5];"
-      :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, int2 v) {
-  asm volatile("st.shared::cluster.v2.s32 [%0], {%1, %2};"
-               :: "r"(addr), "r"(v.x), "r"(v.y) : "memory");
-}
-
-__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
-  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};"
-               :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
-               : "memory");
-}
-
 // Thread t of CTA `rank` holds points rank * T * P + k * T + t, k < P.
 // cluster: the CTAs a cloud spreads over (1 outside kCluster).
 template <int P, Mode M>
@@ -166,127 +151,120 @@ __global__ void __launch_bounds__(P <= 6 ? 1024 : 512)
     fps_kernel(const float* __restrict__ xyz, long long batch_stride,
                long long row_stride, long long* __restrict__ out, int n,
                int npoint, int cluster) {
-  __shared__ int2 s_key[2][kMaxCands];    // (value bits, index)
-  __shared__ float4 s_pos[2][kMaxCands];  // the candidate's x, y, z
-  __shared__ uint64_t s_bar[2];           // kClusterTx: a step's arrivals
-  constexpr bool kClustered = M == kCluster || M == kClusterTx;
+  extern __shared__ float s_cloud[];    // x, y, z of point 0, 1, ...
+  __shared__ int2 s_key[2][kMaxCands];  // a step's candidates (bits, index)
+  __shared__ uint64_t s_bar[2];         // kCluster: a step's arrivals
 
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int nw = blockDim.x >> 5;
   int rank = 0;
   int cloud = blockIdx.x;
-  if constexpr (kClustered) {
+  if constexpr (M == kCluster) {
     rank = cluster_rank();
     cloud = blockIdx.x / cluster;
   }
   const float* p = xyz + cloud * batch_stride;
   long long* o = out + static_cast<long long>(cloud) * npoint;
-  const int first = rank * static_cast<int>(blockDim.x) * P + t;
+  // the cloud into shared memory, kCopyBatch loads of a thread in flight
+  // (coalesced when the rows are 3 floats wide)
+  const int words = 3 * n;
+  for (int w0 = 0; w0 < words; w0 += kCopyBatch * blockDim.x) {
+    float v[kCopyBatch];
+#pragma unroll
+    for (int u = 0; u < kCopyBatch; ++u) {
+      const int w = w0 + u * blockDim.x + t;
+      v[u] = w < words ? p[(w / 3) * row_stride + w % 3] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyBatch; ++u) {
+      const int w = w0 + u * blockDim.x + t;
+      if (w < words) s_cloud[w] = v[u];
+    }
+  }
+  const int slot = rank * nw + (t >> 5);
+  const int n_cand = (M == kCluster ? cluster : 1) * nw;
+  if (M == kCluster && t == 0) {
+    mbar_init(&s_bar[0], 1);
+    mbar_init(&s_bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  // every CTA of the cluster runs before any writes into its shared memory
+  if constexpr (M == kCluster) cluster_barrier();
 
+  const int first = rank * static_cast<int>(blockDim.x) * P + t;
   float x[P], y[P], z[P], md[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) {
     const int i = first + k * static_cast<int>(blockDim.x);
-    const float* q = p + (i < n ? i : 0) * row_stride;
-    x[k] = q[0];
-    y[k] = q[1];
-    z[k] = q[2];
+    x[k] = i < n ? s_cloud[3 * i] : 0.0f;
+    y[k] = i < n ? s_cloud[3 * i + 1] : 0.0f;
+    z[k] = i < n ? s_cloud[3 * i + 2] : 0.0f;
     md[k] = i < n ? 1e38f : -1.0f;
   }
-  float xo = p[0], yo = p[1], zo = p[2];
+  float xo = s_cloud[0], yo = s_cloud[1], zo = s_cloud[2];
   const bool writer = rank == 0 && t == 0;
   if (writer) o[0] = 0;
-  const int slot = rank * nw + (t >> 5);
-  const int n_cand = (kClustered ? cluster : 1) * nw;
-  if constexpr (M == kClusterTx) {
-    if (t == 0) {
-      mbar_init(&s_bar[0], 1);
-      mbar_init(&s_bar[1], 1);
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-    }
-  }
-  // every CTA of the cluster runs before any writes into its shared memory
-  if constexpr (kClustered) cluster_barrier();
 
   for (int j = 1; j < npoint; ++j) {
-    float bv = 0.0f, bx = 0.0f, by = 0.0f, bz = 0.0f;
-    int bk = 0;
+    float bv[P];
+    int bk[P];
 #pragma unroll
     for (int k = 0; k < P; ++k) {
-      const float m = fminf(
-          md[k], sph3d::sum_sq3(x[k] - xo, y[k] - yo, z[k] - zo));
-      md[k] = m;
-      if (k == 0 || m > bv) {  // k increases: strict > keeps the lowest
-        bv = m;
-        bk = k;
-        bx = x[k];
-        by = y[k];
-        bz = z[k];
+      md[k] = fminf(md[k], sph3d::sum_sq3(x[k] - xo, y[k] - yo, z[k] - zo));
+      bv[k] = md[k];
+      bk[k] = k;
+    }
+    // the thread's first maximum by a tree over its slots (depth log2 P,
+    // not P): the upper half of a pair wins only if strictly larger
+#pragma unroll
+    for (int s = 1; s < P; s *= 2) {
+#pragma unroll
+      for (int k = 0; k + s < P; k += 2 * s) {
+        if (bv[k + s] > bv[k]) {
+          bv[k] = bv[k + s];
+          bk[k] = bk[k + s];
+        }
       }
     }
-    const int bi = first + bk * static_cast<int>(blockDim.x);
-    const int bits = __float_as_int(bv);
+    const int bi = first + bk[0] * static_cast<int>(blockDim.x);
+    const int bits = __float_as_int(bv[0]);
     const int wv = __reduce_max_sync(kFullMask, bits);
     int win = __reduce_min_sync(kFullMask, bits == wv ? bi : INT_MAX);
-    if constexpr (M == kWarp) {
-      const int src = __ffs(__ballot_sync(kFullMask, bi == win)) - 1;
-      xo = __shfl_sync(kFullMask, bx, src);
-      yo = __shfl_sync(kFullMask, by, src);
-      zo = __shfl_sync(kFullMask, bz, src);
-    } else {
+    if constexpr (M != kWarp) {
       const int par = j & 1;
+      const int2 key = make_int2(wv, win);
       if constexpr (M == kBlock) {
-        if (bi == win) {  // the warp's winner publishes its candidate
-          s_key[par][slot] = make_int2(wv, win);
-          s_pos[par][slot] = make_float4(bx, by, bz, 0.0f);
-        }
+        if (lane == 0) s_key[par][slot] = key;
         __syncthreads();
       } else {
         // lane r sends the warp's candidate to CTA r of the cluster
-        const int src = __ffs(__ballot_sync(kFullMask, bi == win)) - 1;
-        const int2 key = make_int2(wv, win);
-        const float4 pos = make_float4(__shfl_sync(kFullMask, bx, src),
-                                       __shfl_sync(kFullMask, by, src),
-                                       __shfl_sync(kFullMask, bz, src),
-                                       0.0f);
-        if constexpr (M == kClusterTx) {
-          if (t == 0) mbar_expect_tx(&s_bar[par], n_cand * kCandBytes);
-          if (lane < cluster) {
-            const uint32_t bar = at_rank(&s_bar[par], lane);
-            st_async(at_rank(&s_key[par][slot], lane), key, bar);
-            st_async(at_rank(&s_pos[par][slot], lane), pos, bar);
-          }
-          // the k-th use of a parity's barrier waits for phase k
-          mbar_wait(&s_bar[par], ((j - 1) >> 1) & 1);
-        } else {
-          if (lane < cluster) {
-            st_cluster(at_rank(&s_key[par][slot], lane), key);
-            st_cluster(at_rank(&s_pos[par][slot], lane), pos);
-          }
-          __syncwarp();
-          cluster_barrier();
+        if (t == 0) mbar_expect_tx(&s_bar[par], n_cand * sizeof(int2));
+        if (lane < cluster) {
+          st_async(at_rank(&s_key[par][slot], lane), key,
+                   at_rank(&s_bar[par], lane));
         }
+        // the k-th use of a parity's barrier waits for its phase k
+        mbar_wait(&s_bar[par], ((j - 1) >> 1) & 1);
       }
       const int2 c =
           lane < n_cand ? s_key[par][lane] : make_int2(INT_MIN, INT_MAX);
       const int cv = __reduce_max_sync(kFullMask, c.x);
       win = __reduce_min_sync(kFullMask, c.x == cv ? c.y : INT_MAX);
-      const int src = __ffs(__ballot_sync(kFullMask, c.y == win)) - 1;
-      const float4 w = s_pos[par][src];
-      xo = w.x;
-      yo = w.y;
-      zo = w.z;
     }
+    xo = s_cloud[3 * win];
+    yo = s_cloud[3 * win + 1];
+    zo = s_cloud[3 * win + 2];
     if (writer) o[j] = win;
   }
   // no CTA leaves while another may still write into its shared memory
-  if constexpr (kClustered) cluster_barrier();
+  if constexpr (M == kCluster) cluster_barrier();
 }
 
-// A cluster instance's shared-memory reservation, set once a device.
+// The shared memory an instance may use, set once a device.
 template <int P, Mode M>
-cudaError_t allow_solo() {
+cudaError_t allow_smem() {
   static bool allowed[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -294,7 +272,7 @@ cudaError_t allow_solo() {
   if (dev < kMaxDevices && allowed[dev]) return cudaSuccess;
   err = cudaFuncSetAttribute(fps_kernel<P, M>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kSoloSmem);
+                             kMaxSmem);
   if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
   return err;
 }
@@ -308,12 +286,12 @@ struct Args {
 };
 
 cudaLaunchConfig_t cluster_config(int grid, int threads, int cluster,
-                                  cudaStream_t stream,
+                                  int smem, cudaStream_t stream,
                                   cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
   cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = kSoloSmem;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = cluster;
@@ -326,16 +304,18 @@ cudaLaunchConfig_t cluster_config(int grid, int threads, int cluster,
 
 template <int P, Mode M>
 cudaError_t launch(const Args& a) {
-  if constexpr (M == kWarp || M == kBlock) {
-    fps_kernel<P, M><<<a.batch, a.threads, 0, a.stream>>>(
+  cudaError_t err = allow_smem<P, M>();
+  if (err != cudaSuccess) return err;
+  const int cloud = kCloudBytes * a.n;
+  if constexpr (M != kCluster) {
+    fps_kernel<P, M><<<a.batch, a.threads, cloud, a.stream>>>(
         a.xyz, a.batch_stride, a.row_stride, a.out, a.n, a.npoint, 1);
   } else {
-    cudaError_t err = allow_solo<P, M>();
-    if (err != cudaSuccess) return err;
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = cluster_config(
-        a.batch * a.cluster, a.threads, a.cluster, a.stream, &attr);
-    err = cudaLaunchKernelEx(&cfg, fps_kernel<P, M>, a.xyz,
+        a.batch * a.cluster, a.threads, a.cluster,
+        cloud > kSoloSmem ? cloud : kSoloSmem, a.stream, &attr);
+    err = cudaLaunchKernelEx(&cfg, fps_kernel<P, kCluster>, a.xyz,
                              a.batch_stride, a.row_stride, a.out, a.n,
                              a.npoint, a.cluster);
     if (err != cudaSuccess) return err;
@@ -355,20 +335,22 @@ cudaError_t launch_mode(int ppt, const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+// Every reservation above half an SM gives one CTA an SM: the count does
+// not depend on N.
 template <int P>
 cudaError_t max_active(int cluster, int threads, int* count) {
-  cudaError_t err = allow_solo<P, kCluster>();
+  cudaError_t err = allow_smem<P, kCluster>();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
-      cluster_config(cluster, threads, cluster, nullptr, &attr);
+      cluster_config(cluster, threads, cluster, kSoloSmem, nullptr, &attr);
   return cudaOccupancyMaxActiveClusters(
       count, reinterpret_cast<const void*>(fps_kernel<P, kCluster>), &cfg);
 }
 
 bool valid_plan(int n, int cluster, int threads, int ppt) {
-  return cluster >= 1 && cluster <= kMaxCluster && threads >= 32 &&
-         threads % 32 == 0 && threads <= max_threads(ppt) &&
+  return n <= kMaxPoints && cluster >= 1 && cluster <= kMaxCluster &&
+         threads >= 32 && threads % 32 == 0 && threads <= max_threads(ppt) &&
          (cluster == 1 || cluster * (threads / 32) <= kMaxCands) &&
          static_cast<long long>(cluster) * threads * ppt >= n;
 }
@@ -381,16 +363,12 @@ bool valid_plan(int n, int cluster, int threads, int ppt) {
 extern "C" int sph3d_fps_launch(const float* xyz, long long batch_stride,
                                 long long row_stride, long long* out,
                                 int batch, int n, int npoint, int cluster,
-                                int threads, int ppt, int exchange,
-                                void* stream) {
+                                int threads, int ppt, void* stream) {
   if (!valid_plan(n, cluster, threads, ppt)) return cudaErrorInvalidValue;
   const Args a{xyz,   batch_stride, row_stride, out,     batch,
                n,     npoint,       cluster,    threads,
                static_cast<cudaStream_t>(stream)};
-  if (cluster > 1) {
-    return exchange ? launch_mode<kClusterTx>(ppt, a)
-                    : launch_mode<kCluster>(ppt, a);
-  }
+  if (cluster > 1) return launch_mode<kCluster>(ppt, a);
   if (threads == 32) return launch_mode<kWarp>(ppt, a);
   return launch_mode<kBlock>(ppt, a);
 }

@@ -27,18 +27,18 @@ FPS_KERNEL = _build.register(
     "fps", "sph3d_fps_launch",
     [_build.PTR, _build.LONG, _build.LONG, _build.PTR, _build.INT,
      _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
-     _build.INT, _build.PTR],
+     _build.PTR],
 )
 
 # points a thread may hold in registers (csrc/fps.cu, SPH3D_FPS_PPT)
-PPT_SIZES = (1, 2, 3, 4, 5, 6, 8, 10, 12, 16)
+PPT_SIZES = (1, 2, 3, 4, 5, 6, 8, 10, 12, 14, 16)
 MAX_CLUSTER = 8          # CTAs a cloud spreads over: the portable size
 MAX_CANDIDATES = 32      # warp winners a step reduces: one a lane
 # the largest cloud: 8 CTAs of 4 warps, 16 points a thread
-FPS_MAX_POINTS = MAX_CLUSTER * MAX_CANDIDATES // MAX_CLUSTER * 32 * 16
-WARP_MAX_POINTS = 256    # a cloud this small takes one warp
-BLOCK_MAX_POINTS = 2048  # ... this small one block, a larger one a cluster
-BLOCK_WARPS = 8          # the warps of a block plan, at most
+FPS_MAX_POINTS = MAX_CLUSTER * 4 * 32 * PPT_SIZES[-1]
+WARP_MAX_POINTS = 128    # a cloud this small takes one warp
+BLOCK_MAX_POINTS = 3072  # ... this small one block, a larger one a cluster
+BLOCK_PPT = 6            # a block plan's points a thread, at most
 
 
 def max_threads(ppt: int) -> int:
@@ -57,7 +57,6 @@ class FpsPlan:
     cluster: int
     threads: int
     ppt: int
-    exchange: int = 1   # a cluster's: 1 mbarriers, 0 a cluster barrier
 
     @property
     def mode(self) -> str:
@@ -66,18 +65,22 @@ class FpsPlan:
         return "warp" if self.threads == 32 else "block"
 
     def __str__(self) -> str:
-        x = "" if self.cluster == 1 else f" X={self.exchange}"
-        return f"C={self.cluster} T={self.threads} P={self.ppt}{x}"
+        return f"C={self.cluster} T={self.threads} P={self.ppt}"
 
 
-def fit_plan(n: int, cluster: int, warps: int) -> FpsPlan | None:
-    """The plan of at most ``cluster`` CTAs of at most ``warps`` warps that
-    covers ``n`` points with the fewest points a thread, then the fewest
-    warps, then the fewest CTAs (none without a point)."""
-    for ppt in PPT_SIZES:
-        w = -(-n // (cluster * 32 * ppt))
-        if w <= warps and 32 * w <= max_threads(ppt):
-            return FpsPlan(-(-n // (32 * w * ppt)), 32 * w, ppt)
+def fit_plan(n: int, cluster: int, warps: int, ppt: int,
+             step: int = 4) -> FpsPlan | None:
+    """The plan of at most ``cluster`` CTAs that covers ``n`` points with
+    the fewest warps a CTA (a multiple of ``step``, at most ``warps``),
+    then the fewest points a thread (at most ``ppt``), then the fewest
+    CTAs (none without a point). Whole groups of 4 warps keep an SM's 4
+    schedulers evenly loaded."""
+    for w in range(step, warps + 1, step):
+        for p in PPT_SIZES:
+            if p > ppt or 32 * w > max_threads(p):
+                break
+            if cluster * 32 * w * p >= n:
+                return FpsPlan(-(-n // (32 * w * p)), 32 * w, p)
     return None
 
 
@@ -85,19 +88,22 @@ def fps_plan(batch: int, n: int,
              max_active: Callable[[FpsPlan], int]) -> FpsPlan:
     """K1's launch plan for ``batch`` clouds of ``n`` points, from the
     shapes alone. A small cloud takes one warp (no barrier), a middling
-    one a block, a large one a cluster: the largest cluster size whose
-    ``batch`` clusters run in one wave (``max_active(plan)``: clusters the
-    device runs at once), else the one with the fewest waves."""
+    one a block of as few warps as hold it at up to ``BLOCK_PPT`` points
+    a thread, a large one a cluster of 4-warp CTAs: the largest cluster
+    size whose ``batch`` clusters run in one wave (``max_active(plan)``:
+    clusters the device runs at once), else the one with the fewest
+    waves."""
     if not 1 <= n <= FPS_MAX_POINTS:
         raise ValueError(f"the FPS kernel takes 1 to {FPS_MAX_POINTS} "
                          f"points a cloud, got N={n}")
     if n <= WARP_MAX_POINTS:
-        return fit_plan(n, 1, 1)
+        return fit_plan(n, 1, 1, PPT_SIZES[-1], step=1)
     if n <= BLOCK_MAX_POINTS:
-        return fit_plan(n, 1, BLOCK_WARPS)
+        return fit_plan(n, 1, 32, BLOCK_PPT)
     best, best_waves = None, None
     for cluster in range(MAX_CLUSTER, 1, -1):
-        plan = fit_plan(n, cluster, MAX_CANDIDATES // cluster)
+        plan = fit_plan(n, cluster, MAX_CANDIDATES // cluster,
+                        PPT_SIZES[-1])
         active = max_active(plan) if plan is not None else 0
         if active < 1:
             continue
@@ -105,7 +111,7 @@ def fps_plan(batch: int, n: int,
         if best is None or waves < best_waves:
             best, best_waves = plan, waves
     if best is None:
-        best = fit_plan(n, 1, 32)
+        best = fit_plan(n, 1, 32, PPT_SIZES[-1])
     if best is None:
         raise ValueError(f"no cluster of the FPS kernel runs on this "
                          f"device, and one block holds fewer than N={n} "
@@ -194,7 +200,7 @@ def farthest_point_sample_kernel(
                       device=database.device)
     FPS_KERNEL.launch(
         _build.ptr(database), num * chans, chans, _build.ptr(out), batch,
-        num, npoint, plan.cluster, plan.threads, plan.ppt, plan.exchange,
+        num, npoint, plan.cluster, plan.threads, plan.ppt,
         _build.stream(database),
     )
     return out

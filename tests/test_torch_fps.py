@@ -31,19 +31,21 @@ SERVED = [(10000, 2500), (2500, 625), (625, 156),             # ModelNet
 
 
 def h100_active(plan: FpsPlan) -> int:
-    """Clusters of each size an H100 with 132 SMs runs at once, one CTA an
-    SM, as the kernel's occupancy query may give them (a stand-in here)."""
-    return {2: 66, 3: 44, 4: 32, 5: 26, 6: 22, 7: 16, 8: 16}[plan.cluster]
+    """Clusters of each size that an H100 80GB HBM3 runs at once, one CTA
+    an SM, as the kernel's occupancy query gave them on the card
+    (``chip_smoke.py --fps-plans``)."""
+    return {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}[plan.cluster]
 
 
 def kernel_model(npoint: int, pts: np.ndarray, plan: FpsPlan) -> np.ndarray:
     """FPS as ``csrc/fps.cu`` computes it, in numpy: slot (r, k, t) of CTA
     r, thread t holds point r * T * P + k * T + t (padded: minimum -1); a
-    step updates every slot, each thread keeps its first maximal slot,
-    each warp takes the largest value bits (as int32) and the lowest index
-    among the lanes that hold them, writes its candidate into parity slot
-    r * warps + w, and the cloud's winner is reduced from the slots the
-    same way, its coordinates carried with it."""
+    step updates every slot, each thread takes its first maximal slot by
+    the kernel's tree (the upper slot of a pair wins only if strictly
+    larger), each warp takes the largest value bits (as int32) and the
+    lowest index among the lanes that hold them, writes its candidate into
+    parity slot r * warps + w, and the cloud's winner is reduced from the
+    slots the same way; its coordinates are read from the cloud."""
     xyz = np.ascontiguousarray(pts[..., :3], dtype=np.float32)
     b, n, _ = xyz.shape
     c, t, p = plan.cluster, plan.threads, plan.ppt
@@ -57,7 +59,6 @@ def kernel_model(npoint: int, pts: np.ndarray, plan: FpsPlan) -> np.ndarray:
                          (b, c, p, t)).copy()
     slot_key = np.zeros((b, 2, 32), np.int32)
     slot_idx = np.zeros((b, 2, 32), np.int64)
-    slot_pos = np.zeros((b, 2, 32, 3), np.float32)
     out = np.zeros((b, npoint), np.int64)
     old = xyz[:, 0]
     rows = np.arange(b)
@@ -66,26 +67,26 @@ def kernel_model(npoint: int, pts: np.ndarray, plan: FpsPlan) -> np.ndarray:
         dist = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
             + d[..., 2] * d[..., 2]
         md = np.fmin(md, dist)
-        bk = np.argmax(md, axis=2)                      # (B, C, T)
-        bv = np.take_along_axis(md, bk[:, :, None], 2)[:, :, 0]
-        bpos = np.take_along_axis(pos, bk[:, :, None, :, None], 2)[:, :, 0]
-        bi = rank[:, 0] * t * p + bk * t + th[:, 0]     # (B, C, T)
-        bits = bv.view(np.int32).reshape(b, c, nw, 32)
+        bv, bk = md.copy(), np.broadcast_to(k, md.shape).copy()
+        s = 1
+        while s < p:                                    # the slots' tree
+            for lo in range(0, p - s, 2 * s):
+                take = bv[:, :, lo + s] > bv[:, :, lo]
+                bv[:, :, lo] = np.where(take, bv[:, :, lo + s], bv[:, :, lo])
+                bk[:, :, lo] = np.where(take, bk[:, :, lo + s], bk[:, :, lo])
+            s *= 2
+        bi = rank[:, 0] * t * p + bk[:, :, 0] * t + th[:, 0]   # (B, C, T)
+        bits = bv[:, :, 0].view(np.int32).reshape(b, c, nw, 32)
         bi = bi.reshape(b, c, nw, 32)
         wv = bits.max(-1)
         wi = np.where(bits == wv[..., None], bi, INT_MAX).min(-1)
-        lane = np.argmax(bi == wi[..., None], axis=-1)  # the warp's winner
-        wpos = np.take_along_axis(bpos.reshape(b, c, nw, 32, 3),
-                                  lane[..., None, None], 3)[..., 0, :]
         par, m = j & 1, c * nw
         slot_key[:, par, :m] = wv.reshape(b, m)
         slot_idx[:, par, :m] = wi.reshape(b, m)
-        slot_pos[:, par, :m] = wpos.reshape(b, m, 3)
         cv = slot_key[:, par, :m].max(-1)
         win = np.where(slot_key[:, par, :m] == cv[:, None],
                        slot_idx[:, par, :m], INT_MAX).min(-1)
-        src = np.argmax(slot_idx[:, par, :m] == win[:, None], axis=-1)
-        old = slot_pos[rows, par, src]
+        old = xyz[rows, win]
         out[:, j] = win
     return out
 
@@ -118,7 +119,7 @@ def clouds(kind: str, batch: int = 2) -> np.ndarray:
 MODEL_PLANS = [FpsPlan(1, 32, 1), FpsPlan(1, 32, 16), FpsPlan(1, 128, 3),
                FpsPlan(1, 128, 12), FpsPlan(1, 1024, 2),
                FpsPlan(4, 128, 5), FpsPlan(8, 128, 2), FpsPlan(3, 320, 2),
-               FpsPlan(8, 32, 8)]
+               FpsPlan(6, 32, 14)]
 
 
 @pytest.mark.parametrize("kind", ["lattice", "duplicated", "all-equal",
@@ -146,25 +147,25 @@ def test_kernel_model_matches_plain_when_every_point_is_taken():
 @pytest.mark.parametrize("n,npoint", SERVED)
 def test_plan_of_served_shapes(n, npoint):
     plan = S.fps_plan(16, n, h100_active)
-    want = {10000: FpsPlan(8, 128, 10), 2500: FpsPlan(8, 128, 3),
-            625: FpsPlan(1, 224, 3), 8192: FpsPlan(8, 128, 8),
-            2048: FpsPlan(1, 256, 8), 768: FpsPlan(1, 256, 3),
-            384: FpsPlan(1, 192, 2)}[n]
+    want = {10000: FpsPlan(6, 128, 14), 2500: FpsPlan(1, 512, 5),
+            625: FpsPlan(1, 128, 5), 8192: FpsPlan(6, 128, 12),
+            2048: FpsPlan(1, 384, 6), 768: FpsPlan(1, 128, 6),
+            384: FpsPlan(1, 128, 3)}[n]
     assert plan == want
 
 
 def test_plan_takes_a_smaller_cluster_when_waves_would_repeat():
-    # 15 clusters of 8 at once: 16 clouds would take two waves
-    counts = {2: 66, 3: 44, 4: 33, 5: 26, 6: 22, 7: 16, 8: 15}
-    plan = S.fps_plan(16, 10000, lambda p: counts[p.cluster])
-    assert plan.cluster == 7 and plan.cluster * plan.threads * plan.ppt \
-        >= 10000
+    # 15 clusters of 8 or 7 at once: 16 clouds take 6-CTA clusters
+    assert S.fps_plan(16, 10000, h100_active).cluster == 6
+    assert S.fps_plan(15, 10000, h100_active).cluster == 8
+    # 16 clusters of 8 at once: 16 clouds take them
+    more = {**{c: 20 for c in range(2, 8)}, 8: 16}
+    assert S.fps_plan(16, 10000, lambda p: more[p.cluster]) \
+        == FpsPlan(8, 128, 10)
     # 64 clouds: only pairs fit one wave
-    assert S.fps_plan(64, 10000, h100_active).cluster == 2
+    assert S.fps_plan(64, 10000, h100_active) == FpsPlan(2, 384, 14)
     # 200 clouds: no size fits one wave; the fewest waves (4 at C = 2)
     assert S.fps_plan(200, 10000, h100_active).cluster == 2
-    # a small batch keeps the largest cluster
-    assert S.fps_plan(1, 10000, h100_active).cluster == 8
 
 
 def test_plan_without_clusters_falls_back_to_one_block():
@@ -198,7 +199,8 @@ def test_plan_rejects_clouds_beyond_the_cap():
 def test_points_a_thread_match_the_kernel_source():
     src = (Path(S.__file__).resolve().parent.parent / "csrc" / "fps.cu"
            ).read_text()
-    macro = re.search(r"#define SPH3D_FPS_PPT\(X\) (.*)", src).group(1)
+    macro = re.search(r"#define SPH3D_FPS_PPT\(X\)((?:.*\\\n)*.*)",
+                      src).group(1)
     assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", macro)) \
         == S.PPT_SIZES
     assert "return p <= 6 ? 1024 : 512;" in src
