@@ -147,10 +147,12 @@ __device__ __forceinline__ void st_async(uint32_t addr, int2 v,
 // Thread t of CTA `rank` holds points rank * T * P + k * T + t, k < P.
 // cluster: the CTAs a cloud spreads over (1 outside kCluster).
 template <int P, Mode M>
-__global__ void __launch_bounds__(P <= 6 ? 1024 : 512)
+__global__ void __launch_bounds__(P <= 6 ? 1024 : 512, 1)
     fps_kernel(const float* __restrict__ xyz, long long batch_stride,
                long long row_stride, long long* __restrict__ out, int n,
                int npoint, int cluster) {
+  constexpr int kRun = (P + 3) / 4;              // slots a run scans
+  constexpr int kRuns = (P + kRun - 1) / kRun;   // runs: at most 4
   extern __shared__ float s_cloud[];    // x, y, z of point 0, 1, ...
   __shared__ int2 s_key[2][kMaxCands];  // a step's candidates (bits, index)
   __shared__ uint64_t s_bar[2];         // kCluster: a step's arrivals
@@ -208,23 +210,27 @@ __global__ void __launch_bounds__(P <= 6 ? 1024 : 512)
   if (writer) o[0] = 0;
 
   for (int j = 1; j < npoint; ++j) {
-    float bv[P];
-    int bk[P];
+    // the thread's first maximum: a scan of each of G runs of slots, then
+    // a tree over the runs (a chain of P / G + 2 compares, not P); a later
+    // slot or run wins only if strictly larger
+    float bv[kRuns];
+    int bk[kRuns];
 #pragma unroll
     for (int k = 0; k < P; ++k) {
       md[k] = fminf(md[k], sph3d::sum_sq3(x[k] - xo, y[k] - yo, z[k] - zo));
-      bv[k] = md[k];
-      bk[k] = k;
+      const int g = k / kRun;
+      if (k % kRun == 0 || md[k] > bv[g]) {
+        bv[g] = md[k];
+        bk[g] = k;
+      }
     }
-    // the thread's first maximum by a tree over its slots (depth log2 P,
-    // not P): the upper half of a pair wins only if strictly larger
 #pragma unroll
-    for (int s = 1; s < P; s *= 2) {
+    for (int s = 1; s < kRuns; s *= 2) {
 #pragma unroll
-      for (int k = 0; k + s < P; k += 2 * s) {
-        if (bv[k + s] > bv[k]) {
-          bv[k] = bv[k + s];
-          bk[k] = bk[k + s];
+      for (int g = 0; g + s < kRuns; g += 2 * s) {
+        if (bv[g + s] > bv[g]) {
+          bv[g] = bv[g + s];
+          bk[g] = bk[g + s];
         }
       }
     }

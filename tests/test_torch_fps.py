@@ -40,9 +40,10 @@ def h100_active(plan: FpsPlan) -> int:
 def kernel_model(npoint: int, pts: np.ndarray, plan: FpsPlan) -> np.ndarray:
     """FPS as ``csrc/fps.cu`` computes it, in numpy: slot (r, k, t) of CTA
     r, thread t holds point r * T * P + k * T + t (padded: minimum -1); a
-    step updates every slot, each thread takes its first maximal slot by
-    the kernel's tree (the upper slot of a pair wins only if strictly
-    larger), each warp takes the largest value bits (as int32) and the
+    step updates every slot, each thread takes its first maximal slot as
+    the kernel does (a scan of each of up to 4 runs of slots, then a tree
+    over the runs; a later slot or run wins only if strictly larger), each
+    warp takes the largest value bits (as int32) and the
     lowest index among the lanes that hold them, writes its candidate into
     parity slot r * warps + w, and the cloud's winner is reduced from the
     slots the same way; its coordinates are read from the cloud."""
@@ -67,16 +68,23 @@ def kernel_model(npoint: int, pts: np.ndarray, plan: FpsPlan) -> np.ndarray:
         dist = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
             + d[..., 2] * d[..., 2]
         md = np.fmin(md, dist)
-        bv, bk = md.copy(), np.broadcast_to(k, md.shape).copy()
+        run = -(-p // 4)                    # the runs' scans, then a tree
+        bv = [md[:, :, lo] for lo in range(0, p, run)]
+        bk = [np.full(bv[0].shape, lo) for lo in range(0, p, run)]
+        for kk in range(p):
+            g = kk // run
+            take = md[:, :, kk] > bv[g]
+            bv[g] = np.where(take, md[:, :, kk], bv[g])
+            bk[g] = np.where(take, kk, bk[g])
         s = 1
-        while s < p:                                    # the slots' tree
-            for lo in range(0, p - s, 2 * s):
-                take = bv[:, :, lo + s] > bv[:, :, lo]
-                bv[:, :, lo] = np.where(take, bv[:, :, lo + s], bv[:, :, lo])
-                bk[:, :, lo] = np.where(take, bk[:, :, lo + s], bk[:, :, lo])
+        while s < len(bv):
+            for g in range(0, len(bv) - s, 2 * s):
+                take = bv[g + s] > bv[g]
+                bv[g] = np.where(take, bv[g + s], bv[g])
+                bk[g] = np.where(take, bk[g + s], bk[g])
             s *= 2
-        bi = rank[:, 0] * t * p + bk[:, :, 0] * t + th[:, 0]   # (B, C, T)
-        bits = bv[:, :, 0].view(np.int32).reshape(b, c, nw, 32)
+        bi = rank[:, 0] * t * p + bk[0] * t + th[:, 0]         # (B, C, T)
+        bits = bv[0].view(np.int32).reshape(b, c, nw, 32)
         bi = bi.reshape(b, c, nw, 32)
         wv = bits.max(-1)
         wi = np.where(bits == wv[..., None], bi, INT_MAX).min(-1)
