@@ -705,7 +705,6 @@ class Results:
         self.device = collections.defaultdict(lambda: [0.0, 0.0, 0])
         self.device_queue = []
         self.calls = collections.Counter()
-        self.last_ms = 0.0             # the kernel time of the last add()
         # the bound's summed time, split by which side binds each call
         self.bound_ms = collections.defaultdict(
             lambda: {"bytes": 0.0, "operations": 0.0})
@@ -792,7 +791,6 @@ class Results:
                   for g, r in zip(got, ref) if g is not None)
         self.err[name] = max(self.err[name], err)
         self.ms[name] += ms
-        self.last_ms = ms
         self.plain_ms[name] += plain_ms
         lib = ""
         if library_ms is not None:
@@ -848,8 +846,8 @@ def replay(calls: list, res: Results, expect: dict[str, int],
             kern, plain, check = table[name]
             reps = 3 if name == "fps" else REPS
             lib = library_call(name, args, kw)
-            res.add(name, what, kern(*args, **kw), plain(*args, **kw),
-                    median_ms(lambda: kern(*args, **kw), reps),
+            ms = median_ms(lambda: kern(*args, **kw), reps)
+            res.add(name, what, kern(*args, **kw), plain(*args, **kw), ms,
                     median_ms(lambda: plain(*args, **kw),
                               min(reps, plain_reps)), check,
                     work(name, args, kw),
@@ -859,9 +857,8 @@ def replay(calls: list, res: Results, expect: dict[str, int],
                                lib, work(name, args, kw))
             if name == "fps":
                 steps = max(args[0] - 1, 1)
-                print(f"  {'':14s} {what:30s} "
-                      f"{res.last_ms * 1e3 / steps:.3f} us a greedy step "
-                      f"(span)", flush=True)
+                print(f"  {'':14s} {what:30s} {ms * 1e3 / steps:.3f} us a "
+                      f"greedy step (span)", flush=True)
                 res.add_device(name, what, functools.partial(kern, *args),
                                None, work(name, args, kw), steps)
 
@@ -1599,8 +1596,8 @@ def lattice_cloud(batch: int, side: int, rng) -> np.ndarray:
 
 
 def fps_operands(rng) -> list:
-    """K1's adversarial operands: (what, npoint, database as numpy, plan
-    or None for the default plan)."""
+    """K1's adversarial operands: (what, npoint, database as numpy or
+    None for the previous case's, plan or None for the default plan)."""
     from sph3d_gcn_torch.ops import sample as S
 
     rand = rng.random((2, 2000, 3), dtype=np.float32)

@@ -13,40 +13,47 @@
 // What bounds it on the H100: the chain, not bytes or FLOPs. The npoint-1
 // greedy steps are sequential, and each ends in an argmax over the whole
 // cloud that the next step needs. A step costs the distance update of the
-// points one SM holds (issue-bound: about 15 instructions a point over an
-// SM's 4 schedulers) plus the latency of the reduction and of the barrier
-// that publishes the winner. The previous kernel (one 1024-thread block a
-// cloud, the cloud in shared memory) paid 4 shared-memory accesses a point
-// through one SM and two block barriers a step: about 1.4 us a step.
+// points one SM holds (issue-bound: about 12 instructions a point over an
+// SM's 4 schedulers) plus the latency of the reductions and of the
+// exchange that publishes the winner: about 0.2 us a step in one block of
+// 4 warps, 0.28-0.35 us in a cluster (NVIDIA H100 80GB HBM3, 700 W;
+// chip_smoke.py --fps-plans). The kernel before this one (one 1024-thread
+// block a cloud, the cloud in shared memory) paid 4 shared-memory accesses
+// a point through one SM and two block barriers: about 1.4 us a step.
 //
 // What the design does about it:
 //  - The cloud lives in registers: a thread holds P points (x, y, z and
 //    running minimum), P a template parameter, so the arrays unroll and a
 //    step's update touches no memory. Padded slots hold -1 as their
-//    minimum and never win.
+//    minimum and never win. A thread scans its slots in up to 4 runs and
+//    takes the runs' maximum by a tree, a chain of P / 4 + 2 compares.
 //  - The argmax is exact in any order: non-negative floats order as their
 //    bits do as signed integers (-1 below them all), so a warp takes
 //    __reduce_max_sync of the bits, then __reduce_min_sync of the index
-//    among the lanes that hold the maximum. Every index is distinct (a
-//    padded slot's too), so one lane holds each winner. A candidate
-//    carries the winner's coordinates: nothing re-reads device memory.
+//    among the lanes that hold the maximum. Only (value bits, index) keys
+//    travel: every CTA keeps the cloud's coordinates in shared memory too
+//    and reads the winner's from there.
 //  - Three modes, chosen on the host from (B, N) alone
-//    (ops/sample.py::fps_plan). One warp: no barrier, the winner's
-//    coordinates come by shuffle. One block: each warp's winner goes into
-//    a slot of a parity-indexed shared array, one __syncthreads, then
-//    every warp reduces the slots itself. A cluster of C CTAs: each warp's
-//    winner goes straight into its slot in every CTA of the cluster
-//    through distributed shared memory (st.shared::cluster), then one
-//    barrier.cluster arrive.release / wait.acquire, and every warp of
-//    every CTA reduces the same C x warps candidates (at most 32, one a
-//    lane) to the same winner. No CTA-level reduction and no block
-//    barrier: one cluster barrier a step. Slots alternate with the step's
-//    parity, so a fast warp's next write never meets a slow warp's read.
-//  - A cluster CTA asks for more than half an SM's shared memory (unused)
-//    so that each SM holds one CTA: a cluster spreads its cloud over C
-//    SMs, and B clouds over up to 8B of the 132. C is the largest size
-//    whose B clusters run in one wave (cudaOccupancyMaxActiveClusters,
-//    queried once a shape): a second wave would double the time.
+//    (ops/sample.py::fps_plan). One warp: no exchange at all. One block:
+//    each warp's key goes into a slot of a parity-indexed shared array,
+//    one __syncthreads, then every warp reduces the slots itself (no
+//    second barrier). A cluster of C CTAs: lane r of each warp stores the
+//    warp's key straight into its slot in CTA r (st.async into distributed
+//    shared memory), which counts the bytes on CTA r's mbarrier for that
+//    parity; each CTA waits on its own mbarrier only, then every warp
+//    reduces the same C x warps keys (at most 32, one a lane) to the same
+//    winner. Slots and mbarriers alternate with the step's parity: a CTA
+//    writes step j + 2's keys only after every CTA has sent step j + 1's,
+//    which each warp does after reading step j's. A cluster barrier a step
+//    (barrier.cluster arrive.release / wait.acquire) in the mbarriers'
+//    place cost 0.67-0.94 us a step against their 0.40-0.48 (one point a
+//    thread, same call): every thread of the cluster takes part in it.
+//  - A cluster CTA asks for more than half an SM's shared memory, so that
+//    each SM holds one CTA: a cluster spreads its cloud over C SMs. C is
+//    the largest size whose B clusters run in one wave
+//    (cudaOccupancyMaxActiveClusters, queried once a plan): an H100 runs
+//    15 clusters of 8 or 7 at once, 17 of 6, so 16 clouds take C = 6 (96
+//    SMs); 2 waves of 8-CTA clusters took 1.9x the time of 6-CTA ones.
 //
 // Numerics: the distance is written with __fmul_rn/__fadd_rn (no FMA
 // contraction), so the indices equal the plain version's bit for bit.
@@ -68,9 +75,9 @@ constexpr int kMaxCluster = 8;     // the portable cluster size
 constexpr int kMaxPoints = 16384;  // ops/sample.py::FPS_MAX_POINTS
 constexpr int kMaxDevices = 16;    // devices whose attribute is kept
 constexpr int kCopyBatch = 16;     // words of the cloud a thread loads at once
-// dynamic shared memory: the cloud's x, y and z (12 bytes a point), and at
-// least more than half an SM's 228 KB for a cluster CTA, so that an SM
-// holds one CTA of a cluster
+// dynamic shared memory: the cloud's x, y and z (12 bytes a point); for a
+// cluster CTA at least more than half an SM's 228 KB, so that an SM holds
+// one CTA of a cluster
 constexpr int kCloudBytes = 12;
 constexpr int kSoloSmem = 116 * 1024;
 constexpr int kMaxSmem = kCloudBytes * kMaxPoints;

@@ -5,7 +5,9 @@ Farthest-point sampling, reference semantics: seed at index 0,
 min-distance buffer initialised to 1e38, running minimum of SQUARED
 distances ``(dx*dx + dy*dy) + dz*dz``, argmax with ties going to the
 lowest index. A CUDA tensor goes to the kernel ``csrc/fps.cu``, a CPU
-tensor to :func:`farthest_point_sample_plain`.
+tensor to :func:`farthest_point_sample_plain`. The kernel holds each cloud
+in registers: one warp, one block or a thread block cluster of up to 8
+CTAs a cloud, as :func:`fps_plan` chooses from the shapes.
 
 Inverse-density and random sampling draw noise (plain PyTorch, as the
 JAX package leaves them to XLA). Each takes an explicit
