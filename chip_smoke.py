@@ -214,10 +214,7 @@ published width with seeded weights:
 
 Each replayed K1 call prints its launch plan (cluster size, threads,
 points a thread) and its time per greedy step, of the span and of the
-device alone. ``python3 chip_smoke.py --fps-plans`` instead times every
-launch plan of K1 on each served shape (each checked bitwise against the
-plain version) and the per-step latency of each mode's chain, then
-exits.
+device alone.
 
 Every kernel's line in the per-kernel JSON carries its summed times,
 errors and launches from one path (``path``: the S3DIS serving forward
@@ -1617,8 +1614,9 @@ def fps_operands(rng) -> list:
         ("B=64, 8-CTA clusters in waves", 2500, None,
          S.FpsPlan(8, 128, 10)),
     ]
-    # every instance of the kernel: each points-a-thread size in each
-    # mode, on a cloud that leaves some of the last slots padded
+    # every instance of the kernel: each points-a-thread size in a block
+    # of one warp, of 4 and in a cluster, on a cloud that leaves some of
+    # the last slots padded
     small = lattice_cloud(3, 12, rng)[:, :1500]
     for ppt in S.PPT_SIZES:
         for plan in (S.FpsPlan(1, 32, ppt), S.FpsPlan(1, 128, ppt),
@@ -1635,6 +1633,12 @@ def fps_stress(dev: torch.device) -> None:
     place, a strided one converted first."""
     from sph3d_gcn_torch.ops import sample as S
 
+    # the counts behind fps_plan's choice of cluster size
+    sizes = [S.fit_plan(N, c, S.MAX_CANDIDATES // c, S.PPT_SIZES[-1])
+             for c in range(2, S.MAX_CLUSTER + 1)]
+    print("clusters of K1 the card runs at once (one CTA an SM): "
+          + ", ".join(f"{p}: {S.max_active_clusters(p)}" for p in sizes),
+          flush=True)
     print("FPS (K1) on adversarial operands, kernel vs plain version "
           "bitwise:", flush=True)
     rng = np.random.default_rng(13)
@@ -1655,105 +1659,6 @@ def fps_stress(dev: torch.device) -> None:
                        S.farthest_point_sample_plain(600, strided)):
         raise AssertionError("K1 on a strided database: kernel != plain")
     print("  strided database (converted): equal", flush=True)
-
-
-def fps_plan_candidates(n: int) -> list:
-    """Launch plans of K1 that cover ``n`` points: per cluster size (1 for
-    the warp and block modes) and count of warps a CTA, the fewest points
-    a thread, then the fewest CTAs."""
-    from sph3d_gcn_torch.ops import sample as S
-
-    plans = []
-    for cluster in range(1, S.MAX_CLUSTER + 1):
-        for warps in (1, 2, 4, 8, 12, 16, 24, 32):
-            if cluster > 1 and cluster * warps > S.MAX_CANDIDATES:
-                continue
-            for ppt in S.PPT_SIZES:
-                if 32 * warps > S.max_threads(ppt):
-                    break
-                if cluster * 32 * warps * ppt >= n:
-                    plan = S.FpsPlan(-(-n // (32 * warps * ppt)),
-                                     32 * warps, ppt)
-                    if plan not in plans:
-                        plans.append(plan)
-                    break
-    return plans
-
-
-def events_ms(fn, calls: int = 10, reps: int = 5) -> float:
-    """Median over ``reps`` of the CUDA-event time of ``calls`` calls of
-    ``fn`` back to back, a call (the queue stays full, so a short call's
-    time is the device's, not the launch's)."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(calls):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / calls)
-    return float(np.median(times))
-
-
-def fps_plan_sweep(dev: torch.device) -> None:
-    """``--fps-plans``: every launch plan of K1 on each served shape (B=16:
-    ModelNet 10000 -> 2500 -> 625 -> 156, S3DIS 8192 -> 2048 -> 768 -> 384
-    -> 128; and B=64 at N=10000), each checked bitwise against the plain
-    version and timed (:func:`events_ms`), beside the default plan; the
-    clusters the device runs at once per size; and the latency of each
-    mode's chain: a step at one point a thread."""
-    from sph3d_gcn_torch.ops import sample as S
-
-    print("clusters the device runs at once (one CTA an SM):", flush=True)
-    for cluster in range(2, S.MAX_CLUSTER + 1):
-        plan = S.fit_plan(10000, cluster, S.MAX_CANDIDATES // cluster,
-                          S.PPT_SIZES[-1])
-        print(f"  {plan}: {S.max_active_clusters(plan)}", flush=True)
-    gen = torch.Generator(device=dev).manual_seed(14)
-    shapes = [(16, 10000, 2500), (16, 2500, 625), (16, 625, 156),
-              (16, 8192, 2048), (16, 2048, 768), (16, 768, 384),
-              (16, 384, 128), (64, 10000, 2500)]
-    for b, n, npoint in shapes:
-        t = torch.rand((b, n, 3), generator=gen, device=dev)
-        ref = S.farthest_point_sample_plain(npoint, t)
-        default = S.fps_plan(b, n, S.max_active_clusters)
-        print(f"B={b} N={n} -> {npoint} (default {default}):", flush=True)
-        rows = []
-        for plan in fps_plan_candidates(n) + [default]:
-            if any(plan == p for _, p in rows):
-                continue
-            if not torch.equal(S.farthest_point_sample_kernel(npoint, t,
-                                                               plan), ref):
-                raise AssertionError(f"K1 {plan} B={b} N={n}: kernel != "
-                                     f"plain")
-            ms = events_ms(functools.partial(
-                S.farthest_point_sample_kernel, npoint, t, plan))
-            rows.append((ms, plan))
-        for ms, plan in sorted(rows, key=lambda r: r[0]):
-            mark = "  <- default" if plan == default else ""
-            print(f"  {str(plan):18s} {plan.mode:7s} {ms:8.4f} ms  "
-                  f"{ms * 1e3 / (npoint - 1):.3f} us a step{mark}",
-                  flush=True)
-    # 15 clouds: 8-CTA clusters run in one wave (15 at once on an H100)
-    print("chain latency: a step at few points a thread (B=15, npoint = "
-          "N):", flush=True)
-    for plan in (S.FpsPlan(1, 32, 4), S.FpsPlan(1, 128, 1),
-                 S.FpsPlan(1, 1024, 1), S.FpsPlan(2, 128, 1),
-                 S.FpsPlan(2, 512, 1), S.FpsPlan(4, 128, 1),
-                 S.FpsPlan(4, 256, 1), S.FpsPlan(6, 128, 1),
-                 S.FpsPlan(8, 128, 1)):
-        n = plan.cluster * plan.threads * plan.ppt
-        t = torch.rand((15, n, 3), generator=gen, device=dev)
-        got = S.farthest_point_sample_kernel(n, t, plan)
-        if not torch.equal(got, S.farthest_point_sample_plain(n, t)):
-            raise AssertionError(f"K1 {plan} npoint = N: kernel != plain")
-        ms = events_ms(functools.partial(S.farthest_point_sample_kernel,
-                                         n, t, plan))
-        print(f"  {str(plan):18s} {plan.mode:7s} N={n:5d} {ms:8.4f} ms  "
-              f"{ms * 1e3 / (n - 1):.3f} us a step", flush=True)
 
 
 def windowed_phases(dev: torch.device, batches: list[np.ndarray],
@@ -2550,9 +2455,6 @@ def main() -> None:
     for line in (lib.parent / "ptxas.log").read_text().splitlines():
         if any(k in line for k in ("Compiling entry", "spill", "registers")):
             print("  ptxas:", line.strip(), flush=True)
-    if "--fps-plans" in sys.argv[1:]:
-        fps_plan_sweep(dev)
-        return
 
     cfg_plain = modelnet_config(fast=True, dense=True)
     cfg = modelnet_config(fast=True, dense=True, family="hard")

@@ -17,9 +17,9 @@
 // SM's 4 schedulers) plus the latency of the reductions and of the
 // exchange that publishes the winner: about 0.2 us a step in one block of
 // 4 warps, 0.28-0.35 us in a cluster (NVIDIA H100 80GB HBM3, 700 W;
-// chip_smoke.py --fps-plans). The kernel before this one (one 1024-thread
-// block a cloud, the cloud in shared memory) paid 4 shared-memory accesses
-// a point through one SM and two block barriers: about 1.4 us a step.
+// PERF.md). The kernel before this one (one 1024-thread block a cloud,
+// the cloud in shared memory) paid 4 shared-memory accesses a point
+// through one SM and two block barriers: about 1.4 us a step.
 //
 // What the design does about it:
 //  - The cloud lives in registers: a thread holds P points (x, y, z and
@@ -33,21 +33,23 @@
 //    among the lanes that hold the maximum. Only (value bits, index) keys
 //    travel: every CTA keeps the cloud's coordinates in shared memory too
 //    and reads the winner's from there.
-//  - Three modes, chosen on the host from (B, N) alone
-//    (ops/sample.py::fps_plan). One warp: no exchange at all. One block:
-//    each warp's key goes into a slot of a parity-indexed shared array,
-//    one __syncthreads, then every warp reduces the slots itself (no
-//    second barrier). A cluster of C CTAs: lane r of each warp stores the
-//    warp's key straight into its slot in CTA r (st.async into distributed
-//    shared memory), which counts the bytes on CTA r's mbarrier for that
-//    parity; each CTA waits on its own mbarrier only, then every warp
-//    reduces the same C x warps keys (at most 32, one a lane) to the same
-//    winner. Slots and mbarriers alternate with the step's parity: a CTA
-//    writes step j + 2's keys only after every CTA has sent step j + 1's,
-//    which each warp does after reading step j's. A cluster barrier a step
-//    (barrier.cluster arrive.release / wait.acquire) in the mbarriers'
-//    place cost 0.67-0.94 us a step against their 0.40-0.48 (one point a
-//    thread, same call): every thread of the cluster takes part in it.
+//  - Two modes, chosen on the host from (B, N) alone
+//    (ops/sample.py::fps_plan). One block: each warp's key goes into a
+//    slot of a parity-indexed shared array, one __syncthreads, then every
+//    warp reduces the slots itself (no second barrier). A cluster of C
+//    CTAs: lane r of each warp stores the warp's key straight into its
+//    slot in CTA r (st.async into distributed shared memory), which counts
+//    the bytes on CTA r's mbarrier for that parity; each CTA waits on its
+//    own mbarrier only, then every warp reduces the same C x warps keys
+//    (at most 32, one a lane) to the same winner. Slots and mbarriers
+//    alternate with the step's parity: a CTA writes step j + 2's keys
+//    only after every CTA has sent step j + 1's, which each warp does
+//    after reading step j's. A cluster barrier a step (barrier.cluster
+//    arrive.release / wait.acquire) in the mbarriers' place cost 0.67-0.94
+//    us a step against their 0.40-0.48 (one point a thread, same call):
+//    every thread of the cluster takes part in it. A lone warp would need
+//    no exchange, but no configuration samples a cloud of fewer than 384
+//    points, so a small cloud takes a block too.
 //  - A cluster CTA asks for more than half an SM's shared memory, so that
 //    each SM holds one CTA: a cluster spreads its cloud over C SMs. C is
 //    the largest size whose B clusters run in one wave
@@ -66,13 +68,13 @@ namespace {
 
 using sph3d::kFullMask;
 
-// the points a thread may hold; ops/sample.py::PPT_SIZES mirrors the list
+// the points a thread may hold: the instances built. The plan
+// (ops/sample.py::fps_plan) chooses among them, and a launch with another
+// count fails.
 #define SPH3D_FPS_PPT(X) \
   X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(10) X(12) X(14) X(16)
 
 constexpr int kMaxCands = 32;      // candidates a step reduces: one a lane
-constexpr int kMaxCluster = 8;     // the portable cluster size
-constexpr int kMaxPoints = 16384;  // ops/sample.py::FPS_MAX_POINTS
 constexpr int kMaxDevices = 16;    // devices whose attribute is kept
 constexpr int kCopyBatch = 16;     // words of the cloud a thread loads at once
 // dynamic shared memory: the cloud's x, y and z (12 bytes a point); for a
@@ -80,16 +82,6 @@ constexpr int kCopyBatch = 16;     // words of the cloud a thread loads at once
 // one CTA of a cluster
 constexpr int kCloudBytes = 12;
 constexpr int kSoloSmem = 116 * 1024;
-constexpr int kMaxSmem = kCloudBytes * kMaxPoints;
-
-enum Mode { kWarp, kBlock, kCluster };
-
-// threads a block may have at P points a thread: up to 6 points a thread
-// fit 64 registers (1024 threads), up to 16 fit 128 (512 threads); the
-// kernel's launch bounds say the same
-constexpr int max_threads(int p) {
-  return p <= 6 ? 1024 : 512;
-}
 
 __device__ __forceinline__ int cluster_rank() {
   unsigned r;
@@ -152,8 +144,10 @@ __device__ __forceinline__ void st_async(uint32_t addr, int2 v,
 }
 
 // Thread t of CTA `rank` holds points rank * T * P + k * T + t, k < P.
-// cluster: the CTAs a cloud spreads over (1 outside kCluster).
-template <int P, Mode M>
+// kCluster: the cloud spreads over `cluster` CTAs of a cluster, else one
+// block holds it. Up to 6 points a thread fit 64 registers (1024 threads
+// a block), up to 16 fit 128 (512 threads): ops/sample.py::max_threads.
+template <int P, bool kCluster>
 __global__ void __launch_bounds__(P <= 6 ? 1024 : 512, 1)
     fps_kernel(const float* __restrict__ xyz, long long batch_stride,
                long long row_stride, long long* __restrict__ out, int n,
@@ -169,7 +163,7 @@ __global__ void __launch_bounds__(P <= 6 ? 1024 : 512, 1)
   const int nw = blockDim.x >> 5;
   int rank = 0;
   int cloud = blockIdx.x;
-  if constexpr (M == kCluster) {
+  if constexpr (kCluster) {
     rank = cluster_rank();
     cloud = blockIdx.x / cluster;
   }
@@ -192,15 +186,15 @@ __global__ void __launch_bounds__(P <= 6 ? 1024 : 512, 1)
     }
   }
   const int slot = rank * nw + (t >> 5);
-  const int n_cand = (M == kCluster ? cluster : 1) * nw;
-  if (M == kCluster && t == 0) {
+  const int n_cand = (kCluster ? cluster : 1) * nw;
+  if (kCluster && t == 0) {
     mbar_init(&s_bar[0], 1);
     mbar_init(&s_bar[1], 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   __syncthreads();
   // every CTA of the cluster runs before any writes into its shared memory
-  if constexpr (M == kCluster) cluster_barrier();
+  if constexpr (kCluster) cluster_barrier();
 
   const int first = rank * static_cast<int>(blockDim.x) * P + t;
   float x[P], y[P], z[P], md[P];
@@ -245,47 +239,55 @@ __global__ void __launch_bounds__(P <= 6 ? 1024 : 512, 1)
     const int bits = __float_as_int(bv[0]);
     const int wv = __reduce_max_sync(kFullMask, bits);
     int win = __reduce_min_sync(kFullMask, bits == wv ? bi : INT_MAX);
-    if constexpr (M != kWarp) {
-      const int par = j & 1;
-      const int2 key = make_int2(wv, win);
-      if constexpr (M == kBlock) {
-        if (lane == 0) s_key[par][slot] = key;
-        __syncthreads();
-      } else {
-        // lane r sends the warp's candidate to CTA r of the cluster
-        if (t == 0) mbar_expect_tx(&s_bar[par], n_cand * sizeof(int2));
-        if (lane < cluster) {
-          st_async(at_rank(&s_key[par][slot], lane), key,
-                   at_rank(&s_bar[par], lane));
-        }
-        // the k-th use of a parity's barrier waits for its phase k
-        mbar_wait(&s_bar[par], ((j - 1) >> 1) & 1);
+    const int par = j & 1;
+    const int2 key = make_int2(wv, win);
+    if constexpr (!kCluster) {
+      if (lane == 0) s_key[par][slot] = key;
+      __syncthreads();
+    } else {
+      // lane r sends the warp's candidate to CTA r of the cluster
+      if (t == 0) mbar_expect_tx(&s_bar[par], n_cand * sizeof(int2));
+      if (lane < cluster) {
+        st_async(at_rank(&s_key[par][slot], lane), key,
+                 at_rank(&s_bar[par], lane));
       }
-      const int2 c =
-          lane < n_cand ? s_key[par][lane] : make_int2(INT_MIN, INT_MAX);
-      const int cv = __reduce_max_sync(kFullMask, c.x);
-      win = __reduce_min_sync(kFullMask, c.x == cv ? c.y : INT_MAX);
+      // the k-th use of a parity's barrier waits for its phase k
+      mbar_wait(&s_bar[par], ((j - 1) >> 1) & 1);
     }
+    const int2 c =
+        lane < n_cand ? s_key[par][lane] : make_int2(INT_MIN, INT_MAX);
+    const int cv = __reduce_max_sync(kFullMask, c.x);
+    win = __reduce_min_sync(kFullMask, c.x == cv ? c.y : INT_MAX);
     xo = s_cloud[3 * win];
     yo = s_cloud[3 * win + 1];
     zo = s_cloud[3 * win + 2];
     if (writer) o[j] = win;
   }
   // no CTA leaves while another may still write into its shared memory
-  if constexpr (M == kCluster) cluster_barrier();
+  if constexpr (kCluster) cluster_barrier();
 }
 
-// The shared memory an instance may use, set once a device.
-template <int P, Mode M>
+// The shared memory an instance may use: all that the device lends one
+// block, less the kernel's static arrays; set once a device. A cloud
+// beyond it fails to launch.
+template <int P, bool kCluster>
 cudaError_t allow_smem() {
   static bool allowed[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev < kMaxDevices && allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(fps_kernel<P, M>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kMaxSmem);
+  int optin = 0;
+  cudaFuncAttributes fa;
+  err = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) {
+    err = cudaFuncGetAttributes(&fa, fps_kernel<P, kCluster>);
+  }
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(
+      fps_kernel<P, kCluster>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      optin - static_cast<int>(fa.sharedSizeBytes));
   if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
   return err;
 }
@@ -315,13 +317,13 @@ cudaLaunchConfig_t cluster_config(int grid, int threads, int cluster,
   return cfg;
 }
 
-template <int P, Mode M>
+template <int P, bool kCluster>
 cudaError_t launch(const Args& a) {
-  cudaError_t err = allow_smem<P, M>();
+  cudaError_t err = allow_smem<P, kCluster>();
   if (err != cudaSuccess) return err;
   const int cloud = kCloudBytes * a.n;
-  if constexpr (M != kCluster) {
-    fps_kernel<P, M><<<a.batch, a.threads, cloud, a.stream>>>(
+  if constexpr (!kCluster) {
+    fps_kernel<P, kCluster><<<a.batch, a.threads, cloud, a.stream>>>(
         a.xyz, a.batch_stride, a.row_stride, a.out, a.n, a.npoint, 1);
   } else {
     cudaLaunchAttribute attr;
@@ -336,12 +338,12 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-template <Mode M>
+template <bool kCluster>
 cudaError_t launch_mode(int ppt, const Args& a) {
   switch (ppt) {
 #define SPH3D_FPS_CASE(p) \
   case p:                 \
-    return launch<p, M>(a);
+    return launch<p, kCluster>(a);
     SPH3D_FPS_PPT(SPH3D_FPS_CASE)
 #undef SPH3D_FPS_CASE
   }
@@ -352,27 +354,31 @@ cudaError_t launch_mode(int ppt, const Args& a) {
 // not depend on N.
 template <int P>
 cudaError_t max_active(int cluster, int threads, int* count) {
-  cudaError_t err = allow_smem<P, kCluster>();
+  cudaError_t err = allow_smem<P, true>();
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       cluster_config(cluster, threads, cluster, kSoloSmem, nullptr, &attr);
   return cudaOccupancyMaxActiveClusters(
-      count, reinterpret_cast<const void*>(fps_kernel<P, kCluster>), &cfg);
+      count, reinterpret_cast<const void*>(fps_kernel<P, true>), &cfg);
 }
 
+// What the kernel itself needs of a plan: whole warps, a candidate slot a
+// warp of the cluster, every point held. A points-a-thread count that was
+// not built, more threads than an instance's launch bounds, a cluster
+// beyond the portable 8 CTAs or a cloud beyond the shared memory fail at
+// launch.
 bool valid_plan(int n, int cluster, int threads, int ppt) {
-  return n <= kMaxPoints && cluster >= 1 && cluster <= kMaxCluster &&
-         threads >= 32 && threads % 32 == 0 && threads <= max_threads(ppt) &&
-         (cluster == 1 || cluster * (threads / 32) <= kMaxCands) &&
+  return cluster >= 1 && threads >= 32 && threads % 32 == 0 &&
+         cluster * (threads / 32) <= kMaxCands &&
          static_cast<long long>(cluster) * threads * ppt >= n;
 }
 
 }  // namespace
 
 // xyz: (B, N, C >= 3) f32 with the given strides (elements); out: (B,
-// npoint) int64. The plan: `cluster` CTAs a cloud (1: one block, a single
-// warp when threads == 32), `threads` a CTA, `ppt` points a thread.
+// npoint) int64. The plan: `cluster` CTAs a cloud (1: one block),
+// `threads` a CTA, `ppt` points a thread.
 extern "C" int sph3d_fps_launch(const float* xyz, long long batch_stride,
                                 long long row_stride, long long* out,
                                 int batch, int n, int npoint, int cluster,
@@ -381,9 +387,8 @@ extern "C" int sph3d_fps_launch(const float* xyz, long long batch_stride,
   const Args a{xyz,   batch_stride, row_stride, out,     batch,
                n,     npoint,       cluster,    threads,
                static_cast<cudaStream_t>(stream)};
-  if (cluster > 1) return launch_mode<kCluster>(ppt, a);
-  if (threads == 32) return launch_mode<kWarp>(ppt, a);
-  return launch_mode<kBlock>(ppt, a);
+  if (cluster > 1) return launch_mode<true>(ppt, a);
+  return launch_mode<false>(ppt, a);
 }
 
 // How many clusters of `cluster` CTAs of `threads` threads (one CTA an SM)

@@ -6,8 +6,8 @@ min-distance buffer initialised to 1e38, running minimum of SQUARED
 distances ``(dx*dx + dy*dy) + dz*dz``, argmax with ties going to the
 lowest index. A CUDA tensor goes to the kernel ``csrc/fps.cu``, a CPU
 tensor to :func:`farthest_point_sample_plain`. The kernel holds each cloud
-in registers: one warp, one block or a thread block cluster of up to 8
-CTAs a cloud, as :func:`fps_plan` chooses from the shapes.
+in registers: one block or a thread block cluster of up to 8 CTAs a
+cloud, as :func:`fps_plan` chooses from the shapes.
 
 Inverse-density and random sampling draw noise (plain PyTorch, as the
 JAX package leaves them to XLA). Each takes an explicit
@@ -32,52 +32,47 @@ FPS_KERNEL = _build.register(
      _build.PTR],
 )
 
-# points a thread may hold in registers (csrc/fps.cu, SPH3D_FPS_PPT)
+# points a thread may hold in registers: the kernel instances that
+# csrc/fps.cu builds (SPH3D_FPS_PPT); a plan of another count fails to
+# launch
 PPT_SIZES = (1, 2, 3, 4, 5, 6, 8, 10, 12, 14, 16)
 MAX_CLUSTER = 8          # CTAs a cloud spreads over: the portable size
 MAX_CANDIDATES = 32      # warp winners a step reduces: one a lane
-# the largest cloud: 8 CTAs of 4 warps, 16 points a thread
+# the largest cloud: 8 CTAs of 4 warps, 16 points a thread (196 KB of
+# shared memory a CTA for its copy of the cloud)
 FPS_MAX_POINTS = MAX_CLUSTER * 4 * 32 * PPT_SIZES[-1]
-WARP_MAX_POINTS = 128    # a cloud this small takes one warp
-BLOCK_MAX_POINTS = 3072  # ... this small one block, a larger one a cluster
+BLOCK_MAX_POINTS = 3072  # a cloud this small takes one block
 BLOCK_PPT = 6            # a block plan's points a thread, at most
 
 
 def max_threads(ppt: int) -> int:
-    """Threads a CTA may have at ``ppt`` points a thread (the kernel's
-    launch bounds: 64 registers a thread up to 6 points, 128 above)."""
+    """Threads a CTA may have at ``ppt`` points a thread: the kernel's
+    launch bounds (64 registers a thread up to 6 points, 128 above), so a
+    plan with more threads fails to launch."""
     return 1024 if ppt <= 6 else 512
 
 
 @dataclasses.dataclass(frozen=True)
 class FpsPlan:
-    """How K1 lays out a cloud: ``cluster`` CTAs (1: one block, one warp
-    when ``threads`` is 32), ``threads`` a CTA, ``ppt`` points a thread.
-    Thread t of CTA r holds points ``r * threads * ppt + k * threads + t``
-    for k < ppt."""
+    """How K1 lays out a cloud: ``cluster`` CTAs (1: one block),
+    ``threads`` a CTA, ``ppt`` points a thread. Thread t of CTA r holds
+    points ``r * threads * ppt + k * threads + t`` for k < ppt."""
 
     cluster: int
     threads: int
     ppt: int
 
-    @property
-    def mode(self) -> str:
-        if self.cluster > 1:
-            return "cluster"
-        return "warp" if self.threads == 32 else "block"
-
     def __str__(self) -> str:
         return f"C={self.cluster} T={self.threads} P={self.ppt}"
 
 
-def fit_plan(n: int, cluster: int, warps: int, ppt: int,
-             step: int = 4) -> FpsPlan | None:
+def fit_plan(n: int, cluster: int, warps: int, ppt: int) -> FpsPlan | None:
     """The plan of at most ``cluster`` CTAs that covers ``n`` points with
-    the fewest warps a CTA (a multiple of ``step``, at most ``warps``),
-    then the fewest points a thread (at most ``ppt``), then the fewest
-    CTAs (none without a point). Whole groups of 4 warps keep an SM's 4
-    schedulers evenly loaded."""
-    for w in range(step, warps + 1, step):
+    the fewest warps a CTA (a multiple of 4, at most ``warps``), then the
+    fewest points a thread (at most ``ppt``), then the fewest CTAs (none
+    without a point). Whole groups of 4 warps keep an SM's 4 schedulers
+    evenly loaded."""
+    for w in range(4, warps + 1, 4):
         for p in PPT_SIZES:
             if p > ppt or 32 * w > max_threads(p):
                 break
@@ -89,17 +84,14 @@ def fit_plan(n: int, cluster: int, warps: int, ppt: int,
 def fps_plan(batch: int, n: int,
              max_active: Callable[[FpsPlan], int]) -> FpsPlan:
     """K1's launch plan for ``batch`` clouds of ``n`` points, from the
-    shapes alone. A small cloud takes one warp (no barrier), a middling
-    one a block of as few warps as hold it at up to ``BLOCK_PPT`` points
-    a thread, a large one a cluster of 4-warp CTAs: the largest cluster
-    size whose ``batch`` clusters run in one wave (``max_active(plan)``:
-    clusters the device runs at once), else the one with the fewest
-    waves."""
+    shapes alone. A small cloud takes a block of as few warps as hold it
+    at up to ``BLOCK_PPT`` points a thread, a large one a cluster of
+    4-warp CTAs: the largest cluster size whose ``batch`` clusters run in
+    one wave (``max_active(plan)``: clusters the device runs at once),
+    else the one with the fewest waves."""
     if not 1 <= n <= FPS_MAX_POINTS:
         raise ValueError(f"the FPS kernel takes 1 to {FPS_MAX_POINTS} "
                          f"points a cloud, got N={n}")
-    if n <= WARP_MAX_POINTS:
-        return fit_plan(n, 1, 1, PPT_SIZES[-1], step=1)
     if n <= BLOCK_MAX_POINTS:
         return fit_plan(n, 1, 32, BLOCK_PPT)
     best, best_waves = None, None
@@ -113,11 +105,8 @@ def fps_plan(batch: int, n: int,
         if best is None or waves < best_waves:
             best, best_waves = plan, waves
     if best is None:
-        best = fit_plan(n, 1, 32, PPT_SIZES[-1])
-    if best is None:
-        raise ValueError(f"no cluster of the FPS kernel runs on this "
-                         f"device, and one block holds fewer than N={n} "
-                         f"points")
+        raise RuntimeError("no cluster of the FPS kernel runs on this "
+                           "device (an sm_90 build needs Hopper)")
     return best
 
 

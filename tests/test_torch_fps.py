@@ -2,9 +2,10 @@
 plan, a numpy model of its partition and reductions, and the kernel
 against its plain version on the card.
 
-On the CPU: :func:`fps_plan` on every served (B, N) and when clusters do
-not all fit one wave (a fake count of the clusters a device runs at once);
-the plan's invariants over many N; and a numpy model of the kernel (the
+On the CPU: :func:`fps_plan` on every served (B, N), on small clouds,
+and when clusters do not all fit one wave (a fake count of the clusters a
+device runs at once); the plan's invariants over many N; and a numpy
+model of the kernel (the
 same points per thread, warp and CTA, the same parity slots, the same
 tie-break in the kernel's order: a thread's first maximum, the warp's
 largest value bits, then the lowest index among them) equal to
@@ -14,9 +15,6 @@ tests/test_torch_fps.py -m cuda --noconftest`` (this file imports no JAX).
 """
 
 from __future__ import annotations
-
-import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -33,7 +31,7 @@ SERVED = [(10000, 2500), (2500, 625), (625, 156),             # ModelNet
 def h100_active(plan: FpsPlan) -> int:
     """Clusters of each size that an H100 80GB HBM3 runs at once, one CTA
     an SM, as the kernel's occupancy query gave them on the card
-    (``chip_smoke.py --fps-plans``)."""
+    (``chip_smoke.py`` prints them before K1's adversarial operands)."""
     return {2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}[plan.cluster]
 
 
@@ -162,6 +160,17 @@ def test_plan_of_served_shapes(n, npoint):
     assert plan == want
 
 
+@pytest.mark.parametrize("n,want", [(1, FpsPlan(1, 128, 1)),
+                                    (128, FpsPlan(1, 128, 1)),
+                                    (129, FpsPlan(1, 128, 2)),
+                                    (3072, FpsPlan(1, 512, 6)),
+                                    (3073, FpsPlan(5, 128, 5))])
+def test_plan_of_small_clouds(n, want):
+    # a cloud up to BLOCK_MAX_POINTS takes one block of whole 4-warp
+    # groups, however small; a larger one a cluster
+    assert S.fps_plan(16, n, h100_active) == want
+
+
 def test_plan_takes_a_smaller_cluster_when_waves_would_repeat():
     # 15 clusters of 8 or 7 at once: 16 clouds take 6-CTA clusters
     assert S.fps_plan(16, 10000, h100_active).cluster == 6
@@ -176,11 +185,11 @@ def test_plan_takes_a_smaller_cluster_when_waves_would_repeat():
     assert S.fps_plan(200, 10000, h100_active).cluster == 2
 
 
-def test_plan_without_clusters_falls_back_to_one_block():
+def test_plan_raises_when_no_cluster_runs():
     none = lambda plan: 0                        # noqa: E731
-    assert S.fps_plan(16, 8192, none) == FpsPlan(1, 512, 16)
-    with pytest.raises(ValueError, match="no cluster"):
-        S.fps_plan(16, 8193, none)
+    assert S.fps_plan(16, 3072, none) == FpsPlan(1, 512, 6)
+    with pytest.raises(RuntimeError, match="no cluster"):
+        S.fps_plan(16, 3073, none)
 
 
 @pytest.mark.parametrize("batch", [1, 16, 64])
@@ -202,17 +211,6 @@ def test_plan_rejects_clouds_beyond_the_cap():
     for n in (0, S.FPS_MAX_POINTS + 1):
         with pytest.raises(ValueError, match="points a cloud"):
             S.fps_plan(16, n, h100_active)
-
-
-def test_points_a_thread_match_the_kernel_source():
-    src = (Path(S.__file__).resolve().parent.parent / "csrc" / "fps.cu"
-           ).read_text()
-    macro = re.search(r"#define SPH3D_FPS_PPT\(X\)((?:.*\\\n)*.*)",
-                      src).group(1)
-    assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", macro)) \
-        == S.PPT_SIZES
-    assert "return p <= 6 ? 1024 : 512;" in src
-    assert S.max_threads(6) == 1024 and S.max_threads(8) == 512
 
 
 @pytest.fixture
