@@ -54,9 +54,10 @@ schedule, weight decay):
    filter gradient within 1e-4 of its largest magnitude (sums of up to
    ~10^6 products in another order). These times go into the JSON line.
    Each call's line shows its time beside the library call and the bound
-   (share = bound / time); each pool and conv backward's is followed by
-   its device time (the pool backward's beside ``scatter_add_``'s; the
-   conv backward's three kernels summed) in a ``torch.profiler`` trace,
+   (share = bound / time); each conv's, pool backward's and conv
+   backward's (and FPS's) is followed by its device time (the pool
+   backward's beside ``scatter_add_``'s; the conv backward's three
+   kernels summed) in a ``torch.profiler`` trace,
    without the host's time before the launch that a single call's span
    holds (:func:`device_ms`);
 7. one kernel step against one plain step from the same state, batch and
@@ -164,14 +165,16 @@ inner_masked=True).train_step`` (Adam on the staircase schedule):
     gradients equal, with times, device times and bounds; then K6 on
     adversarial operands (:func:`pool_bwd_stress`: scattered windows and
     one row taking every row of 15 tiles), bitwise equal to its plain
-    version and to itself; and K5 on a crowded operand at the step's
-    level-0 shapes (:func:`conv_bwd_stress`: 64 selected entries in every
-    query row, as real scene blocks have) against its plain version and
-    itself, timed with its device time and bound; and K1 on adversarial
+    version and to itself; and K3 and K5 on a crowded operand at the
+    step's level-0 shapes (:func:`conv_fwd_stress`,
+    :func:`conv_bwd_stress`: 64 selected entries in every query row, as
+    real scene blocks have) against their plain versions and themselves,
+    timed with their device times and bounds; and K1 on adversarial
     operands (:func:`fps_stress`: npoint 1 and N, all-equal, lattice and
     duplicated points, a 6-channel and a strided database, N at the
-    kernel's cap, B=64 with clusters in more than one wave, every
-    instance of the kernel) bitwise equal to its plain version.
+    registers' cap and past it, N = 40000 in device memory, B=64 with
+    clusters in more than one wave, every instance of the kernel)
+    bitwise equal to its plain version.
 
 Then the config options that read the queries' distance maps, at full
 published width with seeded weights:
@@ -505,7 +508,9 @@ def work(name: str, args: tuple, kw: dict) -> tuple[int, int]:
         c, r = filt_b.shape[2], filt_b.shape[3]
         nnz = int((packed != 0).sum().item())
         out = inv.numel() * c * r * x.element_size()
-        return (nbytes(packed, s_blk, x, filt_b, inv) + out,
+        # one filter expanded over the clouds (ungrouped maps) is read once
+        filt = filt_b[0] if filt_b.stride(0) == 0 else filt_b
+        return (nbytes(packed, s_blk, x, filt, inv) + out,
                 2 * nnz * c * r + inv.numel() * c * r)
     if name == "rank_pool":
         packed, s_blk, counts, x = args
@@ -849,7 +854,7 @@ def replay(calls: list, res: Results, expect: dict[str, int],
                               min(reps, plain_reps)), check,
                     work(name, args, kw),
                     None if lib is None else median_ms(lib, reps))
-            if name in ("rank_pool_bwd", "dense_conv_bwd"):
+            if name in ("dense_conv", "rank_pool_bwd", "dense_conv_bwd"):
                 res.add_device(name, what, functools.partial(kern, *args),
                                lib, work(name, args, kw))
             if name == "fps":
@@ -1533,20 +1538,13 @@ def pool_bwd_stress(dev: torch.device) -> None:
     res.time_device()
 
 
-def conv_bwd_stress(dev: torch.device) -> None:
-    """Phase 25c: K5 on a crowded operand at the S3DIS step's level-0
-    shapes (B=16, N=8192, 64 query tiles, W=1664, C_in 64 and 128, r=2,
-    bf16, the 33 bins of kernel (8, 2, 2)): 64 selected entries in every
-    query row's window, as real scene blocks fill up to ``nn_uplimit`` =
-    64 (the synthetic scene maps of the step hold about 6). The windows
-    are centred on their tiles, as a sorted cloud's are. K5 against its
-    plain version under ``conv_grads_close`` and against a second K5 run
-    bitwise; times (span and device) and the bound."""
-    from sph3d_gcn_torch.ops import dense as D
-
-    print("conv backward (K5) on a crowded operand (64 entries a row), "
-          "S3DIS level-0 shapes:", flush=True)
-    gen = torch.Generator(device=dev).manual_seed(12)
+def crowded_map(dev: torch.device, gen: torch.Generator) -> tuple:
+    """A crowded conv map at the S3DIS step's level-0 shapes (B=16,
+    N=8192, 64 query tiles, W=1664, the 33 bins of kernel (8, 2, 2)): 64
+    selected entries in every query row's window, as real scene blocks
+    fill up to ``nn_uplimit`` = 64 (the synthetic scene maps of the step
+    hold about 6). The windows are centred on their tiles, as a sorted
+    cloud's are. Returns (packed, s_blk, inv, f_bins)."""
     n_t = n_blk = S3_N // 128
     window, f_bins = 1664, 33
     nbw = window // 128
@@ -1559,14 +1557,59 @@ def conv_bwd_stress(dev: torch.device) -> None:
                          device=dev).to(torch.int8)
     packed = torch.zeros((S3_B, n_t, 128, window), dtype=torch.int8,
                          device=dev).scatter_(-1, top, bins)
-    del top, bins
     inv = torch.full((S3_B, n_t * 128), 1 / 64, device=dev)
+    return packed, s_blk, inv, f_bins
+
+
+def conv_fwd_stress(dev: torch.device) -> None:
+    """Phase 25c: K3 on the crowded operand (:func:`crowded_map`), C_in
+    64 and 128, r=2, bf16, and C_in 35 (ModelNet's first conv), against
+    its plain version under ``close`` and against a second K3 run
+    bitwise; times (span and device) and the bound."""
+    from sph3d_gcn_torch.ops import dense as D
+
+    print("conv forward (K3) on a crowded operand (64 entries a row), "
+          "S3DIS level-0 shapes:", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    packed, s_blk, inv, f_bins = crowded_map(dev, gen)
+    res = Results()
+    for c in (35, 64, 128):
+        x = torch.randn((S3_B, S3_N, c), generator=gen,
+                        device=dev).bfloat16()
+        filt_b = torch.randn((S3_B, f_bins, c, 2), generator=gen, device=dev)
+        args = (packed, s_blk, x, filt_b, inv)
+        what = f"crowded bf16 C={c} r=2 W={packed.shape[-1]}"
+        got = D.dense_conv_kernel(*args)
+        exact(got, D.dense_conv_kernel(*args))
+        res.add("dense_conv", what, got, D.dense_conv_plain(*args),
+                median_ms(functools.partial(D.dense_conv_kernel, *args)),
+                median_ms(functools.partial(D.dense_conv_plain, *args), 1),
+                close, work("dense_conv", args, {}))
+        res.add_device("dense_conv", what,
+                       functools.partial(D.dense_conv_kernel, *args),
+                       None, work("dense_conv", args, {}))
+    res.time_device()
+
+
+def conv_bwd_stress(dev: torch.device) -> None:
+    """Phase 25d: K5 on the crowded operand (:func:`crowded_map`), C_in 64
+    and 128, r=2, bf16, against its plain version under
+    ``conv_grads_close`` and against a second K5 run bitwise; times (span
+    and device) and the bound."""
+    from sph3d_gcn_torch.ops import dense as D
+
+    print("conv backward (K5) on a crowded operand (64 entries a row), "
+          "S3DIS level-0 shapes:", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    packed, s_blk, inv, f_bins = crowded_map(dev, gen)
+    window = packed.shape[-1]
     res = Results()
     for c in (64, 128):
         x = torch.randn((S3_B, S3_N, c), generator=gen,
                         device=dev).bfloat16()
         filt_b = torch.randn((S3_B, f_bins, c, 2), generator=gen, device=dev)
-        dout = torch.randn((S3_B, n_t * 128, 2 * c), generator=gen,
+        dout = torch.randn((S3_B, packed.shape[1] * 128, 2 * c),
+                           generator=gen,
                            device=dev).bfloat16()
         args = (packed, s_blk, x, filt_b, inv, dout)
         what = f"crowded bf16 C={c} r=2 W={window}"
@@ -1608,8 +1651,13 @@ def fps_operands(rng) -> list:
         ("each point 4 times", 2500, dup, None),
         ("6-channel database", 2500,
          rng.random((2, 10000, 6), dtype=np.float32), None),
-        ("N at the cap", 1024,
-         rng.random((2, S.FPS_MAX_POINTS, 3), dtype=np.float32), None),
+        ("N at the registers' cap", 1024,
+         rng.random((2, S.REGISTER_MAX_POINTS, 3), dtype=np.float32), None),
+        ("N past it, in device memory", 1024,
+         rng.random((2, S.REGISTER_MAX_POINTS + 1, 3), dtype=np.float32),
+         None),
+        ("N = 40000, in device memory", 2500,
+         rng.random((2, 40000, 3), dtype=np.float32), None),
         ("B=64", 2500, rng.random((64, N, 3), dtype=np.float32), None),
         ("B=64, 8-CTA clusters in waves", 2500, None,
          S.FpsPlan(8, 128, 10)),
@@ -1624,11 +1672,13 @@ def fps_operands(rng) -> list:
             n = min(plan.cluster * plan.threads * ppt - 7, 1500)
             cases.append((f"instance {plan}", min(n, 200), small[:, :n],
                           plan))
+    for plan in (S.FpsPlan(2, 32, 0), S.FpsPlan(8, 1024, 0)):
+        cases.append((f"instance {plan}", 200, small, plan))
     return cases
 
 
 def fps_stress(dev: torch.device) -> None:
-    """Phase 25d: K1 on adversarial operands (:func:`fps_operands`), each
+    """Phase 25e: K1 on adversarial operands (:func:`fps_operands`), each
     bitwise equal to its plain version; a 6-channel database is read in
     place, a strided one converted first."""
     from sph3d_gcn_torch.ops import sample as S
@@ -1636,6 +1686,8 @@ def fps_stress(dev: torch.device) -> None:
     # the counts behind fps_plan's choice of cluster size
     sizes = [S.fit_plan(N, c, S.MAX_CANDIDATES // c, S.PPT_SIZES[-1])
              for c in range(2, S.MAX_CLUSTER + 1)]
+    sizes += [S.FpsPlan(c, S.STREAM_THREADS, 0)
+              for c in range(2, S.MAX_CLUSTER + 1)]
     print("clusters of K1 the card runs at once (one CTA an SM): "
           + ", ".join(f"{p}: {S.max_active_clusters(p)}" for p in sizes),
           flush=True)
@@ -1652,8 +1704,14 @@ def fps_stress(dev: torch.device) -> None:
                                   S.max_active_clusters)
         if not torch.equal(got, ref):
             raise AssertionError(f"K1 {what} ({used}): kernel != plain")
+        step = ""
+        if used.ppt == 0 and plan is None:
+            ms = median_ms(lambda: S.farthest_point_sample_kernel(npoint, t),
+                           3)
+            step = (f", {ms:.3f} ms, {ms * 1e3 / max(npoint - 1, 1):.3f} us "
+                    f"a greedy step (span)")
         print(f"  {what:34s} B={t.shape[0]} N={t.shape[1]} -> {npoint} "
-              f"{used}: equal", flush=True)
+              f"{used}: equal{step}", flush=True)
     strided = prev.transpose(1, 2).contiguous().transpose(1, 2)
     if not torch.equal(S.farthest_point_sample_kernel(600, strided),
                        S.farthest_point_sample_plain(600, strided)):
@@ -2552,6 +2610,7 @@ def main() -> None:
     s3_step_launches, pool_calls = s3dis_train_phases(dev, res_s3_step)
     max_index_replay(dev, pool_calls, conv_map, res_index)
     pool_bwd_stress(dev)
+    conv_fwd_stress(dev)
     conv_bwd_stress(dev)
     fps_stress(dev)
     del pool_calls, conv_map

@@ -57,13 +57,22 @@
 
 namespace {
 
+using sph3d::allow_smem;
+using sph3d::cp_async16;
+using sph3d::cp_async_commit;
+using sph3d::cp_async_wait;
+using sph3d::hit_bits16;
 using sph3d::kFullMask;
+using sph3d::kMaxDevices;
 using sph3d::kTile;
+using sph3d::load_terms;
+using sph3d::pack_hit;
+using sph3d::warp_scan;
+using sph3d::word_byte;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxC = 1024;
-constexpr int kMaxDevices = 16;           // devices whose attribute is kept
 
 // dfilt: 16-byte map words a lane decodes a step, and the hits a step can
 // list (16 a word)
@@ -79,85 +88,6 @@ constexpr int kSliceStride = kTile + 16;
 constexpr int kSliceBytes = kTile * kSliceStride;
 constexpr int kDxList = 4 * kTile;
 constexpr int kMaxDxSlots = 4;
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// One bit per byte of v (4 bytes) that holds a hit: 1 <= byte <= F
-// (fmax4: F in every byte; a negative int8 is >= 128 unsigned).
-__device__ __forceinline__ unsigned hit_bits4(unsigned v, unsigned fmax4) {
-  const unsigned m = __vcmpgeu4(v, 0x01010101u) & __vcmpleu4(v, fmax4);
-  return ((m >> 7) & 1u) | ((m >> 14) & 2u) | ((m >> 21) & 4u) |
-         ((m >> 28) & 8u);
-}
-
-// Bit i: byte i of the 16-byte word holds a hit.
-__device__ __forceinline__ unsigned hit_bits16(uint4 v, unsigned fmax4) {
-  return hit_bits4(v.x, fmax4) | (hit_bits4(v.y, fmax4) << 4) |
-         (hit_bits4(v.z, fmax4) << 8) | (hit_bits4(v.w, fmax4) << 12);
-}
-
-__device__ __forceinline__ int word_byte(uint4 v, int i) {
-  const unsigned w = i < 8 ? (i < 4 ? v.x : v.y) : (i < 12 ? v.z : v.w);
-  return static_cast<int>((w >> (8 * (i & 3))) & 0xffu);
-}
-
-// Exclusive prefix sum over the warp's lanes, and the warp's total.
-__device__ __forceinline__ int warp_scan(int v, int lane, int* total) {
-  int inc = v;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(kFullMask, inc, d);
-    if (lane >= d) inc += y;
-  }
-  *total = __shfl_sync(kFullMask, inc, 31);
-  return inc - v;
-}
-
-// A list entry: query row t (7 bits), bin f (7 bits), window column w.
-__device__ __forceinline__ int pack_hit(int t, int f, int w) {
-  return t | (f << 7) | (w << 14);
-}
-
-
-// The r terms (c*r + j, j < R) of one channel of a gradient row, in f32:
-// adjacent in memory, and for R = 2 read as one aligned pair (the row
-// stride C*r and the offset c*r are even).
-template <int R>
-__device__ __forceinline__ void load_terms(const float* p, float (&v)[R]) {
-  if constexpr (R == 2) {
-    const float2 u = *reinterpret_cast<const float2*>(p);
-    v[0] = u.x;
-    v[1] = u.y;
-  } else {
-    v[0] = *p;
-  }
-}
-
-template <int R>
-__device__ __forceinline__ void load_terms(const __nv_bfloat16* p,
-                                           float (&v)[R]) {
-  if constexpr (R == 2) {
-    const __nv_bfloat162 u = *reinterpret_cast<const __nv_bfloat162*>(p);
-    v[0] = __low2float(u);
-    v[1] = __high2float(u);
-  } else {
-    v[0] = __bfloat162float(*p);
-  }
-}
 
 // dfilt of one query tile (or of 128 / split of its rows), for a slice of
 // 32 * M channels: lane = channel c0 + 32 m + lane (m < M), both terms j
@@ -565,23 +495,6 @@ __global__ void __launch_bounds__(kThreads, S * R <= 2 ? 3 : 2)
       }
     }
   }
-}
-
-// Raise a kernel's dynamic shared memory limit where a launch needs more
-// than was set before on this device (the host call costs more than a
-// small launch). allowed: the limit set so far on each device.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem,
-                       size_t (&allowed)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && smem <= allowed[dev]) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = smem;
-  return err;
 }
 
 template <typename T, int R, int M>

@@ -1,5 +1,6 @@
 // K1: farthest-point sampling, each cloud held in registers, spread over
-// a thread block cluster at large N.
+// a thread block cluster at large N; beyond the registers, walked in
+// device memory by a cluster.
 //
 // Replaces the TPU kernel sph3d_gcn_tpu/ops/pallas/fps_kernel.py:44
 // (_fps_kernel, reached via farthest_point_sample_pallas). Plain PyTorch
@@ -33,7 +34,7 @@
 //    among the lanes that hold the maximum. Only (value bits, index) keys
 //    travel: every CTA keeps the cloud's coordinates in shared memory too
 //    and reads the winner's from there.
-//  - Two modes, chosen on the host from (B, N) alone
+//  - Two modes in registers, chosen on the host from (B, N) alone
 //    (ops/sample.py::fps_plan). One block: each warp's key goes into a
 //    slot of a parity-indexed shared array, one __syncthreads, then every
 //    warp reduces the slots itself (no second barrier). A cluster of C
@@ -56,6 +57,20 @@
 //    (cudaOccupancyMaxActiveClusters, queried once a plan): an H100 runs
 //    15 clusters of 8 or 7 at once, 17 of 6, so 16 clouds take C = 6 (96
 //    SMs); 2 waves of 8-CTA clusters took 1.9x the time of 6-CTA ones.
+//  - A cloud beyond the registers (16384 points: 8 CTAs of 4 warps, 16
+//    points a thread; a CTA's shared-memory copy of it, 12 bytes a point,
+//    and the 32 warp keys a step reduces end there too) takes
+//    fps_stream_kernel, chosen on the host as the plan with no points a
+//    thread (ppt = 0). It has no cap but the card's memory: each point's
+//    x, y, z and running minimum lie in a (B, N) float4 scratch that its
+//    thread reads and writes back every step, 4 points' loads in flight;
+//    each CTA of 32 warps reduces its warps' keys in shared memory to one
+//    before the cluster exchange (so a step reduces at most 8 keys), and
+//    the winner's coordinates are read from the cloud in device memory.
+//    What bounds it: the scratch's 20 bytes a point and step through the
+//    cluster's SMs, mostly from L2 (the scratch of a few clouds fits its
+//    50 MB), and the exchange and the winner's read a step. Speed at these
+//    sizes was not a goal; no configuration samples such a cloud.
 //
 // Numerics: the distance is written with __fmul_rn/__fadd_rn (no FMA
 // contraction), so the indices equal the plain version's bit for bit.
@@ -75,6 +90,9 @@ using sph3d::kFullMask;
   X(1) X(2) X(3) X(4) X(5) X(6) X(8) X(10) X(12) X(14) X(16)
 
 constexpr int kMaxCands = 32;      // candidates a step reduces: one a lane
+constexpr int kMaxCluster = 8;     // CTAs a cluster: the portable size
+constexpr int kStreamThreads = 1024;  // a CTA of fps_stream_kernel, at most
+constexpr int kStreamBatch = 4;    // its points a thread loads at once
 constexpr int kMaxDevices = 16;    // devices whose attribute is kept
 constexpr int kCopyBatch = 16;     // words of the cloud a thread loads at once
 // dynamic shared memory: the cloud's x, y and z (12 bytes a point); for a
@@ -267,12 +285,113 @@ __global__ void __launch_bounds__(P <= 6 ? 1024 : 512, 1)
   if constexpr (kCluster) cluster_barrier();
 }
 
+// A cloud of any size (the plan's ppt = 0): each point's x, y, z and
+// running minimum stay in the device memory of `scratch` (B, N) and are
+// read and written back every step. Thread t of CTA `rank` walks points
+// rank * T + t + k * cluster * T. A CTA reduces its warps' keys in shared
+// memory to one, which its warp 0 sends into every CTA of the cluster as
+// fps_kernel's warps do (at most kMaxCluster keys a step); the winner's
+// coordinates are then read from the cloud in device memory.
+__global__ void __launch_bounds__(kStreamThreads, 1)
+    fps_stream_kernel(const float* __restrict__ xyz, long long batch_stride,
+                      long long row_stride, float4* __restrict__ scratch,
+                      long long* __restrict__ out, int n, int npoint,
+                      int cluster) {
+  __shared__ int2 s_warp[2][32];           // a step's warp keys
+  __shared__ int2 s_key[2][kMaxCluster];   // a step's CTA keys
+  __shared__ uint64_t s_bar[2];            // a step's arrivals
+
+  const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
+  const int nw = blockDim.x >> 5;
+  const int rank = cluster_rank();
+  const int cloud = blockIdx.x / cluster;
+  const float* p = xyz + cloud * batch_stride;
+  float4* sc = scratch + static_cast<long long>(cloud) * n;
+  long long* o = out + static_cast<long long>(cloud) * npoint;
+  const int stride = cluster * static_cast<int>(blockDim.x);
+  const int first = rank * static_cast<int>(blockDim.x) + t;
+  for (int i = first; i < n; i += stride) {
+    const float* r = p + i * row_stride;
+    sc[i] = make_float4(r[0], r[1], r[2], 1e38f);
+  }
+  if (t == 0) {
+    mbar_init(&s_bar[0], 1);
+    mbar_init(&s_bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  cluster_barrier();
+
+  float xo = p[0], yo = p[1], zo = p[2];
+  const bool writer = rank == 0 && t == 0;
+  if (writer) o[0] = 0;
+  for (int j = 1; j < npoint; ++j) {
+    // the thread's first maximum, kStreamBatch points' loads in flight
+    float bv = -1.0f;
+    int bi = INT_MAX;
+    for (int i0 = first; i0 < n; i0 += kStreamBatch * stride) {
+      float4 v[kStreamBatch];
+#pragma unroll
+      for (int u = 0; u < kStreamBatch; ++u) {
+        const int i = i0 + u * stride;
+        v[u] = i < n ? sc[i] : make_float4(0.f, 0.f, 0.f, -1.0f);
+      }
+#pragma unroll
+      for (int u = 0; u < kStreamBatch; ++u) {
+        const int i = i0 + u * stride;
+        if (i < n) {
+          const float m = fminf(
+              v[u].w, sph3d::sum_sq3(v[u].x - xo, v[u].y - yo, v[u].z - zo));
+          reinterpret_cast<float*>(sc + i)[3] = m;
+          if (m > bv) {
+            bv = m;
+            bi = i;
+          }
+        }
+      }
+    }
+    const int bits = __float_as_int(bv);
+    const int wv = __reduce_max_sync(kFullMask, bits);
+    const int par = j & 1;
+    int win = __reduce_min_sync(kFullMask, bits == wv ? bi : INT_MAX);
+    if (lane == 0) s_warp[par][warp] = make_int2(wv, win);
+    __syncthreads();
+    if (warp == 0) {
+      // the CTA's key; lane r sends it to CTA r of the cluster
+      const int2 c =
+          lane < nw ? s_warp[par][lane] : make_int2(INT_MIN, INT_MAX);
+      const int cv = __reduce_max_sync(kFullMask, c.x);
+      const int2 key = make_int2(
+          cv, __reduce_min_sync(kFullMask, c.x == cv ? c.y : INT_MAX));
+      if (t == 0) mbar_expect_tx(&s_bar[par], cluster * sizeof(int2));
+      if (lane < cluster) {
+        st_async(at_rank(&s_key[par][rank], lane), key,
+                 at_rank(&s_bar[par], lane));
+      }
+    }
+    // the k-th use of a parity's barrier waits for its phase k
+    mbar_wait(&s_bar[par], ((j - 1) >> 1) & 1);
+    const int2 c =
+        lane < cluster ? s_key[par][lane] : make_int2(INT_MIN, INT_MAX);
+    const int cv = __reduce_max_sync(kFullMask, c.x);
+    win = __reduce_min_sync(kFullMask, c.x == cv ? c.y : INT_MAX);
+    const float* r = p + win * row_stride;
+    xo = r[0];
+    yo = r[1];
+    zo = r[2];
+    if (writer) o[j] = win;
+  }
+  // no CTA leaves while another may still write into its shared memory
+  cluster_barrier();
+}
+
 // The shared memory an instance may use: all that the device lends one
 // block, less the kernel's static arrays; set once a device. A cloud
 // beyond it fails to launch.
-template <int P, bool kCluster>
-cudaError_t allow_smem() {
-  static bool allowed[kMaxDevices] = {};
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool (&allowed)[kMaxDevices]) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -281,20 +400,30 @@ cudaError_t allow_smem() {
   cudaFuncAttributes fa;
   err = cudaDeviceGetAttribute(&optin,
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) {
-    err = cudaFuncGetAttributes(&fa, fps_kernel<P, kCluster>);
-  }
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      fps_kernel<P, kCluster>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      optin - static_cast<int>(fa.sharedSizeBytes));
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin - static_cast<int>(fa.sharedSizeBytes));
   if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
   return err;
+}
+
+template <int P, bool kCluster>
+cudaError_t allow_smem() {
+  static bool allowed[kMaxDevices] = {};
+  return allow_smem(fps_kernel<P, kCluster>, allowed);
+}
+
+cudaError_t allow_stream_smem() {
+  static bool allowed[kMaxDevices] = {};
+  return allow_smem(fps_stream_kernel, allowed);
 }
 
 struct Args {
   const float* xyz;
   long long batch_stride, row_stride;
+  float4* scratch;
   long long* out;
   int batch, n, npoint, cluster, threads;
   cudaStream_t stream;
@@ -338,6 +467,20 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
+cudaError_t launch_stream(const Args& a) {
+  cudaError_t err = allow_stream_smem();
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      cluster_config(a.batch * a.cluster, a.threads, a.cluster, kSoloSmem,
+                     a.stream, &attr);
+  err = cudaLaunchKernelEx(&cfg, fps_stream_kernel, a.xyz, a.batch_stride,
+                           a.row_stride, a.scratch, a.out, a.n, a.npoint,
+                           a.cluster);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <bool kCluster>
 cudaError_t launch_mode(int ppt, const Args& a) {
   switch (ppt) {
@@ -352,25 +495,35 @@ cudaError_t launch_mode(int ppt, const Args& a) {
 
 // Every reservation above half an SM gives one CTA an SM: the count does
 // not depend on N.
-template <int P>
-cudaError_t max_active(int cluster, int threads, int* count) {
-  cudaError_t err = allow_smem<P, true>();
-  if (err != cudaSuccess) return err;
+template <typename Kernel>
+cudaError_t max_active(Kernel kernel, int cluster, int threads, int* count) {
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg =
       cluster_config(cluster, threads, cluster, kSoloSmem, nullptr, &attr);
   return cudaOccupancyMaxActiveClusters(
-      count, reinterpret_cast<const void*>(fps_kernel<P, true>), &cfg);
+      count, reinterpret_cast<const void*>(kernel), &cfg);
 }
 
-// What the kernel itself needs of a plan: whole warps, a candidate slot a
-// warp of the cluster, every point held. A points-a-thread count that was
-// not built, more threads than an instance's launch bounds, a cluster
-// beyond the portable 8 CTAs or a cloud beyond the shared memory fail at
-// launch.
+template <int P>
+cudaError_t max_active(int cluster, int threads, int* count) {
+  const cudaError_t err = allow_smem<P, true>();
+  if (err != cudaSuccess) return err;
+  return max_active(fps_kernel<P, true>, cluster, threads, count);
+}
+
+// What the kernel itself needs of a plan: whole warps; in registers
+// (ppt > 0) a candidate slot a warp of the cluster and every point held,
+// in device memory (ppt = 0) a cluster of 2 to kMaxCluster CTAs of at
+// most kStreamThreads. A points-a-thread count that was not built, more
+// threads than an instance's launch bounds, a cluster beyond the portable
+// 8 CTAs or a cloud beyond the shared memory fail at launch.
 bool valid_plan(int n, int cluster, int threads, int ppt) {
-  return cluster >= 1 && threads >= 32 && threads % 32 == 0 &&
-         cluster * (threads / 32) <= kMaxCands &&
+  const bool warps = threads >= 32 && threads % 32 == 0;
+  if (ppt == 0) {
+    return warps && cluster >= 2 && cluster <= kMaxCluster &&
+           threads <= kStreamThreads;
+  }
+  return warps && cluster >= 1 && cluster * (threads / 32) <= kMaxCands &&
          static_cast<long long>(cluster) * threads * ppt >= n;
 }
 
@@ -378,15 +531,22 @@ bool valid_plan(int n, int cluster, int threads, int ppt) {
 
 // xyz: (B, N, C >= 3) f32 with the given strides (elements); out: (B,
 // npoint) int64. The plan: `cluster` CTAs a cloud (1: one block),
-// `threads` a CTA, `ppt` points a thread.
+// `threads` a CTA, `ppt` points a thread (0: the cloud in device memory,
+// `scratch` (B, N) float4, 16-byte aligned; else unused).
 extern "C" int sph3d_fps_launch(const float* xyz, long long batch_stride,
-                                long long row_stride, long long* out,
-                                int batch, int n, int npoint, int cluster,
-                                int threads, int ppt, void* stream) {
-  if (!valid_plan(n, cluster, threads, ppt)) return cudaErrorInvalidValue;
-  const Args a{xyz,   batch_stride, row_stride, out,     batch,
-               n,     npoint,       cluster,    threads,
-               static_cast<cudaStream_t>(stream)};
+                                long long row_stride, float* scratch,
+                                long long* out, int batch, int n, int npoint,
+                                int cluster, int threads, int ppt,
+                                void* stream) {
+  if (!valid_plan(n, cluster, threads, ppt) ||
+      (ppt == 0 && (scratch == nullptr ||
+                    reinterpret_cast<uintptr_t>(scratch) % 16 != 0))) {
+    return cudaErrorInvalidValue;
+  }
+  const Args a{xyz,   batch_stride, row_stride,
+               reinterpret_cast<float4*>(scratch), out, batch, n, npoint,
+               cluster, threads, static_cast<cudaStream_t>(stream)};
+  if (ppt == 0) return launch_stream(a);
   if (cluster > 1) return launch_mode<true>(ppt, a);
   return launch_mode<false>(ppt, a);
 }
@@ -397,6 +557,11 @@ extern "C" int sph3d_fps_max_active_clusters(int cluster, int threads,
                                              int ppt, int* count) {
   if (cluster < 2 || !valid_plan(0, cluster, threads, ppt)) {
     return cudaErrorInvalidValue;
+  }
+  if (ppt == 0) {
+    const cudaError_t err = allow_stream_smem();
+    if (err != cudaSuccess) return err;
+    return max_active(fps_stream_kernel, cluster, threads, count);
   }
   switch (ppt) {
 #define SPH3D_FPS_CASE(p) \

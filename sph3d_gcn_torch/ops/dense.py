@@ -62,14 +62,15 @@ from sph3d_gcn_torch.ops.query import (
 # element budget of the plain conv's one-hot and the plain pool's
 # candidate block per tile chunk (f32: 256 MB)
 _PLAIN_BUDGET = 1 << 26
-_MAX_CONV_C = 1024     # the conv kernel: 4 chunks of 8 32-lane slots
+_MAX_CONV_C = 1024     # the conv kernel
 _MAX_POOL_C = 512      # the pool kernel (2 chunks), and so its backward
 _MAX_CONV_BWD_C = 1024  # the conv backward kernel
 _POOL_ALL = 127        # "every nonzero entry" count for bin maps
 
 CONV_KERNEL = _build.register(
     "dense_conv", "sph3d_dense_conv_launch",
-    [_build.PTR] * 6 + [_build.INT] * 8 + [_build.PTR],
+    [_build.PTR] * 4 + [_build.LONG] + [_build.PTR] * 2 + [_build.INT] * 12
+    + [_build.PTR],
 )
 POOL_KERNEL = _build.register(
     "rank_pool", "sph3d_rank_pool_launch",
@@ -402,13 +403,64 @@ def dense_conv_plain(packed, s_blk, inputs, filt_b, inv):
     return out.reshape(batch, n_t * TILE, c * mult)
 
 
-def dense_conv_kernel(packed, s_blk, inputs, filt_b, inv):
-    """The conv through ``csrc/dense_conv.cu``: one warp per query row
-    walks the row's window once, skipping empty entries, and accumulates
-    ``x[row, c] * filt_b[bin, c, j]`` in f32 over 32-lane channel slots."""
+# the conv kernel's 32-channel slot counts (csrc/dense_conv.cu builds
+# these), the shared memory of its filter slice that leaves room for
+# several blocks an SM, the items (a part of a tile for a slice of the
+# channels) a call should give the card, and where its blocks persist: a
+# filter slice of at least _PERSIST_FILTER_BYTES against fewer than
+# _PERSIST_TILES query tiles
+FWD_SLOTS = (1, 2, 3, 4, 5, 8)
+_FWD_FILTER_BYTES = 36 * 1024
+_FWD_BLOCKS = 4 * 132
+_PERSIST_FILTER_BYTES = 24 * 1024
+_PERSIST_TILES = 320
+
+
+@functools.lru_cache(maxsize=None)
+def conv_fwd_layout(c: int, mult: int, f_bins: int,
+                    tiles: int) -> tuple[int, int, int, bool]:
+    """How ``csrc/dense_conv.cu`` lays out its work for ``C`` channels (a
+    lane holds a channel and its r sums; 32-lane slots), ``F`` bins and
+    ``tiles`` = B * n_t query tiles: (slots, slices, split, persistent).
+
+    An item of work is 128 / ``split`` rows of a tile for ``slots`` slots
+    of one of ``slices`` slices of the channels (as even as the built slot
+    counts allow): the widest slots whose (F, 32 slots, r) filter slice
+    fits ``_FWD_FILTER_BYTES``, so a call reads the map once per slice,
+    and the fewest parts that give the card ``_FWD_BLOCKS`` items (where
+    even 8 parts fall short, narrower slices add items). A block takes one
+    item, or, ``persistent``, the blocks that fit the card at once take
+    the items in order and stage a filter slice once for each run of
+    items of one cloud and slice: where the slice is large against the
+    rows of the few tiles (the scene models' deep levels), staging it for
+    every item cost more than the items (PERF.md). Cached: a call's host
+    time counts on the small calls."""
+    fits = [s for s in FWD_SLOTS
+            if f_bins * 32 * s * mult * 4 <= _FWD_FILTER_BYTES] or [1]
+    for top in reversed(fits):
+        slices = -(-c // (32 * top))
+        slots = next(s for s in FWD_SLOTS if 32 * s * slices >= c)
+        if tiles * slices * 8 >= _FWD_BLOCKS:
+            break
+    split = next((s for s in (1, 2, 4) if tiles * slices * s >= _FWD_BLOCKS),
+                 8)
+    persistent = (tiles < _PERSIST_TILES and f_bins * 32 * slots * mult * 4
+                  >= _PERSIST_FILTER_BYTES)
+    return slots, slices, split, persistent
+
+
+def dense_conv_kernel(packed, s_blk, inputs, filt_b, inv, layout=None):
+    """The conv through ``csrc/dense_conv.cu``: a block per (query tile or
+    part of one, cloud, channel slice) stages its filter slice in shared
+    memory; each warp decodes its rows' map into a hit list and adds the
+    hits a few at a time, ``x[row, c] * filt_b[bin, c, j]`` in f32 in
+    window order. ``filt_b`` may be one filter expanded over the clouds
+    (read in place, the ungrouped maps'); ``s_blk`` is read as the graph's
+    int64. ``layout``: (slots, slices, split, persistent),
+    :func:`conv_fwd_layout`'s by default (the tests pass others to reach
+    every built variant)."""
     _build.check(packed, "packed", torch.int8, 4)
     _build.check(inputs, "inputs", (torch.float32, torch.bfloat16), 3)
-    _build.check(filt_b, "filt_b", torch.float32, 4)
     _build.check(inv, "inv", torch.float32, 2)
     batch, n_t, _, w = packed.shape
     _, num_in, c = inputs.shape
@@ -420,17 +472,28 @@ def dense_conv_kernel(packed, s_blk, inputs, filt_b, inv):
         )
     if filt_b.shape != (batch, f_bins, c, mult) or f_bins > 127:
         raise ValueError(f"bad per-cloud filter shape {tuple(filt_b.shape)}")
+    if filt_b.stride(0) == 0:        # one filter expanded over the clouds
+        _build.check(filt_b[0], "filt_b", torch.float32, 3)
+    else:
+        _build.check(filt_b, "filt_b", torch.float32, 4)
     if inv.shape != (batch, n_t * TILE):
         raise ValueError(f"bad inverse-count shape {tuple(inv.shape)}")
-    sb = s_blk.to(torch.int32).contiguous()
+    if s_blk.shape != (batch, n_t):
+        raise ValueError(f"bad window-start shape {tuple(s_blk.shape)}")
+    s_blk = s_blk.to(torch.int64).contiguous()   # a graph's, as it is
+    _build.check(s_blk, "s_blk", torch.int64, 2)
+    slots, slices, split, persistent = layout or conv_fwd_layout(
+        c, mult, f_bins, batch * n_t)
+    packed = _aligned(packed)
     out = torch.empty((batch, n_t * TILE, c * mult), dtype=inputs.dtype,
                       device=inputs.device)
     CONV_KERNEL.launch(
-        _build.ptr(packed), _build.ptr(sb), _build.ptr(inputs),
-        _build.ptr(filt_b), _build.ptr(inv), _build.ptr(out),
+        _build.ptr(packed), _build.ptr(s_blk), _build.ptr(inputs),
+        _build.ptr(filt_b), filt_b.stride(0), _build.ptr(inv),
+        _build.ptr(out),
         batch, n_t, num_in, c, f_bins, w, mult,
-        int(inputs.dtype == torch.bfloat16),
-        _build.stream(inputs),
+        int(inputs.dtype == torch.bfloat16), slots, slices, split,
+        int(persistent), _build.stream(inputs),
     )
     return out
 
@@ -541,6 +604,7 @@ def dense_conv_bwd_kernel(packed, s_blk, inputs, filt_b, inv, dout,
     dfilt_b) as the plain version."""
     _build.check(packed, "packed", torch.int8, 4)
     _build.check(inputs, "inputs", (torch.float32, torch.bfloat16), 3)
+    filt_b = filt_b.contiguous()   # an expanded (ungrouped) filter
     _build.check(filt_b, "filt_b", torch.float32, 4)
     _build.check(inv, "inv", torch.float32, 2)
     _build.check(dout, "dout", inputs.dtype, 3)
@@ -618,7 +682,8 @@ def conv_operands(
     inv (B, M_pad) f32: 1 / max(count, 1), the reference's neighbor
     mean). The grouped rows are picked by a one-hot product, so autograd
     un-permutes and sums the per-cloud filter gradient with a matmul (no
-    scatter-add: reproducible on the card)."""
+    scatter-add: reproducible on the card); an ungrouped filter is one
+    filter expanded over the clouds (a view, no copy)."""
     batch = inputs.shape[0]
     m_pad = dnbh.s_blk.shape[1] * TILE
     cnt_p = F.pad(dnbh.count, (0, m_pad - dnbh.num_query))
@@ -628,10 +693,11 @@ def conv_operands(
         f_bins = filt.shape[0]
         perm = torch.tensor(_grouped_perm(f_bins), device=filt.device)
         pick = F.one_hot(perm[dnbh.axis.long()], f_bins).float()  # (B,F,F)
-        filt_b = torch.einsum("bgf,fcr->bgcr", pick, filt_c)
+        filt_b = torch.einsum("bgf,fcr->bgcr", pick, filt_c).contiguous()
     else:
-        filt_b = filt_c.expand((batch,) + filt_c.shape)
-    return filt_b.contiguous(), inv.contiguous()
+        # one filter for every cloud: the conv reads it in place
+        filt_b = filt_c.contiguous().expand((batch,) + filt_c.shape)
+    return filt_b, inv.contiguous()
 
 
 def dense_depthwise_conv3d(

@@ -5,9 +5,10 @@ Farthest-point sampling, reference semantics: seed at index 0,
 min-distance buffer initialised to 1e38, running minimum of SQUARED
 distances ``(dx*dx + dy*dy) + dz*dz``, argmax with ties going to the
 lowest index. A CUDA tensor goes to the kernel ``csrc/fps.cu``, a CPU
-tensor to :func:`farthest_point_sample_plain`. The kernel holds each cloud
-in registers: one block or a thread block cluster of up to 8 CTAs a
-cloud, as :func:`fps_plan` chooses from the shapes.
+tensor to :func:`farthest_point_sample_plain`. The kernel holds a cloud of
+up to ``REGISTER_MAX_POINTS`` in registers, one block or a thread block
+cluster of up to 8 CTAs a cloud, and walks a larger one in device memory
+with a cluster, as :func:`fps_plan` chooses from the shapes.
 
 Inverse-density and random sampling draw noise (plain PyTorch, as the
 JAX package leaves them to XLA). Each takes an explicit
@@ -27,8 +28,8 @@ from sph3d_gcn_torch import _build
 
 FPS_KERNEL = _build.register(
     "fps", "sph3d_fps_launch",
-    [_build.PTR, _build.LONG, _build.LONG, _build.PTR, _build.INT,
-     _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
+    [_build.PTR, _build.LONG, _build.LONG, _build.PTR, _build.PTR,
+     _build.INT, _build.INT, _build.INT, _build.INT, _build.INT, _build.INT,
      _build.PTR],
 )
 
@@ -38,11 +39,13 @@ FPS_KERNEL = _build.register(
 PPT_SIZES = (1, 2, 3, 4, 5, 6, 8, 10, 12, 14, 16)
 MAX_CLUSTER = 8          # CTAs a cloud spreads over: the portable size
 MAX_CANDIDATES = 32      # warp winners a step reduces: one a lane
-# the largest cloud: 8 CTAs of 4 warps, 16 points a thread (196 KB of
-# shared memory a CTA for its copy of the cloud)
-FPS_MAX_POINTS = MAX_CLUSTER * 4 * 32 * PPT_SIZES[-1]
+# the largest cloud held in registers: 8 CTAs of 4 warps, 16 points a
+# thread (196 KB of shared memory a CTA for its copy of the cloud); a
+# larger one stays in device memory (ppt = 0)
+REGISTER_MAX_POINTS = MAX_CLUSTER * 4 * 32 * PPT_SIZES[-1]
 BLOCK_MAX_POINTS = 3072  # a cloud this small takes one block
 BLOCK_PPT = 6            # a block plan's points a thread, at most
+STREAM_THREADS = 1024    # a CTA of the device-memory plan
 
 
 def max_threads(ppt: int) -> int:
@@ -56,14 +59,17 @@ def max_threads(ppt: int) -> int:
 class FpsPlan:
     """How K1 lays out a cloud: ``cluster`` CTAs (1: one block),
     ``threads`` a CTA, ``ppt`` points a thread. Thread t of CTA r holds
-    points ``r * threads * ppt + k * threads + t`` for k < ppt."""
+    points ``r * threads * ppt + k * threads + t`` for k < ppt; with
+    ``ppt`` 0 the cloud stays in device memory and thread t of CTA r walks
+    points ``r * threads + t + k * cluster * threads``."""
 
     cluster: int
     threads: int
     ppt: int
 
     def __str__(self) -> str:
-        return f"C={self.cluster} T={self.threads} P={self.ppt}"
+        held = f"P={self.ppt}" if self.ppt else "in memory"
+        return f"C={self.cluster} T={self.threads} {held}"
 
 
 def fit_plan(n: int, cluster: int, warps: int, ppt: int) -> FpsPlan | None:
@@ -85,19 +91,24 @@ def fps_plan(batch: int, n: int,
              max_active: Callable[[FpsPlan], int]) -> FpsPlan:
     """K1's launch plan for ``batch`` clouds of ``n`` points, from the
     shapes alone. A small cloud takes a block of as few warps as hold it
-    at up to ``BLOCK_PPT`` points a thread, a large one a cluster of
-    4-warp CTAs: the largest cluster size whose ``batch`` clusters run in
-    one wave (``max_active(plan)``: clusters the device runs at once),
-    else the one with the fewest waves."""
-    if not 1 <= n <= FPS_MAX_POINTS:
-        raise ValueError(f"the FPS kernel takes 1 to {FPS_MAX_POINTS} "
-                         f"points a cloud, got N={n}")
+    at up to ``BLOCK_PPT`` points a thread, a larger one a cluster of
+    4-warp CTAs holding it in registers, and one beyond
+    ``REGISTER_MAX_POINTS`` a cluster of ``STREAM_THREADS``-thread CTAs
+    walking it in device memory: the largest cluster size whose ``batch``
+    clusters run in one wave (``max_active(plan)``: clusters the device
+    runs at once), else the one with the fewest waves."""
+    if n < 1:
+        raise ValueError(f"the FPS kernel takes clouds of at least one "
+                         f"point, got N={n}")
     if n <= BLOCK_MAX_POINTS:
         return fit_plan(n, 1, 32, BLOCK_PPT)
     best, best_waves = None, None
     for cluster in range(MAX_CLUSTER, 1, -1):
-        plan = fit_plan(n, cluster, MAX_CANDIDATES // cluster,
-                        PPT_SIZES[-1])
+        if n > REGISTER_MAX_POINTS:
+            plan = FpsPlan(cluster, STREAM_THREADS, 0)
+        else:
+            plan = fit_plan(n, cluster, MAX_CANDIDATES // cluster,
+                            PPT_SIZES[-1])
         active = max_active(plan) if plan is not None else 0
         if active < 1:
             continue
@@ -189,9 +200,14 @@ def farthest_point_sample_kernel(
             plan = _PLANS[key] = fps_plan(batch, num, max_active_clusters)
     out = torch.empty((batch, npoint), dtype=torch.int64,
                       device=database.device)
+    # the device-memory plan's x, y, z and running minimum of each point
+    scratch = (torch.empty((batch, num, 4), dtype=torch.float32,
+                           device=database.device) if plan.ppt == 0
+               else None)
     FPS_KERNEL.launch(
-        _build.ptr(database), num * chans, chans, _build.ptr(out), batch,
-        num, npoint, plan.cluster, plan.threads, plan.ppt,
+        _build.ptr(database), num * chans, chans,
+        None if scratch is None else _build.ptr(scratch), _build.ptr(out),
+        batch, num, npoint, plan.cluster, plan.threads, plan.ppt,
         _build.stream(database),
     )
     return out

@@ -3,14 +3,15 @@ plan, a numpy model of its partition and reductions, and the kernel
 against its plain version on the card.
 
 On the CPU: :func:`fps_plan` on every served (B, N), on small clouds,
-and when clusters do not all fit one wave (a fake count of the clusters a
-device runs at once); the plan's invariants over many N; and a numpy
-model of the kernel (the
-same points per thread, warp and CTA, the same parity slots, the same
-tie-break in the kernel's order: a thread's first maximum, the warp's
-largest value bits, then the lowest index among them) equal to
-``farthest_point_sample_plain`` on clouds full of exact ties. Tests marked
-``cuda`` need a card and skip elsewhere: ``python -m pytest
+on clouds beyond the registers (the device-memory plan), and when
+clusters do not all fit one wave (a fake count of the clusters a device
+runs at once); the plan's invariants over many N; and numpy models of
+the kernel's two layouts (the same points per thread, warp and CTA, the
+same parity slots, the same tie-break in the kernel's order: a thread's
+first maximum, the warp's largest value bits, then the lowest index
+among them, and in device memory the CTA's key before the cluster's)
+equal to ``farthest_point_sample_plain`` on clouds full of exact ties.
+Tests marked ``cuda`` need a card and skip elsewhere: ``python -m pytest
 tests/test_torch_fps.py -m cuda --noconftest`` (this file imports no JAX).
 """
 
@@ -97,6 +98,50 @@ def kernel_model(npoint: int, pts: np.ndarray, plan: FpsPlan) -> np.ndarray:
     return out
 
 
+def stream_model(npoint: int, pts: np.ndarray,
+                 plan: FpsPlan) -> np.ndarray:
+    """FPS as ``csrc/fps.cu`` computes it with the cloud in device memory
+    (``plan.ppt`` 0), in numpy: thread t of CTA r walks points r * T + t +
+    k * C * T in order and keeps its first maximum; each warp takes the
+    largest value bits (as int32; -1 for a thread without a point) and
+    the lowest index among the lanes that hold them, each CTA the same
+    over its warps, and the cloud's winner the same over the CTAs."""
+    xyz = np.ascontiguousarray(pts[..., :3], dtype=np.float32)
+    b, n, _ = xyz.shape
+    c, t = plan.cluster, plan.threads
+    steps = -(-n // (c * t))
+    idx = (np.arange(c)[:, None, None] * t + np.arange(t)[None, :, None]
+           + np.arange(steps)[None, None, :] * c * t)   # (C, T, K)
+    valid = idx < n
+    pos = xyz[:, np.where(valid, idx, 0)]                # (B, C, T, K, 3)
+    md = np.broadcast_to(np.where(valid, np.float32(1e38), np.float32(-1)),
+                         (b, c, t, steps)).copy()
+    out = np.zeros((b, npoint), np.int64)
+    old = xyz[:, 0]
+    rows = np.arange(b)
+
+    def reduce(bits, ids):                   # over the last axis
+        top = bits.max(-1)
+        return top, np.where(bits == top[..., None], ids, INT_MAX).min(-1)
+
+    for j in range(1, npoint):
+        d = pos - old[:, None, None, None, :]
+        dist = (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) \
+            + d[..., 2] * d[..., 2]
+        md = np.where(valid, np.fmin(md, dist), md)
+        first = md.argmax(-1)                            # (B, C, T)
+        bv = np.take_along_axis(md, first[..., None], -1)[..., 0]
+        bi = np.take_along_axis(np.broadcast_to(idx, md.shape),
+                                first[..., None], -1)[..., 0]
+        bits = bv.view(np.int32).reshape(b, c, t // 32, 32)
+        wv, wi = reduce(bits, bi.reshape(b, c, t // 32, 32))
+        cv, ci = reduce(wv, wi)
+        _, win = reduce(cv, ci)
+        old = xyz[rows, win]
+        out[:, j] = win
+    return out
+
+
 def lattice(batch: int, side: int, seed: int) -> np.ndarray:
     """An integer lattice scaled by 1/8 (exact in f32), each cloud in its
     own order: exact distance ties at every step."""
@@ -138,6 +183,21 @@ def test_kernel_model_matches_plain(kind, plan):
     npoint = min(n, 60)
     ref = S.farthest_point_sample_plain(npoint, torch.from_numpy(pts))
     np.testing.assert_array_equal(kernel_model(npoint, pts, plan),
+                                  ref.numpy())
+
+
+STREAM_PLANS = [FpsPlan(2, 32, 0), FpsPlan(3, 64, 0), FpsPlan(8, 96, 0),
+                FpsPlan(2, 1024, 0)]
+
+
+@pytest.mark.parametrize("kind", ["lattice", "duplicated", "all-equal",
+                                  "grid-6ch", "random"])
+@pytest.mark.parametrize("plan", STREAM_PLANS, ids=str)
+def test_stream_model_matches_plain(kind, plan):
+    pts = clouds(kind)
+    npoint = min(pts.shape[1], 60)
+    ref = S.farthest_point_sample_plain(npoint, torch.from_numpy(pts))
+    np.testing.assert_array_equal(stream_model(npoint, pts, plan),
                                   ref.numpy())
 
 
@@ -194,8 +254,8 @@ def test_plan_raises_when_no_cluster_runs():
 
 @pytest.mark.parametrize("batch", [1, 16, 64])
 def test_plan_invariants(batch):
-    for n in list(range(1, 300)) + list(range(300, S.FPS_MAX_POINTS + 1,
-                                              97)) + [S.FPS_MAX_POINTS]:
+    cap = S.REGISTER_MAX_POINTS
+    for n in list(range(1, 300)) + list(range(300, cap + 1, 97)) + [cap]:
         plan = S.fps_plan(batch, n, h100_active)
         assert plan.ppt in S.PPT_SIZES
         assert plan.threads % 32 == 0
@@ -205,11 +265,22 @@ def test_plan_invariants(batch):
             assert plan.cluster * plan.threads // 32 <= S.MAX_CANDIDATES
         # no CTA of a cluster is left without a point
         assert (plan.cluster - 1) * plan.threads * plan.ppt < n
+    for n in (cap + 1, 40000, 131072, 10 ** 7):
+        plan = S.fps_plan(batch, n, h100_active)
+        assert plan.ppt == 0 and plan.threads == S.STREAM_THREADS
+        assert 2 <= plan.cluster <= S.MAX_CLUSTER
+        assert (plan.cluster - 1) * plan.threads < n
 
 
 def test_plan_rejects_clouds_beyond_the_cap():
-    for n in (0, S.FPS_MAX_POINTS + 1):
-        with pytest.raises(ValueError, match="points a cloud"):
+    # no cap: a cloud beyond the registers takes the device-memory plan,
+    # in clusters of the same size as a register plan's at that B
+    for n in (S.REGISTER_MAX_POINTS + 1, 200000):
+        assert S.fps_plan(16, n, h100_active) == FpsPlan(6, 1024, 0)
+        assert S.fps_plan(2, n, h100_active) == FpsPlan(8, 1024, 0)
+    assert S.fps_plan(16, S.REGISTER_MAX_POINTS, h100_active).ppt == 16
+    for n in (0, -1):
+        with pytest.raises(ValueError, match="at least one point"):
             S.fps_plan(16, n, h100_active)
 
 
@@ -260,12 +331,12 @@ def test_wide_strided_and_capped_databases_match_plain_on_cuda(cuda_device):
     strided = six[..., :3].transpose(1, 2).contiguous().transpose(1, 2)
     assert_kernel_equals_plain(700, strided)              # converted
     assert_kernel_equals_plain(700, six.bfloat16())       # converted
-    cap = torch.rand((2, S.FPS_MAX_POINTS, 3), generator=gen,
+    cap = torch.rand((2, S.REGISTER_MAX_POINTS + 1, 3), generator=gen,
                      device=cuda_device)
-    assert_kernel_equals_plain(1024, cap)
-    with pytest.raises(ValueError, match="points a cloud"):
-        S.farthest_point_sample_kernel(
-            8, torch.zeros((1, S.FPS_MAX_POINTS + 1, 3), device=cuda_device))
+    assert_kernel_equals_plain(1024, cap[:, :-1])         # in registers
+    assert_kernel_equals_plain(1024, cap)                 # in memory
+    assert_kernel_equals_plain(700, cap.transpose(1, 2).contiguous()
+                               .transpose(1, 2))          # converted
 
 
 @pytest.mark.cuda
@@ -277,3 +348,32 @@ def test_every_instance_matches_plain_on_cuda(cuda_device, ppt):
                  FpsPlan(8, 128, ppt), FpsPlan(2, 512, ppt)):
         n = min(plan.cluster * plan.threads * ppt - 3, pts.shape[1])
         assert_kernel_equals_plain(min(n, 300), pts[:, :n], plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,npoint", [(2, 16385, 1), (2, 16385, 4096),
+                                            (3, 40000, 2500),
+                                            (4, 131072, 1), (4, 131072, 600)])
+def test_clouds_beyond_the_registers_match_plain_on_cuda(cuda_device, batch,
+                                                         n, npoint):
+    gen = torch.Generator(device=cuda_device).manual_seed(n + npoint)
+    t = torch.rand((batch, n, 3), generator=gen, device=cuda_device)
+    assert S.fps_plan(batch, n, S.max_active_clusters).ppt == 0
+    assert_kernel_equals_plain(npoint, t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [None] + STREAM_PLANS, ids=str)
+def test_tied_clouds_in_memory_match_plain_on_cuda(cuda_device, plan):
+    # a lattice of 26**3 = 17576 points beyond the registers (None: its
+    # own plan), and every cloud of the CPU models through each
+    # device-memory plan
+    if plan is None:
+        t = torch.from_numpy(lattice(2, 26, 9)).to(cuda_device)
+        assert_kernel_equals_plain(3000, t)
+        return
+    for kind in ("lattice", "duplicated", "all-equal", "grid-6ch",
+                 "random"):
+        t = torch.from_numpy(clouds(kind, batch=3)).to(cuda_device)
+        for npoint in (1, 300, t.shape[1]):
+            assert_kernel_equals_plain(npoint, t, plan)

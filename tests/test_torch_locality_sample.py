@@ -85,3 +85,12 @@ def test_fps_rejects_bad_npoint():
         farthest_point_sample(0, torch.zeros(1, 5, 3))
     with pytest.raises(ValueError):
         farthest_point_sample(6, torch.zeros(1, 5, 3))
+
+
+def test_fps_beyond_the_kernel_registers_matches_xla():
+    # a cloud larger than K1 holds in registers (the card walks it in
+    # device memory): the plain version still equals JAX's XLA loop
+    pts = _clouds(4, b=1, n=20000)
+    ref = np.asarray(farthest_point_sample_xla(64, jnp.asarray(pts)))
+    got = farthest_point_sample(64, torch.from_numpy(pts)).numpy()
+    np.testing.assert_array_equal(got, ref)
