@@ -54,12 +54,14 @@ schedule, weight decay):
    filter gradient within 1e-4 of its largest magnitude (sums of up to
    ~10^6 products in another order). These times go into the JSON line.
    Each call's line shows its time beside the library call and the bound
-   (share = bound / time); each conv's, pool backward's and conv
-   backward's (and FPS's) is followed by its device time (the pool
+   (share = bound / time); each conv's, pool backward's, conv
+   backward's and query's (and FPS's) is followed by its device time (the
+   pool
    backward's beside ``scatter_add_``'s; the conv backward's three
    kernels summed) in a ``torch.profiler`` trace,
    without the host's time before the launch that a single call's span
-   holds (:func:`device_ms`);
+   holds (:func:`device_ms`). Every query call's kernel count must equal
+   its map's nonzero bytes a row;
 7. one kernel step against one plain step from the same state, batch and
    dropout seed, ``dense_ok`` True: loss within 1%; with f32 activations
    (same weights, graphs and masks) every gradient leaf's L2 error within
@@ -174,7 +176,14 @@ inner_masked=True).train_step`` (Adam on the staircase schedule):
     duplicated points, a 6-channel and a strided database, N at the
     registers' cap and past it, N = 40000 in device memory, B=64 with
     clusters in more than one wave, every instance of the kernel)
-    bitwise equal to its plain version.
+    bitwise equal to its plain version; and K2 and K7 on adversarial
+    operands (:func:`query_stress`: points at exactly T - 1 ulp, T and
+    T + 1 ulp in squared distance of every threshold of radii 0.1-0.8,
+    growth rows alive only at the last radius or never, crowded rows past
+    K, empty rows, all-sentinel tiles, u_end outside [1, W/128], the
+    largest served window), every mode with and without the distance
+    map, bitwise equal to their plain versions (counts included), one
+    launch a call.
 
 Then the config options that read the queries' distance maps, at full
 published width with seeded weights:
@@ -416,6 +425,17 @@ def exact(got: tuple, ref: tuple) -> None:
         raise AssertionError("kernel != plain")
 
 
+def query_exact(got: tuple, ref: tuple) -> None:
+    """A query's outputs bitwise equal (:func:`exact`), and the kernel's
+    count (its second-to-last output) equal to its map's nonzero bytes a
+    row."""
+    exact(got, ref)
+    packed, count = got[0], got[-2]
+    nnz = (packed > 0).sum(-1, dtype=torch.int32).reshape(count.shape)
+    if not torch.equal(count, nnz):
+        raise AssertionError("count != the map's nonzero bytes a row")
+
+
 def close(got: tuple, ref: tuple) -> None:
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.float(), r.float(), rtol=CONV_TOL,
@@ -444,14 +464,16 @@ def versions():
     return {
         "fps": (S.farthest_point_sample_kernel,
                 S.farthest_point_sample_plain, exact),
-        "dense_query": (Q.dense_query_kernel, Q.dense_query_plain, exact),
+        "dense_query": (Q.dense_query_kernel, Q.dense_query_plain,
+                        query_exact),
         "dense_conv": (D.dense_conv_kernel, D.dense_conv_plain, close),
         "rank_pool": (D.rank_pool_kernel, D.rank_pool_plain, exact),
         "dense_conv_bwd": (D.dense_conv_bwd_kernel, D.dense_conv_bwd_plain,
                            conv_grads_close),
         "rank_pool_bwd": (D.rank_pool_bwd_kernel, D.rank_pool_bwd_plain,
                           exact),
-        "growth_query": (Q.growth_query_kernel, Q.growth_query_plain, exact),
+        "growth_query": (Q.growth_query_kernel, Q.growth_query_plain,
+                         query_exact),
         "window_gather": (W.window_gather_kernel, W.window_gather_plain,
                           exact),
         # the unpool backward: its window gradients, then their cloud sum
@@ -854,9 +876,11 @@ def replay(calls: list, res: Results, expect: dict[str, int],
                               min(reps, plain_reps)), check,
                     work(name, args, kw),
                     None if lib is None else median_ms(lib, reps))
-            if name in ("dense_conv", "rank_pool_bwd", "dense_conv_bwd"):
-                res.add_device(name, what, functools.partial(kern, *args),
-                               lib, work(name, args, kw))
+            if name in ("dense_conv", "rank_pool_bwd", "dense_conv_bwd",
+                        "dense_query", "growth_query"):
+                res.add_device(name, what,
+                               functools.partial(kern, *args, **kw), lib,
+                               work(name, args, kw))
             if name == "fps":
                 steps = max(args[0] - 1, 1)
                 print(f"  {'':14s} {what:30s} {ms * 1e3 / steps:.3f} us a "
@@ -1221,7 +1245,7 @@ def s3dis_phases(dev: torch.device, res: Results) -> dict[str, int]:
     with torch.no_grad():
         for name, args, kw in calls:
             if name == "growth_query":
-                _, steps, _ = Q.growth_query_kernel(*args, **kw)
+                _, steps, _, _ = Q.growth_query_kernel(*args, **kw)
                 hist = torch.bincount(steps.reshape(-1).long()).tolist()
                 print(f"  growth M_pad={args[1].shape[1]}: query rows per "
                       f"growth step 0, 1, ...: {hist}", flush=True)
@@ -1717,6 +1741,133 @@ def fps_stress(dev: torch.device) -> None:
                        S.farthest_point_sample_plain(600, strided)):
         raise AssertionError("K1 on a strided database: kernel != plain")
     print("  strided database (converted): equal", flush=True)
+
+
+def query_stress_calls(dev: torch.device) -> list:
+    """K2's and K7's adversarial operands, as (what, name, args, kw):
+
+    - boundaries: 256 query rows on the x axis, 4 apart, each with points
+      at exactly T - 1 ulp, T and T + 1 ulp in squared distance of each of
+      its thresholds (range, radial bin, self loop; for K7 the nearest
+      point at one growth threshold, row m at threshold m % (G+1), 24
+      more points beyond it: rows grown by every step, alive only at the
+      last radius, never alive), two clouds in random point order;
+    - crowded, empty and sentinel tiles: uniform clouds at radius 0.3
+      and K = 32 (K reached inside a step; for K7 at once, and at radius
+      0.05 rows that grow), half the queries moved out of range, a cloud
+      whose database is all sentinels, a query tile of sentinels only,
+      drawn window starts and u_end from -1 to W/128 + 2;
+    - the largest served window, 2688 rows (ModelNet's hard pool window
+      at level 0), B=16 clouds of 10000 points.
+
+    Every K2 operand in the three modes (ranks, bins, grouped bins), each
+    with and without the distance map."""
+    from sph3d_gcn_torch.data.synthetic import (
+        boundary_clouds,
+        growth_boundary_clouds,
+        query_operands,
+        surface_clouds,
+    )
+    from sph3d_gcn_torch.ops import dense as D
+    from sph3d_gcn_torch.ops import query as Q
+
+    rng = np.random.default_rng(14)
+    axis2 = torch.tensor([0, 2], dtype=torch.int32, device=dev)
+    calls = []
+
+    def operands(*arrays, **kw):
+        *ops, window = query_operands(*arrays, **kw)
+        return tuple(torch.from_numpy(a).to(dev) for a in ops), window
+
+    def k2(what, args, axis, **kw):
+        for kernel, ax, mode in ((None, None, "ranks"), ((8, 2, 2), None,
+                                 "bins"), ((8, 2, 2), axis, "grouped")):
+            for dist in (False, True):
+                calls.append((f"{what}, {mode}{' +dist' if dist else ''}",
+                              "dense_query", args + (ax,),
+                              dict(kw, kernel=kernel, need_dist=dist)))
+
+    def k7(what, args, **kw):
+        for dist in (False, True):
+            calls.append((f"{what}{' +dist' if dist else ''}",
+                          "growth_query", args, dict(kw, need_dist=dist)))
+
+    for radius in (0.1, 0.2, 0.4, 0.8):
+        t_in, t_radial, t_far = Q.query_thresholds(radius, 2)
+        args, w = operands(*boundary_clouds((t_in, *t_radial, t_far), 256,
+                                            rng))
+        k2(f"boundaries r={radius}", args, axis2, radius=radius, k=64,
+           window=w)
+        for steps in (3, 12):
+            db, q, _, _ = growth_boundary_clouds(
+                Q.growth_thresholds(radius, steps), 256, rng)
+            args, w = operands(db, q)
+            k7(f"growth boundaries r={radius} G={steps}", args,
+               radius=radius, k=8, window=w, growth_steps=steps)
+
+    cube = rng.random((2, 2000, 3), dtype=np.float32)
+    qc = cube[:, :300].copy()
+    qc[:, 150:, 0] += 100.0                      # rows with none
+    args, w = operands(cube, qc, window=1024, rng=rng)
+    args[0][1] = 2e9                             # a sentinel database
+    q_p = torch.full((2, 512, 3), 1e9, device=dev)
+    q_p[:, :384] = args[1]                       # a sentinel query tile
+    args = (args[0], q_p, *(torch.cat([a, a[:, :1]], 1) for a in args[2:]))
+    k2("crowded/empty/sentinel", args, torch.tensor([1, 0], dtype=torch.int32,
+                                                    device=dev),
+       radius=0.3, k=32, window=w)
+    k7("crowded/empty/sentinel", args, radius=0.05, k=32, window=w,
+       growth_steps=12)
+    k7("crowded/empty/sentinel, K at once", args, radius=0.3, k=32,
+       window=w, growth_steps=3)
+
+    pts = surface_clouds(rng, 16, N)
+    pts = np.take_along_axis(pts, np.argsort(pts[..., :1], 1), 1)
+    t = torch.from_numpy(pts).to(dev)
+    sub = t[:, ::4].contiguous()
+    for what, db, qq, kernel in (("W=2688 pool", t, sub, None),
+                                 ("W=2688 intra", t, t, (8, 2, 2))):
+        plan = D.plan_dense_query(db, qq, 0.1, kernel, 2688)
+        args = (plan.db_p, plan.q_p, plan.s_blk, plan.u_end, plan.axis)
+        for dist in (False, True):
+            calls.append((f"{what}{' +dist' if dist else ''}", "dense_query",
+                          args, dict(radius=0.1, k=64, kernel=kernel,
+                                     window=plan.window, need_dist=dist)))
+    plan = D.plan_dense_query(sub, t, 0.1, None, 2688, growth_steps=3)
+    k7("W=2688 growth", (plan.db_p, plan.q_p, plan.s_blk, plan.u_end),
+       radius=0.1, k=64, window=plan.window, growth_steps=3)
+    return calls
+
+
+def query_stress(dev: torch.device) -> None:
+    """Phase 25f: K2 and K7 on adversarial operands
+    (:func:`query_stress_calls`), each bitwise equal to its plain version
+    (maps, counts, growth steps, distance maps), its count equal to its
+    map's nonzero bytes a row, one launch a call; times at the largest
+    window."""
+    from sph3d_gcn_torch import kernel_launches, reset_kernel_launches
+
+    print("dense queries (K2, K7) on adversarial operands, kernel vs plain "
+          "version bitwise:", flush=True)
+    table = versions()
+    with torch.no_grad():
+        for what, name, args, kw in query_stress_calls(dev):
+            kern, plain, check = table[name]
+            reset_kernel_launches()
+            got = kern(*args, **kw)
+            if kernel_launches()[name] != 1:
+                raise AssertionError(f"{name} {what}: "
+                                     f"{kernel_launches()[name]} launches")
+            try:
+                check(got, plain(*args, **kw))
+            except AssertionError as e:
+                raise AssertionError(f"{name} {what}: {e}") from e
+            n = int(got[-2].sum().item())
+            ms = ""
+            if what.startswith("W=2688"):
+                ms = f", {median_ms(lambda: kern(*args, **kw)):.3f} ms"
+            print(f"  {name:12s} {what:42s} equal ({n} selected{ms})",
+                  flush=True)
 
 
 def windowed_phases(dev: torch.device, batches: list[np.ndarray],
@@ -2423,13 +2574,15 @@ def dist_map_replay(calls: list, res: Results) -> None:
           flush=True)
     with torch.no_grad():
         for name, args, kw in calls:
-            kern, plain, _ = table[name]
+            kern, plain, check = table[name]
             what = describe(name, args, kw)
             got = kern(*args, **kw)
             res.add(name, what, got, plain(*args, **kw),
                     median_ms(lambda: kern(*args, **kw)),
-                    median_ms(lambda: plain(*args, **kw), 1), exact,
+                    median_ms(lambda: plain(*args, **kw), 1), check,
                     work(name, args, kw))
+            res.add_device(name, what, functools.partial(kern, *args, **kw),
+                           None, work(name, args, kw))
             if not kw.get("need_dist"):
                 continue
             bare = {k: v for k, v in kw.items() if k != "need_dist"}
@@ -2440,9 +2593,9 @@ def dist_map_replay(calls: list, res: Results) -> None:
             bound = map_bytes / MEM_BYTES_PER_S * 1e3
             bare_ms[name] += ms
             map_bound[name] += bound
-            print(f"    without the map {ms:.3f} ms (packed"
-                  f"{' and steps' if len(alone) > 2 else ''} bitwise "
-                  f"unchanged); the map {map_bytes / 1e6:.1f} MB, its "
+            print(f"    without the map {ms:.3f} ms (packed, count"
+                  f"{' and steps' if name == 'growth_query' else ''} "
+                  f"bitwise unchanged); the map {map_bytes / 1e6:.1f} MB, its "
                   f"bound {bound:.4f} ms", flush=True)
     for name in ("dense_query", "growth_query"):
         if res.calls[name]:
@@ -2613,6 +2766,7 @@ def main() -> None:
     conv_fwd_stress(dev)
     conv_bwd_stress(dev)
     fps_stress(dev)
+    query_stress(dev)
     del pool_calls, conv_map
 
     # 26-30. the options that read distance maps, the avg pools, IDS and

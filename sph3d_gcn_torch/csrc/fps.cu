@@ -82,6 +82,7 @@
 namespace {
 
 using sph3d::kFullMask;
+using sph3d::kMaxDevices;
 
 // the points a thread may hold: the instances built. The plan
 // (ops/sample.py::fps_plan) chooses among them, and a launch with another
@@ -93,7 +94,6 @@ constexpr int kMaxCands = 32;      // candidates a step reduces: one a lane
 constexpr int kMaxCluster = 8;     // CTAs a cluster: the portable size
 constexpr int kStreamThreads = 1024;  // a CTA of fps_stream_kernel, at most
 constexpr int kStreamBatch = 4;    // its points a thread loads at once
-constexpr int kMaxDevices = 16;    // devices whose attribute is kept
 constexpr int kCopyBatch = 16;     // words of the cloud a thread loads at once
 // dynamic shared memory: the cloud's x, y and z (12 bytes a point); for a
 // cluster CTA at least more than half an SM's 228 KB, so that an SM holds
@@ -387,37 +387,17 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
   cluster_barrier();
 }
 
-// The shared memory an instance may use: all that the device lends one
-// block, less the kernel's static arrays; set once a device. A cloud
-// beyond it fails to launch.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, bool (&allowed)[kMaxDevices]) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < kMaxDevices && allowed[dev]) return cudaSuccess;
-  int optin = 0;
-  cudaFuncAttributes fa;
-  err = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             optin - static_cast<int>(fa.sharedSizeBytes));
-  if (err == cudaSuccess && dev < kMaxDevices) allowed[dev] = true;
-  return err;
-}
-
+// Each instance may use all the shared memory the device lends a block
+// (set once a device); a cloud beyond it fails to launch.
 template <int P, bool kCluster>
 cudaError_t allow_smem() {
   static bool allowed[kMaxDevices] = {};
-  return allow_smem(fps_kernel<P, kCluster>, allowed);
+  return sph3d::allow_all_smem(fps_kernel<P, kCluster>, allowed);
 }
 
 cudaError_t allow_stream_smem() {
   static bool allowed[kMaxDevices] = {};
-  return allow_smem(fps_stream_kernel, allowed);
+  return sph3d::allow_all_smem(fps_stream_kernel, allowed);
 }
 
 struct Args {

@@ -280,19 +280,17 @@ def build_dense_graph(
                             growth_steps)
     k = int(nn_sample)
     if growth_steps:
-        packed, steps, dist = growth_query(
+        packed, steps, count, dist = growth_query(
             plan.db_p, plan.q_p, plan.s_blk, plan.u_end, radius=radius, k=k,
             window=plan.window, growth_steps=growth_steps,
             need_dist=need_dist, use_kernels=use_kernels,
         )
     else:
-        packed, dist = dense_query(
+        packed, count, dist = dense_query(
             plan.db_p, plan.q_p, plan.s_blk, plan.u_end, plan.axis,
             radius=radius, k=k, kernel=kernel, window=plan.window,
             need_dist=need_dist, use_kernels=use_kernels,
         )
-    batch = packed.shape[0]
-    count = (packed > 0).sum(dim=-1, dtype=torch.int32).reshape(batch, -1)
     count = count[:, :plan.num_query]
     ok = plan.ok
     if growth_steps:

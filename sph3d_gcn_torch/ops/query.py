@@ -12,6 +12,7 @@ axis-sorted database rows ``[s_blk*128, s_blk*128 + W)``:
   rank  = inclusive count of in_r along the window (point order)
   sel   = in_r and rank <= K                     (first K in point order)
   packed = sel ? (kernel ? bin + 1 : rank) : 0
+  count  = #sel along the window = min(#in_r, K) (per query row)
   dist   = sel ? sqrt(d3) : 0                    (``need_dist`` only)
 
 The distance map holds the square root of the Euclidean distance d3: the
@@ -24,6 +25,12 @@ proves they hold no in-range candidate). Bins follow the compare-only
 ``_bins_822`` form for (8, 2, q) kernels, optionally SORT-GROUPED by the
 cloud's sort axis (see :func:`bins_822`).
 
+Every test above is a compare of ``d3``, and ``d3`` does not decrease as
+``s = (dx*dx + dy*dy) + dz*dz`` grows (a correctly rounded square root),
+so each flips at one f32 value of ``s``: :func:`query_thresholds` and
+:func:`growth_thresholds` find those values, and the kernels compare
+``s`` against them instead of taking a square root per candidate.
+
 A CUDA tensor goes to ``csrc/dense_query.cu`` (``csrc/growth_query.cu``
 for the growth query), a CPU tensor to :func:`dense_query_plain`
 (:func:`growth_query_plain`).
@@ -32,6 +39,7 @@ for the growth query), a CPU tensor to :func:`dense_query_plain`
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -47,16 +55,38 @@ _MAX_GROWTH = 15         # growth steps the kernel takes (16 radii)
 # element budget of one (tiles, TILE, W) float temporary in the plain query
 _PLAIN_BUDGET = 1 << 24
 
+_F32_INF_BITS = 0x7F800000   # f32 bit patterns of s >= 0 run up to +inf
+
 QUERY_KERNEL = _build.register(
     "dense_query", "sph3d_dense_query_launch",
-    [_build.PTR] * 7 + [_build.INT] * 7 + [_build.FLOAT] * 5
+    [_build.PTR] * 8 + [_build.INT] * 8 + [_build.FLOAT] * 5
     + [_build.PTR],
 )
 GROWTH_KERNEL = _build.register(
     "growth_query", "sph3d_growth_query_launch",
-    [_build.PTR] * 8 + [_build.INT] * 6 + [_build.PTR],
+    [_build.PTR] * 9 + [_build.INT] * 7 + [_build.PTR],
 )
-_RADII = ctypes.c_float * (_MAX_GROWTH + 1)    # host array of the radii
+# host array of the growth query's thresholds
+_THRESHOLDS = ctypes.c_float * (_MAX_GROWTH + 1)
+# the blocks a query call should give the card (four an SM of the H100's
+# 132), and the most blocks a query tile may take (a block's 8 warps
+# each walk one of its rows at least)
+_QUERY_BLOCKS = 4 * 132
+_MAX_SPLIT = 16
+
+
+@functools.lru_cache(maxsize=None)
+def query_split(tiles: int) -> int:
+    """The blocks each of ``tiles`` = B * nT query tiles takes in K2 and
+    K7 (1, 2, ..., 16; each block walks 128 / split of the tile's rows and
+    stages the tile's window itself): the fewest that give the card
+    ``_QUERY_BLOCKS`` blocks. A small call (the deep levels, the
+    decoders) would otherwise leave most SMs idle and each warp walking 16
+    rows one after another."""
+    split = 1
+    while tiles * split < _QUERY_BLOCKS and split < _MAX_SPLIT:
+        split *= 2
+    return split
 
 
 def bin_thresholds(radius: float, q_bins: int) -> tuple[list[float], float]:
@@ -70,6 +100,48 @@ def bin_thresholds(radius: float, q_bins: int) -> tuple[list[float], float]:
     ]
     far = float(np.float32(float(np.float32(_M_EPS + 1e-6)) ** 2))
     return radial, far
+
+
+def _first_sq(test) -> float:
+    """The least f32 ``s >= 0`` whose f32 square root passes ``test``, a
+    test that fails below some ``s`` and passes from it on (and passes at
+    +inf): bisection over the f32 bit patterns, which order the
+    non-negative floats as their values. numpy's f32 ``sqrt`` is correctly
+    rounded, as CUDA's ``sqrtf`` and ``torch.sqrt`` on the card are."""
+    lo, hi = 0, _F32_INF_BITS
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if test(np.sqrt(np.uint32(mid).view(np.float32))):
+            hi = mid
+        else:
+            lo = mid + 1
+    return float(np.uint32(lo).view(np.float32))
+
+
+def _out_of_range(radius: np.float32):
+    """The negated range test at ``radius`` on a distance ``d3``, in f32
+    as the plain versions compute it (strict ``<`` with the 1e-6 margin)."""
+    eps = np.float32(_BOUNDARY_EPS)
+    return lambda d3: not (d3 < radius and abs(d3 - radius) > eps)
+
+
+@functools.lru_cache(maxsize=None)
+def query_thresholds(radius: float,
+                     q_bins: int) -> tuple[float, tuple[float, ...], float]:
+    """The squared-distance thresholds of one dense query: ``(t_in,
+    t_radial, t_far)`` with, for every f32 ``s`` and ``d3 = sqrt(s)``,
+
+      in range (``d3 < r and |d3 - r| > 1e-6``)  iff  s < t_in
+      radial bin test j (``d3 >= thr_j``)       iff  s >= t_radial[j]
+      not the self loop (``d3 > far``)          iff  s >= t_far
+
+    (``thr``, ``far``: :func:`bin_thresholds`; q_bins - 1 radial ones)."""
+    radial, far = bin_thresholds(radius, q_bins)
+    t_in = _first_sq(_out_of_range(np.float32(radius)))
+    t_radial = tuple(_first_sq(lambda d3, t=np.float32(t): d3 >= t)
+                     for t in radial)
+    t_far = _first_sq(lambda d3: d3 > np.float32(far))
+    return t_in, t_radial, t_far
 
 
 def bins_822(dx, dy, dz, d3, radius, kernel, group_axis=None):
@@ -154,7 +226,7 @@ def dense_query(
     window: int,
     need_dist: bool = False,
     use_kernels: bool | None = None,
-) -> tuple[torch.Tensor, torch.Tensor | None]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
     """Packed maps of one level graph.
 
     Args:
@@ -168,8 +240,10 @@ def dense_query(
       need_dist: also return the f32 distance map.
 
     Returns:
-      (packed (B, nT, TILE, W) int8, dist): ``dist`` is the f32
-      (B, nT, TILE, W) distance map with ``need_dist``, else None.
+      (packed (B, nT, TILE, W) int8, count (B, M_pad) int32: each query
+      row's selected entries, the nonzero bytes of its map row, dist):
+      ``dist`` is the f32 (B, nT, TILE, W) distance map with
+      ``need_dist``, else None.
     """
     _check_kernel(kernel)
     if not 1 <= k <= 127:
@@ -226,15 +300,20 @@ def dense_query_plain(db_p, q_p, s_blk, u_end, axis, *, radius, k, kernel,
             dist[sl] = torch.where(keep, torch.sqrt(d3), 0.0)
     if need_dist:
         dist = dist.reshape(batch, n_t, TILE, window)
-    return out.reshape(batch, n_t, TILE, window), dist
+    count = (out > 0).sum(dim=-1, dtype=torch.int32).reshape(batch, m_pad)
+    return out.reshape(batch, n_t, TILE, window), count, dist
 
 
 def dense_query_kernel(db_p, q_p, s_blk, u_end, axis, *, radius, k, kernel,
                        window, need_dist=False):
-    """The query through ``csrc/dense_query.cu``: one block per
-    (cloud, query tile), the window's coordinates staged in shared
-    memory, one warp per query row with a ballot/popc prefix count; with
-    ``need_dist`` the same launch writes the distance map."""
+    """The query through ``csrc/dense_query.cu``: :func:`query_split`
+    blocks per (cloud, query tile), each staging the window's
+    coordinates in shared memory, one warp per query row testing 128
+    columns a step against the squared-distance thresholds of
+    :func:`query_thresholds`; the same launch writes the rows' counts
+    and, with ``need_dist``, the distance map. ``s_blk`` and ``u_end``
+    are read as the plan holds them (int64), ``axis`` (int32) only for
+    grouped bins: one device launch a call."""
     _build.check(db_p, "db_p", torch.float32, 3)
     _build.check(q_p, "q_p", torch.float32, 3)
     batch, n_pad, _ = db_p.shape
@@ -246,31 +325,36 @@ def dense_query_kernel(db_p, q_p, s_blk, u_end, axis, *, radius, k, kernel,
         raise ValueError(f"window {window} exceeds the kernel's shared memory")
     if s_blk.shape != (batch, n_t) or u_end.shape != (batch, n_t):
         raise ValueError("s_blk / u_end must be (B, nT)")
-    sb = s_blk.to(torch.int32).contiguous()
-    # the kernel stages u_end chunks of the window in shared memory
-    ue = u_end.clamp(1, window // TILE).to(torch.int32).contiguous()
+    sb = s_blk.to(torch.int64).contiguous()   # the plan's, as it is
+    ue = u_end.to(torch.int64).contiguous()
+    _build.check(sb, "s_blk", torch.int64, 2)
+    _build.check(ue, "u_end", torch.int64, 2)
+    ax = None
     if kernel is None:
         mode, q_bins = 0, 1
     else:
         mode, q_bins = (2 if axis is not None else 1), kernel[2]
-    ax = (axis if axis is not None
-          else torch.zeros(batch, device=db_p.device)).to(torch.int32)
-    ax = ax.contiguous()
-    radial, far = bin_thresholds(radius, q_bins)
-    radial = (radial + [0.0] * _MAX_Q_BINS)[: _MAX_Q_BINS - 1]
+    if mode == 2:
+        ax = axis.to(torch.int32).contiguous()    # the plan's, as it is
+        _build.check(ax, "axis", torch.int32, 1)
+        if ax.shape != (batch,):
+            raise ValueError("axis must be (B,)")
+    t_in, t_radial, t_far = query_thresholds(radius, q_bins)
+    t_radial = (list(t_radial) + [0.0] * _MAX_Q_BINS)[: _MAX_Q_BINS - 1]
+    dev = db_p.device
     out = torch.empty((batch, n_t, TILE, window), dtype=torch.int8,
-                      device=db_p.device)
+                      device=dev)
+    count = torch.empty((batch, m_pad), dtype=torch.int32, device=dev)
     dist = (torch.empty((batch, n_t, TILE, window), dtype=torch.float32,
-                        device=db_p.device) if need_dist else None)
+                        device=dev) if need_dist else None)
     QUERY_KERNEL.launch(
         _build.ptr(db_p), _build.ptr(q_p), _build.ptr(sb), _build.ptr(ue),
-        _build.ptr(ax), _build.ptr(out),
-        None if dist is None else _build.ptr(dist),
-        batch, n_pad, n_t, window, k, mode, q_bins,
-        float(np.float32(radius)), *radial, far,
-        _build.stream(db_p),
+        None if ax is None else _build.ptr(ax), _build.ptr(out),
+        None if dist is None else _build.ptr(dist), _build.ptr(count),
+        batch, n_pad, n_t, window, k, mode, q_bins, query_split(batch * n_t),
+        t_in, *t_radial, t_far, _build.stream(db_p),
     )
-    return out, dist
+    return out, count, dist
 
 
 def growth_radii(radius: float, growth_steps: int) -> np.ndarray:
@@ -281,6 +365,15 @@ def growth_radii(radius: float, growth_steps: int) -> np.ndarray:
     for _ in range(growth_steps):
         radii.append(np.float32(radii[-1] + np.float32(GROWTH_STEP)))
     return np.array(radii, np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def growth_thresholds(radius: float, growth_steps: int) -> tuple[float, ...]:
+    """The growth query's squared-distance thresholds: for each radius
+    ``r_i`` of :func:`growth_radii`, ``t_i`` with ``d3 = sqrt(s)`` in range
+    at ``r_i`` iff ``s < t_i`` (ascending, as the radii)."""
+    return tuple(_first_sq(_out_of_range(r))
+                 for r in growth_radii(radius, growth_steps))
 
 
 def growth_query(
@@ -295,7 +388,8 @@ def growth_query(
     growth_steps: int,
     need_dist: bool = False,
     use_kernels: bool | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor | None]:
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor | None]:
     """Rank maps of a selection-only graph whose zero-neighbor queries
     grow their radius by +0.05 (ref tf_nnquery_gpu.cu:30-60), densely
     in-window, for up to ``growth_steps`` steps.
@@ -312,9 +406,10 @@ def growth_query(
 
     Returns:
       (packed (B, nT, TILE, W) int8 ranks, steps (B, nT, TILE) int8: each
-      row's growth step, 0 for rows that select nothing, dist): ``dist``
-      is the f32 (B, nT, TILE, W) distance map of the selected columns at
-      each row's grown radius with ``need_dist``, else None.
+      row's growth step, 0 for rows that select nothing, count (B, M_pad)
+      int32: each row's selected entries, dist): ``dist`` is the f32
+      (B, nT, TILE, W) distance map of the selected columns at each row's
+      grown radius with ``need_dist``, else None.
     """
     if not 1 <= k <= 127:
         raise ValueError(f"int8 maps need 1 <= K <= 127, got {k}")
@@ -375,17 +470,22 @@ def growth_query_plain(db_p, q_p, s_blk, u_end, *, radius, k, window,
             dist[sl] = torch.where(keep, torch.sqrt(d3), 0.0)
     if need_dist:
         dist = dist.reshape(batch, n_t, TILE, window)
+    count = (out > 0).sum(dim=-1, dtype=torch.int32).reshape(batch, m_pad)
     return (out.reshape(batch, n_t, TILE, window),
-            steps.reshape(batch, n_t, TILE), dist)
+            steps.reshape(batch, n_t, TILE), count, dist)
 
 
 def growth_query_kernel(db_p, q_p, s_blk, u_end, *, radius, k, window,
                         growth_steps, need_dist=False):
-    """The growth query through ``csrc/growth_query.cu``: one block per
-    (cloud, query tile), the live window staged in shared memory, one
-    warp per query row; pass 1 finds the row's step with a warp min,
-    pass 2 recomputes the distances and writes the ranks (and, with
-    ``need_dist``, the distance map)."""
+    """The growth query through ``csrc/growth_query.cu``:
+    :func:`query_split` blocks per (cloud, query tile), each staging the
+    live window in shared memory, one warp per query row; pass 1 finds
+    the row's least squared distance
+    (hence its step, against :func:`growth_thresholds`) with a warp min,
+    pass 2 ranks the columns within the row's grown radius as K2 does,
+    writing the map, the rows' steps and counts (and, with
+    ``need_dist``, the distance map). ``s_blk``, ``u_end`` read in place
+    (int64): one device launch a call."""
     _build.check(db_p, "db_p", torch.float32, 3)
     _build.check(q_p, "q_p", torch.float32, 3)
     batch, n_pad, _ = db_p.shape
@@ -397,22 +497,25 @@ def growth_query_kernel(db_p, q_p, s_blk, u_end, *, radius, k, window,
         raise ValueError(f"window {window} exceeds the kernel's shared memory")
     if s_blk.shape != (batch, n_t) or u_end.shape != (batch, n_t):
         raise ValueError("s_blk / u_end must be (B, nT)")
-    sb = s_blk.to(torch.int32).contiguous()
-    ue = u_end.clamp(1, window // TILE).to(torch.int32).contiguous()
-    # the launcher copies the radii from this host array into the
+    sb = s_blk.to(torch.int64).contiguous()   # the plan's, as it is
+    ue = u_end.to(torch.int64).contiguous()
+    _build.check(sb, "s_blk", torch.int64, 2)
+    _build.check(ue, "u_end", torch.int64, 2)
+    # the launcher copies the thresholds from this host array into the
     # kernel's parameters
-    radii = _RADII(*growth_radii(radius, growth_steps).tolist())
+    thresholds = _THRESHOLDS(*growth_thresholds(radius, growth_steps))
+    dev = db_p.device
     out = torch.empty((batch, n_t, TILE, window), dtype=torch.int8,
-                      device=db_p.device)
-    steps = torch.empty((batch, n_t, TILE), dtype=torch.int8,
-                        device=db_p.device)
+                      device=dev)
+    steps = torch.empty((batch, n_t, TILE), dtype=torch.int8, device=dev)
+    count = torch.empty((batch, m_pad), dtype=torch.int32, device=dev)
     dist = (torch.empty((batch, n_t, TILE, window), dtype=torch.float32,
-                        device=db_p.device) if need_dist else None)
+                        device=dev) if need_dist else None)
     GROWTH_KERNEL.launch(
         _build.ptr(db_p), _build.ptr(q_p), _build.ptr(sb), _build.ptr(ue),
-        _build.ptr(out), _build.ptr(steps),
-        None if dist is None else _build.ptr(dist), radii,
+        _build.ptr(out), _build.ptr(steps), _build.ptr(count),
+        None if dist is None else _build.ptr(dist), thresholds,
         batch, n_pad, n_t, window, k, growth_steps + 1,
-        _build.stream(db_p),
+        query_split(batch * n_t), _build.stream(db_p),
     )
-    return out, steps, dist
+    return out, steps, count, dist

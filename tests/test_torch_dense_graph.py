@@ -168,7 +168,7 @@ def test_growth_graph(case, expect_ok):
     assert bool(plan.ok)                 # the base-radius slabs are covered
     zero_rows = int((got.count == 0).sum())
     assert (zero_rows > 0) is (case == "exhausted")
-    _, row_steps, _ = growth_query_plain(
+    _, row_steps, _, _ = growth_query_plain(
         plan.db_p, plan.q_p, plan.s_blk, plan.u_end, radius=radius, k=k,
         window=plan.window, growth_steps=steps)
     assert int(row_steps.max()) > 0     # some rows grew
@@ -185,7 +185,7 @@ def test_growth_query_matches_the_jax_kernel(case):
     db, q, radius, k, window, steps = growth_case(case)
     plan = td.plan_dense_query(torch.from_numpy(db), torch.from_numpy(q),
                                radius, None, window, steps)
-    packed, row_steps, _ = growth_query_plain(
+    packed, row_steps, _, _ = growth_query_plain(
         plan.db_p, plan.q_p, plan.s_blk, plan.u_end, radius=radius, k=k,
         window=plan.window, growth_steps=steps)
     ref, _, gmax = dense_query_pallas(

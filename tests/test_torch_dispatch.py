@@ -398,8 +398,9 @@ def test_kernels_match_plain_on_cuda(cuda_device, dtype):
         plan = D.plan_dense_query(db, q, 0.25, kernel, w)
         args = (plan.db_p, plan.q_p, plan.s_blk, plan.u_end, plan.axis)
         kw = dict(radius=0.25, k=16, kernel=kernel, window=plan.window)
-        assert torch.equal(Q.dense_query_kernel(*args, **kw)[0],
-                           Q.dense_query_plain(*args, **kw)[0])
+        got, ref = (Q.dense_query_kernel(*args, **kw),
+                    Q.dense_query_plain(*args, **kw))
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     for c, mult in ((35, 2), (131, 1)):
         x = torch.randn(3, 700, c, device=cuda_device).to(dtype)
         filt_b, inv = D.conv_operands(
@@ -469,9 +470,10 @@ def test_growth_kernel_matches_plain_on_cuda(cuda_device):
     args = (plan.db_p, plan.q_p, plan.s_blk, plan.u_end)
     for steps in (1, 3, 12, 15):
         kw = dict(radius=0.01, k=16, window=plan.window, growth_steps=steps)
-        got, got_steps, _ = Q.growth_query_kernel(*args, **kw)
-        ref, ref_steps, _ = Q.growth_query_plain(*args, **kw)
+        got, got_steps, got_count, _ = Q.growth_query_kernel(*args, **kw)
+        ref, ref_steps, ref_count, _ = Q.growth_query_plain(*args, **kw)
         assert torch.equal(got, ref) and torch.equal(got_steps, ref_steps)
+        assert torch.equal(got_count, ref_count)
         assert int(ref_steps.max()) > 0
     t = torch.from_numpy(pts).to(cuda_device)
     db = t[:, ::3].contiguous()
@@ -500,10 +502,10 @@ def test_dist_map_kernels_match_plain_on_cuda(cuda_device):
         args = (plan.db_p, plan.q_p, plan.s_blk, plan.u_end,
                 plan.axis if grouped else None)
         kw = dict(radius=0.25, k=16, kernel=kernel, window=plan.window)
-        packed, dist = Q.dense_query_kernel(*args, **kw, need_dist=True)
-        ref, ref_dist = Q.dense_query_plain(*args, **kw, need_dist=True)
+        packed, _, dist = Q.dense_query_kernel(*args, **kw, need_dist=True)
+        ref, _, ref_dist = Q.dense_query_plain(*args, **kw, need_dist=True)
         assert torch.equal(packed, ref) and torch.equal(dist, ref_dist)
-        assert Q.dense_query_kernel(*args, **kw)[1] is None
+        assert Q.dense_query_kernel(*args, **kw)[2] is None
         assert torch.equal(packed, Q.dense_query_kernel(*args, **kw)[0])
         assert (dist[packed == 0] == 0).all() and (dist > 0).any()
         reset_kernel_launches()
@@ -519,9 +521,8 @@ def test_dist_map_kernels_match_plain_on_cuda(cuda_device):
         ref = Q.growth_query_plain(*gargs, **kw, need_dist=True)
         assert all(torch.equal(a, b) for a, b in zip(got, ref))
         alone = Q.growth_query_kernel(*gargs, **kw)
-        assert torch.equal(got[0], alone[0]) and torch.equal(got[1],
-                                                             alone[1])
-        assert alone[2] is None
+        assert all(torch.equal(a, b) for a, b in zip(got[:3], alone[:3]))
+        assert alone[3] is None
         reset_kernel_launches()
         Q.growth_query(*gargs, **kw, need_dist=True)
         assert kernel_launches()["growth_query"] == 1

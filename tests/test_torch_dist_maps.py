@@ -139,7 +139,7 @@ def test_ungrouped_bin_dist_map_matches_the_jax_kernel():
     pts = sorted_clouds(5)
     t = torch.from_numpy(pts)
     plan = td.plan_dense_query(t, t, 0.2, KERNEL, 384)
-    packed, dist = dense_query_plain(
+    packed, _, dist = dense_query_plain(
         plan.db_p, plan.q_p, plan.s_blk, plan.u_end, None, radius=0.2, k=24,
         kernel=KERNEL, window=plan.window, need_dist=True)
     ref, ref_dist, _ = dense_query_pallas(
@@ -149,7 +149,7 @@ def test_ungrouped_bin_dist_map_matches_the_jax_kernel():
         window=plan.window, need_dist=True, interpret=True)
     np.testing.assert_array_equal(packed.numpy(), np.asarray(ref))
     assert_dist_within_ulp(dist.numpy(), ref_dist)
-    only, no_dist = dense_query_plain(
+    only, _, no_dist = dense_query_plain(
         plan.db_p, plan.q_p, plan.s_blk, plan.u_end, None, radius=0.2, k=24,
         kernel=KERNEL, window=plan.window)
     assert torch.equal(only, packed) and no_dist is None
