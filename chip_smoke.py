@@ -54,11 +54,12 @@ schedule, weight decay):
    filter gradient within 1e-4 of its largest magnitude (sums of up to
    ~10^6 products in another order). These times go into the JSON line.
    Each call's line shows its time beside the library call and the bound
-   (share = bound / time); each conv's, pool backward's, conv
-   backward's and query's (and FPS's) is followed by its device time (the
-   pool
-   backward's beside ``scatter_add_``'s; the conv backward's three
-   kernels summed) in a ``torch.profiler`` trace,
+   (share = bound / time); each conv's, pool's, pool backward's, conv
+   backward's, query's and edge gather's (and FPS's) is followed by its
+   device time (the pool backward's beside ``scatter_add_``'s, the edge
+   gather's beside ``torch.gather``'s; the conv backward's three
+   kernels summed), and each unpool backward's by its K9 segment sum's,
+   in a ``torch.profiler`` trace,
    without the host's time before the launch that a single call's span
    holds (:func:`device_ms`). Every query call's kernel count must equal
    its map's nonzero bytes a row;
@@ -167,8 +168,16 @@ inner_masked=True).train_step`` (Adam on the staircase schedule):
     gradients equal, with times, device times and bounds; then K6 on
     adversarial operands (:func:`pool_bwd_stress`: scattered windows and
     one row taking every row of 15 tiles), bitwise equal to its plain
-    version and to itself; and K3 and K5 on a crowded operand at the
-    step's level-0 shapes (:func:`conv_fwd_stress`,
+    version and to itself; K4 on adversarial operands
+    (:func:`pool_fwd_stress`: rows with no entry, every column selected,
+    counts beyond and below the rows' entries, ties, -0 beside +0,
+    windows past the cloud's end, C 1-512, every mode and every kernel
+    instance, with counts and as a bin map) and K8 on adversarial
+    operands (:func:`gather_stress`: C 1-512, features at unaligned
+    addresses, K 1 to 64, counts 0 to K, out-of-range indices; the
+    per-edge forward's odd widths at full size), bitwise equal to their
+    plain versions and to themselves, timed; and K3 and K5 on a crowded
+    operand at the step's level-0 shapes (:func:`conv_fwd_stress`,
     :func:`conv_bwd_stress`: 64 selected entries in every query row, as
     real scene blocks have) against their plain versions and themselves,
     timed with their device times and bounds; and K1 on adversarial
@@ -535,12 +544,20 @@ def work(name: str, args: tuple, kw: dict) -> tuple[int, int]:
         return (nbytes(packed, s_blk, x, filt, inv) + out,
                 2 * nnz * c * r + inv.numel() * c * r)
     if name == "rank_pool":
+        # a bin map (no counts) selects every nonzero entry; arg and
+        # max_index are int32 outputs beside the values
         packed, s_blk, counts, x = args
+        batch, n_t, _, w = packed.shape
         c = x.shape[2]
-        cnt = counts.reshape(packed.shape[0], packed.shape[1], 128, 1)
+        cnt = torch.full((batch, n_t * 128), 127, device=packed.device)
+        if counts is not None:
+            cnt = torch.nn.functional.pad(counts, (0, cnt.shape[1]
+                                                   - counts.shape[1]))
+        cnt = cnt.reshape(batch, n_t, 128, 1)
         sel = int(((packed >= 1) & (packed <= cnt)).sum().item())
-        out = counts.numel() * c * (x.element_size()
-                                    + (4 if kw.get("with_arg") else 0))
+        out = batch * n_t * 128 * c * (
+            x.element_size() + 4 * (bool(kw.get("with_arg"))
+                                    + bool(kw.get("with_index"))))
         return nbytes(packed, s_blk, counts, x) + out, sel * c
     if name == "dense_conv_bwd":
         packed, s_blk, x, filt_b, inv, dout = args
@@ -700,7 +717,9 @@ def describe(name: str, args: tuple, kw: dict) -> str:
     w = args[0].shape[-1]
     if name in ("dense_conv", "dense_conv_bwd"):
         return f"C={args[2].shape[2]} r={args[3].shape[3]} W={w}"
-    return f"C={args[3].shape[2]} W={w}" + (" +arg" if kw else "")
+    kind = "bins" if args[2] is None else "ranks"
+    return (f"{kind} {str(args[3].dtype)[6:]} C={args[3].shape[2]} W={w}"
+            + "".join(f" +{k[5:]}" for k in kw))
 
 
 def bound_of(work_done: tuple[int, int]) -> tuple[float, str]:
@@ -727,6 +746,7 @@ class Results:
         # the calls that have both (profiler; the single-call spans above
         # hold the host's time too)
         self.device = collections.defaultdict(lambda: [0.0, 0.0, 0])
+        self.device_bound = collections.defaultdict(float)
         self.device_queue = []
         self.calls = collections.Counter()
         # the bound's summed time, split by which side binds each call
@@ -769,7 +789,13 @@ class Results:
                        else "library none")
                 print(f"  {name:16s} device time (profiler), {n} of "
                       f"{self.calls[name]} calls: kernel {k_ms:.4f} ms  "
-                      f"{lib}", flush=True)
+                      f"{lib}  share {bound_ms / k_ms:.3f}", flush=True)
+        for name, (k_ms, _, n) in self.device.items():
+            if name not in self.calls:       # K9 inside the unpool calls
+                bound_ms = self.device_bound[name]
+                print(f"  {name:16s} device time (profiler), {n} calls: "
+                      f"kernel {k_ms:.4f} ms  bound {bound_ms:.4f} ms  "
+                      f"share {bound_ms / k_ms:.3f}", flush=True)
 
     def add_device(self, name, what, kern, lib, work_done,
                    steps=None) -> None:
@@ -798,6 +824,7 @@ class Results:
             acc[0] += k_ms
             acc[1] += l_ms
             acc[2] += 1
+            self.device_bound[name] += bound_of(work_done)[0]
             lib_text = (f"library {l_ms:.4f} ms" if lib is not None
                         else "library none")
             step = (f"  {k_ms * 1e3 / steps:.3f} us a greedy step"
@@ -811,7 +838,9 @@ class Results:
             library_ms=None):
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
-        err = max((g.float() - r.float()).abs().max().item()
+        # equal entries (infinities included) count 0
+        err = max(torch.where(g.float() == r.float(), 0.0,
+                              (g.float() - r.float()).abs()).max().item()
                   for g, r in zip(got, ref) if g is not None)
         self.err[name] = max(self.err[name], err)
         self.ms[name] += ms
@@ -844,6 +873,7 @@ def replay(calls: list, res: Results, expect: dict[str, int],
     window gather would run as their library call."""
     from sph3d_gcn_torch import _build
     from sph3d_gcn_torch.ops import dense as D
+    from sph3d_gcn_torch.ops import windowed as W
 
     unpool = {"mean_interpolate": D.dense_mean_interpolate,
               "weighted_interpolate": D.dense_weighted_interpolate,
@@ -877,10 +907,17 @@ def replay(calls: list, res: Results, expect: dict[str, int],
                     work(name, args, kw),
                     None if lib is None else median_ms(lib, reps))
             if name in ("dense_conv", "rank_pool_bwd", "dense_conv_bwd",
-                        "dense_query", "growth_query"):
+                        "dense_query", "growth_query", "rank_pool",
+                        "window_gather"):
                 res.add_device(name, what,
                                functools.partial(kern, *args, **kw), lib,
                                work(name, args, kw))
+            if name == "mean_interpolate_bwd":
+                # K9 alone, on the segment sum's operands of this call
+                k9 = D.window_mean_bwd_operands(*args, **kw)
+                res.add_device("window_gather_bwd", what, functools.partial(
+                    W.window_gather_bwd_kernel, *k9), None,
+                    work("window_gather_bwd", k9, {}))
             if name == "fps":
                 steps = max(args[0] - 1, 1)
                 print(f"  {'':14s} {what:30s} {ms * 1e3 / steps:.3f} us a "
@@ -1477,9 +1514,12 @@ def max_index_replay(dev: torch.device, pool_calls: list, conv_map: tuple,
             plain_ms = median_ms(lambda: D.dense_max_pool3d(
                 x, g, with_index=True, use_kernels=False), 1)
         counts = D.pool_counts(g)
+        entry_work = work("rank_pool", (g.packed, g.s_blk, counts, x),
+                          {"with_index": True})
         res.add("rank_pool", what + " +index", got, ref, ms, plain_ms, exact,
-                work("rank_pool", (g.packed, g.s_blk, counts, x),
-                     {"with_arg": True}))
+                entry_work)
+        res.add_device("rank_pool", what + " +index", functools.partial(
+            D.dense_max_pool3d, x, g, with_index=True), None, entry_work)
         cot = torch.randint(-4, 5, got[0].shape, device=x.device,
                             generator=gen).to(x.dtype)
         grads = []
@@ -1491,7 +1531,10 @@ def max_index_replay(dev: torch.device, pool_calls: list, conv_map: tuple,
         exact((grads[0],), (grads[1],))
         _, arg = D.rank_pool_kernel(g.packed, g.s_blk, counts, x,
                                     with_arg=True)
-        args = (g.s_blk, arg, cot, x.shape[1], g.window)
+        # K6 takes the (B, M_pad, C) gradient; the rows past M add nothing
+        cot_p = torch.nn.functional.pad(
+            cot, (0, 0, 0, arg.shape[1] - cot.shape[1]))
+        args = (g.s_blk, arg, cot_p, x.shape[1], g.window)
         lib = library_call("rank_pool_bwd", args, {})
         res.add("rank_pool_bwd", what, D.rank_pool_bwd_kernel(*args),
                 grads[1], median_ms(lambda: D.rank_pool_bwd_kernel(*args)),
@@ -1562,6 +1605,173 @@ def pool_bwd_stress(dev: torch.device) -> None:
     res.time_device()
 
 
+def pool_fwd_operands(rng, batch: int, num_in: int, n_t: int, window: int,
+                      c: int):
+    """K4's adversarial operands, as ``tests/test_torch_pool_fwd.py`` makes
+    them: (packed, s_blk, counts (B, M), x f32) as numpy arrays. Rank
+    maps on random columns; the first tile's window at the cloud's start,
+    the last one's past its end; rows in turn with no entry, every column
+    selected, a count beyond the row's entries, one below them and 127;
+    integer features with -0 beside +0, every 7th row normal, every 11th
+    from the 5th -inf."""
+    m_pad = n_t * 128
+    n_blk = -(-num_in // 128)
+    s_blk = rng.integers(0, n_blk, (batch, n_t))
+    s_blk[:, 0], s_blk[:, -1] = 0, n_blk - 1
+    rows = batch * m_pad
+    sel = rng.random((rows, window)) < rng.uniform(0.01, 0.08, (rows, 1))
+    ranks = np.cumsum(sel, axis=-1) * sel
+    packed = np.where(ranks <= 64, ranks, 0).astype(np.int8)
+    case = np.arange(rows) % 6
+    packed[case == 0] = 0
+    packed[case == 1] = np.arange(window) % 127 + 1
+    cnt = (packed > 0).sum(-1)
+    cnt[case == 1] = 127
+    cnt[case == 2] += rng.integers(1, 20, (case == 2).sum())
+    cnt[case == 3] = np.maximum(cnt[case == 3] - 3, 0)
+    cnt[case == 4] = 127
+    counts = cnt.reshape(batch, m_pad)[:, :m_pad - 37].astype(np.int32)
+    x = rng.integers(-3, 4, (batch, num_in, c)).astype(np.float32)
+    x[(x == 0) & (rng.random(x.shape) < 0.5)] = -0.0
+    x[:, ::7] = rng.standard_normal((batch, len(x[0, ::7]), c))
+    x[:, 5::11] = -np.inf
+    return packed.reshape(batch, n_t, 128, window), s_blk, counts, x
+
+
+def offset_view(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """A copy of ``x`` whose data starts ``offset`` elements into its
+    storage (narrower vectors for the kernels' loads)."""
+    flat = torch.cat([x.reshape(-1)[:offset], x.reshape(-1)])
+    return flat[offset:].view(x.shape)
+
+
+def pool_fwd_stress(dev: torch.device) -> None:
+    """Phase 25c: K4 on adversarial operands (:func:`pool_fwd_operands`),
+    every mode (values only, arg, max_index, both) and every kernel
+    instance (each vector width of f32 and bf16, reached through the
+    features' address, values-only and tracking), with counts and as a
+    bin map (no counts), bitwise equal to its plain version and to a
+    second launch; at the S3DIS step's level-0 size (B=16, 16 tiles,
+    W=2048, C=128) timed, with device times and the bound."""
+    from sph3d_gcn_torch.ops import dense as D
+
+    print("max pool (K4) on adversarial operands, kernel vs plain version "
+          "bitwise:", flush=True)
+    rng = np.random.default_rng(12)
+    modes = ({}, {"with_arg": True}, {"with_index": True},
+             {"with_arg": True, "with_index": True})
+    reached = set()
+    for c in (1, 3, 35, 64, 131, 512):
+        ops = pool_fwd_operands(rng, 2, 940, 4, 640, c)
+        for dtype in (torch.float32, torch.bfloat16):
+            packed, s_blk, counts, x = (torch.from_numpy(a).to(dev)
+                                        for a in ops)
+            for offset in (0, 1, 2, 4):
+                xs = offset_view(x.to(dtype), offset)
+                vec = D._pool_vector_bytes(c * xs.element_size(), xs)
+                for cnt in (counts, None):
+                    for kw in modes:
+                        args = (packed, s_blk, cnt, xs)
+                        got = D.rank_pool_kernel(*args, **kw)
+                        got = got if isinstance(got, tuple) else (got,)
+                        ref = D.rank_pool_plain(*args, **kw)
+                        exact(got, ref if isinstance(ref, tuple) else (ref,))
+                        again = D.rank_pool_kernel(*args, **kw)
+                        exact(got, again if isinstance(again, tuple)
+                              else (again,))
+                        reached.add((str(dtype)[6:], vec, bool(kw)))
+    want = {("float32", v, t) for v in (16, 8, 4) for t in (False, True)}
+    want |= {("bfloat16", v, t) for v in (16, 8, 4, 2)
+             for t in (False, True)}
+    if reached != want:
+        raise AssertionError(f"K4 instances reached {sorted(reached)}")
+    print(f"  {len(reached)} kernel instances (dtype, vector bytes, "
+          f"tracking), C 1-512, 4 modes, with and without counts: bitwise",
+          flush=True)
+    res = Results()
+    ops = pool_fwd_operands(rng, S3_B, S3_N - 37, 16, 2048, 128)
+    packed, s_blk, counts, x = (torch.from_numpy(a).to(dev) for a in ops)
+    for dtype in (torch.float32, torch.bfloat16):
+        for kw in ({}, {"with_arg": True}):
+            args = (packed, s_blk, counts, x.to(dtype))
+            what = describe("rank_pool", args, kw) + " stress"
+            res.add("rank_pool", what, D.rank_pool_kernel(*args, **kw),
+                    D.rank_pool_plain(*args, **kw),
+                    median_ms(functools.partial(D.rank_pool_kernel, *args,
+                                                **kw)),
+                    median_ms(functools.partial(D.rank_pool_plain, *args,
+                                                **kw), 1),
+                    exact, work("rank_pool", args, kw))
+            res.add_device("rank_pool", what, functools.partial(
+                D.rank_pool_kernel, *args, **kw), None,
+                work("rank_pool", args, kw))
+    res.time_device()
+
+
+def gather_operands(rng, batch: int, n: int, m: int, k: int, c: int):
+    """K8's operands, as ``tests/test_torch_gather_fwd.py`` makes them:
+    (feats f32, idx, count) as numpy arrays; indices near a sorted base,
+    every 17th row anywhere (some out of range), counts 0 to K."""
+    base = np.sort(rng.integers(0, n, (batch, m)), axis=-1)
+    idx = base[..., None] + rng.integers(-40, 40, (batch, m, k))
+    idx[:, ::17] = rng.integers(-5, n + 5, idx[:, ::17].shape)
+    count = rng.integers(0, k + 1, (batch, m))
+    count[:, 0], count[:, 1] = 0, k
+    feats = rng.standard_normal((batch, n, c)).astype(np.float32)
+    return feats, idx.astype(np.int64), count.astype(np.int64)
+
+
+def gather_stress(dev: torch.device) -> None:
+    """Phase 25d: K8 bitwise equal to its plain version at C from 1 to
+    512 (rows of 2 to 2048 bytes, most no multiple of 16), f32 and bf16,
+    features at 0, 1 and 3 elements past their storage's start, K of 1,
+    5 and 64, M no multiple of 128, counts 0 to K, out-of-range indices;
+    then at the per-edge forward's level-0 size (16 clouds of 10000
+    points, 2500 queries, K = 64, bf16) at its odd widths 35, 67 and 131,
+    timed with device times and the bound."""
+    from sph3d_gcn_torch.ops import windowed as W
+
+    print("edge gather (K8) on adversarial operands, kernel vs plain "
+          "version bitwise:", flush=True)
+    rng = np.random.default_rng(13)
+    n_ops = 0
+    for c in (1, 3, 35, 64, 67, 128, 131, 512):
+        for k, m in ((1, 200), (5, 130), (64, 300)):
+            feats, idx, count = gather_operands(rng, 2, 700, m, k, c)
+            i = torch.from_numpy(idx).to(dev)
+            cnt = torch.from_numpy(count).to(dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.from_numpy(feats).to(dtype).to(dev)
+                ref = W.window_gather_plain(x, i, cnt)
+                for offset in (0, 1, 3):
+                    xs = offset_view(x, offset)
+                    got = W.window_gather_kernel(xs, i, cnt)
+                    exact((got,), (ref,))
+                    exact((got,), (W.window_gather_kernel(xs, i, cnt),))
+                    n_ops += 1
+    print(f"  {n_ops} operands: bitwise", flush=True)
+    res = Results()
+    for c in (35, 67, 131):
+        feats, idx, count = gather_operands(rng, B, N, 2500, 64, c)
+        # in range, as the engine's are (torch.gather, the library call,
+        # takes no other)
+        args = (torch.from_numpy(feats).to(torch.bfloat16).to(dev),
+                torch.from_numpy(np.clip(idx, 0, N - 1)).to(dev),
+                torch.from_numpy(count).to(dev))
+        what = describe("window_gather", args, {}) + " stress"
+        lib = library_call("window_gather", args, {})
+        res.add("window_gather", what, W.window_gather_kernel(*args),
+                W.window_gather_plain(*args),
+                median_ms(functools.partial(W.window_gather_kernel, *args)),
+                median_ms(functools.partial(W.window_gather_plain, *args),
+                          1),
+                exact, work("window_gather", args, {}), median_ms(lib))
+        res.add_device("window_gather", what, functools.partial(
+            W.window_gather_kernel, *args), lib,
+            work("window_gather", args, {}))
+    res.time_device()
+
+
 def crowded_map(dev: torch.device, gen: torch.Generator) -> tuple:
     """A crowded conv map at the S3DIS step's level-0 shapes (B=16,
     N=8192, 64 query tiles, W=1664, the 33 bins of kernel (8, 2, 2)): 64
@@ -1586,7 +1796,7 @@ def crowded_map(dev: torch.device, gen: torch.Generator) -> tuple:
 
 
 def conv_fwd_stress(dev: torch.device) -> None:
-    """Phase 25c: K3 on the crowded operand (:func:`crowded_map`), C_in
+    """Phase 25e: K3 on the crowded operand (:func:`crowded_map`), C_in
     64 and 128, r=2, bf16, and C_in 35 (ModelNet's first conv), against
     its plain version under ``close`` and against a second K3 run
     bitwise; times (span and device) and the bound."""
@@ -1616,7 +1826,7 @@ def conv_fwd_stress(dev: torch.device) -> None:
 
 
 def conv_bwd_stress(dev: torch.device) -> None:
-    """Phase 25d: K5 on the crowded operand (:func:`crowded_map`), C_in 64
+    """Phase 25f: K5 on the crowded operand (:func:`crowded_map`), C_in 64
     and 128, r=2, bf16, against its plain version under
     ``conv_grads_close`` and against a second K5 run bitwise; times (span
     and device) and the bound."""
@@ -1702,7 +1912,7 @@ def fps_operands(rng) -> list:
 
 
 def fps_stress(dev: torch.device) -> None:
-    """Phase 25e: K1 on adversarial operands (:func:`fps_operands`), each
+    """Phase 25g: K1 on adversarial operands (:func:`fps_operands`), each
     bitwise equal to its plain version; a 6-channel database is read in
     place, a strided one converted first."""
     from sph3d_gcn_torch.ops import sample as S
@@ -1840,7 +2050,7 @@ def query_stress_calls(dev: torch.device) -> list:
 
 
 def query_stress(dev: torch.device) -> None:
-    """Phase 25f: K2 and K7 on adversarial operands
+    """Phase 25h: K2 and K7 on adversarial operands
     (:func:`query_stress_calls`), each bitwise equal to its plain version
     (maps, counts, growth steps, distance maps), its count equal to its
     map's nonzero bytes a row, one launch a call; times at the largest
@@ -2763,6 +2973,8 @@ def main() -> None:
     s3_step_launches, pool_calls = s3dis_train_phases(dev, res_s3_step)
     max_index_replay(dev, pool_calls, conv_map, res_index)
     pool_bwd_stress(dev)
+    pool_fwd_stress(dev)
+    gather_stress(dev)
     conv_fwd_stress(dev)
     conv_bwd_stress(dev)
     fps_stress(dev)

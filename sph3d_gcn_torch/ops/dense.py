@@ -63,9 +63,11 @@ from sph3d_gcn_torch.ops.query import (
 # candidate block per tile chunk (f32: 256 MB)
 _PLAIN_BUDGET = 1 << 26
 _MAX_CONV_C = 1024     # the conv kernel
-_MAX_POOL_C = 512      # the pool kernel (2 chunks), and so its backward
+_MAX_POOL_C = 512      # the pool kernel, and so its backward
+# the pool kernel's window: a warp's list of selected columns (2 bytes
+# each) for each of a block's 8 rows in shared memory
+_MAX_POOL_WINDOW = 12288
 _MAX_CONV_BWD_C = 1024  # the conv backward kernel
-_POOL_ALL = 127        # "every nonzero entry" count for bin maps
 
 CONV_KERNEL = _build.register(
     "dense_conv", "sph3d_dense_conv_launch",
@@ -74,7 +76,8 @@ CONV_KERNEL = _build.register(
 )
 POOL_KERNEL = _build.register(
     "rank_pool", "sph3d_rank_pool_launch",
-    [_build.PTR] * 6 + [_build.INT] * 6 + [_build.PTR],
+    [_build.PTR] * 3 + [_build.INT] * 2 + [_build.PTR] * 4
+    + [_build.INT] * 7 + [_build.PTR],
 )
 # the conv backward launches three kernels a call: the dfilt partials of
 # each query tile, their sum over tiles, and dx
@@ -730,21 +733,42 @@ def dense_depthwise_conv3d(
     return out[:, :dnbh.num_query]
 
 
-def rank_pool_plain(packed, s_blk, counts, inputs, with_arg=False):
+def _pool_result(out, arg, index):
+    """A pool's return: ``out`` alone, or ``(out, arg)``, ``(out, index)``
+    or ``(out, arg, index)`` for the outputs asked for."""
+    extra = tuple(t for t in (arg, index) if t is not None)
+    return (out, *extra) if extra else out
+
+
+def _padded_counts(counts, batch, m_pad):
+    """(B, M_pad) rank bounds from (B, M <= M_pad) counts, 0 past M; None
+    (a bin map): every nonzero entry, the int8 map's largest rank."""
+    if counts is None:
+        return torch.full((batch, m_pad), 127, dtype=torch.int32)
+    return F.pad(counts, (0, m_pad - counts.shape[1]))
+
+
+def rank_pool_plain(packed, s_blk, counts, inputs, with_arg=False,
+                    with_index=False):
     """Plain PyTorch masked max over the entries whose rank lies in
-    1..count, chunked over tiles; rows with none give 0. With
-    ``with_arg`` also the first window column attaining the max (-0 and
-    +0 tie; -1 for a row with none): returns (out, arg (B, M_pad, C)
-    int32)."""
+    1..count (``counts`` (B, M <= M_pad), 0 past M; None: every nonzero
+    entry, as for a bin map), chunked over tiles; rows with none give 0.
+    With ``with_arg`` also the first window column attaining the max
+    (-0 and +0 tie; -1 for a row with none), with ``with_index`` the
+    op-level ``max_index`` ``min(s_blk * 128 + column, N - 1)`` (column
+    0 for a row with none), both (B, M_pad, C) int32: returns as
+    :func:`_pool_result`."""
     batch, n_t, _, w = packed.shape
     _, num_in, c = inputs.shape
     rows, valid, b_of_g = _window_rows(packed, s_blk, num_in)
     pk = packed.reshape(batch * n_t, TILE, w)
-    cnt = counts.reshape(batch * n_t, TILE, 1)
+    cnt = _padded_counts(counts, batch, n_t * TILE).to(packed.device)
+    cnt = cnt.reshape(batch * n_t, TILE, 1)
     out = torch.empty((batch * n_t, TILE, c), dtype=inputs.dtype,
                       device=inputs.device)
+    track = with_arg or with_index
     arg = torch.empty((batch * n_t, TILE, c), dtype=torch.int32,
-                      device=inputs.device) if with_arg else None
+                      device=inputs.device) if track else None
     step = max(1, _PLAIN_BUDGET // (TILE * w * c))
     for g0 in range(0, batch * n_t, step):
         sl = slice(g0, g0 + step)
@@ -754,43 +778,82 @@ def rank_pool_plain(packed, s_blk, counts, inputs, with_arg=False):
         best = cand.amax(dim=2) + 0.0                           # -0 -> +0
         some = sel.any(dim=-1)[..., None]
         out[sl] = torch.where(some, best, 0.0).to(inputs.dtype)
-        if with_arg:
+        if track:
             hit = sel[..., None] & (cand == best[:, :, None, :])
             first = hit.to(torch.uint8).argmax(dim=2)      # first maximum
             arg[sl] = torch.where(some, first, -1).to(torch.int32)
     out = out.reshape(batch, n_t * TILE, c)
-    if with_arg:
-        return out, arg.reshape(batch, n_t * TILE, c)
-    return out
+    index = None
+    if track:
+        arg = arg.reshape(batch, n_t * TILE, c)
+        if with_index:
+            start = s_blk.long().repeat_interleave(TILE, dim=1) * TILE
+            index = (start[..., None] + arg.clamp(min=0)).clamp(
+                max=num_in - 1).to(torch.int32)
+    return _pool_result(out, arg if with_arg else None, index)
 
 
-def rank_pool_kernel(packed, s_blk, counts, inputs, with_arg=False):
+def _pool_vector_bytes(row_bytes: int, inputs: torch.Tensor) -> int:
+    """The widest vector (16, 8, 4 or 2 bytes, at least an element) that
+    divides a feature row and the features' address: K4's loads."""
+    return next(v for v in (16, 8, 4, 2)
+                if row_bytes % v == 0 and inputs.data_ptr() % v == 0
+                and v >= inputs.element_size())
+
+
+def rank_pool_kernel(packed, s_blk, counts, inputs, with_arg=False,
+                     with_index=False):
     """The pool through ``csrc/rank_pool.cu``: one warp per query row
-    walks the row's window once and keeps a running max per channel (and,
-    with ``with_arg``, the first column attaining it). Returns as the
-    plain version."""
+    walks the row's map once, 512 columns a step, into a list of the
+    selected columns, then folds every channel of the row from that
+    list, feature rows read as vectors, several hits in flight. The
+    graph's int64 ``s_blk`` and int32 ``counts`` (a (B, M) view of the
+    query's (B, M_pad) counts included) are read in place; ``counts``
+    None selects every nonzero entry. Returns as the plain version."""
     _build.check(packed, "packed", torch.int8, 4)
-    _build.check(counts, "counts", torch.int32, 2)
     _build.check(inputs, "inputs", (torch.float32, torch.bfloat16), 3)
     batch, n_t, _, w = packed.shape
     _, num_in, c = inputs.shape
     if not 1 <= c <= _MAX_POOL_C:
         raise ValueError(f"rank pool kernel takes C <= {_MAX_POOL_C}, got {c}")
-    if counts.shape != (batch, n_t * TILE):
-        raise ValueError(f"bad counts shape {tuple(counts.shape)}")
-    sb = s_blk.to(torch.int32).contiguous()
-    out = torch.empty((batch, n_t * TILE, c), dtype=inputs.dtype,
-                      device=inputs.device)
-    arg = torch.empty((batch, n_t * TILE, c), dtype=torch.int32,
-                      device=inputs.device) if with_arg else None
+    if w % 16 or w > _MAX_POOL_WINDOW:
+        raise ValueError(f"rank pool kernel takes windows of whole 16-byte "
+                         f"words up to {_MAX_POOL_WINDOW}, got {w}")
+    if s_blk.shape != (batch, n_t):
+        raise ValueError(f"bad window-start shape {tuple(s_blk.shape)}")
+    s_blk = s_blk.to(torch.int64).contiguous()   # a graph's, as it is
+    if counts is not None:
+        if (counts.dim() != 2 or counts.shape[0] != batch
+                or counts.shape[1] > n_t * TILE
+                or counts.dtype != torch.int32
+                or counts.device != inputs.device):
+            raise ValueError(
+                f"counts must be (B, M <= M_pad) int32 on {inputs.device}, "
+                f"got {tuple(counts.shape)} {counts.dtype} on "
+                f"{counts.device}")
+        if counts.stride(1) != 1:
+            counts = counts.contiguous()
+    packed = _aligned(packed)
+    shape = (batch, n_t * TILE, c)
+    dev = inputs.device
+    out = torch.empty(shape, dtype=inputs.dtype, device=dev)
+    arg = torch.empty(shape, dtype=torch.int32, device=dev) \
+        if with_arg else None
+    index = torch.empty(shape, dtype=torch.int32, device=dev) \
+        if with_index else None
+    row_bytes = c * inputs.element_size()
     POOL_KERNEL.launch(
-        _build.ptr(packed), _build.ptr(sb), _build.ptr(counts),
+        _build.ptr(packed), _build.ptr(s_blk),
+        None if counts is None else _build.ptr(counts),
+        0 if counts is None else counts.stride(0),
+        0 if counts is None else counts.shape[1],
         _build.ptr(inputs), _build.ptr(out),
-        _build.ptr(arg) if with_arg else None,
+        None if arg is None else _build.ptr(arg),
+        None if index is None else _build.ptr(index),
         batch, n_t, num_in, c, w, int(inputs.dtype == torch.bfloat16),
-        _build.stream(inputs),
+        _pool_vector_bytes(row_bytes, inputs), _build.stream(inputs),
     )
-    return (out, arg) if with_arg else out
+    return _pool_result(out, arg, index)
 
 
 def rank_pool_bwd_plain(s_blk, arg, dout, num_in, window):
@@ -842,38 +905,45 @@ def rank_pool_bwd_kernel(s_blk, arg, dout, num_in, window):
     return dx
 
 
-def _rank_pool(packed, s_blk, counts, inputs, with_arg, use_kernels):
+def _rank_pool(packed, s_blk, counts, inputs, with_arg, with_index,
+               use_kernels):
     """The pool through the kernel (CUDA tensors) or its plain version:
-    (out, arg with ``with_arg``, else None)."""
+    (out, arg or None, index or None)."""
     args = (packed, s_blk, counts, inputs)
-    kw = {"with_arg": True} if with_arg else {}
+    kw = {k: True for k, v in (("with_arg", with_arg),
+                               ("with_index", with_index)) if v}
     _build.record("rank_pool", *args, **kw)
     if _build.use_kernel(inputs, use_kernels):
         res = rank_pool_kernel(*args, **kw)
     else:
         res = rank_pool_plain(*args, **kw)
-    return res if with_arg else (res, None)
+    res = res if isinstance(res, tuple) else (res,)
+    arg = res[1] if with_arg else None
+    return res[0], arg, res[-1] if with_index else None
 
 
 class _RankPool(torch.autograd.Function):
     """The rank pool with its hand-written backward: the forward also
-    returns the first attaining column (not differentiable), the backward
-    routes each output gradient there (ties to the smallest rank, as the
-    JAX VJP)."""
+    returns the first attaining column (not differentiable) and, with
+    ``with_index``, the op-level ``max_index`` from the same launch; the
+    backward routes each output gradient to that column (ties to the
+    smallest rank, as the JAX VJP)."""
 
     @staticmethod
-    def forward(ctx, inputs, packed, s_blk, counts, use_kernels):
-        out, arg = _rank_pool(packed, s_blk, counts, inputs, True,
-                              use_kernels)
-        ctx.mark_non_differentiable(arg)
+    def forward(ctx, inputs, packed, s_blk, counts, with_index,
+                use_kernels):
+        out, arg, index = _rank_pool(packed, s_blk, counts, inputs, True,
+                                     with_index, use_kernels)
+        extra = (arg,) if index is None else (arg, index)
+        ctx.mark_non_differentiable(*extra)
         ctx.save_for_backward(s_blk, arg)
         ctx.num_in = inputs.shape[1]
         ctx.window = packed.shape[-1]
         ctx.use_kernels = use_kernels
-        return out, arg
+        return (out, *extra)
 
     @staticmethod
-    def backward(ctx, dout, _):
+    def backward(ctx, dout, *_):
         s_blk, arg = ctx.saved_tensors
         args = (s_blk, arg, dout.contiguous(), ctx.num_in, ctx.window)
         _build.record("rank_pool_bwd", *args)
@@ -881,19 +951,14 @@ class _RankPool(torch.autograd.Function):
             dx = rank_pool_bwd_kernel(*args)
         else:
             dx = rank_pool_bwd_plain(*args)
-        return dx, None, None, None, None
+        return dx, None, None, None, None, None
 
 
-def pool_counts(dnbh: DenseNeighborhood) -> torch.Tensor:
-    """(B, M_pad) int32 rank bound of the pool: the neighbor count for
-    rank maps; for bin-valued maps every nonzero entry is selected."""
-    m_pad = dnbh.s_blk.shape[1] * TILE
-    if dnbh.k_max > 0:
-        counts = F.pad(dnbh.count, (0, m_pad - dnbh.num_query))
-    else:
-        counts = torch.full((dnbh.packed.shape[0], m_pad), _POOL_ALL,
-                            device=dnbh.packed.device)
-    return counts.to(torch.int32).contiguous()
+def pool_counts(dnbh: DenseNeighborhood) -> torch.Tensor | None:
+    """The pool's rank bounds: the graph's (B, M) int32 neighbor counts
+    for a rank map (read in place), None for a bin-valued map (every
+    nonzero entry is selected)."""
+    return dnbh.count if dnbh.k_max > 0 else None
 
 
 def dense_max_pool3d(
@@ -911,21 +976,17 @@ def dense_max_pool3d(
     ``with_index=True`` also returns each output's input-point id (the
     reference ``MaxPool3d`` op's ``max_index``, as the JAX op gives it):
     ``min(s_blk * 128 + column, N - 1)`` for the first attaining window
-    column; a row with no selected neighbor takes column 0. Models pass
-    False and get the values-only launch at inference."""
+    column; a row with no selected neighbor takes column 0. The kernel
+    writes it in the pool's launch. Models pass False and get the
+    values-only launch at inference."""
     args = (dnbh.packed, dnbh.s_blk, pool_counts(dnbh), inputs.contiguous())
     if torch.is_grad_enabled() and inputs.requires_grad:
-        out, arg = _RankPool.apply(args[3], *args[:3], use_kernels)
+        res = _RankPool.apply(args[3], *args[:3], with_index, use_kernels)
+        out, index = res[0], (res[2] if with_index else None)
     else:
-        out, arg = _rank_pool(*args, with_index, use_kernels)
+        out, _, index = _rank_pool(*args, False, with_index, use_kernels)
     num_q = dnbh.num_query
-    out = out[:, :num_q]
-    if not with_index:
-        return out, None
-    start = dnbh.s_blk.long().repeat_interleave(TILE, dim=1)[:, :num_q] * TILE
-    max_index = (start[..., None] + arg[:, :num_q].clamp(min=0)).clamp(
-        max=inputs.shape[1] - 1)
-    return out, max_index.to(torch.int32)
+    return out[:, :num_q], None if index is None else index[:, :num_q]
 
 
 def window_mean_bwd(packed, s_blk, dout, num_in, weights=None,
@@ -945,6 +1006,16 @@ def window_mean_bwd(packed, s_blk, dout, num_in, weights=None,
     gather would scatter-add them instead: float atomics on a CUDA
     device, or a sorting path under
     ``torch.use_deterministic_algorithms``."""
+    args = window_mean_bwd_operands(packed, s_blk, dout, num_in, weights)
+    if _build.use_kernel(args[0], use_kernels):
+        return windowed.window_gather_bwd_kernel(*args)
+    return windowed.window_gather_bwd_plain(*args)
+
+
+def window_mean_bwd_operands(packed, s_blk, dout, num_in, weights=None):
+    """The segment sum's operands of :func:`window_mean_bwd`: (the window
+    gradients (B, nT, W, C) f32, order, starts, num_in), as
+    ``windowed.window_gather_bwd_kernel`` takes them."""
     batch, n_t, _, w = packed.shape
     lhs = (packed > 0) if weights is None else weights
     c = dout.shape[-1]
@@ -953,11 +1024,8 @@ def window_mean_bwd(packed, s_blk, dout, num_in, weights=None,
     dfw = dfw.reshape(batch, n_t, w, c)
     rows, valid, b_of_g = _window_rows(packed, s_blk, num_in)
     key = torch.where(valid, b_of_g[:, None] * num_in + rows, batch * num_in)
-    args = (dfw, *windowed.group_by_row(key.to(torch.int32).reshape(-1),
+    return (dfw, *windowed.group_by_row(key.to(torch.int32).reshape(-1),
                                         batch * num_in), num_in)
-    if _build.use_kernel(dfw, use_kernels):
-        return windowed.window_gather_bwd_kernel(*args)
-    return windowed.window_gather_bwd_plain(*args)
 
 
 class _WindowSum(torch.autograd.Function):

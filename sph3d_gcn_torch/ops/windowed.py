@@ -36,8 +36,12 @@ TILE = 128     # M is padded to whole 128-row tiles, as in the JAX op
 
 GATHER_KERNEL = _build.register(
     "window_gather", "sph3d_window_gather_launch",
-    [_build.PTR] * 4 + [_build.INT] * 7 + [_build.PTR],
+    [_build.PTR] * 4 + [_build.INT] * 8 + [_build.PTR],
 )
+# K8's block: about this many output bytes, and at most this many bytes of
+# staged indices (4 an edge)
+GATHER_BLOCK_BYTES = 32 * 1024
+GATHER_STAGE_BYTES = 48 * 1024
 GATHER_BWD_KERNEL = _build.register(
     "window_gather_bwd", "sph3d_window_gather_bwd_launch",
     [_build.PTR] * 4 + [_build.INT] * 3 + [_build.PTR],
@@ -70,20 +74,27 @@ def window_gather_plain(feats: torch.Tensor, idx: torch.Tensor,
     return torch.where(valid[..., None], g, 0)
 
 
-def _unit_bytes(row_bytes: int, *tensors: torch.Tensor) -> int:
-    """The widest copy unit (16, 8, 4 or 2 bytes) that divides a row and
-    every base address."""
-    for unit in (16, 8, 4, 2):
-        if row_bytes % unit == 0 and all(
-                t.data_ptr() % unit == 0 for t in tensors):
-            return unit
-    raise ValueError(f"rows of {row_bytes} bytes are not 2-byte aligned")
+def gather_rows(k: int, row_bytes: int) -> int:
+    """The query rows one block of K8 writes: a power of two from 8 (so
+    that a block's output, 8*K rows of ``row_bytes``, is whole 16-byte
+    chunks) to 128 (so that a block stays in one cloud), doubled while the
+    block writes at most :data:`GATHER_BLOCK_BYTES` and stages at most
+    :data:`GATHER_STAGE_BYTES` of indices. (Fewer rows, down to the fewest
+    whose output is whole chunks, made the odd-C calls of the per-edge
+    forward 8-12% slower on the H100; PERF.md.)"""
+    rows = 8
+    while (rows < TILE and 2 * rows * k * row_bytes <= GATHER_BLOCK_BYTES
+           and 2 * rows * k * 4 <= GATHER_STAGE_BYTES):
+        rows *= 2
+    return rows
 
 
 def window_gather_kernel(feats: torch.Tensor, idx: torch.Tensor,
                          count: torch.Tensor) -> torch.Tensor:
-    """The gather through ``csrc/window_gather.cu`` (K8). Returns as
-    :func:`window_gather_plain`."""
+    """The gather through ``csrc/window_gather.cu`` (K8): a block per
+    :func:`gather_rows` query rows stages their edges' source rows, then
+    writes its output in 16-byte streaming stores whatever C is. Returns
+    as :func:`window_gather_plain`."""
     _build.check(feats, "feats", (torch.float32, torch.bfloat16), 3)
     _build.check(idx, "idx", torch.int64, 3)
     _build.check(count, "count", torch.int64, 2)
@@ -96,11 +107,11 @@ def window_gather_kernel(feats: torch.Tensor, idx: torch.Tensor,
     m_pad = _round_up(m, TILE)
     out = torch.empty((batch, m_pad, k, c), dtype=feats.dtype,
                       device=feats.device)
-    row_bytes = c * feats.element_size()
+    elem = feats.element_size()
     GATHER_KERNEL.launch(
         _build.ptr(feats), _build.ptr(idx), _build.ptr(count),
-        _build.ptr(out), batch, n, m, m_pad, k, row_bytes,
-        _unit_bytes(row_bytes, feats, out), _build.stream(feats),
+        _build.ptr(out), batch, n, m, m_pad, k, c, elem,
+        gather_rows(k, c * elem), _build.stream(feats),
     )
     return out
 
