@@ -233,6 +233,37 @@ published width with seeded weights:
     unchanged), with both times, the map's bytes and its bound (bytes
     over 3.35 TB/s).
 
+Then the per-edge engine of ``s3dis_config(fast=True)`` (the dense scene
+model's fallback: bf16, axis sort, edge lists, the published width;
+seeded weights), at B=16, N=8192:
+
+31. per-kernel parity and timing: the 4 FPS calls and the 24 edge gathers
+    (K8: 8 encoder convs, 4 pools, 8 decoder convs, and the 4 unpools,
+    whose fine rows gather from coarse clouds, up to (16, 8192, 64, 128))
+    of one plain forward, replayed through kernel and plain version
+    (bitwise equal);
+32. serving: 3 forwards with launch counts of 4 FPS and 24 K8 per
+    forward, kernel vs plain logits (within ``LOGIT_TOL`` of the largest
+    |logit|, argmax agreement >= 0.95), forward time (CUDA events,
+    median of 5), each plain sphere query of a forward timed alone and
+    their share of it, peak device memory, profile (device busy, idle
+    share);
+33. the train step (inner-masked loss, Adam): the K8 and K9 calls of one
+    plain bf16 step replayed (K9 bitwise equal to its plain twin), kernel
+    step vs plain step (f32 and bf16, as phase 7), two kernel steps
+    bitwise equal, 5 steps (launches 4 FPS, 24 K8, 24 K9 per step, loss
+    falling), step time, peak device memory, profile;
+34. the dense scene model's recovery: a 10000-point block shrunk about
+    its center (0.8, 0.6, ... of its size) until its neighbors outrun
+    the calibrated windows of ``s3dis_config(fast=True, dense=True)``
+    fails the certificate in a train step; the step is re-run from its
+    pre-step state through ``StepFactory.classic_fallback()``, which must
+    leave the dense model's parameters and statistics bitwise equal to a
+    separate per-edge step from the same state (launches 4 FPS, 24 K8, 24
+    K9); then the block is served through ``checked_forward`` and
+    ``coverage_eval_blocks`` (forwards that fell back counted, the first
+    equal to a direct per-edge forward, every inner point covered).
+
 Each replayed K1 call prints its launch plan (cluster size, threads,
 points a thread) and its time per greedy step, of the span and of the
 device alone.
@@ -246,7 +277,10 @@ per-edge train step for K9), its bound
 (``bound_ms``: per replayed call the larger of its bytes over the card's
 memory rate and its operations over the f32 rate, summed; ``bound_by``
 names the side that binds most of that sum) and ``library_ms``, the time
-of one PyTorch call computing the same function where one exists.
+of one PyTorch call computing the same function where one exists;
+``paths`` holds the same numbers from every path that replayed the
+kernel's calls (K1 and K8 on ``s3dis_per_edge_serve``, K8 and K9 on
+``s3dis_per_edge_train_step``, beside the paths above).
 
 Any failure raises and the script exits non-zero. The last two lines
 are the per-kernel JSON object and the contract line ``{"ok": true,
@@ -315,6 +349,12 @@ PER_WIN_FORWARD = {"fps": 3, "window_gather": 9}
 PER_WIN_STEP = dict(PER_WIN_FORWARD, window_gather_bwd=9)
 WIN_STEPS = 10
 S3W_STEPS = 4                       # the weighted-unpool S3DIS steps
+# the S3DIS per-edge engine: per forward 4 FPS and 24 edge gathers (8
+# encoder convs, 4 pools, 8 decoder convs, 4 unpools), each gather with
+# its backward (K9) in training
+PER_S3PE_FORWARD = {"fps": 4, "window_gather": 24}
+PER_S3PE_STEP = dict(PER_S3PE_FORWARD, window_gather_bwd=24)
+S3PE_STEPS = 5
 # the path whose run gives each kernel's launches and times in the JSON line
 # (K2 and K7 from the option paths, whose queries write distance maps)
 PATH_OF = {"fps": "s3dis_serve", "dense_query": "modelnet_ids_train_step",
@@ -785,8 +825,9 @@ class Results:
                   f"{bound_ms / self.ms[name]:.3f}", flush=True)
             if name in self.device:
                 k_ms, l_ms, n = self.device[name]
-                lib = (f"library {l_ms:.4f} ms" if name in self.has_library
-                       else "library none")
+                lib = ("library none" if name not in self.has_library
+                       else f"library {l_ms:.4f} ms" if l_ms
+                       else "library not profiled")
                 print(f"  {name:16s} device time (profiler), {n} of "
                       f"{self.calls[name]} calls: kernel {k_ms:.4f} ms  "
                       f"{lib}  share {bound_ms / k_ms:.3f}", flush=True)
@@ -908,9 +949,12 @@ def replay(calls: list, res: Results, expect: dict[str, int],
                     None if lib is None else median_ms(lib, reps))
             if name in ("dense_conv", "rank_pool_bwd", "dense_conv_bwd",
                         "dense_query", "growth_query", "rank_pool",
-                        "window_gather"):
+                        "window_gather", "window_gather_bwd"):
+                # K9's library call (index_add_ into a few rows) takes
+                # 0.1-0.4 s a call: its span above is enough
                 res.add_device(name, what,
-                               functools.partial(kern, *args, **kw), lib,
+                               functools.partial(kern, *args, **kw),
+                               None if name == "window_gather_bwd" else lib,
                                work(name, args, kw))
             if name == "mean_interpolate_bwd":
                 # K9 alone, on the segment sum's operands of this call
@@ -1114,6 +1158,52 @@ def check_bitwise_steps(grads_of, kernel_step, what: str) -> None:
           f" (torch.use_deterministic_algorithms(True))", flush=True)
     if len(same) != len(g_1) or not torch.equal(m_1["loss"], m_2["loss"]):
         raise AssertionError("two kernel steps gave different gradients")
+
+
+def check_recovery(what: str, dense_step, direct_step, model, state0: dict,
+                   batch: dict, step_args, per_step: dict[str, int]) -> None:
+    """``fit()``'s recovery of a batch that fails the dense certificate:
+    one dense step (``dense_step``, on the dense twin of ``model``) must
+    report ``dense_ok`` False; from the restored pre-step state its
+    ``classic_fallback()`` re-runs the batch, which must leave the dense
+    model's parameters and statistics bitwise equal to a separate
+    per-edge step (``direct_step()``, on ``model`` from ``state0``), with
+    ``per_step`` launches; ``step_args()`` gives each step's extra
+    arguments (a fresh dropout generator). Under
+    ``torch.use_deterministic_algorithms(True)``."""
+    from sph3d_gcn_torch import kernel_launches, reset_kernel_launches
+
+    dense = dense_step.model
+    owners = (dense, dense_step.optimizer, dense_step.scheduler)
+    snapshot = [copy.deepcopy(x.state_dict()) for x in owners]
+    torch.use_deterministic_algorithms(True)
+    try:
+        if bool(dense_step.train_step(batch, *step_args())["dense_ok"]):
+            raise AssertionError(f"the {what} passed the dense "
+                                 f"certificate: no fallback to exercise")
+        for x, state in zip(owners, snapshot):
+            x.load_state_dict(state)
+        fb = dense_step.classic_fallback()
+        reset_kernel_launches()
+        m_fb = fb.train_step(batch, *step_args())
+        fb_launches = kernel_launches()
+        model.load_state_dict(state0)
+        m_ref = direct_step().train_step(batch, *step_args())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    after = dense.state_dict()
+    same = [k for k, v in model.state_dict().items()
+            if torch.equal(v, after[k])]
+    print(f"fallback step on the {what}: dense certificate False, re-run "
+          f"through classic_fallback(): loss {m_fb['loss'].item():.6f} (a "
+          f"separate per-edge step from the same state: "
+          f"{m_ref['loss'].item():.6f}), {len(same)} of {len(state0)} "
+          f"parameters and statistics of the dense model bitwise equal to "
+          f"that step's; launches {fb_launches}", flush=True)
+    if (not bool(m_fb["dense_ok"]) or len(same) != len(state0)
+            or any(fb_launches[k] != v for k, v in per_step.items())):
+        raise AssertionError("the fallback step did not update the dense "
+                             "model as a per-edge step does")
 
 
 def train_phases(dev: torch.device, res: Results
@@ -2352,41 +2442,10 @@ def windowed_phases(dev: torch.device, batches: list[np.ndarray],
                              "certificate: no fallback to exercise")
     print(f"half-rotated batch: rotation seed {seed} fails the dense "
           f"certificate ({tries} drawn)", flush=True)
-    rot_batch = {"points": rot, "label": labels}
-    dense_step = factory(None, dense)
-    snapshot = [copy.deepcopy(x.state_dict()) for x in
-                (dense, dense_step.optimizer, dense_step.scheduler)]
-    torch.use_deterministic_algorithms(True)
-    try:
-        if bool(dense_step.train_step(rot_batch,
-                                      dropout_gen())["dense_ok"]):
-            raise AssertionError("the half-rotated batch passed the dense "
-                                 "certificate: no fallback to exercise")
-        for x_, state in zip((dense, dense_step.optimizer,
-                              dense_step.scheduler), snapshot):
-            x_.load_state_dict(state)
-        fb = dense_step.classic_fallback()
-        reset_kernel_launches()
-        m_fb = fb.train_step(rot_batch, dropout_gen())
-        fb_launches = kernel_launches()
-        model.load_state_dict(state0)
-        m_ref = factory(None).train_step(rot_batch, dropout_gen())
-    finally:
-        torch.use_deterministic_algorithms(False)
-    after = dense.state_dict()
-    same = [k for k, v in model.state_dict().items()
-            if torch.equal(v, after[k])]
-    print(f"fallback step on a half-rotated batch: dense certificate "
-          f"False, re-run through classic_fallback(): loss "
-          f"{m_fb['loss'].item():.6f} (a separate per-edge step from the "
-          f"same state: {m_ref['loss'].item():.6f}), {len(same)} of "
-          f"{len(state0)} parameters and statistics of the dense model "
-          f"bitwise equal to that step's; launches {fb_launches}",
-          flush=True)
-    if (not bool(m_fb["dense_ok"]) or len(same) != len(state0)
-            or any(fb_launches[k] != v for k, v in PER_WIN_STEP.items())):
-        raise AssertionError("the fallback step did not update the dense "
-                             "model as a per-edge step does")
+    check_recovery("half-rotated batch", factory(None, dense),
+                   lambda: factory(None), model, state0,
+                   {"points": rot, "label": labels},
+                   lambda: (dropout_gen(),), PER_WIN_STEP)
     return fwd_launches, step_launches
 
 
@@ -2817,26 +2876,304 @@ def dist_map_replay(calls: list, res: Results) -> None:
                 "K7: one weighted S3DIS forward's)")
 
 
+def s3dis_per_edge_phases(dev: torch.device, res_fwd: Results,
+                          res_step: Results) -> tuple[dict, dict]:
+    """Phases 31-34 (see the module docstring): the per-edge engine of
+    ``s3dis_config(fast=True)`` and the dense scene model's fallback to
+    it. Returns the launch counts of the serving run and of the train
+    run."""
+    from sph3d_gcn_torch import _build, kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.configs import s3dis_config
+    from sph3d_gcn_torch.data.synthetic import scene_blocks
+    from sph3d_gcn_torch.models import SPH3DSceneSeg
+    from sph3d_gcn_torch.models.common import classic_clone
+    from sph3d_gcn_torch.ops.neighbor import (
+        build_sphere_neighbor,
+        build_sphere_neighbor_and_bins,
+    )
+    from sph3d_gcn_torch.train.eval import (
+        checked_forward,
+        coverage_eval_blocks,
+    )
+    from sph3d_gcn_torch.train.schedule import (
+        exponential_decay_lr,
+        make_optimizer,
+    )
+    from sph3d_gcn_torch.train.steps import segmentation_step_factory
+
+    cfg = s3dis_config(fast=True)
+    gen = torch.Generator().manual_seed(10)
+    model = SPH3DSceneSeg(cfg, generator=gen)
+    randomize_bn(model, gen)
+    model = model.to(dev).eval()
+    levels = range(len(cfg.radius))
+    print(f"S3DIS per-edge engine: s3dis_config(fast=True), B={S3_B} "
+          f"N={S3_N}, conv windows {[cfg.enc_window(lv) for lv in levels]} "
+          f"/ decoder {[cfg.dec_window(lv) for lv in levels]} (the kernels "
+          f"do not depend on them)", flush=True)
+    rng = np.random.default_rng(70)
+    x = torch.from_numpy(scene_blocks(rng, S3_B, S3_N)).to(dev)
+
+    def gathers(calls, names=("fps", "window_gather", "window_gather_bwd")):
+        return [c for c in calls if c[0] in names]
+
+    # 31. per-kernel parity: one plain forward's FPS and K8 calls (the 4
+    # unpools gather fine rows from coarse clouds)
+    print("per-kernel parity, S3DIS per-edge forward (times: median of "
+          "CUDA events)", flush=True)
+    with _build.record_calls() as calls, torch.inference_mode():
+        model(x, use_kernels=False)
+    replay(gathers(calls), res_fwd, PER_S3PE_FORWARD,
+           plain_reps=S3_PLAIN_REPS)
+    res_fwd.summary("S3DIS per-edge forward")
+    del calls
+
+    # 32. serving through the kernels
+    reset_kernel_launches()
+    n_fwd = 3
+    with torch.inference_mode():
+        for _ in range(n_fwd):
+            got = model(x)
+        torch.cuda.synchronize()
+        fwd_launches = kernel_launches()
+        ref = model(x, use_kernels=False)
+        fwd_ms = median_ms(lambda: model(x))
+        plain_fwd_ms = median_ms(lambda: model(x, use_kernels=False),
+                                 reps=1)
+    print(f"launches over {n_fwd} S3DIS per-edge forwards: {fwd_launches}",
+          flush=True)
+    for name, per in PER_S3PE_FORWARD.items():
+        if fwd_launches[name] != per * n_fwd:
+            raise AssertionError(f"{name}: {fwd_launches[name]} launches, "
+                                 f"want {per} per forward")
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    diff = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    print(f"S3DIS per-edge kernel vs plain logits: max_abs_err {diff:.4g}, "
+          f"argmax agreement {agree:.4f} (|logits| <= {scale:.3g}, "
+          f"tolerance {LOGIT_TOL:g} of that)", flush=True)
+    if agree < 0.95:
+        raise AssertionError(f"argmax agreement {agree} < 0.95")
+    torch.testing.assert_close(got, ref, rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL * scale)
+    # the plain sphere queries of one forward, alone (prefixes of the
+    # batch stand in for the levels' clouds: the query's cost is in N and
+    # M): each encoder level's and decoder level's intra graph with bins,
+    # and each decoder's inter graph (fine queries, coarse database)
+    sizes = [S3_N] + list(cfg.num_sample)
+    query_ms = {"encoder intra": [], "decoder intra": [],
+                "decoder inter": []}
+    with torch.inference_mode():
+        for lv in levels:
+            fine = x[:, :sizes[lv], :3].contiguous()
+            coarse = x[:, :sizes[lv + 1], :3].contiguous()
+            r, k = cfg.radius[lv], cfg.nn_uplimit[lv]
+            query_ms["encoder intra"].append(median_ms(
+                lambda: build_sphere_neighbor_and_bins(fine, fine, r, k,
+                                                       cfg.kernel)))
+            query_ms["decoder intra"].append(median_ms(
+                lambda: build_sphere_neighbor_and_bins(coarse, coarse, r, k,
+                                                       cfg.kernel)))
+            query_ms["decoder inter"].append(median_ms(
+                lambda: build_sphere_neighbor(coarse, fine, r, k)))
+    total_q = sum(sum(v) for v in query_ms.values())
+    print("per-edge sphere queries (CUDA events, median), by encoder "
+          "level: " + "; ".join(f"{k} {[round(t, 3) for t in v]} ms"
+                                for k, v in query_ms.items())
+          + f"; {total_q:.2f} ms a forward, {total_q / fwd_ms:.3f} of it",
+          flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        model(x)
+    torch.cuda.synchronize()
+    fwd_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"S3DIS per-edge forward B={S3_B} N={S3_N}: {fwd_ms:.2f} ms "
+          f"({S3_B * S3_N / fwd_ms * 1e3:.0f} points/s) with kernels, "
+          f"{plain_fwd_ms:.2f} ms with the plain versions (CUDA events, "
+          f"median); peak device memory {fwd_peak:.2f} GiB", flush=True)
+    profile_forward(model, x, "S3DIS per-edge")
+
+    # 33. the per-edge train step
+    model.train()
+    batch = {
+        "points": x,
+        "label": torch.from_numpy(rng.integers(
+            0, cfg.num_cls, (S3_B, S3_N)).astype(np.int64)).to(dev),
+        "inner_label": torch.from_numpy(rng.integers(
+            0, 2, (S3_B, S3_N)).astype(np.int32)).to(dev),
+    }
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def factory(use_kernels, net=model):
+        opt, sch = make_optimizer(
+            net.parameters(), "adam",
+            exponential_decay_lr(0.001, batch_size=S3_B))
+        return segmentation_step_factory(net, opt, sch, inner_masked=True,
+                                         use_kernels=use_kernels)
+
+    def grads_of(step):
+        step.model.load_state_dict(state0)
+        metrics = step.loss_and_grads(batch)
+        return metrics, {k: p.grad.clone()
+                         for k, p in step.model.named_parameters()}
+
+    print("per-kernel parity, S3DIS per-edge train step (the K8 and K9 "
+          "calls of one plain bf16 step)", flush=True)
+    model.load_state_dict(state0)
+    with _build.record_calls() as calls:
+        factory(False).loss_and_grads(batch)
+    replay(gathers(calls, ("window_gather", "window_gather_bwd")), res_step,
+           {"window_gather": 24, "window_gather_bwd": 24},
+           plain_reps=S3_PLAIN_REPS)
+    res_step.summary("S3DIS per-edge train step (bf16)")
+    del calls
+
+    model32 = SPH3DSceneSeg(dataclasses.replace(
+        cfg, compute_dtype="float32")).to(dev)
+    compare_steps(grads_of, factory, model32, "S3DIS per-edge train step")
+    del model32
+    check_bitwise_steps(grads_of, factory(None), " (S3DIS per-edge step)")
+
+    model.load_state_dict(state0)
+    factory(None).train_step(batch)        # warm-up
+    model.load_state_dict(state0)
+    step = factory(None)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    for _ in range(S3PE_STEPS):
+        t0 = time.perf_counter()
+        metrics = step.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    step_launches = kernel_launches()
+    step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = torch.stack(losses).cpu()
+    print(f"{S3PE_STEPS} S3DIS per-edge train steps: loss "
+          f"{[round(v, 3) for v in loss.tolist()]}; launches "
+          f"{step_launches}", flush=True)
+    for name, per in PER_S3PE_STEP.items():
+        if step_launches[name] != per * S3PE_STEPS:
+            raise AssertionError(f"{name}: {step_launches[name]} launches, "
+                                 f"want {per} per step")
+    if not torch.isfinite(loss).all() or not loss[-1] < loss[0]:
+        raise AssertionError(f"loss did not fall: {loss.tolist()}")
+    step_ms = float(np.median(times)) * 1e3
+    model.load_state_dict(state0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    factory(False).train_step(batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"S3DIS per-edge train step B={S3_B} N={S3_N}: {step_ms:.2f} ms "
+          f"median of {S3PE_STEPS} (host clock, synchronised; "
+          f"{S3_B * S3_N / step_ms * 1e3:.0f} points/s) with kernels, "
+          f"{plain_ms:.2f} ms for one step with the plain versions; peak "
+          f"device memory {step_peak:.2f} GiB", flush=True)
+    profile_steps(lambda: step.train_step(batch), "S3DIS per-edge step")
+
+    # 34. the dense scene model's recovery: a block shrunk about its
+    # center until its neighbors outrun the calibrated windows fails the
+    # dense certificate; the step is re-run from its pre-step state
+    # through StepFactory.classic_fallback(), and the block is served
+    # through checked_forward and coverage_eval_blocks
+    dense = SPH3DSceneSeg(s3dis_config(fast=True, dense=True)).to(dev)
+    dense.load_state_dict(state0)
+    dense.eval()
+    with torch.inference_mode():
+        dense(x)
+    if not bool(dense.dense_ok):
+        raise AssertionError("the unshrunk batch fails the dense "
+                             "certificate")
+    block = scene_blocks(np.random.default_rng(71), 1, S3_P)[0]
+    center = (block[:, :3].max(0) + block[:, :3].min(0)) / 2
+    for tries, scale in enumerate((0.8, 0.6, 0.5, 0.4, 0.3, 0.2, 0.1), 1):
+        shrunk = block.copy()
+        shrunk[:, :3] = center + (block[:, :3] - center) * np.float32(scale)
+        pts = x.clone()
+        pts[0] = torch.from_numpy(shrunk[:S3_N]).to(dev)
+        with torch.inference_mode():
+            dense(pts)
+        if not bool(dense.dense_ok):
+            break
+    else:
+        raise AssertionError("no shrunk block failed the dense "
+                             "certificate: no fallback to exercise")
+    print(f"a block of {S3_P} points shrunk to {scale} of its size about "
+          f"its center fails the dense certificate ({tries} drawn)",
+          flush=True)
+    check_recovery("batch with the shrunk block", factory(None, dense),
+                   lambda: factory(None), model, state0,
+                   dict(batch, points=pts), tuple, PER_S3PE_STEP)
+    dense.load_state_dict(state0)
+    dense.eval()
+    clone = classic_clone(dense)
+    checked = checked_forward(dense, dev)
+    fell = []
+
+    def forward(chunk, ids):
+        logits = checked(chunk, ids)
+        back = not bool(dense.dense_ok)
+        if back and not any(fell):
+            with torch.inference_mode():
+                direct = clone(torch.as_tensor(chunk, device=dev))
+            if not np.array_equal(direct.float().cpu().numpy(), logits):
+                raise AssertionError("fallback logits != direct per-edge "
+                                     "forward")
+        fell.append(back)
+        return logits
+
+    inner = ((block[:, :2] >= 0.3) & (block[:, :2] <= 1.2)).all(-1)
+    t0 = time.perf_counter()
+    (sums,) = coverage_eval_blocks(forward, [(shrunk, inner.astype(
+        np.int32))], S3_N, S3_B, rng=np.random.default_rng(72))
+    wall = time.perf_counter() - t0
+    if (sums.shape != (S3_P, cfg.num_cls) or not np.isfinite(sums).all()
+            or not (np.abs(sums[inner]).sum(-1) > 0).all()):
+        raise AssertionError("bad logits for the shrunk block")
+    print(f"the shrunk block served through coverage_eval_blocks: "
+          f"{sum(fell)} of {len(fell)} forwards fell back to the per-edge "
+          f"engine (the first equal to a direct per-edge forward), every "
+          f"inner point covered; {wall:.3f} s host clock", flush=True)
+    if not any(fell):
+        raise AssertionError("no forward of the shrunk block fell back")
+    return fwd_launches, step_launches
+
+
 def kernel_lines(runs: dict[str, tuple[Results, dict]],
                  others: tuple) -> dict:
     """The per-kernel JSON object: each kernel's times, bound and launches
     from the one path of ``runs`` (path -> (Results, launch counts)) that
     PATH_OF names for it, its largest error over every replay (``runs``
-    and ``others``, more Results)."""
+    and ``others``, more Results); and under ``paths`` the same numbers
+    from every path of ``runs`` that replayed the kernel's calls (a
+    Results that two paths share counts for PATH_OF's path only)."""
     every = [r for r, _ in runs.values()] + list(others)
+    shared = collections.Counter(id(r) for r, _ in runs.values())
+
+    def numbers(r, launches, name):
+        bound_ms, bound_by = r.bound(name)
+        return {"launches": launches[name], "ms": r.ms[name],
+                "plain_ms": r.plain_ms[name], "bound_ms": bound_ms,
+                "bound_by": bound_by,
+                "library_ms": (r.library_ms[name] if name in r.has_library
+                               else None)}
+
     kernels = []
     for name, (src, rep) in SOURCES.items():
         path = PATH_OF[name]
-        r, launches = runs[path]
-        bound_ms, bound_by = r.bound(name)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "path": path, "launches": launches[name],
+            "path": path,
             "max_abs_err": max(x.err[name] for x in every),
-            "ms": r.ms[name], "plain_ms": r.plain_ms[name],
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": (r.library_ms[name] if name in r.has_library
-                           else None),
+            **numbers(*runs[path], name),
+            "paths": {p: numbers(r, launches, name)
+                      for p, (r, launches) in runs.items()
+                      if r.calls[name] and name in r.plain_ms
+                      and (shared[id(r)] == 1 or p == path)},
         })
     return {"kernels": kernels}
 
@@ -2991,6 +3328,11 @@ def main() -> None:
     dist_map_replay(query_calls + growth_calls, res_dist)
     del query_calls, growth_calls
 
+    # 31-34. the S3DIS per-edge engine and the dense scene model's fallback
+    res_s3pe, res_s3pe_step = Results(), Results()
+    s3pe_launches, s3pe_step_launches = s3dis_per_edge_phases(
+        dev, res_s3pe, res_s3pe_step)
+
     print(json.dumps(kernel_lines({
         "s3dis_serve": (res_s3, s3_launches),
         "modelnet_train_step": (res_train, train_launches),
@@ -2999,6 +3341,8 @@ def main() -> None:
         "modelnet_per_edge_train_step": (res_win_step, win_step_launches),
         "modelnet_ids_train_step": (res_dist, ids_launches),
         "s3dis_weighted_serve": (res_dist, weighted_launches),
+        "s3dis_per_edge_serve": (res_s3pe, s3pe_launches),
+        "s3dis_per_edge_train_step": (res_s3pe_step, s3pe_step_launches),
     }, (res, res_plain_win, res_index, res_weighted, res_ids))),
         flush=True)
     print(json.dumps({"ok": True, "device": {

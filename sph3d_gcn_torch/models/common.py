@@ -27,9 +27,10 @@ def classic_clone(model: nn.Module) -> nn.Module:
     cloud (counterpart of flax's ``model.clone(config=...)`` in
     ``StepFactory.classic_fallback``). The clone shares the submodules, so
     an update through either changes both; only ``config`` and the
-    per-forward attributes (``dense_ok``) are its own. A model already on
-    the per-edge engine is returned as it is. The forward of a clone whose
-    per-edge engine is not ported raises NotImplementedError."""
+    per-forward attributes (``dense_ok``) are its own (a model whose
+    submodules read the config takes it from the model's forward, as the
+    scene models' backbone does). A model already on the per-edge engine
+    is returned as it is."""
     if not model.config.dense_graph:
         return model
     clone = copy.copy(model)      # shares _parameters, _buffers, _modules

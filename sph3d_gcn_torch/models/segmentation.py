@@ -1,17 +1,25 @@
-"""Scene segmentation, dense engine (counterpart of
+"""Scene segmentation (counterpart of
 ``sph3d_gcn_tpu/models/segmentation.py``: ``SegEncoderDecoder`` and
 ``SPH3DSceneSeg``, the S3DIS / ScanNet model).
 
-Axis sort -> xy-center normalization -> input MLP -> encoder {dense
-sphere graph -> separable conv block -> sample -> pool graph -> pool} x
-L -> mirrored decoder {coarse intra graph + fine->coarse inter graph with
+Axis sort -> xy-center normalization -> input MLP -> encoder {sphere
+graph -> separable conv block -> sample -> pool graph -> pool} x L ->
+mirrored decoder {coarse intra graph + fine->coarse inter graph with
 radius growth -> conv block at the coarse level -> unpool to the finer
 level -> skip concat} -> pointwise logits -> unsort to the input order
 (ref SPH3D_s3dis.py:35-112). The config's ``sample`` (FPS, IDS, random),
 ``pool_method`` (max, avg) and ``unpool_method`` (mean, or weighted: the
-inter graphs then carry distance maps) choose the sampler, pool and
-unpool. The decoder indexes reversed copies of the config lists (the
-reference reverses them in place, ref SPH3D_s3dis.py:79-84).
+inter graphs then carry distances) choose the sampler, pool and unpool.
+The decoder indexes reversed copies of the config lists (the reference
+reverses them in place, ref SPH3D_s3dis.py:79-84).
+
+Two engines, chosen by ``config.dense_graph`` as in JAX: the dense
+windowed engine (graphs as packed maps, certified by ``dense_ok``) and
+the per-edge engine (edge lists from the sphere query with fused bins,
+the pool graph gathered at the sorted sample indices, the decoders'
+inter graphs from the growing query; convs, pools and unpools through
+the edge gather of ``ops/windowed.py`` at the config's windows, or the
+plain gather without windows). Both hold the same parameters.
 """
 
 from __future__ import annotations
@@ -26,13 +34,20 @@ from sph3d_gcn_torch.models.common import (
     normalize_xy_center_z_floor,
 )
 from sph3d_gcn_torch.nn.graph import (
+    build_graph,
+    build_graph_deconv,
     build_graph_deconv_dense,
     build_graph_dense,
     build_pool_graph_dense,
+    gather_neighborhood,
     gather_points,
 )
 from sph3d_gcn_torch.nn.layers import PointwiseConv3d, pool3d, unpool3d
-from sph3d_gcn_torch.ops.locality import permute_points, spatial_sort
+from sph3d_gcn_torch.ops.locality import (
+    permute_points,
+    sort_indices_small,
+    spatial_sort,
+)
 
 # the backbone's input: the xy-centered xyz and the rgb columns 6:9 of the
 # 9-column scene blocks (xyz, block-relative xyz, rgb)
@@ -40,8 +55,8 @@ _IN_CHANNELS = 6
 
 
 class SegEncoderDecoder(nn.Module):
-    """mlp1 -> encoder pyramid -> decoder with skip concats, dense engine
-    (without point sharding and without the ShapeNet input skip).
+    """mlp1 -> encoder pyramid -> decoder with skip concats, on either
+    engine (without point sharding and without the ShapeNet input skip).
 
     ``forward`` returns (features (B, N, C) at the finest level, the
     forward's window-coverage certificate as a bool tensor)."""
@@ -72,14 +87,17 @@ class SegEncoderDecoder(nn.Module):
         self.out_channels = c
 
     def forward(self, net: torch.Tensor, xyz: torch.Tensor,
+                config: SPH3DConfig | None = None,
                 use_kernels: bool | None = None,
                 generator: torch.Generator | None = None,
                 sample_noise: list[torch.Tensor] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-        """``generator`` draws the noise of IDS and random sampling, level
-        by level, unless ``sample_noise`` holds each level's draws
-        (``nn.graph.build_graph_dense``)."""
-        cfg = self.config
+        """``config``: the configuration to run (None: the module's own; a
+        classic clone of the model passes its per-edge one). ``generator``
+        draws the noise of IDS and random sampling, level by level, unless
+        ``sample_noise`` holds each level's draws
+        (``nn.graph.build_graph``)."""
+        cfg = self.config if config is None else config
         num_levels = len(cfg.radius)
         net = self.mlp1(net)
         xyz_layers = [xyz]
@@ -88,30 +106,49 @@ class SegEncoderDecoder(nn.Module):
 
         # encoder (ref SPH3D_s3dis.py:53-77)
         for level in range(num_levels):
-            nbh, sample_idx = build_graph_dense(
-                xyz, cfg.radius[level], cfg.nn_uplimit[level],
-                cfg.num_sample[level], sample_method=cfg.sample,
-                kernel=cfg.kernel, window=cfg.enc_window(level),
+            graph = dict(
+                sample_method=cfg.sample, kernel=cfg.kernel,
                 generator=generator,
                 noise=None if sample_noise is None else sample_noise[level],
-                use_kernels=use_kernels,
-            )
-            dense_ok = dense_ok & nbh.ok
-            net = getattr(self, f"conv{level + 1}")(
-                net, nbh, use_kernels=use_kernels)
+                use_kernels=use_kernels)
+            conv = getattr(self, f"conv{level + 1}")
+            if cfg.dense_graph:
+                nbh, sample_idx = build_graph_dense(
+                    xyz, cfg.radius[level], cfg.nn_uplimit[level],
+                    cfg.num_sample[level], window=cfg.enc_window(level),
+                    **graph)
+                dense_ok = dense_ok & nbh.ok
+                net = conv(net, nbh, use_kernels=use_kernels)
+            else:
+                nbh, filt_idx, sample_idx = build_graph(
+                    xyz, cfg.radius[level], cfg.nn_uplimit[level],
+                    cfg.num_sample[level], **graph)
+                net = conv(net, nbh, filt_idx, window=cfg.enc_window(level),
+                           use_kernels=use_kernels)
             encoder.append(net)
             if cfg.num_sample[level] > 1:
-                # the sample indices come back sorted: the coarse cloud
-                # stays axis-sorted for the next dense level
-                xyz_coarse = gather_points(xyz, sample_idx)
-                inter = build_pool_graph_dense(
-                    xyz, xyz_coarse, cfg.radius[level],
-                    cfg.nn_uplimit[level], window=cfg.pool_window(level),
-                    use_kernels=use_kernels,
-                )
-                dense_ok = dense_ok & inter.ok
-                net = pool3d(net, inter, method=cfg.pool_method,
-                             use_kernels=use_kernels)
+                if cfg.dense_graph:
+                    # the sample indices come back sorted: the coarse
+                    # cloud stays axis-sorted for the next dense level
+                    xyz_coarse = gather_points(xyz, sample_idx)
+                    inter = build_pool_graph_dense(
+                        xyz, xyz_coarse, cfg.radius[level],
+                        cfg.nn_uplimit[level], window=cfg.pool_window(level),
+                        use_kernels=use_kernels,
+                    )
+                    dense_ok = dense_ok & inter.ok
+                    net = pool3d(net, inter, method=cfg.pool_method,
+                                 use_kernels=use_kernels)
+                else:
+                    if cfg.spatial_sort:
+                        # ascending order keeps the coarse cloud
+                        # axis-sorted
+                        sample_idx = sort_indices_small(sample_idx)
+                    xyz_coarse = gather_points(xyz, sample_idx)
+                    inter = gather_neighborhood(nbh, sample_idx)
+                    net = pool3d(net, inter, method=cfg.pool_method,
+                                 window=cfg.pool_window(level),
+                                 use_kernels=use_kernels)
                 xyz = xyz_coarse
                 xyz_layers.append(xyz)
 
@@ -125,19 +162,28 @@ class SegEncoderDecoder(nn.Module):
             xyz_fine = xyz_layers[level + 1]
             # decoder edges search the SAMPLED cloud of the mirrored
             # encoder level: its calibrated decoder window applies
-            intra, inter = build_graph_deconv_dense(
-                xyz_coarse, xyz_fine, radius_r[level], nn_uplimit_r[level],
-                kernel=cfg.kernel,
-                window=cfg.dec_window(num_levels - 1 - level),
-                need_dist=cfg.unpool_method == "weighted",
-                dec_margin=cfg.dec_margin, growth_steps=cfg.growth_steps,
-                use_kernels=use_kernels,
-            )
-            dense_ok = dense_ok & intra.ok & inter.ok
-            net = getattr(self, f"deconv{level + 1}")(
-                net, intra, use_kernels=use_kernels)
-            net = unpool3d(net, inter, method=cfg.unpool_method,
-                           use_kernels=use_kernels)
+            dec_win = cfg.dec_window(num_levels - 1 - level)
+            deconv = getattr(self, f"deconv{level + 1}")
+            if cfg.dense_graph:
+                intra, inter = build_graph_deconv_dense(
+                    xyz_coarse, xyz_fine, radius_r[level],
+                    nn_uplimit_r[level], kernel=cfg.kernel, window=dec_win,
+                    need_dist=cfg.unpool_method == "weighted",
+                    dec_margin=cfg.dec_margin, growth_steps=cfg.growth_steps,
+                    use_kernels=use_kernels,
+                )
+                dense_ok = dense_ok & intra.ok & inter.ok
+                net = deconv(net, intra, use_kernels=use_kernels)
+                net = unpool3d(net, inter, method=cfg.unpool_method,
+                               use_kernels=use_kernels)
+            else:
+                intra, filt_idx, inter = build_graph_deconv(
+                    xyz_coarse, xyz_fine, radius_r[level],
+                    nn_uplimit_r[level], kernel=cfg.kernel)
+                net = deconv(net, intra, filt_idx, window=dec_win,
+                             use_kernels=use_kernels)
+                net = unpool3d(net, inter, method=cfg.unpool_method,
+                               window=dec_win, use_kernels=use_kernels)
             net = torch.cat([net, encoder[level]], dim=-1)
         return net, dense_ok
 
@@ -151,14 +197,15 @@ class SPH3DSceneSeg(nn.Module):
     After each forward, ``dense_ok`` holds that forward's window-coverage
     certificate (a bool tensor): True iff every dense graph provably
     covered all its in-range neighbors (at its grown radius, for the
-    decoders' inter graphs).
+    decoders' inter graphs); always True on the per-edge engine, which is
+    exact for every cloud (``models.common.classic_clone`` re-runs a dense
+    model there).
     """
 
     def __init__(self, config: SPH3DConfig,
                  generator: torch.Generator | None = None) -> None:
         super().__init__()
         cfg = config
-        _require_dense(cfg)
         self.config = cfg
         self.backbone = SegEncoderDecoder(cfg, _IN_CHANNELS, generator)
         # the classifier: no activation, no BN, f32 (the JAX layer's
@@ -178,11 +225,8 @@ class SPH3DSceneSeg(nn.Module):
         the plain versions on the CPU; False forces the plain versions
         (for comparing the two). ``generator`` draws the noise of IDS and
         random sampling (the model has no dropout), unless
-        ``sample_noise`` holds each level's draws. Raises
-        NotImplementedError on the per-edge engine (``dense_graph=False``,
-        as a classic clone has it)."""
+        ``sample_noise`` holds each level's draws."""
         cfg = self.config
-        _require_dense(cfg)
         if points.shape[1:] != (cfg.num_input, 3 + _IN_CHANNELS):
             raise ValueError(
                 f"expected (B, {cfg.num_input}, {3 + _IN_CHANNELS}) points, "
@@ -196,22 +240,13 @@ class SPH3DSceneSeg(nn.Module):
         norm_xyz = normalize_xy_center_z_floor(xyz) if cfg.normalize else xyz
         net = torch.cat([norm_xyz, points[..., 6:]], dim=-1)
         net, self.dense_ok = self.backbone(
-            net, xyz, use_kernels=use_kernels, generator=generator,
+            net, xyz, cfg, use_kernels=use_kernels, generator=generator,
             sample_noise=sample_noise)
         logits = self.logits(net)
         # back to the caller's point order; ``perm`` rides along so the
         # backward gathers instead of scattering
         return (logits if rank is None
                 else permute_points(logits, rank, inv=perm))
-
-
-def _require_dense(cfg: SPH3DConfig) -> None:
-    # the per-edge engine (windowed unpools, decoder graphs from the
-    # edge-list query) is not ported yet (ROADMAP Queue 1 item 3)
-    if not cfg.dense_graph:
-        raise NotImplementedError(
-            "SPH3DSceneSeg has no per-edge (classic) engine in the port "
-            "yet: only the dense engine (dense_graph=True)")
 
 
 def _nll_points(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Graph construction for the SPH3D pyramids (counterpart of
-``sph3d_gcn_tpu/nn/graph.py``: the per-edge level graph, the dense
-encoder, pool and decoder graphs and the global graph)."""
+``sph3d_gcn_tpu/nn/graph.py``: the per-edge level and decoder graphs,
+the dense encoder, pool and decoder graphs and the global graph)."""
 
 from __future__ import annotations
 
@@ -116,6 +116,28 @@ def build_pool_graph_dense(
         xyz, xyz_sampled, radius, nn_uplimit, None, window=window,
         self_graph=False, use_kernels=use_kernels,
     )
+
+
+def build_graph_deconv(
+    xyz: torch.Tensor,
+    xyz_unpool: torch.Tensor,
+    radius: float,
+    nn_uplimit: int,
+    kernel: tuple[int, int, int] = (8, 2, 2),
+) -> tuple[Neighborhood, torch.Tensor, Neighborhood]:
+    """Decoder graphs of the per-edge engine (ref
+    utils/sph3gcn_util.py:52-58): the coarse cloud's intra graph with its
+    spherical bins fused into the query, and the inter graph for
+    unpooling, whose queries are the *fine* points searching the *coarse*
+    cloud (``inter.idx`` indexes coarse points), a lone fine point growing
+    its radius by +0.05 until it finds one (ref tf_nnquery_gpu.cu:30-60);
+    ``inter.dist`` holds the sqrt-space distances of the weighted unpool.
+    Returns (intra, filt_index, inter)."""
+    inter = build_sphere_neighbor(xyz, xyz_unpool, radius=radius,
+                                  nn_sample=nn_uplimit)
+    intra, filt = build_sphere_neighbor_and_bins(
+        xyz, xyz, radius, nn_uplimit, kernel, self_graph=True)
+    return intra, filt, inter
 
 
 def build_graph_deconv_dense(

@@ -18,6 +18,7 @@ from torch import nn
 
 from sph3d_gcn_torch.ops.conv import depthwise_conv3d, einsum_f32
 from sph3d_gcn_torch.ops.dense import (
+    WEIGHT_EPS,
     DenseNeighborhood,
     dense_avg_pool3d,
     dense_depthwise_conv3d,
@@ -27,6 +28,7 @@ from sph3d_gcn_torch.ops.dense import (
 )
 from sph3d_gcn_torch.ops.pool import avg_pool3d, max_pool3d
 from sph3d_gcn_torch.ops.types import Neighborhood
+from sph3d_gcn_torch.ops.unpool import mean_interpolate, weighted_interpolate
 from sph3d_gcn_torch.ops.windowed import EdgeLists
 
 
@@ -249,21 +251,27 @@ def pool3d(
     return out
 
 
-def unpool3d(inputs: torch.Tensor, nbh: DenseNeighborhood,
-             method: str = "mean",
+def unpool3d(inputs: torch.Tensor, nbh: DenseNeighborhood | Neighborhood,
+             method: str = "mean", window: int | None = None,
              use_kernels: bool | None = None) -> torch.Tensor:
-    """Unpooling dispatch (ref utils/sph3gcn_util.py:300-325) on a dense
-    graph: the masked mean of each fine point's coarse neighbors, or their
-    distance-weighted sum (the graph built with ``need_dist``). The
-    per-edge unpools are not ported yet: the scene models have no
-    per-edge engine in the port (ROADMAP Queue 1 item 3)."""
+    """Unpooling dispatch (ref utils/sph3gcn_util.py:300-325): the masked
+    mean of each fine point's coarse neighbors, or their weighted sum with
+    the reference's distance-*proportional* weights ``(dist + 1e-7) /
+    (sum_k dist + 1e-7)`` over the sqrt-space distances (ref :317-321).
+    From a dense graph (built with ``need_dist`` for the weighted one) or
+    an edge-list graph (``window``: the per-edge engine's gather; None: the
+    plain gather)."""
     if method not in ("mean", "weighted"):
         raise ValueError(f"Unknown unpooling method {method!r}")
-    if not isinstance(nbh, DenseNeighborhood):
-        raise NotImplementedError(
-            f"the per-edge {method} unpool is not ported yet: it comes with "
-            "the scene models' per-edge engine (ROADMAP Queue 1 item 3)")
+    if isinstance(nbh, DenseNeighborhood):
+        if method == "weighted":
+            return dense_weighted_interpolate(inputs, nbh,
+                                              use_kernels=use_kernels)
+        return dense_mean_interpolate(inputs, nbh, use_kernels=use_kernels)
     if method == "weighted":
-        return dense_weighted_interpolate(inputs, nbh,
-                                          use_kernels=use_kernels)
-    return dense_mean_interpolate(inputs, nbh, use_kernels=use_kernels)
+        sum_dist = nbh.dist.sum(dim=-1, keepdim=True)
+        weight = (nbh.dist + WEIGHT_EPS) / (sum_dist + WEIGHT_EPS)
+        return weighted_interpolate(inputs, weight, nbh.idx, nbh.count,
+                                    window=window, use_kernels=use_kernels)
+    return mean_interpolate(inputs, nbh.idx, nbh.count, window=window,
+                            use_kernels=use_kernels)

@@ -1100,7 +1100,7 @@ def dense_avg_pool3d(
     return _masked_mean(inputs, dnbh, use_kernels, "avg_pool")
 
 
-_WEIGHT_EPS = 1e-7   # ref utils/sph3gcn_util.py:317-321
+WEIGHT_EPS = 1e-7   # ref utils/sph3gcn_util.py:317-321
 
 
 def interpolation_weights(dnbh: DenseNeighborhood) -> torch.Tensor:
@@ -1115,7 +1115,7 @@ def interpolation_weights(dnbh: DenseNeighborhood) -> torch.Tensor:
     sel = dnbh.packed > 0
     dist = torch.where(sel, dnbh.dist, 0.0)
     sum_dist = dist.sum(dim=-1, keepdim=True)
-    return torch.where(sel, (dist + _WEIGHT_EPS) / (sum_dist + _WEIGHT_EPS),
+    return torch.where(sel, (dist + WEIGHT_EPS) / (sum_dist + WEIGHT_EPS),
                        0.0)
 
 

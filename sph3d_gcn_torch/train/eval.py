@@ -11,11 +11,11 @@
   s3dis_seg/evaluate_s3dis_with_overlap.py:270-302).
 
 The dense engine's window-coverage certificate is enforced by
-:func:`checked_forward`, as JAX's ``checked_eval_step`` enforces it: a
-forward whose ``dense_ok`` is False is re-run on the model's per-edge
-(classic) engine, on the same parameters, which is exact for every cloud;
-a model whose per-edge engine is not ported yet raises
-:class:`DenseCoverageError` instead.
+:func:`checked_eval_step` (JAX's, without the halo retry of point
+sharding) and by :func:`checked_forward` (the same rule for the numpy
+forwards of the two protocols): a batch whose ``dense_ok`` is False is
+re-run on the model's per-edge (classic) engine, on the same parameters,
+which is exact for every cloud.
 """
 
 from __future__ import annotations
@@ -29,8 +29,29 @@ from sph3d_gcn_torch.data import augment as aug
 from sph3d_gcn_torch.models.common import classic_clone
 
 
-class DenseCoverageError(RuntimeError):
-    """A dense graph's window did not provably cover its neighbors."""
+def checked_eval_step(factory) -> Callable[[dict], dict]:
+    """``factory.eval_step`` with the dense certificate enforced: returns
+    ``batch -> metrics``. When the config runs the dense engine and a
+    batch's ``dense_ok`` is False (a window did not provably cover its
+    neighbors, so the graph may be wrong), the batch is re-run through
+    the eval step of ``factory.classic_fallback()`` (the per-edge engine
+    on the same parameters, built at the first such batch, which prints
+    one line), so results are never silently wrong. A dense config pays
+    one host read of the certificate a batch; a per-edge one none."""
+    dense = bool(factory.model.config.dense_graph)
+    fallback: list = []
+
+    def run(batch: dict) -> dict:
+        metrics = factory.eval_step(batch)
+        if dense and not bool(metrics["dense_ok"]):
+            if not fallback:
+                print("dense window coverage violated at eval: re-running "
+                      "on the classic per-edge engine", flush=True)
+                fallback.append(factory.classic_fallback())
+            metrics = fallback[0].eval_step(batch)
+        return metrics
+
+    return run
 
 
 def vote_augment(batch_xyz: np.ndarray, rng: np.random.Generator) -> np.ndarray:
@@ -71,8 +92,7 @@ def checked_forward(
     When a forward's ``dense_ok`` certificate is False, the batch is
     re-run on ``models.common.classic_clone(model)`` (the per-edge
     engine on the same parameters; one line is printed the first time)
-    and its logits are returned; a model whose per-edge engine is not
-    ported raises DenseCoverageError. ``generator`` (on ``device``;
+    and its logits are returned. ``generator`` (on ``device``;
     None: the device's default generator) draws the sampling noise of IDS
     or random sampling; the re-run starts from its state before the dense
     forward, so both answer for the same sample. ``block_ids`` (passed by
@@ -91,13 +111,7 @@ def checked_forward(
                 if first:
                     fallback.append(classic_clone(model))
                 gen.set_state(state)
-                try:
-                    logits = fallback[0](x, generator=gen)
-                except NotImplementedError as e:
-                    raise DenseCoverageError(
-                        "dense window coverage violated: the graph may be "
-                        f"wrong, and no exact fallback exists ({e})"
-                    ) from e
+                logits = fallback[0](x, generator=gen)
                 if first:
                     print("dense window coverage violated at eval: "
                           "re-ran on the classic per-edge engine",

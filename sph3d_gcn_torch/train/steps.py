@@ -7,10 +7,11 @@ or random sampling, from one explicit generator), the data loss plus
 ``weight_decay * l2_regularization``, the backward through every layer
 (the dense conv and pool through their hand-written backward kernels on
 a CUDA device), one optimizer update and one scheduler step. The metrics
-stay on the device: the step adds no host synchronisation of its own,
-except for a model whose per-edge engine is not ported (the scene
-models), which must check its certificate before the update
-(:meth:`StepFactory.loss_and_grads`).
+stay on the device: the step adds no host synchronisation of its own. A
+dense step whose certificate ``dense_ok`` came back False has applied an
+update from a possibly wrong graph; the caller restores the pre-step
+state and re-runs the batch through :meth:`StepFactory.classic_fallback`,
+as JAX's ``fit()`` does.
 """
 
 from __future__ import annotations
@@ -22,7 +23,6 @@ import torch
 
 from sph3d_gcn_torch.models.common import classic_clone
 from sph3d_gcn_torch.nn.layers import l2_regularization
-from sph3d_gcn_torch.train.eval import DenseCoverageError
 
 # (logits, batch) -> data loss (scalar) or per-item loss (B,)
 LossFn = Callable[[torch.Tensor, dict[str, torch.Tensor]], torch.Tensor]
@@ -72,26 +72,12 @@ class StepFactory:
         statistics updated) and returns the step's metrics. ``generator``
         draws the dropout masks and the sampling noise (IDS, random);
         ``sample_noise`` gives each level's sampling draws instead (the
-        model's forward).
-
-        A model with no per-edge engine in the port cannot re-run a batch
-        whose dense certificate failed (``classic_fallback()``), so for it
-        the certificate is read on the host after the forward; when it is
-        False the running statistics are restored and DenseCoverageError
-        is raised, before any gradient or update."""
+        model's forward). The certificate stays on the device: no host
+        read."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        saved = (None if _has_per_edge_engine(self.model)
-                 else [b.clone() for b in self.model.buffers()])
         total, data_loss, logits = self._losses(batch, generator,
                                                 sample_noise)
-        if saved is not None and not bool(self.model.dense_ok):
-            with torch.no_grad():
-                for b, s in zip(self.model.buffers(), saved):
-                    b.copy_(s)
-            raise DenseCoverageError(
-                "dense window coverage violated in a train step, and the "
-                "model has no per-edge engine to re-run it on")
         total.backward()
         return {"loss": total.detach(), "data_loss": data_loss.detach(),
                 "logits": logits.detach(), "dense_ok": self.model.dense_ok}
@@ -113,9 +99,8 @@ class StepFactory:
         (``models.common.classic_clone``): the recovery path for a batch
         whose dense certificate failed, exact for every cloud
         (``sph3d_gcn_tpu/train/steps.py:227-270``). The clone keeps the
-        config's sampling and pooling options. Returns ``self`` when
-        the model already runs it. A model whose per-edge engine is not
-        ported raises NotImplementedError at the clone's forward."""
+        config's sampling, pooling and unpooling options. Returns ``self``
+        when the model already runs it."""
         model = classic_clone(self.model)
         if model is self.model:
             return self
@@ -133,14 +118,6 @@ class StepFactory:
         if self.item_loss_fn is not None:
             out["item_loss"] = self.item_loss_fn(logits, batch)
         return out
-
-
-def _has_per_edge_engine(model: torch.nn.Module) -> bool:
-    """Whether ``classic_fallback()`` can re-run the model's batches: every
-    model but the scene models, whose per-edge engine is not ported yet."""
-    from sph3d_gcn_torch.models.segmentation import SPH3DSceneSeg
-
-    return not isinstance(model, SPH3DSceneSeg)
 
 
 def classification_step_factory(

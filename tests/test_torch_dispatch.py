@@ -29,7 +29,6 @@ from sph3d_gcn_torch.ops import query as Q
 from sph3d_gcn_torch.ops import sample as S
 from sph3d_gcn_torch.ops import windowed as W
 from sph3d_gcn_torch.train.eval import (
-    DenseCoverageError,
     checked_forward,
     coverage_eval_blocks,
     vote_classify,
@@ -245,7 +244,10 @@ def test_record_calls_sees_every_wrapped_call_of_a_scene_forward():
 def test_scene_blocks_served_through_coverage_eval():
     """Blocks of more and fewer points than the model takes, served on the
     CPU through the checked forward: every inner point covered, finite
-    logits in block order."""
+    logits in block order. A model whose decoder windows miss the grown
+    radii serves a block of exactly its 1024 points (covered in one
+    forward: a resample without replacement) through the per-edge
+    fallback, equal to a direct per-edge forward."""
     model = SPH3DSceneSeg(_scene_config(),
                           generator=torch.Generator().manual_seed(0)).eval()
     rng = np.random.default_rng(2)
@@ -262,8 +264,24 @@ def test_scene_blocks_served_through_coverage_eval():
         assert (np.abs(logits[inner == 1]).sum(-1) > 0).all()
     tight = SPH3DSceneSeg(_scene_config(dec_margin=0, growth_steps=1),
                           generator=torch.Generator().manual_seed(0)).eval()
-    with pytest.raises(DenseCoverageError, match="classic"):
-        coverage_eval_blocks(checked_forward(tight, "cpu"), blocks, 1024, 2)
+    checked, clone = checked_forward(tight, "cpu"), classic_clone(tight)
+    fell = []
+
+    def forward(points, block_ids=None):
+        logits = checked(points)
+        fell.append(not bool(tight.dense_ok))
+        with torch.no_grad():
+            direct = clone(torch.from_numpy(points))
+        np.testing.assert_array_equal(logits, direct.numpy())
+        return logits
+
+    pts = scene_blocks(rng, 1, 1024)[0]
+    inner = ((pts[:, :2] > 0.3) & (pts[:, :2] < 1.2)).all(-1)
+    (logits,) = coverage_eval_blocks(forward, [(pts, inner.astype(
+        np.int32))], 1024, 1, rng=np.random.default_rng(3))
+    assert fell == [True]
+    assert logits.shape == (1024, 13) and np.isfinite(logits).all()
+    assert (np.abs(logits[inner]).sum(-1) > 0).all()
 
 
 def _windowed_config(n=1024):
@@ -693,3 +711,91 @@ def test_window_gather_kernels_match_plain_on_cuda(cuda_device, dtype):
                                    atol=tol)
         assert torch.equal(dx, W.window_gather_bwd_kernel(dg, order, starts,
                                                           n))
+
+
+def _unpool_edges(rng, batch, n, m, k):
+    """Fine queries (M of them) into a coarse cloud of N rows: each row's
+    K lanes within 20 rows of its place in the coarse order, counts 1..K
+    (a fine point always has a coarse neighbor, at a grown radius)."""
+    base = (np.arange(m) * n) // m
+    idx = np.clip(base[None, :, None] + rng.integers(-20, 20, (batch, m, k)),
+                  0, n - 1)
+    return idx, rng.integers(1, k + 1, (batch, m))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unpool_gathers_match_plain_on_cuda(cuda_device, dtype):
+    """The per-edge unpools' gathers, fine rows from a coarse cloud (M =
+    4N, no multiple of 128): K8 bitwise equal to its plain version, K9
+    the same bits as its plain version (the same f32 sums in list order)
+    and as itself; the mean and weighted unpools through them, one K8 and
+    one K9 launch a call, equal to the plain versions forward and
+    backward."""
+    from sph3d_gcn_torch.ops.unpool import (
+        mean_interpolate,
+        weighted_interpolate,
+    )
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    rng = np.random.default_rng(6)
+    n, m, k = 300, 1200, 64
+    idx, cnt = (torch.from_numpy(a).to(cuda_device)
+                for a in _unpool_edges(rng, 3, n, m, k))
+    order, starts = W.edge_lists(idx, cnt, n)
+    for c in (64, 128, 256):
+        x = torch.randn(3, n, c, device=cuda_device, generator=gen).to(dtype)
+        got = W.window_gather_kernel(x, idx, cnt)
+        assert got.shape == (3, 1280, k, c)
+        assert torch.equal(got, W.window_gather_plain(x, idx, cnt))
+        dg = torch.randn(got.shape, device=cuda_device, generator=gen).to(
+            dtype)
+        dx = W.window_gather_bwd_kernel(dg, order, starts, n)
+        assert torch.equal(dx, W.window_gather_bwd_plain(dg, order, starts,
+                                                         n))
+        assert torch.equal(dx, W.window_gather_bwd_kernel(dg, order, starts,
+                                                          n))
+    weight = torch.rand(3, m, k, device=cuda_device, generator=gen)
+    x = torch.randn(3, n, 128, device=cuda_device, generator=gen).to(dtype)
+    cot = torch.randn(3, m, 128, device=cuda_device, generator=gen).to(dtype)
+    for op, extra in ((mean_interpolate, ()),
+                      (weighted_interpolate, (weight,))):
+        outs = []
+        for use_kernels in (None, False):
+            xg = x.clone().requires_grad_()
+            reset_kernel_launches()
+            out = op(xg, *extra, idx, cnt, window=128,
+                     use_kernels=use_kernels)
+            out.backward(cot)
+            launches = kernel_launches()
+            want = 1 if use_kernels is None else 0
+            assert (launches["window_gather"],
+                    launches["window_gather_bwd"]) == (want, want)
+            outs.append((out.detach(), xg.grad))
+        assert torch.equal(outs[0][0], outs[1][0])
+        assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.cuda
+def test_unpool_gather_at_full_size_on_cuda(cuda_device):
+    """The last decoder level of a S3DIS batch: 16 clouds of 8192 fine
+    points gathering K = 64 of 2048 coarse rows of 128 bf16 channels
+    (2.15 GB written), K8 bitwise equal to its plain version, K9 to its
+    plain version and to itself."""
+    rng = np.random.default_rng(7)
+    n, m, k, c = 2048, 8192, 64, 128
+    idx, cnt = (torch.from_numpy(a).to(cuda_device)
+                for a in _unpool_edges(rng, 16, n, m, k))
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(16, n, c, device=cuda_device, generator=gen).to(
+        torch.bfloat16)
+    got = W.window_gather_kernel(x, idx, cnt)
+    assert got.shape == (16, m, k, c)
+    assert torch.equal(got, W.window_gather_plain(x, idx, cnt))
+    del got
+    order, starts = W.edge_lists(idx, cnt, n)
+    dg = torch.randn((16, m, k, c), device=cuda_device, generator=gen).to(
+        torch.bfloat16)
+    dx = W.window_gather_bwd_kernel(dg, order, starts, n)
+    assert torch.equal(dx, W.window_gather_bwd_plain(dg, order, starts, n))
+    assert torch.equal(dx, W.window_gather_bwd_kernel(dg, order, starts, n))

@@ -48,7 +48,6 @@ from sph3d_gcn_tpu.train.steps import (
 from sph3d_gcn_torch import _build
 from sph3d_gcn_torch.configs import s3dis_config
 from sph3d_gcn_torch.models import SPH3DSceneSeg
-from sph3d_gcn_torch.train.eval import DenseCoverageError
 from sph3d_gcn_torch.train.schedule import make_optimizer
 from sph3d_gcn_torch.train.steps import segmentation_step_factory
 from sph3d_gcn_torch.utils.convert import (
@@ -188,10 +187,11 @@ def test_seg_adam_update_matches_optax():
 
 def test_seg_step_failed_certificate_reports_and_fallback_raises():
     """Windows too small for the blocks: the step reports the failed
-    certificate by raising DenseCoverageError before its update (the
-    parameters, the running statistics and the optimizer untouched, no
-    gradient left), and the recovery path (``classic_fallback()``) raises,
-    since the scene model has no per-edge engine in the port."""
+    certificate as a False ``dense_ok`` tensor and applies its update, as
+    the ModelNet step does (no host read of the certificate, no restore of
+    the running statistics); the recovery path (``classic_fallback()``,
+    on the scene model's per-edge engine) runs the batch on the same
+    parameters, raising nothing."""
     cfg = dataclasses.replace(_config("float32"), dec_margin=0,
                               growth_steps=1, windows=(128,) * 4)
     model = SPH3DSceneSeg(cfg, generator=torch.Generator().manual_seed(0))
@@ -201,13 +201,18 @@ def test_seg_step_failed_certificate_reports_and_fallback_raises():
     pts, labels, _ = _batch()
     batch = {"points": torch.from_numpy(pts),
              "label": torch.from_numpy(labels)}
-    with pytest.raises(DenseCoverageError, match="per-edge"):
-        step.train_step(batch)
-    assert not bool(model.dense_ok)
+    metrics = step.train_step(batch)
+    assert isinstance(metrics["dense_ok"], torch.Tensor)
+    assert not bool(metrics["dense_ok"]) and not bool(model.dense_ok)
     after = model.state_dict()
-    assert all(torch.equal(after[k], v) for k, v in before.items())
-    assert all(p.grad is None for p in model.parameters())
-    assert not step.optimizer.state
-    assert step.scheduler.last_epoch == 0
-    with pytest.raises(NotImplementedError, match="per-edge"):
-        step.classic_fallback().train_step(batch)
+    assert all(not torch.equal(after[k], v) for k, v in before.items()
+               if k.endswith((".mean", ".var")))
+    assert all(p.grad is not None for p in model.parameters())
+    assert step.optimizer.state
+    assert step.scheduler.last_epoch == 1
+    fb = step.classic_fallback()
+    assert fb.model is not model and not fb.model.config.dense_graph
+    assert fb.optimizer is step.optimizer
+    metrics = fb.train_step(batch)
+    assert bool(metrics["dense_ok"]) and torch.isfinite(metrics["loss"])
+    assert step.scheduler.last_epoch == 2

@@ -186,11 +186,16 @@ def test_coverage_eval_blocks_matches_jax(n_model, batch):
 
 def test_unported_options_raise():
     # the weighted unpool, IDS / random sampling and the avg pool are
-    # ported (tests/test_torch_sampling_options.py); the per-edge engine
-    # is not
+    # ported (tests/test_torch_sampling_options.py), and so is the
+    # per-edge engine (tests/test_torch_seg_per_edge.py): each builds,
+    # and the per-edge model serves a batch
     cfg = _config("float32")
-    with pytest.raises(NotImplementedError):
-        SPH3DSceneSeg(dataclasses.replace(cfg, dense_graph=False))
+    model = SPH3DSceneSeg(dataclasses.replace(cfg, dense_graph=False),
+                          generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        out = model.eval()(torch.from_numpy(_points()[:1]))
+    assert out.shape == (1, N, 13) and bool(torch.isfinite(out).all())
+    assert bool(model.dense_ok)
     for ported in ({"unpool_method": "weighted"}, {"sample": "IDS"},
                    {"pool_method": "avg"}):
         SPH3DSceneSeg(dataclasses.replace(cfg, **ported))
