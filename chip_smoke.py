@@ -264,6 +264,43 @@ seeded weights), at B=16, N=8192:
     ``coverage_eval_blocks`` (forwards that fell back counted, the first
     equal to a direct per-edge forward, every inner point covered).
 
+Then the training and evaluation entry points, as a user calls them, on
+the card (records in a temporary directory):
+
+35. 64 train and 32 test ``surface_clouds`` of N=10000 written as
+    ModelNet-format TFRecords by the port's writer and read back through
+    ``data.datasets`` bitwise equal (sizes and times printed);
+36. ``cli.train_modelnet.main`` (dense mode, the ``hard`` windows, which
+    cover the augmentation's rotated clouds; B=16): one epoch of 4 steps
+    and an eval pass of 2 batches; launches exactly 4 x the bare step's
+    (``PER_STEP``) plus 2 x ``PER_FORWARD`` (plus a per-edge step or
+    forward for a batch its log says re-ran); finite losses; the config
+    snapshot, log, ``metrics.jsonl`` and epoch-0 checkpoint written;
+    ``fit``'s ms a batch (its own log line) beside the bare
+    ``train_step``'s host-clock times on the same batches; a profile of a
+    ``fit`` of 4 steps: each ``fit_step`` span's wall, device busy time
+    and idle share, and the ``pre_step_copy`` span's device time and
+    events;
+37. the epoch-0 checkpoint restored into a fresh model bitwise equal to
+    the trained one; ``cli.train_modelnet`` run again to 2 epochs
+    resumes at epoch 1 (step count 8 after it, launches as phase 36);
+38. ``cli.evaluate_modelnet.main`` with 3 votes: 6 forwards, launches
+    6 x ``PER_FORWARD`` plus ``PER_WIN_FORWARD`` for each forward re-run
+    on the per-edge engine (counted), finite (32, 40) votes written;
+39. ``fit`` on phase 34's batch with the shrunk block under
+    ``torch.use_deterministic_algorithms(True)``: the log shows the
+    classic re-run, the dense model ends bitwise equal to a direct
+    per-edge step from the same state, launches one dense and one
+    per-edge S3DIS step;
+40. ``utils.windows`` on 3 votes of 16 test clouds (vote 0 and 2
+    ``vote_augment`` copies), measured as the model builds its graphs
+    (sort, then ``normalize_unit_sphere``), the derived windows (10%
+    margin) beside the plain and hard ones; each family serves those
+    votes (the derived must certify every forward), with its forward
+    time; then the S3DIS per-edge train step (``s3dis_config(fast=True)``,
+    B=16, N=8192) with and without ``remat_blocks``: loss, gradients and
+    statistics bitwise equal, step time and peak device memory of both.
+
 Each replayed K1 call prints its launch plan (cluster size, threads,
 points a thread) and its time per greedy step, of the span and of the
 device alone.
@@ -280,7 +317,11 @@ names the side that binds most of that sum) and ``library_ms``, the time
 of one PyTorch call computing the same function where one exists;
 ``paths`` holds the same numbers from every path that replayed the
 kernel's calls (K1 and K8 on ``s3dis_per_edge_serve``, K8 and K9 on
-``s3dis_per_edge_train_step``, beside the paths above).
+``s3dis_per_edge_train_step``, beside the paths above), and
+``fit_paths`` the kernel's launches on the entry points' runs:
+``modelnet_fit`` and ``modelnet_fit_resumed`` (the train steps of one
+epoch of phases 36 and 37), ``modelnet_eval_cli`` (phase 38) and
+``s3dis_fit_fallback`` (phase 39).
 
 Any failure raises and the script exits non-zero. The last two lines
 are the per-kernel JSON object and the contract line ``{"ok": true,
@@ -355,6 +396,12 @@ S3W_STEPS = 4                       # the weighted-unpool S3DIS steps
 PER_S3PE_FORWARD = {"fps": 4, "window_gather": 24}
 PER_S3PE_STEP = dict(PER_S3PE_FORWARD, window_gather_bwd=24)
 S3PE_STEPS = 5
+# the entry points' phases: ModelNet records (one epoch of fit is
+# TRAIN_RECORDS / B steps), the eval CLI's votes, the remat comparison
+TRAIN_RECORDS, TEST_RECORDS = 64, 32
+FIT_STEPS = TRAIN_RECORDS // B
+EVAL_VOTES = 3
+REMAT_STEPS = 3
 # the path whose run gives each kernel's launches and times in the JSON line
 # (K2 and K7 from the option paths, whose queries write distance maps)
 PATH_OF = {"fps": "s3dis_serve", "dense_query": "modelnet_ids_train_step",
@@ -2877,11 +2924,12 @@ def dist_map_replay(calls: list, res: Results) -> None:
 
 
 def s3dis_per_edge_phases(dev: torch.device, res_fwd: Results,
-                          res_step: Results) -> tuple[dict, dict]:
+                          res_step: Results) -> tuple[dict, dict, tuple]:
     """Phases 31-34 (see the module docstring): the per-edge engine of
     ``s3dis_config(fast=True)`` and the dense scene model's fallback to
     it. Returns the launch counts of the serving run and of the train
-    run."""
+    run, and phase 34's batch with the shrunk block and the state its
+    step started from."""
     from sph3d_gcn_torch import _build, kernel_launches, reset_kernel_launches
     from sph3d_gcn_torch.configs import s3dis_config
     from sph3d_gcn_torch.data.synthetic import scene_blocks
@@ -2901,7 +2949,9 @@ def s3dis_per_edge_phases(dev: torch.device, res_fwd: Results,
     )
     from sph3d_gcn_torch.train.steps import segmentation_step_factory
 
-    cfg = s3dis_config(fast=True)
+    # without remat_blocks (the config's default at N=8192), so its
+    # numbers stay comparable; phase 40 times the step with and without it
+    cfg = dataclasses.replace(s3dis_config(fast=True), remat_blocks=False)
     gen = torch.Generator().manual_seed(10)
     model = SPH3DSceneSeg(cfg, generator=gen)
     randomize_bn(model, gen)
@@ -3105,9 +3155,10 @@ def s3dis_per_edge_phases(dev: torch.device, res_fwd: Results,
     print(f"a block of {S3_P} points shrunk to {scale} of its size about "
           f"its center fails the dense certificate ({tries} drawn)",
           flush=True)
+    shrunk_batch = dict(batch, points=pts)
     check_recovery("batch with the shrunk block", factory(None, dense),
-                   lambda: factory(None), model, state0,
-                   dict(batch, points=pts), tuple, PER_S3PE_STEP)
+                   lambda: factory(None), model, state0, shrunk_batch,
+                   tuple, PER_S3PE_STEP)
     dense.load_state_dict(state0)
     dense.eval()
     clone = classic_clone(dense)
@@ -3140,17 +3191,385 @@ def s3dis_per_edge_phases(dev: torch.device, res_fwd: Results,
           f"inner point covered; {wall:.3f} s host clock", flush=True)
     if not any(fell):
         raise AssertionError("no forward of the shrunk block fell back")
-    return fwd_launches, step_launches
+    return fwd_launches, step_launches, (shrunk_batch, state0)
+
+
+def fit_launches(launches: dict[str, int], log: str, steps: int,
+                 evals: int, what: str) -> dict[str, int]:
+    """Checks one epoch of ModelNet ``fit``'s launch counts: ``steps``
+    dense steps of ``PER_STEP`` and ``evals`` eval forwards of
+    ``PER_FORWARD``, plus a per-edge step or forward for each batch that
+    ``log`` (the epoch's lines) says re-ran on the classic engine. Returns
+    the train steps' share."""
+    reruns = [line for line in log.splitlines()
+              if "re-running via the classic engine" in line]
+    fb_train = sum(" batch " in line for line in reruns)
+    fb_eval = sum(" eval " in line for line in reruns)
+    train = {k: steps * PER_STEP.get(k, 0) + fb_train * PER_WIN_STEP.get(k, 0)
+             for k in launches}
+    want = {k: train[k] + evals * PER_FORWARD.get(k, 0)
+            + fb_eval * PER_WIN_FORWARD.get(k, 0) for k in launches}
+    print(f"{what}: launches {launches}; {fb_train} train and {fb_eval} "
+          f"eval batches re-ran on the per-edge engine", flush=True)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+    return train
+
+
+def seg_factory(cfg, remat: bool, state: dict, dev: torch.device):
+    """An S3DIS segmentation step factory (Adam on the staircase schedule,
+    the inner-masked loss) on ``cfg`` with ``remat_blocks=remat``, its
+    model loaded with ``state``."""
+    from sph3d_gcn_torch.models import SPH3DSceneSeg
+    from sph3d_gcn_torch.train.schedule import (
+        exponential_decay_lr,
+        make_optimizer,
+    )
+    from sph3d_gcn_torch.train.steps import segmentation_step_factory
+
+    net = SPH3DSceneSeg(dataclasses.replace(cfg, remat_blocks=remat)).to(dev)
+    net.load_state_dict(state)
+    return segmentation_step_factory(net, *make_optimizer(
+        net.parameters(), "adam",
+        exponential_decay_lr(0.001, batch_size=S3_B)), inner_masked=True)
+
+
+def entry_point_phases(dev: torch.device, shrunk: tuple) -> dict:
+    """Phases 35-40 (see the module docstring): the training and
+    evaluation entry points. ``shrunk`` is phase 34's (batch whose
+    shrunk block fails the dense certificate, pre-step state). Returns
+    the launch counts of the fit and eval-CLI paths."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sph3d_gcn_torch import kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.cli import evaluate_modelnet, train_modelnet
+    from sph3d_gcn_torch.configs import modelnet_config, s3dis_config
+    from sph3d_gcn_torch.data import tfrecord
+    from sph3d_gcn_torch.data.datasets import (
+        load_modelnet_records,
+        modelnet_batches,
+    )
+    from sph3d_gcn_torch.data.synthetic import scene_blocks, surface_clouds
+    from sph3d_gcn_torch.models import SPH3DModelNet, SPH3DSceneSeg
+    from sph3d_gcn_torch.models.common import normalize_unit_sphere
+    from sph3d_gcn_torch.train.augment_policies import modelnet_train_augment
+    from sph3d_gcn_torch.train.checkpoint import Checkpointer
+    from sph3d_gcn_torch.train.eval import vote_augment, vote_classify
+    from sph3d_gcn_torch.train.loop import fit, step_generator, to_device
+    from sph3d_gcn_torch.train.schedule import (
+        exponential_decay_lr,
+        make_optimizer,
+    )
+    from sph3d_gcn_torch.train.steps import classification_step_factory
+    from sph3d_gcn_torch.utils.windows import (
+        derive_config_windows,
+        measure_requirements,
+    )
+
+    runs = {}
+    evals = -(-TEST_RECORDS // B)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+
+        # 35. ModelNet-format records, written and read back
+        rng = np.random.default_rng(350)
+        clouds = {"train": surface_clouds(rng, TRAIN_RECORDS, N),
+                  "test": surface_clouds(rng, TEST_RECORDS, N)}
+        t0 = time.perf_counter()
+        for split, pts in clouds.items():
+            path = root / f"{split}.tfrecord"
+            with tfrecord.TFRecordWriter(path) as w:
+                for i, c in enumerate(pts):
+                    # stored in the reference's xzy order: the loader swaps
+                    w.write_example({"xyz_raw": c[:, [0, 2, 1]].tobytes(),
+                                     "label": np.int64(i % 40)})
+            (root / f"{split}_files.txt").write_text(f"{path}\n")
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        records = {}
+        for split, pts in clouds.items():
+            records[split] = load_modelnet_records(
+                [str(root / f"{split}.tfrecord")])
+            (whole,) = modelnet_batches(records[split], len(pts),
+                                        shuffle=False)
+            if not (np.array_equal(whole["points"], pts) and np.array_equal(
+                    whole["label"], np.arange(len(pts)) % 40)):
+                raise AssertionError(f"{split} records read back unequal")
+        read_s = time.perf_counter() - t0
+        size = sum((root / f"{s}.tfrecord").stat().st_size for s in clouds)
+        crc = ("numpy" if tfrecord._crc32c is tfrecord.crc32c
+               else "google_crc32c")
+        print(f"records: {TRAIN_RECORDS} train and {TEST_RECORDS} test "
+              f"ModelNet clouds of {N} points written with the port's "
+              f"writer ({size / 2 ** 20:.1f} MiB, {write_s:.3f} s, crc32c "
+              f"by {crc}) and read back bitwise equal ({read_s:.3f} s)",
+              flush=True)
+
+        # 36. cli.train_modelnet on the card: one epoch and its eval
+        log = root / "log"
+        argv = ["--data_dir", str(root), "--log_dir", str(log), "--mode",
+                "dense", "--family", "hard", "--batch_size", str(B),
+                "--num_input", str(N)]
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        model = train_modelnet.main(argv + ["--max_epoch", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        text = (log / "log_train.txt").read_text()
+        runs["modelnet_fit"] = fit_launches(
+            kernel_launches(), text, FIT_STEPS, evals,
+            f"cli.train_modelnet, 1 epoch of {FIT_STEPS} steps and "
+            f"{evals} eval batches")
+        scalars = [json.loads(x) for x in
+                   (log / "metrics.jsonl").read_text().splitlines()]
+        fit_ms = scalars[0]["ms_per_batch"]
+        for name in ("config.json", "log_train.txt", "metrics.jsonl",
+                     "ckpt/0.pt"):
+            if not (log / name).is_file():
+                raise AssertionError(f"cli.train_modelnet wrote no {name}")
+        if not (np.isfinite(scalars[0]["train_loss"])
+                and np.isfinite(scalars[1]["eval_loss"])):
+            raise AssertionError(f"non-finite loss: {scalars}")
+        print(f"cli.train_modelnet: {wall:.2f} s host clock (records "
+              f"loaded, model built, {FIT_STEPS} steps, eval, checkpoint); "
+              f"train loss {scalars[0]['train_loss']:.4f}, eval loss "
+              f"{scalars[1]['eval_loss']:.4f}", flush=True)
+
+        cfg = model.config
+        gen = np.random.default_rng((0, 0))
+        host_batches = []
+        for batch in modelnet_batches(records["train"], B, rng=gen):
+            pts, label = modelnet_train_augment(batch["points"],
+                                                batch["label"], gen)
+            host_batches.append({"points": pts, "label": label})
+
+        def fresh_factory():
+            net = SPH3DModelNet(cfg).to(dev)
+            net.load_state_dict(model.state_dict())
+            return classification_step_factory(
+                net, *make_optimizer(net.parameters(), "adam",
+                                     exponential_decay_lr(0.001, B)),
+                weight_decay=cfg.weight_decay)
+
+        bare = fresh_factory()
+        dev_batches = [to_device(b, dev) for b in host_batches]
+        times = []
+        for i, batch in enumerate(dev_batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bare.train_step(batch, step_generator(0, i, dev))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        print(f"fit: {fit_ms:.2f} ms a batch (its log line: the mean of "
+              f"{FIT_STEPS} steps, the first included: the copy to the "
+              f"device, the pre-step copy, the step, the host reads of "
+              f"loss, certificate and logits) against the bare train_step "
+              f"on device batches: mean {np.mean(times):.2f} ms, median "
+              f"{np.median(times):.2f} ms, each {[round(t, 2) for t in times]}"
+              f" (host clock, synchronised, the first included)", flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fit(fresh_factory(), lambda epoch: iter(host_batches), None, B,
+                1, str(root / "profiled"))
+        events = trace_events(prof)
+        report_trace(events, "fit step", FIT_STEPS - 1, span="fit_step")
+        report_trace(events, "fit pre-step copy", FIT_STEPS - 1,
+                     span="pre_step_copy", top=4)
+        del bare, dev_batches, events, prof
+
+        # 37. resume to epoch 2: the restored model equals the saved one
+        restored = SPH3DModelNet(cfg).to(dev)
+        epoch = Checkpointer(log).restore_variables(restored)
+        saved = model.state_dict()
+        same = [k for k, v in restored.state_dict().items()
+                if torch.equal(v, saved[k])]
+        print(f"checkpoint of epoch {epoch}: {len(same)} of {len(saved)} "
+              f"parameters and statistics restored bitwise equal",
+              flush=True)
+        if epoch != 0 or len(same) != len(saved):
+            raise AssertionError("the checkpoint did not restore the model")
+        del restored
+        reset_kernel_launches()
+        train_modelnet.main(argv + ["--max_epoch", "2"])
+        text = (log / "log_train.txt").read_text()
+        if "resumed from epoch 0" not in text:
+            raise AssertionError("cli.train_modelnet did not resume")
+        runs["modelnet_fit_resumed"] = fit_launches(
+            kernel_launches(), text[text.index("**** EPOCH 001"):],
+            FIT_STEPS, evals, "cli.train_modelnet resumed for epoch 1")
+        scalars = [json.loads(x) for x in
+                   (log / "metrics.jsonl").read_text().splitlines()]
+        if scalars[-2]["step"] != 2 * FIT_STEPS:
+            raise AssertionError(f"resumed step count {scalars[-2]}")
+        print(f"resumed: epoch 1 ran steps {FIT_STEPS}-{2 * FIT_STEPS - 1}, "
+              f"{scalars[-2]['ms_per_batch']:.2f} ms a batch, train loss "
+              f"{scalars[-2]['train_loss']:.4f}, eval accuracy "
+              f"{scalars[-1]['eval_accuracy']:.4f}", flush=True)
+
+        # 38. cli.evaluate_modelnet with 3 votes
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        res = evaluate_modelnet.main([
+            "--data_dir", str(root), "--log_dir", str(log), "--num_votes",
+            str(EVAL_VOTES), "--batch_size", str(B)])
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        want = {k: res["forwards"] * PER_FORWARD.get(k, 0)
+                + res["reruns"] * PER_WIN_FORWARD.get(k, 0)
+                for k in launches}
+        print(f"cli.evaluate_modelnet: {res['forwards']} forwards "
+              f"({evals} batches x {EVAL_VOTES} votes), {res['reruns']} "
+              f"re-run on the per-edge engine, {wall:.2f} s host clock; "
+              f"accuracy {res['accuracy']:.4f}; launches {launches}",
+              flush=True)
+        if (launches != want or res["votes"].shape != (TEST_RECORDS, 40)
+                or not np.isfinite(res["votes"]).all()
+                or res["forwards"] != evals * EVAL_VOTES
+                or not (log / "pred_votes.npz").is_file()):
+            raise AssertionError(f"cli.evaluate_modelnet: launches "
+                                 f"{launches}, want {want}")
+        runs["modelnet_eval_cli"] = launches
+
+        # 39. fit on phase 34's shrunk block: the classic re-run
+        batch, state0 = shrunk
+        host = {k: v.cpu().numpy() for k, v in batch.items()}
+        dense = seg_factory(s3dis_config(S3_N, fast=True, dense=True), False,
+                            state0, dev)
+        direct = seg_factory(s3dis_config(S3_N, fast=True), False, state0,
+                             dev)
+        torch.use_deterministic_algorithms(True)
+        try:
+            reset_kernel_launches()
+            fit(dense, lambda epoch: iter([host]), None, S3_B, 1,
+                str(root / "s3dis"), seed=5)
+            launches = kernel_launches()
+            direct.train_step(batch, step_generator(5, 0, dev))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        text = (root / "s3dis" / "log_train.txt").read_text()
+        ref = direct.model.state_dict()
+        same = [k for k, v in dense.model.state_dict().items()
+                if torch.equal(v, ref[k])]
+        want = {k: PER_SEG_STEP.get(k, 0) + PER_S3PE_STEP.get(k, 0)
+                for k in launches}
+        print(f"fit on the batch with the shrunk block: the log "
+              f"{'shows' if 'via the classic engine' in text else 'lacks'} "
+              f"the classic re-run; {len(same)} of {len(ref)} parameters "
+              f"and statistics bitwise equal to a direct per-edge step; "
+              f"launches {launches} (a dense step and a per-edge step)",
+              flush=True)
+        if ("re-running via the classic engine" not in text
+                or len(same) != len(ref) or launches != want):
+            raise AssertionError("fit's classic re-run of the shrunk block")
+        runs["s3dis_fit_fallback"] = launches
+        del dense, direct, batch, state0, shrunk
+
+        # 40. windows derived from vote-rotated clouds, and remat_blocks
+        test = clouds["test"][:B]
+        votes_rng = np.random.default_rng(400)
+        votes = [test] + [vote_augment(test.copy(), votes_rng)
+                          for _ in range(EVAL_VOTES - 1)]
+        plain = modelnet_config(N, fast=True, dense=True)
+        t0 = time.perf_counter()
+        reqs = measure_requirements(plain, np.concatenate(votes), device=dev,
+                                    normalize=normalize_unit_sphere)
+        measure_s = time.perf_counter() - t0
+        win, dec_win, dec_margin, growth = derive_config_windows(plain, reqs)
+        derived = dataclasses.replace(plain, windows=win,
+                                      dec_windows=dec_win,
+                                      dec_margin=dec_margin,
+                                      growth_steps=growth)
+        print(f"windows measured over {len(votes)} votes x {B} clouds in "
+              f"{measure_s:.2f} s: " + "; ".join(
+                  f"level {lv}: enc {r.enc} pool {r.pool}"
+                  for lv, r in enumerate(reqs))
+              + f"; derived (10% margin) {win}, against plain "
+              f"{plain.windows} and hard {cfg.windows}", flush=True)
+        for family, wcfg in (("plain", plain), ("hard", cfg),
+                             ("derived", derived)):
+            net = SPH3DModelNet(wcfg).to(dev).eval()
+            net.load_state_dict(model.state_dict())
+            oks = []
+
+            def forward(x):
+                logits = net(torch.as_tensor(x, device=dev))
+                oks.append(bool(net.dense_ok))
+                return logits.float().cpu().numpy()
+
+            with torch.inference_mode():
+                vote_classify(forward, test, EVAL_VOTES,
+                              np.random.default_rng(400))
+                x = torch.from_numpy(votes[1]).to(dev)
+                fwd_ms = median_ms(lambda: net(x))
+            print(f"{family} windows {wcfg.windows}: {sum(oks)} of "
+                  f"{len(oks)} vote forwards certified; forward of vote 1 "
+                  f"{fwd_ms:.2f} ms (CUDA events, median)", flush=True)
+            if family == "derived" and not all(oks):
+                raise AssertionError("the derived windows miss a vote")
+        del net
+
+        seg_cfg = s3dis_config(S3_N, fast=True)
+        rng = np.random.default_rng(401)
+        batch = {
+            "points": torch.from_numpy(scene_blocks(rng, S3_B, S3_N)).to(dev),
+            "label": torch.from_numpy(rng.integers(
+                0, seg_cfg.num_cls, (S3_B, S3_N))).to(dev),
+            "inner_label": torch.from_numpy(rng.integers(
+                0, 2, (S3_B, S3_N)).astype(np.int32)).to(dev),
+        }
+        state0 = SPH3DSceneSeg(seg_cfg, generator=torch.Generator(
+            ).manual_seed(40)).state_dict()
+        out = {}
+        for remat in (False, True):
+            f = seg_factory(seg_cfg, remat, state0, dev)
+            torch.use_deterministic_algorithms(True)
+            try:
+                metrics = f.loss_and_grads(batch)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            grads = {k: p.grad.clone() for k, p in
+                     f.model.named_parameters()}
+            stats = {k: v.clone() for k, v in f.model.state_dict().items()}
+            f.train_step(batch)                        # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(REMAT_STEPS):
+                t0 = time.perf_counter()
+                f.train_step(batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            out[remat] = (metrics["loss"], grads, stats)
+            print(f"S3DIS per-edge train step B={S3_B} N={S3_N}, "
+                  f"remat_blocks={remat}: {float(np.median(times)):.2f} ms "
+                  f"median of {REMAT_STEPS} (host clock, synchronised), "
+                  f"peak device memory {peak:.2f} GiB", flush=True)
+            del f
+        (l0, g0, s0), (l1, g1, s1) = out[False], out[True]
+        same_g = sum(torch.equal(g0[k], g1[k]) for k in g0)
+        same_s = sum(torch.equal(s0[k], s1[k]) for k in s0)
+        same_l = "equal" if torch.equal(l0, l1) else "differs"
+        print(f"remat_blocks: loss {same_l}, {same_g} of {len(g0)} "
+              f"gradients and {same_s} of {len(s0)} parameters and "
+              f"statistics bitwise equal with and without it "
+              f"(torch.use_deterministic_algorithms(True))", flush=True)
+        if not torch.equal(l0, l1) or same_g != len(g0) or same_s != len(s0):
+            raise AssertionError("remat_blocks changed the step")
+    return runs
 
 
 def kernel_lines(runs: dict[str, tuple[Results, dict]],
-                 others: tuple) -> dict:
+                 others: tuple, fit_runs: dict[str, dict[str, int]]
+                 ) -> dict:
     """The per-kernel JSON object: each kernel's times, bound and launches
     from the one path of ``runs`` (path -> (Results, launch counts)) that
     PATH_OF names for it, its largest error over every replay (``runs``
-    and ``others``, more Results); and under ``paths`` the same numbers
+    and ``others``, more Results); under ``paths`` the same numbers
     from every path of ``runs`` that replayed the kernel's calls (a
-    Results that two paths share counts for PATH_OF's path only)."""
+    Results that two paths share counts for PATH_OF's path only); and
+    under ``fit_paths`` its launches on each path of ``fit_runs`` (the
+    entry points' runs, path -> launch counts)."""
     every = [r for r, _ in runs.values()] + list(others)
     shared = collections.Counter(id(r) for r, _ in runs.values())
 
@@ -3174,6 +3593,8 @@ def kernel_lines(runs: dict[str, tuple[Results, dict]],
                       for p, (r, launches) in runs.items()
                       if r.calls[name] and name in r.plain_ms
                       and (shared[id(r)] == 1 or p == path)},
+            "fit_paths": {p: launches[name]
+                          for p, launches in fit_runs.items()},
         })
     return {"kernels": kernels}
 
@@ -3330,8 +3751,12 @@ def main() -> None:
 
     # 31-34. the S3DIS per-edge engine and the dense scene model's fallback
     res_s3pe, res_s3pe_step = Results(), Results()
-    s3pe_launches, s3pe_step_launches = s3dis_per_edge_phases(
+    s3pe_launches, s3pe_step_launches, shrunk = s3dis_per_edge_phases(
         dev, res_s3pe, res_s3pe_step)
+
+    # 35-40. the training and evaluation entry points
+    fit_runs = entry_point_phases(dev, shrunk)
+    del shrunk
 
     print(json.dumps(kernel_lines({
         "s3dis_serve": (res_s3, s3_launches),
@@ -3343,7 +3768,7 @@ def main() -> None:
         "s3dis_weighted_serve": (res_dist, weighted_launches),
         "s3dis_per_edge_serve": (res_s3pe, s3pe_launches),
         "s3dis_per_edge_train_step": (res_s3pe_step, s3pe_step_launches),
-    }, (res, res_plain_win, res_index, res_weighted, res_ids))),
+    }, (res, res_plain_win, res_index, res_weighted, res_ids), fit_runs)),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ tensors on a CUDA device. Nothing falls back from one to the other: a CUDA
 tensor goes to the kernel or the call raises.
 
 This package imports neither JAX nor the JAX package: it carries its
-own configs (``configs``) and vote augmentation (``data``).
+own configs (``configs``), records, datasets and augmentations
+(``data``), and command-line entry points (``cli``).
 """
 
 from sph3d_gcn_torch._build import kernel_launches, reset_kernel_launches

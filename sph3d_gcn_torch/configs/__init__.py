@@ -30,6 +30,9 @@ def _fast_mode(
     dec_margin: int,
     growth_steps: int,
 ) -> SPH3DConfig:
+    # the dense engine's activations fit without recomputing the conv
+    # blocks (JAX drops it there too)
+    kw = {"remat_blocks": False} if dense else {}
     return dataclasses.replace(
         cfg,
         compute_dtype="bfloat16",
@@ -39,6 +42,7 @@ def _fast_mode(
         dec_windows=dec_windows[: len(cfg.num_sample)],
         dec_margin=dec_margin,
         growth_steps=growth_steps,
+        **kw,
     )
 
 
@@ -109,6 +113,9 @@ def _scene_seg_config(
         sample="FPS",
         with_bn=True,
         with_bias=False,
+        # the reference size recomputes its conv blocks in the backward,
+        # as the JAX config does (sized there for a 16 GiB chip)
+        remat_blocks=num_input >= 4096,
     )
     if fast:
         # calibrated by the JAX package's scripts/measure_windows.py over

@@ -5,7 +5,9 @@ The fields the port's models read, under the JAX config's names, order
 and defaults; ``tests/test_torch_configs_data.py`` holds every field and
 window of the port's ``modelnet_config``, ``s3dis_config`` and
 ``scannet_config`` equal to the JAX package's. Fields of engines not
-ported yet (point-axis sharding) come with them.
+ported yet (point-axis sharding) come with them;
+``train.checkpoint.load_config_snapshot`` reads a JAX snapshot that holds
+them at their defaults.
 """
 
 from __future__ import annotations
@@ -48,6 +50,9 @@ class SPH3DConfig:
     spatial_sort: bool = False
     # per-encoder-level row-window widths of the dense engine
     windows: tuple[int, ...] | None = None
+    # recompute each conv block's activations in the backward
+    # (``torch.utils.checkpoint``): activation memory for conv FLOPs
+    remat_blocks: bool = False
     # calibrated per-level decoder-graph windows (rows over the SAMPLED
     # cloud of each level); None scales ``windows`` by the sampling ratio
     dec_windows: tuple[int, ...] | None = None

@@ -1,2 +1,3 @@
 """Host-side data helpers (counterparts of ``sph3d_gcn_tpu/data``):
-NumPy augmentations and synthetic clouds."""
+TFRecord files, dataset pipelines, NumPy augmentations and synthetic
+clouds."""

@@ -3,14 +3,16 @@
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sph3d_gcn_torch.configs.base import SPH3DConfig
-from sph3d_gcn_torch.nn.layers import SeparableConv3d
+from sph3d_gcn_torch.nn.layers import SeparableConv3d, frozen_running_stats
 from sph3d_gcn_torch.ops.dense import DenseNeighborhood
 from sph3d_gcn_torch.ops.types import Neighborhood
 from sph3d_gcn_torch.ops.windowed import EdgeLists
@@ -58,9 +60,20 @@ def normalize_xy_center_z_floor(points: torch.Tensor) -> torch.Tensor:
                       points[..., 2:]], dim=-1)
 
 
+def _remat_contexts():
+    """The forward runs as it is; the backward's recompute leaves the BN
+    running statistics that the forward updated."""
+    return contextlib.nullcontext(), frozen_running_stats()
+
+
 class SeparableConvBlock(nn.Module):
     """A stack of separable convs sharing one neighborhood, named ``_1,
-    _2, ...`` as the reference scopes them (ref SPH3D_modelnet.py:20-30)."""
+    _2, ...`` as the reference scopes them (ref SPH3D_modelnet.py:20-30).
+    With ``remat`` (the config's ``remat_blocks``) each conv, BN included,
+    keeps no activations for the backward and runs again there
+    (``torch.utils.checkpoint``, as JAX's ``nn.remat``); the recompute
+    does not move the BN running statistics a second time, so gradients
+    and statistics equal the step without it."""
 
     def __init__(self, in_channels: int, list_channels: tuple[int, ...],
                  bin_size: int, depth_multiplier: tuple[int, ...],
@@ -79,13 +92,21 @@ class SeparableConvBlock(nn.Module):
                 nbh: DenseNeighborhood | Neighborhood,
                 filt_index: torch.Tensor | None = None,
                 window: int | None = None,
-                use_kernels: bool | None = None) -> torch.Tensor:
+                use_kernels: bool | None = None,
+                remat: bool = False) -> torch.Tensor:
         lists = None
         if isinstance(nbh, Neighborhood) and window is not None:
             # the convs gather through one neighborhood: one set of
             # inverse edge lists for all their backwards
             lists = EdgeLists(nbh.idx, nbh.count)
+        remat = remat and torch.is_grad_enabled()
         for conv in self.children():
-            net = conv(net, nbh, filt_index, window=window, lists=lists,
-                       use_kernels=use_kernels)
+            kw = dict(window=window, lists=lists, use_kernels=use_kernels)
+            if remat:
+                net = checkpoint(conv, net, nbh, filt_index, **kw,
+                                 use_reentrant=False,
+                                 context_fn=_remat_contexts,
+                                 preserve_rng_state=False)
+            else:
+                net = conv(net, nbh, filt_index, **kw)
         return net

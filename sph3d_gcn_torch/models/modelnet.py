@@ -172,7 +172,7 @@ class SPH3DModelNet(nn.Module):
         )
         ok = nbh.ok
         net = getattr(self, f"conv{level + 1}")(
-            net, nbh, use_kernels=use_kernels
+            net, nbh, use_kernels=use_kernels, remat=cfg.remat_blocks
         )
         if cfg.num_sample[level] > 1:
             # the sample indices come back sorted: the coarse cloud stays
@@ -199,7 +199,7 @@ class SPH3DModelNet(nn.Module):
         )
         net = getattr(self, f"conv{level + 1}")(
             net, nbh, filt_idx, window=cfg.enc_window(level),
-            use_kernels=use_kernels,
+            use_kernels=use_kernels, remat=cfg.remat_blocks,
         )
         if cfg.num_sample[level] > 1:
             if cfg.spatial_sort:

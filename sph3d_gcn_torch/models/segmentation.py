@@ -49,9 +49,9 @@ from sph3d_gcn_torch.ops.locality import (
     spatial_sort,
 )
 
-# the backbone's input: the xy-centered xyz and the rgb columns 6:9 of the
-# 9-column scene blocks (xyz, block-relative xyz, rgb)
-_IN_CHANNELS = 6
+# the scene blocks' columns: xyz, block-relative xyz, rgb; the backbone
+# reads the xy-centered xyz and the columns from 6 on (rgb)
+_IN_COLUMNS = 9
 
 
 class SegEncoderDecoder(nn.Module):
@@ -118,13 +118,14 @@ class SegEncoderDecoder(nn.Module):
                     cfg.num_sample[level], window=cfg.enc_window(level),
                     **graph)
                 dense_ok = dense_ok & nbh.ok
-                net = conv(net, nbh, use_kernels=use_kernels)
+                net = conv(net, nbh, use_kernels=use_kernels,
+                           remat=cfg.remat_blocks)
             else:
                 nbh, filt_idx, sample_idx = build_graph(
                     xyz, cfg.radius[level], cfg.nn_uplimit[level],
                     cfg.num_sample[level], **graph)
                 net = conv(net, nbh, filt_idx, window=cfg.enc_window(level),
-                           use_kernels=use_kernels)
+                           use_kernels=use_kernels, remat=cfg.remat_blocks)
             encoder.append(net)
             if cfg.num_sample[level] > 1:
                 if cfg.dense_graph:
@@ -173,7 +174,8 @@ class SegEncoderDecoder(nn.Module):
                     use_kernels=use_kernels,
                 )
                 dense_ok = dense_ok & intra.ok & inter.ok
-                net = deconv(net, intra, use_kernels=use_kernels)
+                net = deconv(net, intra, use_kernels=use_kernels,
+                             remat=cfg.remat_blocks)
                 net = unpool3d(net, inter, method=cfg.unpool_method,
                                use_kernels=use_kernels)
             else:
@@ -181,7 +183,7 @@ class SegEncoderDecoder(nn.Module):
                     xyz_coarse, xyz_fine, radius_r[level],
                     nn_uplimit_r[level], kernel=cfg.kernel)
                 net = deconv(net, intra, filt_idx, window=dec_win,
-                             use_kernels=use_kernels)
+                             use_kernels=use_kernels, remat=cfg.remat_blocks)
                 net = unpool3d(net, inter, method=cfg.unpool_method,
                                window=dec_win, use_kernels=use_kernels)
             net = torch.cat([net, encoder[level]], dim=-1)
@@ -192,7 +194,10 @@ class SPH3DSceneSeg(nn.Module):
     """Scene segmentation (S3DIS / ScanNet): (B, N, 9) points (xyz,
     block-relative xyz, rgb) -> (B, N, num_cls) f32 logits in the input
     point order. The input features are the xy-centered xyz and the
-    columns 6: (ref SPH3D_s3dis.py:35-49).
+    columns 6: (ref SPH3D_s3dis.py:35-49). ``in_columns`` is the points'
+    column count: the reference's records hold xyz and rgb alone (6
+    columns, ``data.datasets.load_scene_blocks``), so its model reads the
+    xyz alone, as JAX's does on them.
 
     After each forward, ``dense_ok`` holds that forward's window-coverage
     certificate (a bool tensor): True iff every dense graph provably
@@ -203,11 +208,14 @@ class SPH3DSceneSeg(nn.Module):
     """
 
     def __init__(self, config: SPH3DConfig,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 in_columns: int = _IN_COLUMNS) -> None:
         super().__init__()
         cfg = config
         self.config = cfg
-        self.backbone = SegEncoderDecoder(cfg, _IN_CHANNELS, generator)
+        self.in_columns = in_columns
+        self.backbone = SegEncoderDecoder(
+            cfg, 3 + max(in_columns - 6, 0), generator)
         # the classifier: no activation, no BN, f32 (the JAX layer's
         # default dtype)
         self.logits = PointwiseConv3d(
@@ -227,9 +235,9 @@ class SPH3DSceneSeg(nn.Module):
         random sampling (the model has no dropout), unless
         ``sample_noise`` holds each level's draws."""
         cfg = self.config
-        if points.shape[1:] != (cfg.num_input, 3 + _IN_CHANNELS):
+        if points.shape[1:] != (cfg.num_input, self.in_columns):
             raise ValueError(
-                f"expected (B, {cfg.num_input}, {3 + _IN_CHANNELS}) points, "
+                f"expected (B, {cfg.num_input}, {self.in_columns}) points, "
                 f"got {tuple(points.shape)}")
         points = points.float()
         perm = rank = None

@@ -10,7 +10,9 @@ dtype (parameters stay f32); matmuls accumulate in f32 and round once.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +32,23 @@ from sph3d_gcn_torch.ops.pool import avg_pool3d, max_pool3d
 from sph3d_gcn_torch.ops.types import Neighborhood
 from sph3d_gcn_torch.ops.unpool import mean_interpolate, weighted_interpolate
 from sph3d_gcn_torch.ops.windowed import EdgeLists
+
+
+_STATS = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Inside this context (on this thread) every :class:`BatchNorm` in
+    train mode normalises with its batch statistics but leaves its running
+    statistics as they are: the recompute pass of a rematerialised block,
+    whose forward already updated them once."""
+    prev = getattr(_STATS, "frozen", False)
+    _STATS.frozen = True
+    try:
+        yield
+    finally:
+        _STATS.frozen = prev
 
 
 def glorot_uniform(shape: tuple[int, ...],
@@ -53,7 +72,8 @@ class BatchNorm(nn.Module):
     ``max(0, mean(x^2) - mean^2)``, and updates the running statistics as
     ``momentum * running + (1 - momentum) * batch`` (momentum 0.99, eps
     1e-3; not ``F.batch_norm``, which keeps the unbiased variance and
-    reads its momentum as ``1 - m``)."""
+    reads its momentum as ``1 - m``), except under
+    :func:`frozen_running_stats`."""
 
     def __init__(self, channels: int, momentum: float = 0.99,
                  epsilon: float = 1e-3) -> None:
@@ -71,10 +91,11 @@ class BatchNorm(nn.Module):
             red = tuple(range(x.dim() - 1))
             mean = xf.mean(dim=red)
             var = torch.clamp_min((xf * xf).mean(dim=red) - mean * mean, 0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
-                self.var.copy_(m * self.var + (1.0 - m) * var)
+            if not getattr(_STATS, "frozen", False):
+                with torch.no_grad():
+                    m = self.momentum
+                    self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                    self.var.copy_(m * self.var + (1.0 - m) * var)
         else:
             mean, var = self.mean, self.var
         mul = torch.rsqrt(var + self.epsilon) * self.scale

@@ -78,3 +78,9 @@ class _ScheduleLR(torch.optim.lr_scheduler.LRScheduler):
     def get_lr(self) -> list[float]:
         lr = self.schedule(self.last_epoch)
         return [lr for _ in self.optimizer.param_groups]
+
+    def state_dict(self) -> dict:
+        """The step count and rates, without the schedule function (a
+        closure: the owner rebuilds it from its arguments)."""
+        return {k: v for k, v in super().state_dict().items()
+                if k != "schedule"}

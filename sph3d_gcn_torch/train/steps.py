@@ -9,9 +9,9 @@ or random sampling, from one explicit generator), the data loss plus
 a CUDA device), one optimizer update and one scheduler step. The metrics
 stay on the device: the step adds no host synchronisation of its own. A
 dense step whose certificate ``dense_ok`` came back False has applied an
-update from a possibly wrong graph; the caller restores the pre-step
-state and re-runs the batch through :meth:`StepFactory.classic_fallback`,
-as JAX's ``fit()`` does.
+update from a possibly wrong graph; ``train.loop.fit`` restores the
+pre-step state and re-runs the batch through
+:meth:`StepFactory.classic_fallback`, as JAX's ``fit()`` does.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from collections.abc import Callable
 import torch
 
 from sph3d_gcn_torch.models.common import classic_clone
-from sph3d_gcn_torch.nn.layers import l2_regularization
+from sph3d_gcn_torch.nn.layers import BatchNorm, l2_regularization
 
 # (logits, batch) -> data loss (scalar) or per-item loss (B,)
 LossFn = Callable[[torch.Tensor, dict[str, torch.Tensor]], torch.Tensor]
@@ -92,6 +92,32 @@ class StepFactory:
         self.optimizer.step()
         self.scheduler.step()
         return metrics
+
+    def prime_step(self, batch: dict[str, torch.Tensor],
+                   generator: torch.Generator | None = None
+                   ) -> dict[str, torch.Tensor]:
+        """Each BN layer's batch statistics of ``batch``: one train-mode
+        forward without gradients, whose running-statistics update
+        ``new = m * old + (1 - m) * batch`` gives the batch statistic back
+        as ``(new - m * old) / (1 - m)`` (m = 0.99, JAX's
+        ``prime_step``). Returns {state-dict key of each ``mean`` and
+        ``var`` buffer: statistic}; the running statistics are left as
+        they were. ``fit(bn_prime_steps=N)`` averages these over N
+        batches for its eval pass: the momentum-0.99 running averages
+        lag on short runs."""
+        stats = [(f"{name}.{k}", getattr(bn, k), bn.momentum)
+                 for name, bn in self.model.named_modules()
+                 if isinstance(bn, BatchNorm) for k in ("mean", "var")]
+        old = [buf.clone() for _, buf, _ in stats]
+        self.model.train()
+        out = {}
+        with torch.no_grad():
+            self.model(batch["points"], use_kernels=self.use_kernels,
+                       generator=generator)
+            for (key, buf, m), prev in zip(stats, old):
+                out[key] = (buf - m * prev) / (1.0 - m)
+                buf.copy_(prev)
+        return out
 
     def classic_fallback(self) -> StepFactory:
         """A StepFactory on the SAME parameters, BN buffers, optimizer and

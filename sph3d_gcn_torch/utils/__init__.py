@@ -1,1 +1,1 @@
-"""Checkpoint conversion."""
+"""Checkpoint conversion from the JAX package and window calibration."""

@@ -1,0 +1,181 @@
+"""The port's command-line entry points, run in process through
+``main(argv)`` on the CPU (``--device cpu``) on records the port's
+writer makes in a temporary directory.
+
+- ``cli.train_modelnet``: one epoch at ``--num_input 512 --batch_size 2``
+  in dense mode (config snapshot, log lines, metrics, checkpoint), then
+  ``cli.evaluate_modelnet`` with 2 votes: the accuracies printed agree
+  with the votes written to ``pred_votes.npz``, and every vote served by
+  the dense engine.
+- ``cli.train_scene_seg --dataset s3dis``: one epoch at N=512 on
+  xyz+rgb block records (the model reads the xyz, as JAX's does on
+  them); ``--dataset ruemonge2014`` raises and names the missing model.
+- ``--device`` defaults to ``cuda``: without a card every CLI raises
+  before it reads anything.
+- ``cli.measure_windows``: its synthetic families equal the JAX
+  script's draws, and its windows are ``utils.windows``' on them.
+"""
+
+import importlib.util
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from sph3d_gcn_torch.cli import (
+    evaluate_modelnet,
+    measure_windows,
+    train_modelnet,
+    train_scene_seg,
+)
+from sph3d_gcn_torch.configs import modelnet_config
+from sph3d_gcn_torch.data.synthetic import surface_clouds
+from sph3d_gcn_torch.data.tfrecord import TFRecordWriter
+from sph3d_gcn_torch.models.common import normalize_unit_sphere
+from sph3d_gcn_torch.utils.windows import (
+    derive_config_windows,
+    measure_requirements,
+)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Under pytest-xdist the workers share the machine's cores: torch
+    takes its share of them (one thread with six workers on eight cores)
+    instead of every core, whose threads would spin against the other
+    workers' on these many small CPU ops; put back after the module. A
+    run without workers keeps every thread."""
+    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads // workers))
+    yield
+    torch.set_num_threads(threads)
+
+
+def _write(path, examples):
+    with TFRecordWriter(path) as w:
+        for ex in examples:
+            w.write_example(ex)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def modelnet_dir(tmp_path_factory):
+    d = tmp_path_factory.mktemp("modelnet")
+    rng = np.random.default_rng(0)
+    for split, n in (("train", 4), ("test", 3)):
+        clouds = surface_clouds(rng, n, 512)
+        path = _write(d / f"{split}.tfrecord", [
+            {"xyz_raw": c[:, [0, 2, 1]].tobytes(), "label": np.int64(i)}
+            for i, c in enumerate(clouds)])
+        (d / f"{split}_files.txt").write_text(path + "\n")
+    return d
+
+
+def test_train_then_evaluate_modelnet(modelnet_dir, capsys):
+    log_dir = modelnet_dir / "log"
+    train_modelnet.main([
+        "--data_dir", str(modelnet_dir), "--log_dir", str(log_dir),
+        "--num_input", "512", "--batch_size", "2", "--max_epoch", "1",
+        "--mode", "dense", "--device", "cpu"])
+    cfg = json.loads((log_dir / "config.json").read_text())
+    assert cfg["dense_graph"] and cfg["num_input"] == 512
+    log = (log_dir / "log_train.txt").read_text()
+    for line in ("**** EPOCH 000 ****", "training one batch require",
+                 "---- EPOCH 000 EVALUATION ----", "eval accuracy:",
+                 "Model saved at epoch 0"):
+        assert line in log
+    assert "violated" not in log
+    scalars = [json.loads(x) for x in
+               (log_dir / "metrics.jsonl").read_text().splitlines()]
+    assert scalars[0]["step"] == 2 and np.isfinite(scalars[0]["train_loss"])
+    assert (log_dir / "ckpt" / "0.pt").exists()
+    capsys.readouterr()
+
+    out = evaluate_modelnet.main([
+        "--data_dir", str(modelnet_dir), "--log_dir", str(log_dir),
+        "--batch_size", "2", "--num_votes", "2", "--device", "cpu"])
+    printed = capsys.readouterr().out
+    saved = np.load(log_dir / "pred_votes.npz")
+    assert saved["votes"].shape == (3, 40) and np.isfinite(
+        saved["votes"]).all()
+    assert saved["label"].tolist() == [0, 1, 2]
+    acc = float(np.mean(saved["votes"].argmax(-1) == saved["label"]))
+    assert f"eval accuracy: {acc:f}" in printed
+    assert "class 39: nan" in printed
+    assert (out["forwards"], out["reruns"]) == (4, 0)
+
+
+def test_train_scene_seg_s3dis(tmp_path):
+    rng = np.random.default_rng(1)
+    blocks = []
+    for n in (1300, 900, 1100):
+        blocks.append({
+            "xyz_raw": rng.uniform(0, 1.5, (n, 3)).astype(np.float32)
+            .tobytes(),
+            "rgb_raw": rng.random((n, 3)).astype(np.float32).tobytes(),
+            "seg_label": rng.integers(0, 13, n).astype(np.int32).tobytes(),
+            "inner_label": rng.integers(0, 2, n).astype(np.int32).tobytes()})
+    train = _write(tmp_path / "Area_1.tfrecord", blocks[:2])
+    test = _write(tmp_path / "Area_5.tfrecord", blocks[2:])
+    (tmp_path / "train_files_fold5.txt").write_text(train + "\n")
+    (tmp_path / "test_files_fold5.txt").write_text(test + "\n")
+    log_dir = tmp_path / "log"
+    model = train_scene_seg.main([
+        "--dataset", "s3dis", "--data_dir", str(tmp_path),
+        "--log_dir", str(log_dir), "--num_input", "512",
+        "--batch_size", "2", "--max_epoch", "1", "--device", "cpu"])
+    assert model.in_columns == 6 and model.config.num_cls == 13
+    log = (log_dir / "log_train.txt").read_text()
+    assert "eval accuracy" in log and "Model saved at epoch 0" in log
+    assert (log_dir / "ckpt" / "0.pt").exists()
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        train_scene_seg.main(["--dataset", "ruemonge2014", "--data_dir",
+                              str(tmp_path), "--device", "cpu"])
+
+
+@pytest.mark.parametrize("cli,argv", [
+    (train_modelnet, ["--data_dir", "nowhere"]),
+    (evaluate_modelnet, ["--data_dir", "nowhere"]),
+    (train_scene_seg, ["--dataset", "s3dis", "--data_dir", "nowhere"]),
+    (measure_windows, ["--dataset", "modelnet"]),
+])
+def test_cuda_is_the_default_and_raises_without_a_card(cli, argv, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(argv + ["--log_dir", str(tmp_path)]
+                 if cli is not measure_windows else argv)
+
+
+def _jax_script():
+    spec = importlib.util.spec_from_file_location(
+        "jax_measure_windows", os.path.join(REPO, "scripts",
+                                            "measure_windows.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_measure_windows(capsys):
+    script = _jax_script()
+    for name in ("bumpy_ellipsoids", "scene_blocks_worst"):
+        got = getattr(measure_windows, name)(np.random.default_rng(3), 2, 300)
+        ref = getattr(script, name)(np.random.default_rng(3), 2, 300)
+        assert got.dtype == ref.dtype and np.array_equal(got, ref)
+    derived = measure_windows.main([
+        "--dataset", "modelnet", "--num_input", "1024", "--samples", "1",
+        "--device", "cpu"])
+    rng = np.random.default_rng(0)
+    clouds = np.concatenate([
+        measure_windows.bumpy_ellipsoids(rng, 1, 1024),
+        surface_clouds(rng, 1, 1024)])
+    cfg = modelnet_config(1024)
+    reqs = measure_requirements(cfg, clouds, device="cpu",
+                                normalize=normalize_unit_sphere)
+    assert derived == derive_config_windows(cfg, reqs, 0.10)
+    assert f"windows      = {derived[0]}" in capsys.readouterr().out

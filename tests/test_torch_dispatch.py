@@ -162,8 +162,21 @@ def test_port_imports_no_jax():
         "w = SPH3DModelNet(modelnet_config(num_input=512, fast=True))\n"
         "assert np.isfinite(vote_classify(checked_forward(w.eval(), 'cpu'),"
         " x.astype(np.float32), 1)).all()\n"
+        "import sph3d_gcn_torch.data.tfrecord, sph3d_gcn_torch.data.datasets\n"
+        "import sph3d_gcn_torch.data.augment, sph3d_gcn_torch.train.metrics\n"
+        "import sph3d_gcn_torch.train.augment_policies\n"
+        "import sph3d_gcn_torch.train.checkpoint, sph3d_gcn_torch.train.loop\n"
+        "import sph3d_gcn_torch.train.profiling\n"
+        "import sph3d_gcn_torch.utils.windows\n"
+        "from sph3d_gcn_torch.cli import train_modelnet, evaluate_modelnet, "
+        "train_scene_seg, measure_windows\n"
+        "assert all(callable(c.main) for c in (train_modelnet, "
+        "evaluate_modelnet, train_scene_seg, measure_windows))\n"
+        "from sph3d_gcn_torch.utils.windows import measure_requirements\n"
+        "measure_requirements(modelnet_config(512), x.astype(np.float32), "
+        "device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'sph3d_gcn_tpu', 'bench'))\n"
+        "('jax', 'jaxlib', 'flax', 'orbax', 'sph3d_gcn_tpu', 'bench'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -799,3 +812,52 @@ def test_unpool_gather_at_full_size_on_cuda(cuda_device):
     dx = W.window_gather_bwd_kernel(dg, order, starts, n)
     assert torch.equal(dx, W.window_gather_bwd_plain(dg, order, starts, n))
     assert torch.equal(dx, W.window_gather_bwd_kernel(dg, order, starts, n))
+
+
+@pytest.mark.cuda
+def test_fit_and_checkpoint_on_cuda(cuda_device, tmp_path):
+    """``train.loop.fit`` of 3 steps of a dense classifier on the card
+    (the step's kernels launched, its pre-step copy made each step, the
+    loss finite, a failed certificate re-run through the per-edge
+    engine), then a checkpoint round trip of the CUDA state: model,
+    optimizer and scheduler bitwise equal after ``restore``."""
+    from sph3d_gcn_torch.train.checkpoint import Checkpointer
+    from sph3d_gcn_torch.train.loop import fit
+    from sph3d_gcn_torch.train.schedule import make_optimizer
+    from sph3d_gcn_torch.train.steps import classification_step_factory
+
+    def factory(windows):
+        cfg = dataclasses.replace(modelnet_config(1024, fast=True,
+                                                  dense=True),
+                                  windows=windows)
+        model = SPH3DModelNet(cfg, generator=torch.Generator().manual_seed(
+            0)).to(cuda_device)
+        return classification_step_factory(
+            model, *make_optimizer(model.parameters()), weight_decay=1e-5)
+
+    pts = _cloud(n=1024, b=6, seed=4)
+    batches = [{"points": pts[i:i + 2], "label": np.array([1, 2])}
+               for i in range(0, 6, 2)]
+    trained = {}
+    for windows, falls_back in (((1024,), False), ((128,), True)):
+        f = trained[windows] = factory(windows)
+        reset_kernel_launches()
+        fit(f, lambda epoch: iter(batches), None, 2, 1,
+            str(tmp_path / str(windows[0])), seed=1)
+        log = (tmp_path / str(windows[0]) / "log_train.txt").read_text()
+        assert ("re-running via the classic engine" in log) == falls_back
+        launches = kernel_launches()
+        assert launches["dense_conv"] >= 6 and launches["fps"] >= 3
+        assert (launches["window_gather"] > 0) == falls_back
+        assert f.scheduler.last_epoch == 3
+    ref = trained[(1024,)]
+    got = factory((1024,))
+    Checkpointer(tmp_path / "1024").restore(got.model, got.optimizer,
+                                            got.scheduler)
+    want = ref.model.state_dict()
+    for k, v in got.model.state_dict().items():
+        assert v.is_cuda and torch.equal(v, want[k]), k
+    for p, q in zip(got.model.parameters(), ref.model.parameters()):
+        for k, v in ref.optimizer.state[q].items():
+            assert torch.equal(got.optimizer.state[p][k], v), k
+    assert got.scheduler.state_dict() == ref.scheduler.state_dict()
