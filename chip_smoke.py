@@ -6,7 +6,8 @@ dense fast-mode config (B=16, N=10000, full published width, random
 weights from a seeded ``torch.Generator``) under ``vote_classify`` —
 through the hand-written CUDA kernels, in phases:
 
-1. header: the card's name and power limit, torch and CUDA versions;
+1. header: the card's name and power limit, torch, CUDA, scipy and numpy
+   versions;
 2. build: compile ``sph3d_gcn_torch/csrc/*.cu`` (seconds); each kernel's
    ``-Xptxas -v`` report (registers, spills, shared memory);
 3. per-kernel parity and timing: one forward of the plain versions on a
@@ -301,6 +302,48 @@ the card (records in a temporary directory):
     B=16, N=8192) with and without ``remat_blocks``: loss, gradients and
     statistics bitwise equal, step time and peak device memory of both.
 
+Then the last model families and the scene evaluation, at full
+published width with seeded weights (records and scenes written in a
+temporary directory):
+
+41. the one-hot ShapeNet train step (``shapenet_config(fast=True,
+    dense=True)``, ``SPH3DShapeNetOnehot``, B=32, N=2048, unit-sphere
+    normalized ellipsoid surfaces split into their categories' parts,
+    ``cls_label`` through ``model_kwargs_keys``): one plain step's calls
+    replayed through kernel and plain version (as phase 20, without each
+    call's device time), kernel step vs plain step (f32 and bf16, as
+    phase 21), two kernel steps bitwise equal, 5 steps (launches K1 4 /
+    K2 12 / K7 4 / K3 16 / K4 4 / K5 48 / K6 4 / K9 4 a step, a falling
+    loss, ``dense_ok`` each step), step time, peak memory, profile
+    (device busy and idle share);
+42. ShapeNet records written by the port's writer (64 shapes over the
+    16 categories and 16 more chairs of 2600 points, 8 test chairs);
+    ``cli.train_shapenet --onehot`` and ``--category chair`` (the class
+    rebalancing's 660 shapes) for one epoch at B=32 in dense mode:
+    launches as many steps of phase 41's counts, plus a per-edge step for
+    each batch its log says re-ran (counted);
+43. the per-category model from that checkpoint: one plain forward's
+    calls at the eval's B=8 replayed, kernel vs plain logits; then
+    ``cli.evaluate_shapenet --category chair`` (11 samples a point, the
+    augmented pass): launches K1 4 / K2 12 / K7 4 / K3 16 / K4 4 a
+    forward (plus a per-edge forward for each that re-ran), a file a
+    shape, its forwards and shapes/s;
+44. the RueMonge train step (``ruemonge2014_config(fast=True,
+    dense=True)``, ``SPH3DRueMonge``, B=16, N=8192, xyz, normals and rgb,
+    the plain mean loss), checked as phase 41;
+45. ``cli.train_scene_seg --dataset ruemonge2014`` (dense mode, one
+    facade block repeated 100 times: 7 steps, and its eval batch),
+    launches as phase 42;
+46. the scene evaluation: an S3DIS model's checkpoint and two areas of
+    one scene each (15 blocks of about 10000 points, 1.5 m every 0.75 m,
+    with ``index_label``; the scene with a full-resolution cloud of twice
+    its points); one plain forward's calls at B=8 replayed; then
+    ``cli.evaluate_scene_seg`` for each area with ``--scene_dir`` and
+    ``--save_blocks`` (forwards, blocks a forward, blocks/s; the saved
+    blocks merged again equal to its merged labels; its fold file),
+    ``cli.aggregate_folds`` over the two fold files, and the RueMonge
+    facade served from phase 45's checkpoint the same way.
+
 Each replayed K1 call prints its launch plan (cluster size, threads,
 points a thread) and its time per greedy step, of the span and of the
 device alone.
@@ -320,11 +363,18 @@ kernel's calls (K1 and K8 on ``s3dis_per_edge_serve``, K8 and K9 on
 ``s3dis_per_edge_train_step``, beside the paths above), and
 ``fit_paths`` the kernel's launches on the entry points' runs:
 ``modelnet_fit`` and ``modelnet_fit_resumed`` (the train steps of one
-epoch of phases 36 and 37), ``modelnet_eval_cli`` (phase 38) and
-``s3dis_fit_fallback`` (phase 39).
+epoch of phases 36 and 37), ``modelnet_eval_cli`` (phase 38),
+``s3dis_fit_fallback`` (phase 39), ``shapenet_onehot_fit`` and
+``shapenet_category_fit`` (phase 42), ``shapenet_eval_cli`` (phase 43),
+``ruemonge_fit`` (phase 45), ``s3dis_scene_eval_cli`` (both areas) and
+``ruemonge_scene_eval_cli`` (phase 46); ``paths`` also holds the replays
+of ``shapenet_onehot_train_step``, ``shapenet_serve``,
+``ruemonge_train_step`` and ``s3dis_scene_eval`` (their launches: the
+timed steps, the eval CLIs' forwards).
 
-Any failure raises and the script exits non-zero. The last two lines
-are the per-kernel JSON object and the contract line ``{"ok": true,
+Any failure raises and the script exits non-zero. A line before the
+last three gives the script's own wall time. The last two lines are the
+per-kernel JSON object and the contract line ``{"ok": true,
 "device": {...}}``. Run from the repository root: ``python3
 chip_smoke.py``.
 """
@@ -402,6 +452,18 @@ TRAIN_RECORDS, TEST_RECORDS = 64, 32
 FIT_STEPS = TRAIN_RECORDS // B
 EVAL_VOTES = 3
 REMAT_STEPS = 3
+# the ShapeNet and RueMonge paths and the scene evaluation: the one-hot
+# train batch (JAX train_shapenet's B=32, N=2048), shapes of 2600 points
+# (resampled to 2048), 64 train shapes over the 16 categories and 16 more
+# chairs, 8 test chairs served at the eval's B=8; the RueMonge batch
+# (B=16, N=8192); the scene eval's batch (JAX's B=8); timed steps and
+# CUDA-event runs of these paths' replays
+SN_B, SN_N, SN_POINTS = 32, 2048, 2600
+SN_TRAIN_SHAPES, SN_CHAIRS, SN_TEST_CHAIRS, SN_EVAL_B = 64, 16, 8, 8
+RM_B = 16
+EVAL_B = 8
+SEG_STEPS = 5
+SEG_REPS = 3
 # the path whose run gives each kernel's launches and times in the JSON line
 # (K2 and K7 from the option paths, whose queries write distance maps)
 PATH_OF = {"fps": "s3dis_serve", "dense_query": "modelnet_ids_train_step",
@@ -950,12 +1012,15 @@ class Results:
 
 
 def replay(calls: list, res: Results, expect: dict[str, int],
-           plain_reps: int = REPS) -> None:
+           plain_reps: int = REPS, reps: int = REPS,
+           device: bool = True) -> None:
     """Replay recorded kernel-wrapped calls through the kernel and its
     plain version: compare the two and time both (and the library call,
-    where one exists). ``expect`` is the number of launches of each
-    kernel the recorded run's calls make (a wrapper's ``per_call`` a
-    call). Recorded masked-mean unpools
+    where one exists), each the median of ``reps`` runs (the plain
+    version's of ``plain_reps``); ``device`` also queues each call's
+    device time (:meth:`Results.time_device`). ``expect`` is the number
+    of launches of each kernel the recorded run's calls make (a
+    wrapper's ``per_call`` a call). Recorded masked-mean unpools
     (plain PyTorch, no kernel) are timed; their backwards launch K9 and
     are replayed as kernels, with the scatter-add that autograd of the
     window gather would run as their library call."""
@@ -979,21 +1044,27 @@ def replay(calls: list, res: Results, expect: dict[str, int],
         for name, args, kw in calls:
             what = describe(name, args, kw)
             if name in unpool:
-                ms = median_ms(lambda: unpool[name](*args))
+                ms = median_ms(lambda: unpool[name](*args), reps)
                 res.ms[name] += ms
                 print(f"  {name:14s} {what:30s} torch {ms:.3f} ms  "
                       f"{res.add_bound(name, work(name, args, kw), ms)}",
                       flush=True)
                 continue
             kern, plain, check = table[name]
-            reps = 3 if name == "fps" else REPS
+            n = min(reps, 3) if name == "fps" else reps
             lib = library_call(name, args, kw)
-            ms = median_ms(lambda: kern(*args, **kw), reps)
+            ms = median_ms(lambda: kern(*args, **kw), n)
             res.add(name, what, kern(*args, **kw), plain(*args, **kw), ms,
                     median_ms(lambda: plain(*args, **kw),
-                              min(reps, plain_reps)), check,
+                              min(n, plain_reps)), check,
                     work(name, args, kw),
-                    None if lib is None else median_ms(lib, reps))
+                    None if lib is None else median_ms(lib, n))
+            if not device:
+                if name == "fps":
+                    steps = max(args[0] - 1, 1)
+                    print(f"  {'':14s} {what:30s} {ms * 1e3 / steps:.3f} "
+                          f"us a greedy step (span)", flush=True)
+                continue
             if name in ("dense_conv", "rank_pool_bwd", "dense_conv_bwd",
                         "dense_query", "growth_query", "rank_pool",
                         "window_gather", "window_gather_bwd"):
@@ -3195,22 +3266,27 @@ def s3dis_per_edge_phases(dev: torch.device, res_fwd: Results,
 
 
 def fit_launches(launches: dict[str, int], log: str, steps: int,
-                 evals: int, what: str) -> dict[str, int]:
-    """Checks one epoch of ModelNet ``fit``'s launch counts: ``steps``
-    dense steps of ``PER_STEP`` and ``evals`` eval forwards of
-    ``PER_FORWARD``, plus a per-edge step or forward for each batch that
-    ``log`` (the epoch's lines) says re-ran on the classic engine. Returns
-    the train steps' share."""
+                 evals: int, what: str, per_step: dict = PER_STEP,
+                 per_forward: dict = PER_FORWARD,
+                 fb_step: dict = PER_WIN_STEP,
+                 fb_forward: dict = PER_WIN_FORWARD) -> dict[str, int]:
+    """Checks one epoch of ``fit``'s launch counts: ``steps`` dense steps
+    of ``per_step`` and ``evals`` eval forwards of ``per_forward`` (the
+    ModelNet model's by default), plus a per-edge step (``fb_step``) or
+    forward (``fb_forward``) for each batch that ``log`` (the epoch's
+    lines) says re-ran on the classic engine. Returns the train steps'
+    share."""
     reruns = [line for line in log.splitlines()
               if "re-running via the classic engine" in line]
     fb_train = sum(" batch " in line for line in reruns)
     fb_eval = sum(" eval " in line for line in reruns)
-    train = {k: steps * PER_STEP.get(k, 0) + fb_train * PER_WIN_STEP.get(k, 0)
+    train = {k: steps * per_step.get(k, 0) + fb_train * fb_step.get(k, 0)
              for k in launches}
-    want = {k: train[k] + evals * PER_FORWARD.get(k, 0)
-            + fb_eval * PER_WIN_FORWARD.get(k, 0) for k in launches}
-    print(f"{what}: launches {launches}; {fb_train} train and {fb_eval} "
-          f"eval batches re-ran on the per-edge engine", flush=True)
+    want = {k: train[k] + evals * per_forward.get(k, 0)
+            + fb_eval * fb_forward.get(k, 0) for k in launches}
+    print(f"{what}: launches {launches}; {fb_train} of {steps} train and "
+          f"{fb_eval} of {evals} eval batches re-ran on the per-edge "
+          f"engine", flush=True)
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, want {want}")
     return train
@@ -3559,6 +3635,555 @@ def entry_point_phases(dev: torch.device, shrunk: tuple) -> dict:
     return runs
 
 
+def shapenet_shapes(rng, cats: list[int], points: int) -> list[dict]:
+    """ShapeNet-format shapes: unit-sphere normalized ellipsoid surfaces
+    (the family ``shapenet_config``'s windows were calibrated on), each
+    split into its category's parts by azimuth; ``part_label`` and the
+    global ``seg_label`` 0-based, as the records store them."""
+    from sph3d_gcn_torch.cli.train_shapenet import NUM_PARTS
+    from sph3d_gcn_torch.data.synthetic import surface_clouds
+
+    clouds = surface_clouds(rng, len(cats), points)
+    clouds -= clouds.mean(axis=1, keepdims=True)
+    clouds /= np.sqrt((clouds ** 2).sum(-1)).max(axis=1)[:, None, None]
+    offsets = np.concatenate([[0], np.cumsum(NUM_PARTS)])
+    shapes = []
+    for xyz, cat in zip(clouds, cats):
+        azimuth = np.arctan2(xyz[:, 1], xyz[:, 0]) + np.pi
+        part = np.minimum((azimuth / (2 * np.pi) * NUM_PARTS[cat]).astype(
+            np.int32), NUM_PARTS[cat] - 1)
+        shapes.append({"xyz": xyz.astype(np.float32), "part_label": part,
+                       "seg_label": (part + offsets[cat]).astype(np.int32),
+                       "cls_label": cat})
+    return shapes
+
+
+def write_shapenet_records(path: Path, shapes: list[dict]) -> str:
+    from sph3d_gcn_torch.data import tfrecord
+
+    with tfrecord.TFRecordWriter(path) as w:
+        for s in shapes:
+            w.write_example({"xyz_raw": s["xyz"].tobytes(),
+                             "part_label": s["part_label"].tobytes(),
+                             "seg_label": s["seg_label"].tobytes(),
+                             "cls_label": np.int64(s["cls_label"])})
+    return str(path)
+
+
+def facade_blocks(rng, batch: int, n: int) -> np.ndarray:
+    """(batch, n, 9) RueMonge-format points: scene-block xyz, unit normals,
+    rgb."""
+    from sph3d_gcn_torch.data.synthetic import scene_blocks
+
+    xyz = scene_blocks(rng, batch, n)[..., :3]
+    normal = rng.standard_normal((batch, n, 3)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    rgb = rng.uniform(-1.0, 1.0, (batch, n, 3)).astype(np.float32)
+    return np.concatenate([xyz, normal, rgb], axis=-1)
+
+
+def seg_step_phases(dev: torch.device, res: Results, what: str, model,
+                    model32, batch: dict, inner_masked: bool = False,
+                    keys: tuple = ()) -> dict[str, int]:
+    """A segmentation train path's checks (phases 41 and 44): one plain
+    step's kernel calls replayed through kernel and plain version (no
+    device-time profile of each call); kernel step vs plain step (bf16,
+    and f32 on ``model32``) under phase 21's gates; two kernel steps
+    bitwise equal; SEG_STEPS steps with launches, certificates and a
+    falling loss; the step's time, peak memory and profile (device busy
+    and idle share). Returns the launches of the timed steps."""
+    from sph3d_gcn_torch import _build, kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.train.schedule import (
+        exponential_decay_lr,
+        make_optimizer,
+    )
+    from sph3d_gcn_torch.train.steps import segmentation_step_factory
+
+    bsize, npts = batch["points"].shape[:2]
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def factory(use_kernels, net=model):
+        opt, sch = make_optimizer(
+            net.parameters(), "adam",
+            exponential_decay_lr(0.001, batch_size=bsize))
+        return segmentation_step_factory(
+            net, opt, sch, inner_masked=inner_masked,
+            use_kernels=use_kernels, model_kwargs_keys=keys)
+
+    def grads_of(step):
+        step.model.load_state_dict(state0)
+        metrics = step.loss_and_grads(batch)
+        if not bool(metrics["dense_ok"]):
+            raise AssertionError(f"dense_ok False on the {what} batch")
+        return metrics, {k: p.grad.clone()
+                         for k, p in step.model.named_parameters()}
+
+    print(f"{what}: B={bsize} N={npts}, columns {batch['points'].shape[2]}"
+          f", {'inner-masked' if inner_masked else 'plain mean'} loss, "
+          f"model inputs {('points',) + keys}", flush=True)
+    print(f"per-kernel parity, {what} (forward + backward, times: median "
+          f"of {SEG_REPS} CUDA-event runs)", flush=True)
+    model.load_state_dict(state0)
+    with _build.record_calls() as calls:
+        factory(False).loss_and_grads(batch)
+    n_unpool = [sum(name == u for name, _, _ in calls)
+                for u in ("mean_interpolate", "mean_interpolate_bwd")]
+    if n_unpool != [4, 4]:
+        raise AssertionError(f"recorded unpools and backwards {n_unpool}")
+    replay(calls, res, PER_SEG_STEP, plain_reps=1, reps=SEG_REPS,
+           device=False)
+    res.summary(what)
+    del calls
+
+    compare_steps(grads_of, factory, model32, what)
+    check_bitwise_steps(grads_of, factory(None), f" ({what})")
+
+    model.load_state_dict(state0)
+    factory(None).train_step(batch)        # warm-up (allocator, cuBLAS)
+    model.load_state_dict(state0)
+    step = factory(None)
+    losses, oks, times = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    for _ in range(SEG_STEPS):
+        t0 = time.perf_counter()
+        metrics = step.train_step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+        oks.append(metrics["dense_ok"])
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = torch.stack(losses).cpu()
+    print(f"{SEG_STEPS} {what}s: loss {[round(v, 4) for v in loss.tolist()]}"
+          f"; launches {launches}", flush=True)
+    for name, per in PER_SEG_STEP.items():
+        if launches[name] != per * SEG_STEPS:
+            raise AssertionError(
+                f"{name}: {launches[name]} launches, want {per} per step")
+    if not bool(torch.stack(oks).all()):
+        raise AssertionError(f"dense_ok False on a {what}")
+    if not torch.isfinite(loss).all() or not loss[-1] < loss[0]:
+        raise AssertionError(f"loss did not fall: {loss.tolist()}")
+    step_ms = float(np.median(times)) * 1e3
+    model.load_state_dict(state0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    factory(False).train_step(batch)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"{what} B={bsize} N={npts}: {step_ms:.2f} ms median of "
+          f"{SEG_STEPS} (host clock, synchronised; "
+          f"{bsize * npts / step_ms * 1e3:.0f} points/s) with kernels, "
+          f"{plain_ms:.2f} ms for one step with the plain versions; peak "
+          f"device memory {peak:.2f} GiB", flush=True)
+    profile_steps(lambda: step.train_step(batch), what)
+    model.load_state_dict(state0)
+    return launches
+
+
+def serve_replay(model, x: torch.Tensor, extra: list, res: Results,
+                 what: str) -> None:
+    """One plain forward's kernel calls replayed through kernel and plain
+    version (no device-time profile of each call); the kernel forward's
+    logits against the plain one's; its time (CUDA events)."""
+    from sph3d_gcn_torch import _build
+
+    print(f"per-kernel parity, {what} (times: median of {SEG_REPS} "
+          f"CUDA-event runs)", flush=True)
+    with _build.record_calls() as calls, torch.inference_mode():
+        model(x, *extra, use_kernels=False)
+    if not bool(model.dense_ok):
+        raise AssertionError(f"dense_ok False on the {what} batch")
+    replay(calls, res, PER_SEG_FORWARD, plain_reps=1, reps=SEG_REPS,
+           device=False)
+    res.summary(what)
+    del calls
+    with torch.inference_mode():
+        got = model(x, *extra)
+        ref = model(x, *extra, use_kernels=False)
+        fwd_ms = median_ms(lambda: model(x, *extra), SEG_REPS)
+    agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+    scale = ref.abs().max().item()
+    print(f"{what}: kernel vs plain logits max_abs_err "
+          f"{(got - ref).abs().max().item():.4g}, argmax agreement "
+          f"{agree:.4f} (|logits| <= {scale:.3g}); forward B={x.shape[0]} "
+          f"N={x.shape[1]} {fwd_ms:.2f} ms with kernels", flush=True)
+    if agree < 0.95:
+        raise AssertionError(f"argmax agreement {agree} < 0.95")
+    torch.testing.assert_close(got, ref, rtol=LOGIT_TOL,
+                               atol=LOGIT_TOL * scale)
+
+
+def eval_launches(out: dict, launches: dict[str, int], what: str) -> None:
+    """An eval CLI's launches: ``PER_SEG_FORWARD`` a forward, plus the
+    per-edge forward of each that re-ran."""
+    want = {k: out["forwards"] * PER_SEG_FORWARD.get(k, 0)
+            + out["reruns"] * PER_S3PE_FORWARD.get(k, 0) for k in launches}
+    print(f"{what}: {out['forwards']} forwards, {out['reruns']} re-run on "
+          f"the per-edge engine; launches {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, want {want}")
+
+
+def scene_set(root: Path, rng, area: int, dims=(4.5, 3.0, 3.0),
+              facade: bool = False) -> None:
+    """One voxelized scene of ``Area_<area>`` (its npz with ``xyz``,
+    ``label`` and a full-resolution cloud of twice the points) and its
+    block records (1.5 m blocks every 0.75 m in x and y, the inner mask
+    the middle 0.75 m, ``index_label`` the block->scene map), listed in
+    ``test_files_fold<area>.txt`` (``test_files.txt`` for a facade: xyz,
+    normals and rgb). The density is the served blocks' (10000 points a
+    1.5 m square)."""
+    from sph3d_gcn_torch.data import tfrecord
+
+    block, stride = 1.5, 0.75
+    num_cls = 7 if facade else 13
+    size = int(S3_P * dims[0] * dims[1] / block ** 2)
+    xyz = (rng.uniform(0.0, 1.0, (size, 3)) * dims).astype(np.float32)
+    label = rng.integers(0, num_cls, size).astype(np.int32)
+    full = np.repeat(xyz, 2, axis=0) + rng.normal(
+        0.0, 0.005, (2 * size, 3)).astype(np.float32)
+    name = f"Area_{area}_{'facade' if facade else 'office'}_1"
+    (root / "scenes").mkdir(exist_ok=True)
+    np.savez(root / "scenes" / f"{name}.npz", xyz=xyz, label=label,
+             full_xyz=full, full_label=np.repeat(label, 2))
+    normal = rng.standard_normal((size, 3)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+    rgb = rng.random((size, 3)).astype(np.float32)
+    path = root / f"{name}.tfrecord"
+    with tfrecord.TFRecordWriter(path) as w:
+        for x0 in np.arange(0.0, dims[0] - block + 1e-6, stride):
+            for y0 in np.arange(0.0, dims[1] - block + 1e-6, stride):
+                lo = np.array([x0, y0], np.float32)
+                rel = xyz[:, :2] - lo
+                index = np.flatnonzero(((rel >= 0) & (rel < block)).all(1))
+                mid = rel[index]
+                inner = ((mid >= (block - stride) / 2)
+                         & (mid < (block + stride) / 2)).all(1)
+                ex = {"xyz_raw": xyz[index].tobytes(),
+                      "rgb_raw": rgb[index].tobytes(),
+                      "seg_label": label[index].tobytes(),
+                      "inner_label": inner.astype(np.int32).tobytes(),
+                      "index_label": index.astype(np.int32).tobytes()}
+                if facade:
+                    ex["normal_raw"] = normal[index].tobytes()
+                w.write_example(ex)
+    lst = "test_files.txt" if facade else f"test_files_fold{area}.txt"
+    (root / lst).write_text(f"{path}\n")
+
+
+def check_scene_eval(out: dict, log: Path, scene_dir: Path, metric: Path,
+                     num_cls: int, what: str) -> None:
+    """``cli.evaluate_scene_seg``'s outputs: every block's inner points
+    covered, its saved blocks merged again (``data.merge``) equal to its
+    merged labels, the fold file's counts equal to its accumulator's."""
+    from sph3d_gcn_torch.data.merge import (
+        SceneAccumulator,
+        merge_scene_predictions,
+    )
+
+    per_scene: dict[str, list] = {}
+    for name in os.listdir(log / "block_results"):
+        blk = np.load(log / "block_results" / name)
+        if not (np.isfinite(blk["logits"]).all() and (np.abs(
+                blk["logits"][blk["inner"] == 1]).sum(-1) > 0).all()):
+            raise AssertionError(f"{what}: block {name} not covered")
+        scene, i = name[:-4].rsplit("_", 1)
+        per_scene.setdefault(scene, []).append(
+            (int(i), (blk["index"], blk["inner"], blk["logits"])))
+    for scene, blks in per_scene.items():
+        gt = np.load(scene_dir / f"{scene}.npz")
+        again = merge_scene_predictions(
+            len(gt["label"]), [b for _, b in sorted(blks, key=lambda t: t[0])],
+            num_cls)
+        if not np.array_equal(again, out["merged"][scene]):
+            raise AssertionError(f"{what}: {scene} merged labels differ")
+    acc = out["accumulator"]
+    fold = SceneAccumulator.load(str(metric))
+    if not (np.array_equal(fold.total_union, acc.total_union)
+            and fold.merged_seen == acc.merged_seen):
+        raise AssertionError(f"{what}: the fold file's counts differ")
+
+
+def family_phases(dev: torch.device, runs: dict) -> dict:
+    """Phases 41-46 (see the module docstring): the ShapeNet and RueMonge
+    models and the scene evaluation. Adds each replayed path's
+    (Results, launches) to ``runs``; returns the launch counts of the
+    entry points' runs."""
+    from sph3d_gcn_torch import kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.cli import (
+        aggregate_folds,
+        evaluate_scene_seg,
+        evaluate_shapenet,
+        train_scene_seg,
+        train_shapenet,
+    )
+    from sph3d_gcn_torch.cli.train_shapenet import NUM_PARTS
+    from sph3d_gcn_torch.configs import (
+        ruemonge2014_config,
+        s3dis_config,
+        shapenet_config,
+    )
+    from sph3d_gcn_torch.cli import read_list
+    from sph3d_gcn_torch.data import tfrecord
+    from sph3d_gcn_torch.data.datasets import (
+        load_scene_blocks,
+        resample_indices,
+    )
+    from sph3d_gcn_torch.data.merge import SceneAccumulator
+    from sph3d_gcn_torch.data.synthetic import scene_blocks
+    from sph3d_gcn_torch.models import (
+        SPH3DRueMonge,
+        SPH3DSceneSeg,
+        SPH3DShapeNet,
+        SPH3DShapeNetOnehot,
+    )
+    from sph3d_gcn_torch.train.checkpoint import Checkpointer, snapshot_config
+    from sph3d_gcn_torch.train.schedule import make_optimizer
+
+    fit_runs = {}
+    sn_cfg = shapenet_config(fast=True, dense=True)
+    levels = range(len(sn_cfg.radius))
+    print(f"ShapeNet: windows {[sn_cfg.enc_window(lv) for lv in levels]} / "
+          f"pool {[sn_cfg.pool_window(lv) for lv in levels]} / decoder "
+          f"{[sn_cfg.dec_window(lv) for lv in levels]} + margin "
+          f"{sn_cfg.dec_margin}, growth {sn_cfg.growth_steps}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+
+        # 41. the one-hot ShapeNet train step
+        rng = np.random.default_rng(410)
+        cats = [i % len(NUM_PARTS) for i in range(SN_B)]
+        shapes = shapenet_shapes(rng, cats, SN_N)
+        batch = {
+            "points": torch.from_numpy(np.stack(
+                [s["xyz"] for s in shapes])).to(dev),
+            "label": torch.from_numpy(np.stack(
+                [s["seg_label"] for s in shapes]).astype(np.int64)).to(dev),
+            "cls_label": torch.tensor(cats, device=dev),
+        }
+        gen = torch.Generator().manual_seed(41)
+        model = SPH3DShapeNetOnehot(sn_cfg, generator=gen).to(dev)
+        model32 = SPH3DShapeNetOnehot(dataclasses.replace(
+            sn_cfg, compute_dtype="float32")).to(dev)
+        res = Results()
+        launches = seg_step_phases(dev, res, "ShapeNet one-hot train step",
+                                   model, model32, batch,
+                                   keys=("cls_label",))
+        runs["shapenet_onehot_train_step"] = (res, launches)
+        del model, model32, batch
+
+        # 42. cli.train_shapenet --onehot and --category chair
+        rng = np.random.default_rng(420)
+        chair = 4
+        train = shapenet_shapes(rng, [i % len(NUM_PARTS)
+                                      for i in range(SN_TRAIN_SHAPES)],
+                                SN_POINTS)
+        chairs = shapenet_shapes(rng, [chair] * SN_CHAIRS, SN_POINTS)
+        tests = shapenet_shapes(rng, [chair] * SN_TEST_CHAIRS, SN_POINTS)
+        t0 = time.perf_counter()
+        for name, shp in (("train", train + chairs), ("test", tests)):
+            path = write_shapenet_records(root / f"sn_{name}.tfrecord", shp)
+            (root / f"{name}_files.txt").write_text(f"{path}\n")
+            (root / f"chair_{name}_files.txt").write_text(f"{path}\n")
+        print(f"ShapeNet records: {len(train) + len(chairs)} train and "
+              f"{len(tests)} test shapes of {SN_POINTS} points written in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        n_chairs = sum(s["cls_label"] == chair for s in train + chairs)
+        for kind, which, shapes_n in (
+                ("onehot", ["--onehot"], len(train) + len(chairs)),
+                ("category", ["--category", "chair"],
+                 (int(640 / n_chairs) + 1) * n_chairs)):
+            log = root / f"log_sn_{kind}"
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            trained = train_shapenet.main(which + [
+                "--data_dir", str(root), "--log_dir", str(log), "--mode",
+                "dense", "--batch_size", str(SN_B), "--max_epoch", "1"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            steps = -(-shapes_n // SN_B)
+            text = (log / "log_train.txt").read_text()
+            fit_runs[f"shapenet_{kind}_fit"] = fit_launches(
+                kernel_launches(), text, steps, 0,
+                f"cli.train_shapenet {' '.join(which)}, 1 epoch of {steps} "
+                f"steps", PER_SEG_STEP, PER_SEG_FORWARD, PER_S3PE_STEP,
+                PER_S3PE_FORWARD)
+            scalars = [json.loads(x) for x in
+                       (log / "metrics.jsonl").read_text().splitlines()]
+            if not (np.isfinite(scalars[0]["train_loss"])
+                    and (log / "ckpt" / "0.pt").is_file()):
+                raise AssertionError(f"cli.train_shapenet {kind}: {scalars}")
+            print(f"cli.train_shapenet {' '.join(which)}: {shapes_n} shapes,"
+                  f" {wall:.2f} s host clock, {scalars[0]['ms_per_batch']:.2f}"
+                  f" ms a batch (its log line), train loss "
+                  f"{scalars[0]['train_loss']:.4f}", flush=True)
+        del trained
+
+        # 43. ShapeNet per-category serving: replay, then the eval CLI
+        log = root / "log_sn_category"
+        model = SPH3DShapeNet(sn_cfg, num_cls=NUM_PARTS[chair]).to(dev)
+        Checkpointer(log).restore_variables(model)
+        model.eval()
+        x = torch.from_numpy(np.stack([
+            t["xyz"][resample_indices(SN_POINTS, SN_N, rng)]
+            for t in tests])).to(dev)
+        res = Results()
+        serve_replay(model, x, [], res, "ShapeNet per-category forward")
+        del model
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        out = evaluate_shapenet.main([
+            "--data_dir", str(root), "--category", "chair", "--log_dir",
+            str(log), "--batch_size", str(SN_EVAL_B)])
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        eval_launches(out, launches, "cli.evaluate_shapenet --category chair")
+        runs["shapenet_serve"] = (res, launches)
+        fit_runs["shapenet_eval_cli"] = launches
+        preds = sorted(os.listdir(log / "pred"))
+        if (len(preds) != SN_TEST_CHAIRS
+                or not np.isfinite(out["instance_miou"])
+                or out["forwards"] < 2 * 11):
+            raise AssertionError(f"cli.evaluate_shapenet: {preds}, {out}")
+        print(f"cli.evaluate_shapenet: {SN_TEST_CHAIRS} shapes of "
+              f"{SN_POINTS} points, each point sampled 11 times, raw and "
+              f"augmented passes: {out['forwards']} forwards of B="
+              f"{SN_EVAL_B} in {wall:.2f} s host clock "
+              f"({SN_TEST_CHAIRS / wall:.2f} shapes/s); instance mIoU "
+              f"{out['instance_miou']:.4f}", flush=True)
+
+        # 44. the RueMonge train step
+        rm_cfg = ruemonge2014_config(fast=True, dense=True)
+        rng = np.random.default_rng(440)
+        batch = {
+            "points": torch.from_numpy(facade_blocks(rng, RM_B, S3_N)).to(dev),
+            "label": torch.from_numpy(rng.integers(
+                0, rm_cfg.num_cls, (RM_B, S3_N)).astype(np.int64)).to(dev),
+        }
+        model = SPH3DRueMonge(rm_cfg, generator=torch.Generator(
+            ).manual_seed(44)).to(dev)
+        model32 = SPH3DRueMonge(dataclasses.replace(
+            rm_cfg, compute_dtype="float32")).to(dev)
+        res = Results()
+        launches = seg_step_phases(dev, res, "RueMonge train step", model,
+                                   model32, batch)
+        runs["ruemonge_train_step"] = (res, launches)
+        del model, model32, batch
+
+        # 45. cli.train_scene_seg --dataset ruemonge2014
+        rm_root = root / "ruemonge"
+        rm_root.mkdir()
+        scene_set(rm_root, np.random.default_rng(450), 0, dims=(3.0, 1.5, 3.0),
+                  facade=True)
+        blocks = facade_blocks(np.random.default_rng(451), 1, S3_P)[0]
+        with tfrecord.TFRecordWriter(rm_root / "facade_train.tfrecord") as w:
+            w.write_example({
+                "xyz_raw": blocks[:, :3].copy().tobytes(),
+                "normal_raw": blocks[:, 3:6].copy().tobytes(),
+                "rgb_raw": blocks[:, 6:].copy().tobytes(),
+                "seg_label": np.random.default_rng(452).integers(
+                    0, 7, S3_P).astype(np.int32).tobytes(),
+                "inner_label": np.ones(S3_P, np.int32).tobytes()})
+        (rm_root / "train_files.txt").write_text(
+            f"{rm_root / 'facade_train.tfrecord'}\n")
+        rm_log = root / "log_ruemonge"
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        train_scene_seg.main([
+            "--dataset", "ruemonge2014", "--data_dir", str(rm_root),
+            "--log_dir", str(rm_log), "--mode", "dense", "--batch_size",
+            str(RM_B), "--max_epoch", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps = -(-100 // RM_B)
+        evals = -(-len(load_scene_blocks(
+            read_list(rm_root / "test_files.txt"))) // RM_B)
+        text = (rm_log / "log_train.txt").read_text()
+        scalars = [json.loads(x) for x in
+                   (rm_log / "metrics.jsonl").read_text().splitlines()]
+        fit_runs["ruemonge_fit"] = fit_launches(
+            kernel_launches(), text, steps, evals,
+            f"cli.train_scene_seg --dataset ruemonge2014, 1 epoch of {steps}"
+            f" steps and {evals} eval batch", PER_SEG_STEP, PER_SEG_FORWARD,
+            PER_S3PE_STEP, PER_S3PE_FORWARD)
+        print(f"cli.train_scene_seg --dataset ruemonge2014: 1 block x 100, "
+              f"{wall:.2f} s host clock, {scalars[0]['ms_per_batch']:.2f} ms "
+              f"a batch (its log line), train loss "
+              f"{scalars[0]['train_loss']:.4f}, eval loss "
+              f"{scalars[1]['eval_loss']:.4f}", flush=True)
+
+        # 46. the scene evaluation and the re-merge: S3DIS areas 5 and 6,
+        # RueMonge's facade, then the folds aggregated
+        s3_root = root / "s3dis"
+        s3_root.mkdir()
+        for area in (5, 6):
+            scene_set(s3_root, np.random.default_rng(460 + area), area)
+        s3_log = root / "log_s3dis"
+        s3_cfg = s3dis_config(fast=True, dense=True)
+        snapshot_config(s3_log, s3_cfg)
+        gen = torch.Generator().manual_seed(46)
+        model = SPH3DSceneSeg(s3_cfg, generator=gen, in_columns=6)
+        randomize_bn(model, gen)
+        Checkpointer(s3_log).save(0, model)
+        model = model.to(dev).eval()
+        x = torch.from_numpy(scene_blocks(np.random.default_rng(462), EVAL_B,
+                                          S3_N)[..., [0, 1, 2, 6, 7, 8]]
+                             ).to(dev)
+        res = Results()
+        serve_replay(model, x, [], res, "S3DIS scene-eval forward")
+        del model
+        metric_files, evals_s3 = [], {}
+        for area in (5, 6):
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            out = evaluate_scene_seg.main([
+                "--dataset", "s3dis", "--data_dir", str(s3_root),
+                "--log_dir", str(s3_log), "--test_area", str(area),
+                "--scene_dir", str(s3_root / "scenes"), "--save_blocks",
+                "--batch_size", str(EVAL_B)])
+            wall = time.perf_counter() - t0
+            launches = kernel_launches()
+            eval_launches(out, launches,
+                          f"cli.evaluate_scene_seg s3dis area {area}")
+            check_scene_eval(out, s3_log, s3_root / "scenes",
+                             s3_log / f"Area_{area}_metric.npz", 13,
+                             f"S3DIS area {area}")
+            n_blocks = len(out["logits"])
+            print(f"scene eval, S3DIS area {area}: {n_blocks} blocks in "
+                  f"{out['forwards']} forwards of B={EVAL_B} "
+                  f"({n_blocks / out['forwards']:.2f} blocks a forward), "
+                  f"{wall:.2f} s host clock ({n_blocks / wall:.2f} blocks/s,"
+                  f" the merge and the full-cloud projection included); "
+                  f"merged OA {out['accumulator'].overall_accuracy:.4f}",
+                  flush=True)
+            evals_s3[area] = launches
+            metric_files.append(str(s3_log / f"Area_{area}_metric.npz"))
+            for f in (s3_log / "block_results").iterdir():
+                f.unlink()
+        runs["s3dis_scene_eval"] = (res, evals_s3[5])
+        fit_runs["s3dis_scene_eval_cli"] = {
+            k: evals_s3[5][k] + evals_s3[6][k] for k in evals_s3[5]}
+        total = aggregate_folds.main(metric_files)
+        folds = [SceneAccumulator.load(p) for p in metric_files]
+        if total.merged_seen != sum(f.merged_seen for f in folds):
+            raise AssertionError("aggregate_folds: counts do not add up")
+        reset_kernel_launches()
+        out = evaluate_scene_seg.main([
+            "--dataset", "ruemonge2014", "--data_dir", str(rm_root),
+            "--log_dir", str(rm_log), "--test_area", "0", "--scene_dir",
+            str(rm_root / "scenes"), "--save_blocks", "--batch_size",
+            str(EVAL_B)])
+        launches = kernel_launches()
+        eval_launches(out, launches, "cli.evaluate_scene_seg ruemonge2014")
+        check_scene_eval(out, rm_log, rm_root / "scenes",
+                         rm_log / "Area_0_metric.npz", 7, "RueMonge")
+        fit_runs["ruemonge_scene_eval_cli"] = launches
+    return fit_runs
+
+
 def kernel_lines(runs: dict[str, tuple[Results, dict]],
                  others: tuple, fit_runs: dict[str, dict[str, int]]
                  ) -> dict:
@@ -3600,10 +4225,15 @@ def kernel_lines(runs: dict[str, tuple[Results, dict]],
 
 
 def main() -> None:
+    start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         sys.exit(2)
+    # the scene merge's nearest-neighbour projection needs scipy: a card
+    # without it fails here, before any phase
+    import scipy
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3621,6 +4251,7 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"scipy {scipy.__version__} numpy {np.__version__} "
           f"device {torch.cuda.get_device_name(0)} "
           f"(tf32 off for matmul and cudnn)", flush=True)
     dev = torch.device("cuda:0")
@@ -3757,8 +4388,18 @@ def main() -> None:
     # 35-40. the training and evaluation entry points
     fit_runs = entry_point_phases(dev, shrunk)
     del shrunk
+    print(f"[{time.perf_counter() - start:.1f} s] phases 1-40 done",
+          flush=True)
 
+    # 41-46. ShapeNet, RueMonge and the scene evaluation
+    family_runs: dict = {}
+    fit_runs.update(family_phases(dev, family_runs))
+
+    print(f"chip_smoke wall: {time.perf_counter() - start:.1f} s (host "
+          f"clock, from the script's start; the kernels' build included)",
+          flush=True)
     print(json.dumps(kernel_lines({
+        **family_runs,
         "s3dis_serve": (res_s3, s3_launches),
         "modelnet_train_step": (res_train, train_launches),
         "s3dis_train_step": (res_s3_step, s3_step_launches),

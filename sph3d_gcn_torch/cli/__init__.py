@@ -1,9 +1,18 @@
 """Command-line entry points (counterparts of the JAX package's
 ``scripts/``): ``python -m sph3d_gcn_torch.cli.<name>`` with ``name`` one
-of ``train_modelnet``, ``evaluate_modelnet``, ``train_scene_seg`` and
-``measure_windows``. Each runs on the CUDA card unless ``--device cpu``
+of
+
+- ``train_modelnet`` and ``evaluate_modelnet`` (ModelNet40 votes);
+- ``train_scene_seg`` (S3DIS, ScanNet, RueMonge2014),
+  ``evaluate_scene_seg`` (coverage voting, the block-to-scene re-merge
+  and its metrics) and ``aggregate_folds`` (the folds' counts summed);
+- ``train_shapenet`` and ``evaluate_shapenet`` (per-category or one-hot
+  part segmentation);
+- ``measure_windows`` (the dense engine's windows for a dataset).
+
+Each that runs a model runs on the CUDA card unless ``--device cpu``
 asks for the plain versions on the CPU; asking for ``cuda`` where there
-is none raises."""
+is none raises. ``aggregate_folds`` reads files only."""
 
 from __future__ import annotations
 

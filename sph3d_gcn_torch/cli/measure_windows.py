@@ -11,6 +11,12 @@ smallest ``SPH3DConfig.windows`` / ``dec_windows`` / ``dec_margin`` /
     python -m sph3d_gcn_torch.cli.measure_windows --dataset modelnet
     python -m sph3d_gcn_torch.cli.measure_windows --dataset s3dis \\
         --data blocks.npz
+
+ModelNet and ShapeNet are measured on surface families (bump-modulated
+and smooth ellipsoids), S3DIS, ScanNet and RueMonge2014 on scene blocks
+(plane-heavy and uniform). ShapeNet's clouds are unit-sphere normalized
+first, as its data preparation normalizes them offline; its model then
+builds its graphs on them as they are.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import argparse
 import dataclasses
 
 import numpy as np
+import torch
 
 
 def bumpy_ellipsoids(rng, batch, n, amplitude=0.1):
@@ -55,7 +62,8 @@ def scene_blocks_worst(rng, batch, n):
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--dataset", required=True,
-                        choices=["modelnet", "s3dis", "scannet"])
+                        choices=["modelnet", "shapenet", "s3dis", "scannet",
+                                 "ruemonge2014"])
     parser.add_argument("--samples", type=int, default=32,
                         help="number of synthetic clouds of each family")
     parser.add_argument("--num_input", type=int, default=None,
@@ -100,7 +108,7 @@ def main(argv=None) -> tuple:
         clouds = np.load(args.data)["points"][..., :3][:, :n]
     else:
         hard, plain = ((bumpy_ellipsoids, surface_clouds)
-                       if args.dataset == "modelnet" else
+                       if args.dataset in ("modelnet", "shapenet") else
                        (scene_blocks_worst, scene_blocks))
         fams = []
         if args.family in ("hard", "union"):
@@ -108,6 +116,10 @@ def main(argv=None) -> tuple:
         if args.family in ("plain", "union"):
             fams.append(plain(rng, args.samples, n)[..., :3])
         clouds = np.concatenate(fams)
+    if args.dataset == "shapenet":
+        # the offline normalization of ShapeNet's data preparation
+        clouds = normalize_unit_sphere(torch.from_numpy(
+            np.ascontiguousarray(clouds, np.float32))).numpy()
     # ModelNet's model sorts the raw cloud, then builds its graphs on the
     # unit-sphere-normalized one (models/modelnet.py); raw clouds would
     # overstate small shapes' slabs, and clouds normalized before the sort

@@ -1,13 +1,16 @@
-"""Scene segmentation training: S3DIS / ScanNet (counterpart of the JAX
-package's ``scripts/train_scene_seg.py``, ref s3dis_seg/train_s3dis.py,
-scannet_seg/train_scannet.py)::
+"""Scene segmentation training: S3DIS / ScanNet / RueMonge2014
+(counterpart of the JAX package's ``scripts/train_scene_seg.py``, ref
+s3dis_seg/train_s3dis.py, scannet_seg/train_scannet.py,
+ruemonge2014_seg/train_ruemonge2014.py)::
 
     python -m sph3d_gcn_torch.cli.train_scene_seg --dataset s3dis \\
         --data_dir DIR --mode dense
 
 ``--dataset`` selects the config, the model and the augmentation policy.
 S3DIS uses 6-fold splits via ``--test_area`` (ref train_s3dis.py:22,60-61).
-RueMonge2014 needs ``SPH3DRueMonge``, which the port does not have yet.
+RueMonge2014 trains ``SPH3DRueMonge`` on xyz, normals and rgb with the
+plain mean loss (no inner mask) and its few facade blocks repeated 100
+times an epoch (ref train_ruemonge2014.py:63).
 """
 
 from __future__ import annotations
@@ -57,15 +60,15 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None) -> torch.nn.Module:
     args = parse_args(argv)
-    if args.dataset == "ruemonge2014":
-        raise NotImplementedError(
-            "--dataset ruemonge2014 needs SPH3DRueMonge, which the PyTorch "
-            "port does not have yet (ROADMAP Queue 1 item 5)")
 
     from sph3d_gcn_torch.cli import read_list, resolve_device
-    from sph3d_gcn_torch.configs import s3dis_config, scannet_config
+    from sph3d_gcn_torch.configs import (
+        ruemonge2014_config,
+        s3dis_config,
+        scannet_config,
+    )
     from sph3d_gcn_torch.data.datasets import load_scene_blocks, scene_batches
-    from sph3d_gcn_torch.models import SPH3DSceneSeg
+    from sph3d_gcn_torch.models import SPH3DRueMonge, SPH3DSceneSeg
     from sph3d_gcn_torch.train.augment_policies import (
         s3dis_train_augment,
         scannet_train_augment,
@@ -81,6 +84,9 @@ def main(argv=None) -> torch.nn.Module:
     device = resolve_device(args.device)
     mode_kw = {"fast": args.mode in ("fast", "dense"),
                "dense": args.mode == "dense"}
+    train_list = os.path.join(args.data_dir, "train_files.txt")
+    test_list = os.path.join(args.data_dir, "test_files.txt")
+    model_class, inner_masked, repeats = SPH3DSceneSeg, True, 1
     if args.dataset == "s3dis":
         cfg = s3dis_config(num_input=args.num_input, **mode_kw)
         augment = s3dis_train_augment
@@ -88,20 +94,24 @@ def main(argv=None) -> torch.nn.Module:
             args.data_dir, f"train_files_fold{args.test_area}.txt")
         test_list = os.path.join(
             args.data_dir, f"test_files_fold{args.test_area}.txt")
-    else:
+    elif args.dataset == "scannet":
         cfg = scannet_config(num_input=args.num_input, **mode_kw)
         augment = scannet_train_augment
-        train_list = os.path.join(args.data_dir, "train_files.txt")
-        test_list = os.path.join(args.data_dir, "test_files.txt")
+    else:
+        cfg = ruemonge2014_config(num_input=args.num_input, **mode_kw)
+        augment = s3dis_train_augment
+        model_class, inner_masked, repeats = SPH3DRueMonge, False, 100
 
     log_dir = args.log_dir or f"log_{args.dataset}"
     snapshot_config(log_dir, cfg)
-    train_blocks = load_scene_blocks(read_list(train_list))
+    # the train list repeated ``repeats`` times (RueMonge's 100), as its
+    # blocks read once and repeated in the list's order
+    train_blocks = load_scene_blocks(read_list(train_list)) * repeats
     test_blocks = load_scene_blocks(read_list(test_list))
     print(f"train blocks: {len(train_blocks)}, test blocks: "
           f"{len(test_blocks)}")
 
-    model = SPH3DSceneSeg(
+    model = model_class(
         cfg, generator=torch.Generator().manual_seed(args.seed),
         in_columns=train_blocks[0].points.shape[1]).to(device)
     schedule = exponential_decay_lr(
@@ -111,7 +121,7 @@ def main(argv=None) -> torch.nn.Module:
         model, *make_optimizer(model.parameters(), args.optimizer, schedule,
                                momentum=args.momentum,
                                adam_epsilon=args.adam_eps),
-        weight_decay=cfg.weight_decay, inner_masked=True,
+        weight_decay=cfg.weight_decay, inner_masked=inner_masked,
     )
 
     def train_batches(epoch):
@@ -122,12 +132,18 @@ def main(argv=None) -> torch.nn.Module:
             pts, lbl, inner = augment(
                 batch["points"], batch["label"], batch["inner_label"], rng
             )
-            yield {"points": pts, "label": lbl, "inner_label": inner}
+            out = {"points": pts, "label": lbl}
+            if inner_masked:
+                out["inner_label"] = inner
+            yield out
 
     def eval_batches():
         rng = np.random.default_rng(12345)
-        return scene_batches(test_blocks, args.batch_size, cfg.num_input,
-                             rng, shuffle=False)
+        for batch in scene_batches(test_blocks, args.batch_size,
+                                   cfg.num_input, rng, shuffle=False):
+            if not inner_masked:
+                del batch["inner_label"]
+            yield batch
 
     return fit(
         factory,

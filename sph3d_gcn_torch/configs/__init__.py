@@ -1,5 +1,6 @@
 """Per-dataset architecture configs (counterparts of
-``sph3d_gcn_tpu/configs``): ModelNet40, S3DIS and ScanNet.
+``sph3d_gcn_tpu/configs``): ModelNet40, ShapeNet part segmentation,
+S3DIS, ScanNet and RueMonge2014.
 
 ``fast=True`` selects the fast mode: bfloat16 activations, per-cloud
 spatial sorting and the row windows; ``dense=True`` adds the dense
@@ -87,6 +88,40 @@ def modelnet_config(
     return cfg
 
 
+def shapenet_config(
+    num_input: int = 2048, fast: bool = False, dense: bool = False
+) -> SPH3DConfig:
+    """ref shapenet_seg/shapenet_config.py:1-24 (``num_cls`` is the
+    one-hot model's 50 parts; a per-category model passes its own count)."""
+    cfg = SPH3DConfig(
+        num_input=num_input,
+        num_cls=50,
+        mlp=64,
+        num_sample=(1024, 768, 384, 128),
+        radius=(0.08, 0.16, 0.32, 0.64),
+        nn_uplimit=(64, 64, 64, 64),
+        channels=((128, 128), (256, 256), (256, 256), (512, 512)),
+        multiplier=((2, 2), (2, 2), (2, 2), (2, 2)),
+        weight_decay=None,
+        kernel=(8, 2, 2),
+        normalize=False,
+        pool_method="max",
+        unpool_method="mean",
+        sample="FPS",
+        with_bn=True,
+        with_bias=False,
+    )
+    if fast:
+        # calibrated by the JAX package's scripts/measure_windows.py on
+        # the unit-sphere surface family at 2048 points (8% margin)
+        cfg = _fast_mode(
+            cfg, (512, 512, 640, 384), dense,
+            dec_windows=(384, 384, 384, 128), dec_margin=256,
+            growth_steps=2,
+        )
+    return cfg
+
+
 def _scene_seg_config(
     num_cls: int, num_input: int = 8192, fast: bool = False,
     dense: bool = False,
@@ -152,5 +187,14 @@ def s3dis_config(
     )
 
 
-__all__ = ["SPH3DConfig", "modelnet_config", "s3dis_config",
-           "scannet_config"]
+def ruemonge2014_config(
+    num_input: int = 8192, fast: bool = False, dense: bool = False
+) -> SPH3DConfig:
+    """ref ruemonge2014_seg/ruemonge2014_config.py:1-26."""
+    return _scene_seg_config(
+        num_cls=7, num_input=num_input, fast=fast, dense=dense
+    )
+
+
+__all__ = ["SPH3DConfig", "modelnet_config", "ruemonge2014_config",
+           "s3dis_config", "scannet_config", "shapenet_config"]

@@ -60,6 +60,11 @@ def normalize_xy_center_z_floor(points: torch.Tensor) -> torch.Tensor:
                       points[..., 2:]], dim=-1)
 
 
+def normalize_mean_center(points: torch.Tensor) -> torch.Tensor:
+    """Subtract each cloud's mean (ref models/SPH3D_ruemonge2014.py:11-17)."""
+    return points - points.mean(dim=1, keepdim=True)
+
+
 def _remat_contexts():
     """The forward runs as it is; the backward's recompute leaves the BN
     running statistics that the forward updated."""

@@ -1,17 +1,20 @@
-"""Scene segmentation (counterpart of
-``sph3d_gcn_tpu/models/segmentation.py``: ``SegEncoderDecoder`` and
-``SPH3DSceneSeg``, the S3DIS / ScanNet model).
+"""Segmentation models (counterpart of
+``sph3d_gcn_tpu/models/segmentation.py``): ``SegEncoderDecoder`` and the
+model families on it, ``SPH3DSceneSeg`` (S3DIS / ScanNet),
+``SPH3DRueMonge``, ``SPH3DShapeNet`` and ``SPH3DShapeNetOnehot``.
 
-Axis sort -> xy-center normalization -> input MLP -> encoder {sphere
+Axis sort -> input normalization -> input MLP -> encoder {sphere
 graph -> separable conv block -> sample -> pool graph -> pool} x L ->
 mirrored decoder {coarse intra graph + fine->coarse inter graph with
 radius growth -> conv block at the coarse level -> unpool to the finer
-level -> skip concat} -> pointwise logits -> unsort to the input order
-(ref SPH3D_s3dis.py:35-112). The config's ``sample`` (FPS, IDS, random),
-``pool_method`` (max, avg) and ``unpool_method`` (mean, or weighted: the
-inter graphs then carry distances) choose the sampler, pool and unpool.
-The decoder indexes reversed copies of the config lists (the reference
-reverses them in place, ref SPH3D_s3dis.py:79-84).
+level -> skip concat} [-> mlp2 ++ the input MLP's features (ShapeNet)]
+-> pointwise logits -> unsort to the input order (ref
+SPH3D_s3dis.py:35-112, SPH3D_shapenet.py:33-113). The config's
+``sample`` (FPS, IDS, random), ``pool_method`` (max, avg) and
+``unpool_method`` (mean, or weighted: the inter graphs then carry
+distances) choose the sampler, pool and unpool. The decoder indexes
+reversed copies of the config lists (the reference reverses them in
+place, ref SPH3D_s3dis.py:79-84).
 
 Two engines, chosen by ``config.dense_graph`` as in JAX: the dense
 windowed engine (graphs as packed maps, certified by ``dense_ok``) and
@@ -31,6 +34,8 @@ from sph3d_gcn_torch.configs.base import SPH3DConfig
 from sph3d_gcn_torch.models.common import (
     SeparableConvBlock,
     compute_dtype,
+    normalize_mean_center,
+    normalize_unit_sphere,
     normalize_xy_center_z_floor,
 )
 from sph3d_gcn_torch.nn.graph import (
@@ -52,22 +57,30 @@ from sph3d_gcn_torch.ops.locality import (
 # the scene blocks' columns: xyz, block-relative xyz, rgb; the backbone
 # reads the xy-centered xyz and the columns from 6 on (rgb)
 _IN_COLUMNS = 9
+# RueMonge2014's columns: xyz, normals, rgb (all read by the backbone)
+_RUEMONGE_COLUMNS = 9
+NUM_SHAPENET_CATEGORIES = 16  # ref models/SPH3D_shapenet_onehot.py:10
 
 
 class SegEncoderDecoder(nn.Module):
-    """mlp1 -> encoder pyramid -> decoder with skip concats, on either
-    engine (without point sharding and without the ShapeNet input skip).
+    """mlp1 -> encoder pyramid -> decoder with skip concats [-> mlp2], on
+    either engine (without point sharding). ``include_input_skip`` (the
+    ShapeNet variant, ref SPH3D_shapenet.py:46,106-108) puts the mlp1
+    output first in the skip list and ends with ``mlp2`` (cfg.mlp
+    channels) concatenated with it; the scene models run without both.
 
     ``forward`` returns (features (B, N, C) at the finest level, the
     forward's window-coverage certificate as a bool tensor)."""
 
     def __init__(self, config: SPH3DConfig, in_channels: int,
-                 generator: torch.Generator | None = None) -> None:
+                 generator: torch.Generator | None = None,
+                 include_input_skip: bool = False) -> None:
         super().__init__()
         cfg = config
         common = dict(with_bn=cfg.with_bn, with_bias=cfg.with_bias,
                       dtype=compute_dtype(cfg), generator=generator)
         self.config = cfg
+        self.include_input_skip = include_input_skip
         self.mlp1 = PointwiseConv3d(in_channels, cfg.mlp, **common)
         c = cfg.mlp
         skips = []
@@ -84,6 +97,9 @@ class SegEncoderDecoder(nn.Module):
                 c, chans, cfg.bin_size, mults, **common,
             ))
             c = chans[-1] + skips[::-1][level]
+        if include_input_skip:
+            self.mlp2 = PointwiseConv3d(c, cfg.mlp, **common)
+            c = 2 * cfg.mlp
         self.out_channels = c
 
     def forward(self, net: torch.Tensor, xyz: torch.Tensor,
@@ -101,7 +117,7 @@ class SegEncoderDecoder(nn.Module):
         num_levels = len(cfg.radius)
         net = self.mlp1(net)
         xyz_layers = [xyz]
-        encoder = []
+        encoder = [net] if self.include_input_skip else []
         dense_ok = torch.ones((), dtype=torch.bool, device=xyz.device)
 
         # encoder (ref SPH3D_s3dis.py:53-77)
@@ -187,53 +203,57 @@ class SegEncoderDecoder(nn.Module):
                 net = unpool3d(net, inter, method=cfg.unpool_method,
                                window=dec_win, use_kernels=use_kernels)
             net = torch.cat([net, encoder[level]], dim=-1)
+        if self.include_input_skip:
+            # mlp2 ++ the mlp1 features (ref SPH3D_shapenet.py:106-108)
+            net = torch.cat([self.mlp2(net), encoder[-1]], dim=-1)
         return net, dense_ok
 
 
-class SPH3DSceneSeg(nn.Module):
-    """Scene segmentation (S3DIS / ScanNet): (B, N, 9) points (xyz,
-    block-relative xyz, rgb) -> (B, N, num_cls) f32 logits in the input
-    point order. The input features are the xy-centered xyz and the
-    columns 6: (ref SPH3D_s3dis.py:35-49). ``in_columns`` is the points'
-    column count: the reference's records hold xyz and rgb alone (6
-    columns, ``data.datasets.load_scene_blocks``), so its model reads the
-    xyz alone, as JAX's does on them.
+class _SegModel(nn.Module):
+    """The frame the segmentation models share: the shape check, the axis
+    sort, the model's input features (:meth:`_features`), the backbone,
+    an optional head on its features (the ShapeNet one-hot), the f32
+    pointwise logits (no activation, no BN: the JAX layer's default
+    dtype) and the unsort back to the caller's point order.
 
     After each forward, ``dense_ok`` holds that forward's window-coverage
     certificate (a bool tensor): True iff every dense graph provably
     covered all its in-range neighbors (at its grown radius, for the
     decoders' inter graphs); always True on the per-edge engine, which is
     exact for every cloud (``models.common.classic_clone`` re-runs a dense
-    model there).
-    """
+    model there)."""
 
-    def __init__(self, config: SPH3DConfig,
-                 generator: torch.Generator | None = None,
-                 in_columns: int = _IN_COLUMNS) -> None:
+    def __init__(self, config: SPH3DConfig, num_cls: int, in_columns: int,
+                 in_channels: int, generator: torch.Generator | None = None,
+                 include_input_skip: bool = False,
+                 head_channels: int = 0) -> None:
         super().__init__()
         cfg = config
         self.config = cfg
         self.in_columns = in_columns
-        self.backbone = SegEncoderDecoder(
-            cfg, 3 + max(in_columns - 6, 0), generator)
-        # the classifier: no activation, no BN, f32 (the JAX layer's
-        # default dtype)
+        self.backbone = SegEncoderDecoder(cfg, in_channels, generator,
+                                          include_input_skip)
         self.logits = PointwiseConv3d(
-            self.backbone.out_channels, cfg.num_cls, with_bn=False,
-            with_bias=cfg.with_bias, activation=False, generator=generator,
+            self.backbone.out_channels + head_channels, num_cls,
+            with_bn=False, with_bias=cfg.with_bias, activation=False,
+            generator=generator,
         )
         self.dense_ok: torch.Tensor | None = None
 
-    def forward(self, points: torch.Tensor,
-                use_kernels: bool | None = None,
-                generator: torch.Generator | None = None,
-                sample_noise: list[torch.Tensor] | None = None
-                ) -> torch.Tensor:
+    def _features(self, points: torch.Tensor) -> torch.Tensor:
+        """The backbone's input features of the sorted (B, N, D) points."""
+        raise NotImplementedError
+
+    def _segment(self, points: torch.Tensor, use_kernels: bool | None,
+                 generator: torch.Generator | None,
+                 sample_noise: list[torch.Tensor] | None,
+                 head=None) -> torch.Tensor:
         """``use_kernels``: None runs the CUDA kernels on a CUDA device and
         the plain versions on the CPU; False forces the plain versions
         (for comparing the two). ``generator`` draws the noise of IDS and
-        random sampling (the model has no dropout), unless
-        ``sample_noise`` holds each level's draws."""
+        random sampling (the models have no dropout), unless
+        ``sample_noise`` holds each level's draws. ``head`` maps the
+        backbone's features to the logits layer's input."""
         cfg = self.config
         if points.shape[1:] != (cfg.num_input, self.in_columns):
             raise ValueError(
@@ -244,17 +264,128 @@ class SPH3DSceneSeg(nn.Module):
         if cfg.spatial_sort:
             perm, rank = spatial_sort(points, cfg.radius[0])
             points = permute_points(points, perm)
-        xyz = points[..., 0:3]
-        norm_xyz = normalize_xy_center_z_floor(xyz) if cfg.normalize else xyz
-        net = torch.cat([norm_xyz, points[..., 6:]], dim=-1)
         net, self.dense_ok = self.backbone(
-            net, xyz, cfg, use_kernels=use_kernels, generator=generator,
+            self._features(points), points[..., 0:3], cfg,
+            use_kernels=use_kernels, generator=generator,
             sample_noise=sample_noise)
+        if head is not None:
+            net = head(net)
         logits = self.logits(net)
         # back to the caller's point order; ``perm`` rides along so the
         # backward gathers instead of scattering
         return (logits if rank is None
                 else permute_points(logits, rank, inv=perm))
+
+
+class SPH3DSceneSeg(_SegModel):
+    """Scene segmentation (S3DIS / ScanNet): (B, N, 9) points (xyz,
+    block-relative xyz, rgb) -> (B, N, num_cls) f32 logits in the input
+    point order. The input features are the xy-centered xyz and the
+    columns 6: (ref SPH3D_s3dis.py:35-49). ``in_columns`` is the points'
+    column count: the reference's records hold xyz and rgb alone (6
+    columns, ``data.datasets.load_scene_blocks``), so its model reads the
+    xyz alone, as JAX's does on them."""
+
+    def __init__(self, config: SPH3DConfig,
+                 generator: torch.Generator | None = None,
+                 in_columns: int = _IN_COLUMNS) -> None:
+        super().__init__(config, config.num_cls, in_columns,
+                         3 + max(in_columns - 6, 0), generator)
+
+    def _features(self, points: torch.Tensor) -> torch.Tensor:
+        xyz = points[..., 0:3]
+        if self.config.normalize:
+            xyz = normalize_xy_center_z_floor(xyz)
+        return torch.cat([xyz, points[..., 6:]], dim=-1)
+
+    def forward(self, points: torch.Tensor,
+                use_kernels: bool | None = None,
+                generator: torch.Generator | None = None,
+                sample_noise: list[torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        return self._segment(points, use_kernels, generator, sample_noise)
+
+
+class SPH3DRueMonge(_SegModel):
+    """Facade segmentation (RueMonge2014): (B, N, 9) points (xyz, normals,
+    rgb) -> (B, N, num_cls) f32 logits. The input features are the
+    mean-centered xyz and the columns 3: (normals and rgb), 9 channels
+    (ref SPH3D_ruemonge2014.py:35-47)."""
+
+    def __init__(self, config: SPH3DConfig,
+                 generator: torch.Generator | None = None,
+                 in_columns: int = _RUEMONGE_COLUMNS) -> None:
+        super().__init__(config, config.num_cls, in_columns, in_columns,
+                         generator)
+
+    def _features(self, points: torch.Tensor) -> torch.Tensor:
+        xyz = points[..., 0:3]
+        if self.config.normalize:
+            xyz = normalize_mean_center(xyz)
+        return torch.cat([xyz, points[..., 3:]], dim=-1)
+
+    def forward(self, points: torch.Tensor,
+                use_kernels: bool | None = None,
+                generator: torch.Generator | None = None,
+                sample_noise: list[torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        return self._segment(points, use_kernels, generator, sample_noise)
+
+
+class SPH3DShapeNet(_SegModel):
+    """Per-category part segmentation (ref models/SPH3D_shapenet.py:33-113):
+    raw (B, N, 3) xyz (unit-sphere normalized offline; ``cfg.normalize``
+    is False) -> (B, N, num_cls) f32 logits, ``num_cls`` the category's
+    part count. The backbone runs with the input skip and ``mlp2``."""
+
+    def __init__(self, config: SPH3DConfig, num_cls: int,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__(config, num_cls, 3, 3, generator,
+                         include_input_skip=True)
+
+    def _features(self, points: torch.Tensor) -> torch.Tensor:
+        return (normalize_unit_sphere(points) if self.config.normalize
+                else points)
+
+    def forward(self, points: torch.Tensor,
+                use_kernels: bool | None = None,
+                generator: torch.Generator | None = None,
+                sample_noise: list[torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        return self._segment(points, use_kernels, generator, sample_noise)
+
+
+class SPH3DShapeNetOnehot(_SegModel):
+    """All-category part segmentation (ref SPH3D_shapenet_onehot.py:
+    110-114): (B, N, 3) xyz and the category ``cls_label`` (B,) ->
+    (B, N, num_cls) f32 logits over the 50 global parts. The category's
+    one-hot over ``NUM_SHAPENET_CATEGORIES``, in the features' dtype and
+    tiled over the points, is concatenated before the logits (128 + 16 =
+    144 channels at published widths). The input is not normalized."""
+
+    def __init__(self, config: SPH3DConfig, num_cls: int = 50,
+                 generator: torch.Generator | None = None) -> None:
+        super().__init__(config, num_cls, 3, 3, generator,
+                         include_input_skip=True,
+                         head_channels=NUM_SHAPENET_CATEGORIES)
+
+    def _features(self, points: torch.Tensor) -> torch.Tensor:
+        return points
+
+    def forward(self, points: torch.Tensor, cls_label: torch.Tensor,
+                use_kernels: bool | None = None,
+                generator: torch.Generator | None = None,
+                sample_noise: list[torch.Tensor] | None = None
+                ) -> torch.Tensor:
+        def head(net: torch.Tensor) -> torch.Tensor:
+            onehot = torch.nn.functional.one_hot(
+                cls_label.long(), NUM_SHAPENET_CATEGORIES).to(net.dtype)
+            return torch.cat(
+                [net, onehot[:, None, :].expand(-1, net.shape[1], -1)],
+                dim=-1)
+
+        return self._segment(points, use_kernels, generator, sample_noise,
+                             head)
 
 
 def _nll_points(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

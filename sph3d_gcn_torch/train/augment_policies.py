@@ -87,12 +87,20 @@ def scannet_train_augment(
 
 
 def shapenet_train_augment(
-    batch_xyz: np.ndarray, batch_label: np.ndarray, rng: np.random.Generator
+    batch_xyz: np.ndarray, batch_label: np.ndarray, rng: np.random.Generator,
+    batch_cls: np.ndarray | None = None,
 ):
     """ref shapenet_seg/train_shapenet.py:121-150: shuffle the items and
     the point order (with the labels), the first third
-    rotate+perturb+scale+shift+jitter, the second scale+shift+jitter."""
-    batch_xyz, batch_label = _shuffle_scene(rng, batch_xyz, batch_label)
+    rotate+perturb+scale+shift+jitter, the second scale+shift+jitter.
+    ``batch_cls`` (B,), the one-hot model's categories, is shuffled with
+    its items and returned third (the JAX policy takes none, and its
+    one-hot CLI keeps the unshuffled categories); the draws are the same
+    either way."""
+    order = rng.permutation(batch_xyz.shape[0])
+    pidx = rng.permutation(batch_xyz.shape[1])
+    batch_xyz = batch_xyz[order][:, pidx]
+    batch_label = batch_label[order][:, pidx]
     third = np.int32(batch_xyz.shape[0] / 3.0)
     part = batch_xyz[:third]
     part = aug.rotate_point_cloud(part, rng)
@@ -106,4 +114,6 @@ def shapenet_train_augment(
     part = aug.shift_point_cloud(part, rng)
     part = aug.jitter_point_cloud(part, rng)
     batch_xyz[third: 2 * third] = part
-    return batch_xyz, batch_label
+    if batch_cls is None:
+        return batch_xyz, batch_label
+    return batch_xyz, batch_label, np.asarray(batch_cls)[order]

@@ -6,9 +6,12 @@
   at :71-79);
 - segmentation blocks, :func:`coverage_eval_blocks`: each variable-size
   block is resampled to the model's point count until every inner point
-  has been sampled, logits accumulated per block point, with resamples of
-  different blocks sharing a batch (ref
-  s3dis_seg/evaluate_s3dis_with_overlap.py:270-302).
+  has been sampled (``min_count`` times: the ShapeNet eval takes more
+  than 10, with an augmented second pass of each resample), logits
+  accumulated per block point, with resamples of different blocks
+  sharing a batch (ref s3dis_seg/evaluate_s3dis_with_overlap.py:270-302,
+  shapenet_seg/evaluate_shapenet.py:228-247); :func:`coverage_eval_block`
+  does it for one block, one resample a forward.
 
 The dense engine's window-coverage certificate is enforced by
 :func:`checked_eval_step` (JAX's, without the halo retry of point
@@ -20,6 +23,7 @@ which is exact for every cloud.
 
 from __future__ import annotations
 
+import warnings
 from collections.abc import Callable
 
 import numpy as np
@@ -83,6 +87,7 @@ def vote_classify(
 def checked_forward(
     model: torch.nn.Module, device: torch.device | str = "cuda",
     generator: torch.Generator | None = None,
+    model_inputs: Callable[[list[int]], list[np.ndarray]] | None = None,
 ) -> Callable[..., np.ndarray]:
     """A forward for :func:`vote_classify` and :func:`coverage_eval_blocks`:
     numpy points in ((B, N, 3) clouds or (B, N, 9) scene blocks), numpy
@@ -95,23 +100,27 @@ def checked_forward(
     and its logits are returned. ``generator`` (on ``device``;
     None: the device's default generator) draws the sampling noise of IDS
     or random sampling; the re-run starts from its state before the dense
-    forward, so both answer for the same sample. ``block_ids`` (passed by
-    :func:`coverage_eval_blocks`) is unused: these models take no
-    per-block side input."""
+    forward, so both answer for the same sample. ``model_inputs`` maps the
+    ``block_ids`` that :func:`coverage_eval_blocks` passes to the model's
+    extra inputs after the points (the one-hot ShapeNet model's category
+    labels, (B,)); None: the model takes none."""
     fallback: list[torch.nn.Module] = []
     gen = generator if generator is not None else _default_generator(device)
 
     def forward(points: np.ndarray, block_ids=None) -> np.ndarray:
         x = torch.as_tensor(np.asarray(points, np.float32), device=device)
+        extra = ([] if model_inputs is None else
+                 [torch.as_tensor(np.asarray(a), device=device)
+                  for a in model_inputs(block_ids)])
         with torch.inference_mode():
             state = gen.get_state()
-            logits = model(x, generator=gen)
+            logits = model(x, *extra, generator=gen)
             if not bool(model.dense_ok):
                 first = not fallback
                 if first:
                     fallback.append(classic_clone(model))
                 gen.set_state(state)
-                logits = fallback[0](x, generator=gen)
+                logits = fallback[0](x, *extra, generator=gen)
                 if first:
                     print("dense window coverage violated at eval: "
                           "re-ran on the classic per-edge engine",
@@ -144,38 +153,118 @@ def resample_block(
     return rng.choice(num_points, target, replace=False)
 
 
+def coverage_eval_block(
+    forward: Callable[[np.ndarray], np.ndarray],
+    block_points: np.ndarray,
+    inner: np.ndarray,
+    num_model_points: int,
+    rng: np.random.Generator | None = None,
+    max_rounds: int | None = None,
+    min_count: int = 1,
+    augment_fn: Callable[[np.ndarray, np.random.Generator], np.ndarray]
+    | None = None,
+) -> np.ndarray:
+    """Accumulate logits for ONE block, one resample a forward, until each
+    inner point has been sampled ``min_count`` times.
+
+    Args:
+      forward: (1, num_model_points, D) -> (1, num_model_points, C) logits.
+      block_points: (P, D) stored block points (inner and context).
+      inner: (P,) inner mask (1 = inner).
+      num_model_points: the model's fixed point count N.
+      rng: the resampling (and augmentation) generator.
+      max_rounds: None loops until covered, as the reference does (ref
+        evaluate_s3dis_with_overlap.py:270); a bound that runs out with
+        inner points uncovered warns and returns the partial sums.
+      min_count: samples each inner point needs: 1 for the scene evals
+        (ref evaluate_s3dis_with_overlap.py:286), 11 for the ShapeNet eval
+        (more than 10, ref evaluate_shapenet.py:239).
+      augment_fn: a (B, N, 3) xyz augmentation; when given, each resample
+        also runs an augmented pass whose logits add at the same points
+        (ref evaluate_shapenet.py:245-247).
+
+    Returns:
+      (P, C) f32 logits summed over the block's passes.
+    """
+    if rng is None:
+        rng = np.random.default_rng(0)
+    num = block_points.shape[0]
+    inner_idx = np.asarray(inner) == 1
+    inner_size = int(inner_idx.sum())
+    sample_count = np.zeros(num, np.int64)
+    pred_sum = None
+    rounds_done = 0
+    while max_rounds is None or rounds_done < max_rounds:
+        rounds_done += 1
+        sel = resample_block(num, num_model_points, rng)
+        chunk = block_points[None, sel]
+        logits = np.asarray(forward(chunk))[0]
+        if pred_sum is None:
+            pred_sum = np.zeros((num, logits.shape[-1]), np.float32)
+        np.add.at(pred_sum, sel, logits)
+        if augment_fn is not None:
+            augmented = chunk.copy()
+            augmented[..., 0:3] = augment_fn(augmented[..., 0:3], rng)
+            np.add.at(pred_sum, sel, np.asarray(forward(augmented))[0])
+        sample_count[sel] += 1
+        if int((sample_count[inner_idx] >= min_count).sum()) >= inner_size:
+            break
+    else:
+        uncovered = int((sample_count[inner_idx] < min_count).sum())
+        warnings.warn(
+            f"coverage_eval_block: max_rounds={max_rounds} exhausted with "
+            f"{uncovered}/{inner_size} inner points uncovered; logits are "
+            "partial (the reference loops unboundedly)",
+            stacklevel=2,
+        )
+    return pred_sum
+
+
 def coverage_eval_blocks(
     forward: Callable[[np.ndarray, list[int]], np.ndarray],
     blocks: list[tuple[np.ndarray, np.ndarray]],
     num_model_points: int,
     batch_size: int,
     rng: np.random.Generator | None = None,
+    max_rounds: int | None = None,
+    min_count: int = 1,
+    augment_fn: Callable[[np.ndarray, np.random.Generator], np.ndarray]
+    | None = None,
 ) -> list[np.ndarray]:
     """Coverage-vote many blocks with full batches: each forward mixes
     resamples of up to ``batch_size`` still-uncovered blocks (a padded
     final batch repeats its first block), and a block leaves the queue
-    once each of its inner points has been sampled.
+    once each of its inner points has been sampled ``min_count`` times,
+    or after ``max_rounds`` resamples (with a warning if then uncovered).
+    The generator draws each round's resamples, then its augmentation.
 
     Args:
-      forward: (points (B, N, D), block_ids list[int]) -> (B, N, C) logits.
+      forward: (points (B, N, D), block_ids list[int]) -> (B, N, C) logits;
+        ``block_ids`` names each row's block (a padded row repeats the
+        first), for per-block side inputs such as ShapeNet's category.
       blocks: per block, (points (P, D), inner (P,) mask: 1 = inner).
       num_model_points: the model's fixed point count N.
       batch_size: B.
-      rng: the resampling generator.
+      rng, max_rounds, min_count, augment_fn: as
+        :func:`coverage_eval_block`.
 
     Returns:
-      Per block, (P, C) f32 logits summed over its resamples.
+      Per block, (P, C) f32 logits summed over its passes.
     """
     if rng is None:
         rng = np.random.default_rng(0)
     n = len(blocks)
     sums: list[np.ndarray | None] = [None] * n
     counts = [np.zeros(len(pts), np.int64) for pts, _ in blocks]
+    rounds = np.zeros(n, np.int64)
     need = list(range(n))
 
     def covered(i):
         inner_idx = np.asarray(blocks[i][1]) == 1
-        return bool((counts[i][inner_idx] >= 1).all())
+        return bool((counts[i][inner_idx] >= min_count).all())
+
+    def exhausted(i):
+        return max_rounds is not None and rounds[i] >= max_rounds
 
     while need:
         take = need[:batch_size]
@@ -189,12 +278,41 @@ def coverage_eval_blocks(
             chunk = np.concatenate(
                 [chunk, np.repeat(chunk[:1], batch_size - real, axis=0)])
         ids = take + [take[0]] * (batch_size - real)
-        logits = np.asarray(forward(chunk, ids))[:real]
+        passes = [np.asarray(forward(chunk, ids))[:real]]
+        if augment_fn is not None:
+            augmented = chunk.copy()
+            augmented[..., 0:3] = augment_fn(augmented[..., 0:3], rng)
+            passes.append(np.asarray(forward(augmented, ids))[:real])
         for j, (i, sel) in enumerate(zip(take, sels)):
             if sums[i] is None:
-                sums[i] = np.zeros((len(blocks[i][0]), logits.shape[-1]),
+                sums[i] = np.zeros((len(blocks[i][0]), passes[0].shape[-1]),
                                    np.float32)
-            np.add.at(sums[i], sel, logits[j])
+            for logits in passes:
+                np.add.at(sums[i], sel, logits[j])
             counts[i][sel] += 1
-        need = [i for i in need if not (i in take and covered(i))]
+            rounds[i] += 1
+        for i in take:
+            if exhausted(i) and not covered(i):
+                inner_idx = np.asarray(blocks[i][1]) == 1
+                uncovered = int((counts[i][inner_idx] < min_count).sum())
+                warnings.warn(
+                    f"coverage_eval_blocks: block {i} exhausted "
+                    f"max_rounds={max_rounds} with {uncovered}/"
+                    f"{int(inner_idx.sum())} inner points uncovered; logits "
+                    "are partial (the reference loops unboundedly)",
+                    stacklevel=2,
+                )
+        need = [i for i in need
+                if not (i in take and (covered(i) or exhausted(i)))]
     return sums
+
+
+def shapenet_eval_augment(
+    batch_xyz: np.ndarray, rng: np.random.Generator
+) -> np.ndarray:
+    """The ShapeNet eval's augmented pass (ref evaluate_shapenet.py:86-94)."""
+    x = aug.rotate_perturbation_point_cloud(batch_xyz, rng)
+    x = aug.random_scale_point_cloud(x, rng)
+    x = aug.shift_point_cloud(x, rng)
+    x = aug.jitter_point_cloud(x, rng)
+    return x

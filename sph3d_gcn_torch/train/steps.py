@@ -33,8 +33,8 @@ class StepFactory:
     """A model, its optimizer and scheduler, and the loss.
 
     Args:
-      model: a module whose forward is ``(points, use_kernels=,
-        generator=)``; after each forward its ``dense_ok`` holds the
+      model: a module whose forward is ``(points, *extra, use_kernels=,
+        generator=, sample_noise=)``; after each forward its ``dense_ok`` holds the
         window-coverage certificate (a bool tensor).
       optimizer, scheduler: from ``train.schedule.make_optimizer``.
       loss_fn: maps (logits, batch) to the data loss.
@@ -44,6 +44,9 @@ class StepFactory:
         eval steps return.
       use_kernels: forwarded to the model (None: kernels on a CUDA
         device, plain versions on the CPU; False: plain versions).
+      model_kwargs_keys: batch keys passed to the model after the points,
+        in this order (the ShapeNet one-hot model's ``cls_label``), by
+        every step, the fallback's included.
     """
 
     model: torch.nn.Module
@@ -53,10 +56,16 @@ class StepFactory:
     weight_decay: float | None = None
     item_loss_fn: LossFn | None = None
     use_kernels: bool | None = None
+    model_kwargs_keys: tuple[str, ...] = ()
+
+    def _forward(self, batch, generator, sample_noise=None):
+        extra = [batch[k] for k in self.model_kwargs_keys]
+        return self.model(batch["points"], *extra,
+                          use_kernels=self.use_kernels, generator=generator,
+                          sample_noise=sample_noise)
 
     def _losses(self, batch, generator, sample_noise=None):
-        logits = self.model(batch["points"], use_kernels=self.use_kernels,
-                            generator=generator, sample_noise=sample_noise)
+        logits = self._forward(batch, generator, sample_noise)
         data_loss = self.loss_fn(logits, batch)
         total = data_loss
         if self.weight_decay is not None:
@@ -112,8 +121,7 @@ class StepFactory:
         self.model.train()
         out = {}
         with torch.no_grad():
-            self.model(batch["points"], use_kernels=self.use_kernels,
-                       generator=generator)
+            self._forward(batch, generator)
             for (key, buf, m), prev in zip(stats, old):
                 out[key] = (buf - m * prev) / (1.0 - m)
                 buf.copy_(prev)
@@ -178,11 +186,14 @@ def segmentation_step_factory(
     weight_decay: float | None = None,
     inner_masked: bool = False,
     use_kernels: bool | None = None,
+    model_kwargs_keys: tuple[str, ...] = (),
 ) -> StepFactory:
     """StepFactory with the per-point CE loss over ``batch["label"]``
     (B, N): the plain mean, or with ``inner_masked`` the S3DIS / ScanNet
     loss over the inner points ``batch["inner_label"] > 0``, summed over
-    the batch's items (ref SPH3D_s3dis.py:116-133)."""
+    the batch's items (ref SPH3D_s3dis.py:116-133). ``model_kwargs_keys``
+    names the batch's extra model inputs (``("cls_label",)`` for
+    ``SPH3DShapeNetOnehot``)."""
     from sph3d_gcn_torch.models.segmentation import (
         inner_masked_item_loss,
         inner_masked_segmentation_loss,
@@ -204,4 +215,5 @@ def segmentation_step_factory(
         model=model, optimizer=optimizer, scheduler=scheduler,
         loss_fn=loss_fn, weight_decay=weight_decay,
         item_loss_fn=item_loss_fn, use_kernels=use_kernels,
+        model_kwargs_keys=tuple(model_kwargs_keys),
     )

@@ -169,9 +169,36 @@ def test_port_imports_no_jax():
         "import sph3d_gcn_torch.train.profiling\n"
         "import sph3d_gcn_torch.utils.windows\n"
         "from sph3d_gcn_torch.cli import train_modelnet, evaluate_modelnet, "
-        "train_scene_seg, measure_windows\n"
+        "train_scene_seg, measure_windows, evaluate_scene_seg, "
+        "aggregate_folds, train_shapenet, evaluate_shapenet\n"
         "assert all(callable(c.main) for c in (train_modelnet, "
-        "evaluate_modelnet, train_scene_seg, measure_windows))\n"
+        "evaluate_modelnet, train_scene_seg, measure_windows, "
+        "evaluate_scene_seg, aggregate_folds, train_shapenet, "
+        "evaluate_shapenet))\n"
+        "import sph3d_gcn_torch.data.merge, sph3d_gcn_torch.data.prep.voxelize\n"
+        "import sph3d_gcn_torch.data.prep.scannet\n"
+        "import sph3d_gcn_torch.data.prep.shapenet\n"
+        "from sph3d_gcn_torch.configs import shapenet_config, "
+        "ruemonge2014_config\n"
+        "from sph3d_gcn_torch.models import SPH3DShapeNet, "
+        "SPH3DShapeNetOnehot, SPH3DRueMonge\n"
+        "from sph3d_gcn_torch.train.eval import coverage_eval_block, "
+        "shapenet_eval_augment\n"
+        "sc = dataclasses.replace(shapenet_config(fast=True, dense=True), "
+        "num_input=256, num_sample=(128, 96, 48, 16), windows=(256,) * 4, "
+        "dec_windows=(256,) * 4, dec_margin=256, growth_steps=12)\n"
+        "s = SPH3DShapeNetOnehot(sc, generator=torch.Generator()"
+        ".manual_seed(0)).eval()\n"
+        "from sph3d_gcn_torch.data.synthetic import surface_clouds\n"
+        "p = surface_clouds(np.random.default_rng(1), 2, 300)\n"
+        "blocks = [(p[0], np.ones(300, np.int32)), (p[1], np.ones(300, "
+        "np.int32))]\n"
+        "out = coverage_eval_blocks(checked_forward(s, 'cpu', model_inputs="
+        "lambda ids: [np.array([3, 7])[ids]]), blocks, 256, 2, min_count=2, "
+        "augment_fn=shapenet_eval_augment)\n"
+        "assert all(o.shape == (300, 50) and np.isfinite(o).all() "
+        "for o in out)\n"
+        "SPH3DShapeNet(sc, 4), SPH3DRueMonge(ruemonge2014_config(1024))\n"
         "from sph3d_gcn_torch.utils.windows import measure_requirements\n"
         "measure_requirements(modelnet_config(512), x.astype(np.float32), "
         "device='cpu')\n"

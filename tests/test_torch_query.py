@@ -28,7 +28,13 @@ import numpy as np
 import pytest
 import torch
 
-from sph3d_gcn_torch.configs import modelnet_config, s3dis_config
+from sph3d_gcn_torch.configs import (
+    modelnet_config,
+    ruemonge2014_config,
+    s3dis_config,
+    scannet_config,
+    shapenet_config,
+)
 from sph3d_gcn_torch.data.synthetic import (
     boundary_clouds,
     growth_boundary_clouds,
@@ -42,11 +48,11 @@ from sph3d_gcn_torch.ops import query as Q
 TILE = 128
 ULPS = 1 << 16
 KERNEL = (8, 2, 2)
-# ShapeNet's radii (its config is not ported yet); the other four configs'
-# are read from the port's (ScanNet and RueMonge share S3DIS's)
-SHAPENET_RADII = (0.08, 0.16, 0.32, 0.64)
+# every radius of the port's five configs
 SERVED_RADII = tuple(sorted(set(
-    modelnet_config().radius + s3dis_config().radius + SHAPENET_RADII)))
+    modelnet_config().radius + shapenet_config().radius
+    + s3dis_config().radius + scannet_config().radius
+    + ruemonge2014_config().radius)))
 MAX_GROWTH = 15
 
 
