@@ -344,6 +344,46 @@ temporary directory):
     ``cli.aggregate_folds`` over the two fold files, and the RueMonge
     facade served from phase 45's checkpoint the same way.
 
+Then the datasets' own files through the ``prepare_*`` entry points and
+into the models (raw trees written from seeds by
+``sph3d_gcn_torch.data.raw_trees`` in a temporary directory):
+
+47. raw trees in the published layouts: ModelNet40's
+    ``modelnet40_normal_resampled`` (32 train and 8 test shapes over 8
+    classes, 36 of 12000 points and 4 of 10000, the files' own count),
+    two S3DIS rooms of 6 x 4 x 3 m with 300000 surface points each, a
+    ScanNet train scene (binary PLY, NYU-40 labels, faces) and test scene
+    (ascii), 3 ShapeNet categories of 4 shapes, a RueMonge2014 street;
+48. ``cli.prepare_modelnet`` on the card at ``--num_point`` 10000 and
+    1024: K1 launched once for each shape with more points than asked
+    (B = 1, N of the raw shape), every K1 call replayed bitwise against
+    the plain FPS (run over each size's clouds stacked; timed at B = 1),
+    with its span and device time a shape and its bound;
+49. ``cli.prepare_s3dis``, ``prepare_scannet``, ``prepare_shapenet`` and
+    ``prepare_ruemonge2014`` (host numpy; seconds each, the S3DIS blocks'
+    inner and stored points); every record file of the six preparations
+    read by the native reader and the Python reader, records with CRCs
+    checked and without, and decoded Examples without (what
+    ``data.datasets`` loads): equal records, MiB/s of each;
+50. ``cli.train_modelnet`` on the prepared records (dense, hard windows,
+    B=16, N=10000): one epoch of 2 steps and its eval batch, launches as
+    phase 36 counts them;
+51. ``cli.measure_windows --dataset s3dis --data`` on 2 draws of N=8192
+    points from each block of the prepared S3DIS area 1 (the windows
+    beside ``s3dis_config``'s, calibrated on uniform blocks), forwards of
+    B=8 with ``s3dis_config``'s windows on 32 of those draws (how many
+    fail the certificate; nothing re-run), then
+    ``cli.evaluate_scene_seg --scene_dir --save_blocks`` on that area with
+    a seeded checkpoint of the measured windows: launches a forward (and a
+    per-edge forward for each that re-ran), the saved blocks merged again
+    equal to its merged labels;
+52. TF1 bundles of a seeded ``SPH3DModelNet`` (hard windows) and
+    ``SPH3DSceneSeg`` at full width under the reference's names
+    (``utils.checkpoint_convert.tf_variables``, ``utils.tf1_bundle``),
+    loaded by ``convert_checkpoint`` into fresh models on the card: 3
+    votes of B=16 and an S3DIS forward (B=16, N=8192) bitwise equal to the
+    source models'; write and read seconds.
+
 Each replayed K1 call prints its launch plan (cluster size, threads,
 points a thread) and its time per greedy step, of the span and of the
 device alone.
@@ -366,11 +406,14 @@ kernel's calls (K1 and K8 on ``s3dis_per_edge_serve``, K8 and K9 on
 epoch of phases 36 and 37), ``modelnet_eval_cli`` (phase 38),
 ``s3dis_fit_fallback`` (phase 39), ``shapenet_onehot_fit`` and
 ``shapenet_category_fit`` (phase 42), ``shapenet_eval_cli`` (phase 43),
-``ruemonge_fit`` (phase 45), ``s3dis_scene_eval_cli`` (both areas) and
-``ruemonge_scene_eval_cli`` (phase 46); ``paths`` also holds the replays
-of ``shapenet_onehot_train_step``, ``shapenet_serve``,
-``ruemonge_train_step`` and ``s3dis_scene_eval`` (their launches: the
-timed steps, the eval CLIs' forwards).
+``ruemonge_fit`` (phase 45), ``s3dis_scene_eval_cli`` (both areas),
+``ruemonge_scene_eval_cli`` (phase 46), ``modelnet_prep_10000`` and
+``modelnet_prep_1024`` (phase 48), ``modelnet_prepared_fit`` (phase 50)
+and ``s3dis_prepared_scene_eval_cli`` (phase 51); ``paths`` also holds
+the replays of ``shapenet_onehot_train_step``, ``shapenet_serve``,
+``ruemonge_train_step``, ``s3dis_scene_eval`` (their launches: the timed
+steps, the eval CLIs' forwards) and ``modelnet_prep`` (K1's calls of
+both preparations of phase 48).
 
 Any failure raises and the script exits non-zero. A line before the
 last three gives the script's own wall time. The last two lines are the
@@ -462,6 +505,17 @@ SN_B, SN_N, SN_POINTS = 32, 2048, 2600
 SN_TRAIN_SHAPES, SN_CHAIRS, SN_TEST_CHAIRS, SN_EVAL_B = 64, 16, 8, 8
 RM_B = 16
 EVAL_B = 8
+# the preparation phases' raw trees: ModelNet40 shapes of 12000 points
+# (every tenth of N, the published files' count) over 8 classes, 32 train
+# (2 steps at B) and 8 test; S3DIS rooms, ScanNet scenes and a RueMonge
+# street of these many points
+PREP_POINTS, PREP_TRAIN, PREP_TEST = 12000, 32, 8
+PREP_CLASSES = ("airplane", "bathtub", "bed", "bench", "bookshelf",
+                "bottle", "bowl", "car")
+PREP_ROOM_POINTS, PREP_SCENE_POINTS, PREP_FACADE_POINTS = (
+    300000, 100000, 60000)
+PREP_WINDOW_DRAWS = 2   # resamples of each prepared block to measure on
+PREP_DEFAULT_CLOUDS = 32  # of them, run on s3dis_config's windows
 SEG_STEPS = 5
 SEG_REPS = 3
 # the path whose run gives each kernel's launches and times in the JSON line
@@ -4184,6 +4238,366 @@ def family_phases(dev: torch.device, runs: dict) -> dict:
     return fit_runs
 
 
+def prep_fps_replay(calls: list, res: Results, what: str) -> None:
+    """Every recorded K1 call of a ``prepare_modelnet`` run against the
+    plain FPS, bitwise: the kernel replayed call by call (its span, CUDA
+    events, median of 3; its device time in one profiler session; its
+    bound). The plain version runs once over each (npoint, N) group's
+    clouds stacked into one batch (its rows are independent, so each row
+    is the plain version of that cloud) for the comparison, and is timed
+    at B = 1 on the group's first cloud: the calls' own shape, and the
+    plain loop's work does not depend on the points, so that time stands
+    for each call of the group."""
+    from sph3d_gcn_torch.ops import sample as S
+
+    groups = collections.defaultdict(list)
+    for i, (name, (npoint, cloud), _) in enumerate(calls):
+        if name != "fps" or cloud.shape[0] != 1:
+            raise AssertionError(f"{what}: recorded {name} {cloud.shape}")
+        groups[(npoint, cloud.shape[1])].append(i)
+    plain_out, plain_ms = {}, {}
+    with torch.no_grad():
+        for (npoint, n), idx in groups.items():
+            out = S.farthest_point_sample_plain(
+                npoint, torch.cat([calls[i][1][1] for i in idx]))
+            first = calls[idx[0]][1][1]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            one = S.farthest_point_sample_plain(npoint, first)
+            end.record()
+            torch.cuda.synchronize()
+            if not torch.equal(one, out[:1]):
+                raise AssertionError(f"{what}: the plain FPS at B = 1 "
+                                     f"differs from its stacked row")
+            print(f"  plain FPS, {n} -> {npoint} points, B = 1: "
+                  f"{start.elapsed_time(end):.1f} ms (CUDA events, one "
+                  f"run; the group's {len(idx)} clouds stacked for the "
+                  f"comparison)", flush=True)
+            for j, i in enumerate(idx):
+                plain_out[i] = out[j:j + 1]
+                plain_ms[i] = start.elapsed_time(end)
+        for i, (name, args, kw) in enumerate(calls):
+            kern = functools.partial(S.farthest_point_sample_kernel, *args)
+            steps = max(args[0] - 1, 1)
+            ms = median_ms(kern, 3)
+            res.add(name, describe(name, args, kw), kern(), plain_out[i], ms,
+                    plain_ms[i], exact, work(name, args, kw))
+            res.add_device(name, describe(name, args, kw), kern, None,
+                           work(name, args, kw), steps)
+    res.summary(what)
+
+
+def read_all(paths: list[str], reader, verify_crc: bool
+             ) -> tuple[list, float]:
+    """Every record (or Example) of ``paths`` through ``reader``, and the
+    seconds it took."""
+    t0 = time.perf_counter()
+    records = [r for p in paths for r in reader(p, verify_crc=verify_crc)]
+    return records, time.perf_counter() - t0
+
+
+def prep_phases(dev: torch.device, runs: dict) -> dict:
+    """Phases 47-52 (see the module docstring): the datasets' raw files
+    through the ``prepare_*`` entry points, the native reader, a model
+    trained and a scene evaluated on the prepared data, and TF1 bundles
+    into fresh models. Adds the ModelNet preparation's K1 replay to
+    ``runs``; returns the launch counts of the entry points' runs."""
+    from sph3d_gcn_torch import _build, kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.cli import (
+        evaluate_scene_seg,
+        measure_windows,
+        prepare_modelnet,
+        prepare_ruemonge2014,
+        prepare_s3dis,
+        prepare_scannet,
+        prepare_shapenet,
+        read_list,
+        train_modelnet,
+    )
+    from sph3d_gcn_torch.configs import modelnet_config, s3dis_config
+    from sph3d_gcn_torch.data import raw_trees, tfrecord
+    from sph3d_gcn_torch.data.datasets import (
+        load_modelnet_records,
+        load_scene_blocks,
+        resample_indices,
+    )
+    from sph3d_gcn_torch.data.native_loader import (
+        read_examples_native,
+        read_records_native,
+    )
+    from sph3d_gcn_torch.data.synthetic import scene_blocks, surface_clouds
+    from sph3d_gcn_torch.models import SPH3DModelNet, SPH3DSceneSeg
+    from sph3d_gcn_torch.train.checkpoint import Checkpointer, snapshot_config
+    from sph3d_gcn_torch.train.eval import checked_forward, vote_classify
+    from sph3d_gcn_torch.utils.checkpoint_convert import (
+        convert_checkpoint,
+        tf_variables,
+    )
+    from sph3d_gcn_torch.utils.tf1_bundle import write_bundle
+
+    fit_runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        raw = root / "raw"
+
+        # 47. raw trees in the datasets' published layouts
+        t0 = time.perf_counter()
+        sizes = [PREP_POINTS] * 9 + [N]             # every tenth at N
+        raw_trees.write_modelnet_tree(
+            str(raw / "modelnet"), np.random.default_rng(470),
+            classes=PREP_CLASSES, train_per_class=PREP_TRAIN // len(
+                PREP_CLASSES), test_per_class=PREP_TEST // len(PREP_CLASSES),
+            points=sizes)
+        raw_trees.write_s3dis_tree(str(raw / "s3dis"),
+                                   np.random.default_rng(471),
+                                   points=PREP_ROOM_POINTS)
+        raw_trees.write_scannet_tree(str(raw / "scannet"),
+                                     np.random.default_rng(472),
+                                     points=PREP_SCENE_POINTS)
+        raw_trees.write_shapenet_tree(
+            str(raw / "shapenet"), np.random.default_rng(473),
+            cats=(("Airplane", "02691156"), ("Chair", "03001627"),
+                  ("Table", "04379243")), points=SN_POINTS)
+        raw_trees.write_ruemonge_tree(str(raw / "ruemonge"),
+                                      np.random.default_rng(474),
+                                      points=PREP_FACADE_POINTS)
+        size = sum(f.stat().st_size for f in raw.rglob("*") if f.is_file())
+        print(f"raw trees: ModelNet40 {PREP_TRAIN} + {PREP_TEST} shapes "
+              f"(36 of {PREP_POINTS} points, 4 of {N}), S3DIS 2 rooms of "
+              f"{PREP_ROOM_POINTS} points, ScanNet 2 scenes of "
+              f"{PREP_SCENE_POINTS}, ShapeNet 3 x 4 shapes of {SN_POINTS}, "
+              f"RueMonge2014 {PREP_FACADE_POINTS} points: "
+              f"{size / 2 ** 20:.1f} MiB written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        # 48. prepare_modelnet on the card: K1 on each raw shape, B = 1
+        res = Results()
+        store = {}
+        for num_point in (N, 1024):
+            store[num_point] = root / f"modelnet_{num_point}"
+            reset_kernel_launches()
+            t0 = time.perf_counter()
+            with _build.record_calls() as calls:
+                prepare_modelnet.main([
+                    "--data_path", str(raw / "modelnet"), "--store_folder",
+                    str(store[num_point]), "--num_point", str(num_point)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernel_launches()
+            sampled = sum(s > num_point for s in
+                          (sizes * 4)[:PREP_TRAIN + PREP_TEST])
+            print(f"prepare_modelnet --num_point {num_point}: "
+                  f"{PREP_TRAIN + PREP_TEST} shapes in {wall:.2f} s host "
+                  f"clock ({wall / (PREP_TRAIN + PREP_TEST) * 1e3:.1f} ms a "
+                  f"shape: text read, K1, normalization, record); launches "
+                  f"{launches}", flush=True)
+            if launches != {k: sampled if k == "fps" else 0
+                            for k in launches}:
+                raise AssertionError(f"prepare_modelnet: launches "
+                                     f"{launches}, want {sampled} K1")
+            print(f"per-kernel parity, prepare_modelnet --num_point "
+                  f"{num_point}: each of its {len(calls)} K1 calls "
+                  f"replayed", flush=True)
+            prep_fps_replay(calls, res, f"prepare_modelnet --num_point "
+                            f"{num_point}")
+            fit_runs[f"modelnet_prep_{num_point}"] = launches
+            del calls
+        runs["modelnet_prep"] = (res, {
+            k: sum(fit_runs[f"modelnet_prep_{p}"][k] for p in (N, 1024))
+            for k in fit_runs[f"modelnet_prep_{N}"]})
+        shapes = load_modelnet_records(read_list(store[N] / "train_files.txt"))
+        if not all(s.xyz.shape == (N, 3) and np.isfinite(s.xyz).all()
+                   for s in shapes) or len(shapes) != PREP_TRAIN:
+            raise AssertionError("prepared ModelNet records")
+        norms = np.linalg.norm(np.stack([s.xyz for s in shapes]), axis=-1)
+        print(f"prepared ModelNet records: {len(shapes)} train shapes of "
+              f"{N} points, largest norm {norms.max(-1).min():.6f}-"
+              f"{norms.max(-1).max():.6f}", flush=True)
+
+        # 49. the host preparations, and every record file read by both
+        # readers
+        store_of = {"s3dis": root / "s3dis", "scannet": root / "scannet",
+                    "shapenet": root / "shapenet",
+                    "ruemonge": root / "ruemonge"}
+        for name, cli in (("s3dis", prepare_s3dis),
+                          ("scannet", prepare_scannet),
+                          ("shapenet", prepare_shapenet),
+                          ("ruemonge", prepare_ruemonge2014)):
+            t0 = time.perf_counter()
+            cli.main(["--data_path", str(raw / name), "--store_folder",
+                      str(store_of[name])])
+            print(f"prepare_{name if name != 'ruemonge' else 'ruemonge2014'}"
+                  f": {time.perf_counter() - t0:.2f} s host clock",
+                  flush=True)
+        blocks = (store_of["s3dis"] / "log_block.txt").read_text(
+            ).splitlines()
+        print(f"S3DIS blocks (area, room, inner points, stored points): "
+              f"{blocks}", flush=True)
+        files = sorted(str(p) for p in root.rglob("*.tfrecord"))
+        size = sum(os.path.getsize(p) for p in files) / 2 ** 20
+        print(f"record readers, {len(files)} files, {size:.1f} MiB (warm "
+              f"page cache; crc32c of the Python reader by "
+              f"{'numpy' if tfrecord._crc32c is tfrecord.crc32c else 'C'}):",
+              flush=True)
+        for what, readers, crc in (
+                ("records, CRCs checked",
+                 (read_records_native, tfrecord.read_records), True),
+                ("records, no CRC",
+                 (read_records_native, tfrecord.read_records), False),
+                ("decoded Examples, no CRC (data.datasets' traffic)",
+                 (read_examples_native, tfrecord.read_examples), False)):
+            (native, native_s), (python, python_s) = (
+                read_all(files, r, crc) for r in readers)
+            print(f"  {what}: {len(native)}, native {native_s:.3f} s "
+                  f"({size / native_s:.1f} MiB/s), Python {python_s:.3f} s "
+                  f"({size / python_s:.1f} MiB/s)", flush=True)
+            if what.startswith("records") and native != python:
+                raise AssertionError("the native reader's records differ")
+            del native, python
+
+        # 50. cli.train_modelnet on the prepared records
+        log = root / "log_modelnet"
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        train_modelnet.main([
+            "--data_dir", str(store[N]), "--log_dir", str(log), "--mode",
+            "dense", "--family", "hard", "--batch_size", str(B),
+            "--num_input", str(N), "--max_epoch", "1"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        steps, evals = PREP_TRAIN // B, -(-PREP_TEST // B)
+        text = (log / "log_train.txt").read_text()
+        fit_runs["modelnet_prepared_fit"] = fit_launches(
+            kernel_launches(), text, steps, evals,
+            f"cli.train_modelnet on the prepared records, 1 epoch of "
+            f"{steps} steps and {evals} eval batch")
+        scalars = [json.loads(x) for x in
+                   (log / "metrics.jsonl").read_text().splitlines()]
+        if not (np.isfinite(scalars[0]["train_loss"])
+                and np.isfinite(scalars[1]["eval_loss"])):
+            raise AssertionError(f"non-finite loss: {scalars}")
+        print(f"cli.train_modelnet on the prepared records: {wall:.2f} s "
+              f"host clock, {scalars[0]['ms_per_batch']:.2f} ms a batch, "
+              f"train loss {scalars[0]['train_loss']:.4f}, eval loss "
+              f"{scalars[1]['eval_loss']:.4f}", flush=True)
+
+        # 51. windows measured on the prepared area's blocks, then its
+        # scene evaluation with them
+        s3_default = s3dis_config(S3_N, fast=True, dense=True)
+        test = load_scene_blocks(read_list(
+            store_of["s3dis"] / "test_files_fold1.txt"))
+        rng = np.random.default_rng(510)
+        clouds = np.stack([
+            blk.points[resample_indices(len(blk.label), S3_N, rng)]
+            for blk in test for _ in range(PREP_WINDOW_DRAWS)])
+        np.savez(root / "s3dis_area1.npz", points=clouds)
+        t0 = time.perf_counter()
+        windows, dec_windows, dec_margin, growth = measure_windows.main([
+            "--dataset", "s3dis", "--num_input", str(S3_N), "--data",
+            str(root / "s3dis_area1.npz")])
+        print(f"windows measured on {len(clouds)} draws of {S3_N} points "
+              f"from the prepared area 1's {len(test)} blocks in "
+              f"{time.perf_counter() - t0:.2f} s: {windows} / decoder "
+              f"{dec_windows} + {dec_margin}, growth {growth}, against "
+              f"s3dis_config's {s3_default.windows} / "
+              f"{s3_default.dec_windows} + {s3_default.dec_margin}, growth "
+              f"{s3_default.growth_steps} (calibrated on uniform blocks)",
+              flush=True)
+        model = SPH3DSceneSeg(s3_default, generator=torch.Generator(
+            ).manual_seed(510), in_columns=6).to(dev).eval()
+        failed = []
+        with torch.inference_mode():
+            for i in range(0, PREP_DEFAULT_CLOUDS, EVAL_B):
+                model(torch.as_tensor(clouds[i:i + EVAL_B],
+                                      dtype=torch.float32, device=dev))
+                failed.append(not bool(model.dense_ok))
+        print(f"s3dis_config's windows on the prepared area 1: "
+              f"{sum(failed)} of {len(failed)} forwards of B={EVAL_B} (the "
+              f"first {PREP_DEFAULT_CLOUDS} draws) fail the certificate "
+              f"(none re-run)", flush=True)
+        del model
+        s3_cfg = dataclasses.replace(
+            s3_default, windows=windows, dec_windows=dec_windows,
+            dec_margin=dec_margin, growth_steps=growth)
+        s3_log = root / "log_s3dis"
+        snapshot_config(s3_log, s3_cfg)
+        gen = torch.Generator().manual_seed(51)
+        model = SPH3DSceneSeg(s3_cfg, generator=gen, in_columns=6)
+        randomize_bn(model, gen)
+        Checkpointer(s3_log).save(0, model)
+        del model, test, clouds
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        out = evaluate_scene_seg.main([
+            "--dataset", "s3dis", "--data_dir", str(store_of["s3dis"]),
+            "--log_dir", str(s3_log), "--test_area", "1", "--scene_dir",
+            str(store_of["s3dis"] / "scenes"), "--save_blocks",
+            "--batch_size", str(EVAL_B)])
+        wall = time.perf_counter() - t0
+        launches = kernel_launches()
+        eval_launches(out, launches, "cli.evaluate_scene_seg on the "
+                      "prepared S3DIS area 1")
+        check_scene_eval(out, s3_log, store_of["s3dis"] / "scenes",
+                         s3_log / "Area_1_metric.npz", 13,
+                         "prepared S3DIS area 1")
+        n_blocks = len(out["logits"])
+        print(f"scene eval, prepared S3DIS area 1, the measured windows: "
+              f"{n_blocks} blocks in "
+              f"{out['forwards']} forwards of B={EVAL_B}, {wall:.2f} s host "
+              f"clock ({n_blocks / wall:.2f} blocks/s, the merge and the "
+              f"full-cloud projection included); merged OA "
+              f"{out['accumulator'].overall_accuracy:.4f}", flush=True)
+        fit_runs["s3dis_prepared_scene_eval_cli"] = launches
+
+        # 52. TF1 bundles at full width into fresh models on the card
+        gen = torch.Generator().manual_seed(52)
+        mn_cfg = modelnet_config(N, fast=True, dense=True, family="hard")
+        pairs = []
+        for name, make in (
+                ("SPH3DModelNet",
+                 lambda g=None: SPH3DModelNet(mn_cfg, generator=g)),
+                ("SPH3DSceneSeg",
+                 lambda g=None: SPH3DSceneSeg(s3_default, generator=g))):
+            source = make(gen)
+            randomize_bn(source, gen)
+            source = source.to(dev).eval()
+            prefix = str(root / "tf1" / name / "model.ckpt-250")
+            t0 = time.perf_counter()
+            write_bundle(prefix, tf_variables(source.state_dict()))
+            write_s = time.perf_counter() - t0
+            fresh = make().to(dev).eval()
+            t0 = time.perf_counter()
+            fresh.load_state_dict(convert_checkpoint(fresh, prefix))
+            torch.cuda.synchronize()
+            read_s = time.perf_counter() - t0
+            size = sum(p.stat().st_size for p in Path(prefix).parent.iterdir())
+            print(f"TF1 bundle of a seeded {name} at full width "
+                  f"({len(fresh.state_dict())} variables, "
+                  f"{size / 2 ** 20:.2f} MiB): written in {write_s:.3f} s, "
+                  f"read and loaded into a fresh model on the card in "
+                  f"{read_s:.3f} s", flush=True)
+            pairs.append((source, fresh))
+        (mn_src, mn_new), (s3_src, s3_new) = pairs
+        clouds = surface_clouds(np.random.default_rng(520), B, N)
+        votes = [vote_classify(checked_forward(m, dev), clouds, VOTES,
+                               np.random.default_rng(521))
+                 for m in (mn_src, mn_new)]
+        x = torch.from_numpy(scene_blocks(np.random.default_rng(522), S3_B,
+                                          S3_N)).to(dev)
+        with torch.inference_mode():
+            seg = [m(x) for m in (s3_src, s3_new)]
+        ok = [bool(m.dense_ok) for m in (s3_src, s3_new)]
+        same = (np.array_equal(*votes), torch.equal(*seg))
+        print(f"TF1-loaded models against their sources: ModelNet "
+              f"hard-window votes ({VOTES} votes of B={B}) bitwise equal "
+              f"{same[0]}; S3DIS serving forward (B={S3_B}, N={S3_N}, "
+              f"dense_ok {ok}) bitwise equal {same[1]}", flush=True)
+        if not (all(same) and all(ok)):
+            raise AssertionError("a TF1-loaded model's logits differ")
+    return fit_runs
+
+
 def kernel_lines(runs: dict[str, tuple[Results, dict]],
                  others: tuple, fit_runs: dict[str, dict[str, int]]
                  ) -> dict:
@@ -4394,6 +4808,11 @@ def main() -> None:
     # 41-46. ShapeNet, RueMonge and the scene evaluation
     family_runs: dict = {}
     fit_runs.update(family_phases(dev, family_runs))
+    print(f"[{time.perf_counter() - start:.1f} s] phases 41-46 done",
+          flush=True)
+
+    # 47-52. the datasets' raw files prepared, the native reader, TF1
+    fit_runs.update(prep_phases(dev, family_runs))
 
     print(f"chip_smoke wall: {time.perf_counter() - start:.1f} s (host "
           f"clock, from the script's start; the kernels' build included)",

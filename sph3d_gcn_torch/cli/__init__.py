@@ -8,11 +8,17 @@ of
   and its metrics) and ``aggregate_folds`` (the folds' counts summed);
 - ``train_shapenet`` and ``evaluate_shapenet`` (per-category or one-hot
   part segmentation);
-- ``measure_windows`` (the dense engine's windows for a dataset).
+- ``measure_windows`` (the dense engine's windows for a dataset);
+- ``prepare_modelnet``, ``prepare_s3dis``, ``prepare_scannet``,
+  ``prepare_shapenet`` and ``prepare_ruemonge2014`` (the datasets'
+  published files into the records, scene files and lists the others
+  read).
 
 Each that runs a model runs on the CUDA card unless ``--device cpu``
 asks for the plain versions on the CPU; asking for ``cuda`` where there
-is none raises. ``aggregate_folds`` reads files only."""
+is none raises. So does ``prepare_modelnet``, whose farthest-point
+sampling runs on the card. ``aggregate_folds`` and the other
+``prepare_*`` read and write files only."""
 
 from __future__ import annotations
 

@@ -1,5 +1,10 @@
 """Dataset pipelines over the reference's TFRecords (counterpart of
-``sph3d_gcn_tpu/data/datasets.py``, without its native C reader).
+``sph3d_gcn_tpu/data/datasets.py``). Records are read by
+``data.tfrecord.read_examples`` without CRC checks. The native reader
+(``data.native_loader``) is not used here: without CRC checks it is the
+slower of the two (about half the Python reader's rate for decoded
+Examples, a third for records; ``chip_smoke.py`` phase 49). It is the
+faster way to check a file's CRCs.
 
 - ModelNet: records {xyz_raw, label}; the batches apply the xzy->xyz
   axis swap (ref train_modelnet.py:278).

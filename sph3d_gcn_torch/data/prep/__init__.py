@@ -1,5 +1,7 @@
-"""Data preparation (counterparts of ``sph3d_gcn_tpu/data/prep``): the
-pieces the evaluation entry points read. The nearest-neighbour label
-transfer (``voxelize.knn_transfer``), ScanNet's label maps and the
-ShapeNet record reader; the writers and the scene preparation are not
-ported yet."""
+"""Offline data preparation (counterparts of ``sph3d_gcn_tpu/data/prep``,
+the reference's MATLAB ``preprocesing/`` and ``io/make_tfrecord_*.py``):
+grid-average voxelization and label transfer (``voxelize``), the scene
+block cutter (``blocks``), a PLY reader (``ply``), and the per-dataset
+steps of ModelNet40 (FPS on the caller's device), ScanNet, ShapeNet and
+RueMonge2014. The ``cli.prepare_*`` entry points drive them. Host numpy,
+but for ModelNet's sampling."""

@@ -1,13 +1,20 @@
-"""ScanNet's label maps (counterpart of the 21 <-> 40-class maps of
+"""ScanNet preparation and label maps (counterpart of
 ``sph3d_gcn_tpu/data/prep/scannet.py``, ref
 preprocesing/scannet_prepare_data.m and post-merging/scannet_merge.m).
 The NYU-40 label set is reduced to 20 benchmark classes and 0 for every
-other one: 21 network classes. The scene preparation is not ported yet.
+other one: 21 network classes. ``prepare_scene`` downsamples a scene on
+a 3 cm grid and transfers its labels by nearest neighbour (ref
+scannet_prepare_data.m:75-112); block cutting is ``prep.blocks``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+from sph3d_gcn_torch.data.prep.voxelize import (
+    grid_average_downsample,
+    knn_transfer,
+)
 
 # ref scannet_prepare_data.m:11 (1-based NYU-40 ids kept for the benchmark)
 SUBSET_LABEL_IDS = np.array(
@@ -41,3 +48,31 @@ def benchmark21_to_nyu40(label21: np.ndarray) -> np.ndarray:
     to 0 (ref scannet_merge.m:8,53-55)."""
     table = np.concatenate([[0], SUBSET_LABEL_IDS]).astype(np.int32)
     return table[np.asarray(label21, np.int64)]
+
+
+def prepare_scene(
+    xyz: np.ndarray,
+    rgb: np.ndarray,
+    nyu_label: np.ndarray | None,
+    voxel: float = 0.03,
+):
+    """Downsample a scene and transfer labels like the MATLAB prep
+    (ref scannet_prepare_data.m:75-112).
+
+    For train scenes: drop points with labels outside [1, 40], remap to
+    the 21-class set, 3cm grid-average downsample, knn label transfer from
+    the full cloud. For test scenes (label None): downsample only.
+
+    Returns (voxel_xyz, voxel_rgb, voxel_label_or_None).
+    """
+    xyz = np.asarray(xyz, np.float32)
+    rgb = np.asarray(rgb, np.float32)
+    if nyu_label is not None:
+        nyu_label = np.asarray(nyu_label)
+        keep = (nyu_label >= 1) & (nyu_label <= 40)
+        xyz, rgb, nyu_label = xyz[keep], rgb[keep], nyu_label[keep]
+        label21 = nyu40_to_benchmark21(nyu_label)
+    v_xyz, v_rgb, _ = grid_average_downsample(xyz, rgb, voxel)
+    if nyu_label is None:
+        return v_xyz, v_rgb, None
+    return v_xyz, v_rgb, knn_transfer(xyz, label21, v_xyz)

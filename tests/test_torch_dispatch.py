@@ -202,6 +202,21 @@ def test_port_imports_no_jax():
         "from sph3d_gcn_torch.utils.windows import measure_requirements\n"
         "measure_requirements(modelnet_config(512), x.astype(np.float32), "
         "device='cpu')\n"
+        "import sph3d_gcn_torch.data.native_loader, "
+        "sph3d_gcn_torch.data.raw_trees\n"
+        "from sph3d_gcn_torch.data.prep import blocks, modelnet, ply, "
+        "ruemonge, scannet, shapenet, voxelize\n"
+        "xyz, _ = modelnet.prepare_shape(x[0].astype(np.float32), None, 256, "
+        "device='cpu')\n"
+        "assert xyz.shape == (256, 3)\n"
+        "from sph3d_gcn_torch.cli import prepare_modelnet, prepare_s3dis, "
+        "prepare_scannet, prepare_shapenet, prepare_ruemonge2014\n"
+        "assert all(callable(c.main) for c in (prepare_modelnet, "
+        "prepare_s3dis, prepare_scannet, prepare_shapenet, "
+        "prepare_ruemonge2014))\n"
+        "from sph3d_gcn_torch.utils import tf1_bundle, checkpoint_convert\n"
+        "assert checkpoint_convert.tf_name('conv1._2.bn.mean') == "
+        "'conv1_2/bn/moving_mean'\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'sph3d_gcn_tpu', 'bench'))\n"
         "assert not bad, bad\n"
