@@ -88,7 +88,15 @@ schedule, weight decay):
    query tile, their sum over tiles, dx) and 3 pool-backward per step;
    median step time and
    points/s with the kernels, and one plain step's time;
-10. profile of the train step (:func:`report_trace`).
+10. ``cli.profile_step --fast --dense`` on the same config, B=16,
+    N=10000 (its own seeded model and the JAX script's batch): a warm
+    step, three timed on the host clock, two traced under the profiler
+    alone (the step's wall, busy time, idle share and device time by
+    kernel from the second), then two traced with the layer spans and
+    the call record on (the device time by layer and the bounds from
+    the second); launches 8x the step's counts; each kernel's device
+    time beside the bound of its calls from ``ops.costs`` (the model
+    every bound here comes from).
 
 Then the S3DIS phases: ``SPH3DSceneSeg`` of
 ``s3dis_config(fast=True, dense=True)`` (B=16, N=8192, full published
@@ -384,6 +392,36 @@ into the models (raw trees written from seeds by
     votes of B=16 and an S3DIS forward (B=16, N=8192) bitwise equal to the
     source models'; write and read seconds.
 
+Then the last reference operator and the parity tools (their card
+side runs right after the build; their host side in 3 spawned processes
+beside phases 11-52, after the main path's timed phases 3-10, collected
+at the end, with each job's span on the script's clock):
+
+53. the cube query (edge 0.2, grid 3, K=64) and the dilated sphere query
+    with bins (radius 0.1 x 2.0) at ModelNet level-0 scale (B=16, N=10000
+    on ellipsoid surfaces, the M=2500 FPS queries of each cloud), timed:
+    the cube query's idx, bin and count bitwise equal to the same call on
+    the CPU; the dilated query equal to the undilated one at radius 0.2,
+    held against exact (f64) distances on the card (no point kept past,
+    or skipped inside, 4e-6 of the threshold ``r - 1e-6``), and against
+    the same call on the CPU, whose in-range test's matmul form rounds
+    otherwise: at most 1e-3 of the rows differ, each first at a point one
+    device keeps and the other does not within 4e-6 of the threshold,
+    and the entries both keep have equal bins and distances within 1e-6;
+54. the dense engine in f32 (``modelnet_config(fast=True, dense=True)``
+    with ``compute_dtype="float32"``) at B=1, N=10000 on the JAX parity
+    script's first cloud, sorted beforehand by ``ops.locality.spatial_sort``
+    (the model's sort of it asserted the identity), windows measured on
+    it (``utils.windows``) and widened if the config's miss it, the
+    seeded model's BN statistics calibrated (``cli.parity_check``),
+    ``dense_ok`` and the launches of one forward; its logits against the
+    NumPy oracle's (``utils.numpy_reference``) at rtol = atol = 1e-4;
+55. the same for ``s3dis_config(fast=True, dense=True)`` at N=8192 (K7 in
+    its launches);
+56. ``cli.parity_check --model modelnet --oracle --batch_size 1`` (the
+    default config: the per-edge engine in f32), in this process after
+    every other phase.
+
 Each replayed K1 call prints its launch plan (cluster size, threads,
 points a thread) and its time per greedy step, of the span and of the
 device alone.
@@ -408,12 +446,15 @@ epoch of phases 36 and 37), ``modelnet_eval_cli`` (phase 38),
 ``shapenet_category_fit`` (phase 42), ``shapenet_eval_cli`` (phase 43),
 ``ruemonge_fit`` (phase 45), ``s3dis_scene_eval_cli`` (both areas),
 ``ruemonge_scene_eval_cli`` (phase 46), ``modelnet_prep_10000`` and
-``modelnet_prep_1024`` (phase 48), ``modelnet_prepared_fit`` (phase 50)
-and ``s3dis_prepared_scene_eval_cli`` (phase 51); ``paths`` also holds
-the replays of ``shapenet_onehot_train_step``, ``shapenet_serve``,
-``ruemonge_train_step``, ``s3dis_scene_eval`` (their launches: the timed
-steps, the eval CLIs' forwards) and ``modelnet_prep`` (K1's calls of
-both preparations of phase 48).
+``modelnet_prep_1024`` (phase 48), ``modelnet_prepared_fit`` (phase 50),
+``s3dis_prepared_scene_eval_cli`` (phase 51), ``modelnet_profile_step``
+(phase 10), ``cube_dilated_queries`` (phase 53),
+``modelnet_oracle_dense`` and ``s3dis_oracle_dense`` (phases 54-55) and
+``modelnet_oracle_cli`` (phase 56); ``paths``
+also holds the replays of ``shapenet_onehot_train_step``,
+``shapenet_serve``, ``ruemonge_train_step``, ``s3dis_scene_eval`` (their
+launches: the timed steps, the eval CLIs' forwards) and
+``modelnet_prep`` (K1's calls of both preparations of phase 48).
 
 Any failure raises and the script exits non-zero. A line before the
 last three gives the script's own wall time. The last two lines are the
@@ -431,6 +472,7 @@ import os
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import collections  # noqa: E402
+import contextlib  # noqa: E402
 import copy  # noqa: E402
 import dataclasses  # noqa: E402
 import functools  # noqa: E402
@@ -443,6 +485,18 @@ from pathlib import Path  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+from sph3d_gcn_torch.ops.costs import (  # noqa: E402
+    MEM_BYTES_PER_S,
+    UNPOOLS,
+    bound_of,
+    valid_edges,
+    work,
+)
+from sph3d_gcn_torch.train.profiling import (  # noqa: E402
+    report_trace,
+    trace_events,
+)
 
 B, N = 16, 10000
 BATCHES, VOTES = 2, 3
@@ -518,6 +572,23 @@ PREP_WINDOW_DRAWS = 2   # resamples of each prepared block to measure on
 PREP_DEFAULT_CLOUDS = 32  # of them, run on s3dis_config's windows
 SEG_STEPS = 5
 SEG_REPS = 3
+# phases 53-56: the cube and dilated sphere queries at ModelNet level-0
+# scale (B, N and M queries), the oracles' tolerance (rtol = atol), the
+# parity CLI's own default-config run
+QUERY_M = 2500
+CUBE_QUERY = {"length": 0.2, "nn_sample": 64, "gridsize": 3}
+DILATED_QUERY = {"radius": 0.1, "nn_sample": 64, "kernel": (8, 2, 2),
+                 "dilation_rate": 2.0}
+# the dilated query against the CPU's, whose in-range test's matmul form
+# rounds otherwise: the share of rows that may differ, each first at a
+# point within THRESHOLD_BAND of the threshold r - 1e-6 in exact distances
+# (the f32 rounding of |q|^2 - 2 q.p + |p|^2 at unit coordinates, over
+# 2r), and how far the distances both devices keep may differ
+ROW_SHARE = 1e-3
+THRESHOLD_BAND = 4e-6
+DIST_TOL = 1e-6
+ORACLE_TOL = 1e-4
+ORACLE_CLI = ["--model", "modelnet", "--oracle", "--batch_size", "1"]
 # the path whose run gives each kernel's launches and times in the JSON line
 # (K2 and K7 from the option paths, whose queries write distance maps)
 PATH_OF = {"fps": "s3dis_serve", "dense_query": "modelnet_ids_train_step",
@@ -527,14 +598,6 @@ PATH_OF = {"fps": "s3dis_serve", "dense_query": "modelnet_ids_train_step",
            "rank_pool_bwd": "s3dis_train_step",
            "window_gather": "modelnet_per_edge_serve",
            "window_gather_bwd": "modelnet_per_edge_train_step"}
-# the card's published rates (H100 SXM data sheet): device memory, and
-# float32 outside the tensor cores (every kernel here computes in f32 or
-# integer arithmetic on the CUDA cores)
-MEM_BYTES_PER_S = 3.35e12
-# the plain-PyTorch window sums around K8/K9 (no kernel of their own),
-# timed in the replays: the two unpools and the dense avg pool
-UNPOOLS = ("mean_interpolate", "weighted_interpolate", "avg_pool")
-F32_OPS_PER_S = 67e12
 SOURCES = {
     "fps": ("sph3d_gcn_torch/csrc/fps.cu",
             "sph3d_gcn_tpu/ops/pallas/fps_kernel.py:44"),
@@ -697,132 +760,6 @@ def versions():
     }
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors
-               if t is not None)
-
-
-def live_candidates(q_p, u_end, window: int) -> int:
-    """Query rows times the window columns a query must test: the tiles'
-    slab ends (u_end chunks, clamped as the queries clamp them)."""
-    return int(u_end.clamp(1, window // 128).sum().item()) * 128 * 128
-
-
-def work(name: str, args: tuple, kw: dict) -> tuple[int, int]:
-    """(bytes, operations) the function of one recorded call needs: each
-    input read once and each output written once; operations counted for
-    this call's data (live window columns of a query, selected map entries
-    of a conv or pool)."""
-    if name == "fps":
-        num, xyz = args
-        b, n, _ = xyz.shape
-        # the x, y, z of every point read, the int64 indices written; per
-        # step and point a distance (8), a running min (1) and argmax (1)
-        return 12 * b * n + 8 * b * num, 10 * b * num * n
-    if name in ("dense_query", "growth_query"):
-        db_p, q_p, s_blk, u_end = args[:4]
-        w = kw["window"]
-        out = q_p.shape[0] * q_p.shape[1] * w
-        live = live_candidates(q_p, u_end, w)
-        if name == "dense_query":
-            # distance 9, radius test 2, rank 1; bins ~20 compares more
-            per = 12 + (20 if kw["kernel"] is not None else 0)
-            extra = nbytes(args[4])                # the sort axes
-        else:
-            # distance 9, 3 per radius, rank 1; plus the per-row steps
-            per = 10 + 3 * (kw["growth_steps"] + 1)
-            extra = q_p.shape[0] * q_p.shape[1]
-        # the f32 distance map: 4 more bytes per entry, and a square root
-        # per live candidate
-        out *= 5 if kw.get("need_dist") else 1
-        per += 1 if kw.get("need_dist") else 0
-        return nbytes(db_p, q_p, s_blk, u_end) + extra + out, per * live
-    if name == "dense_conv":
-        packed, s_blk, x, filt_b, inv = args
-        c, r = filt_b.shape[2], filt_b.shape[3]
-        nnz = int((packed != 0).sum().item())
-        out = inv.numel() * c * r * x.element_size()
-        # one filter expanded over the clouds (ungrouped maps) is read once
-        filt = filt_b[0] if filt_b.stride(0) == 0 else filt_b
-        return (nbytes(packed, s_blk, x, filt, inv) + out,
-                2 * nnz * c * r + inv.numel() * c * r)
-    if name == "rank_pool":
-        # a bin map (no counts) selects every nonzero entry; arg and
-        # max_index are int32 outputs beside the values
-        packed, s_blk, counts, x = args
-        batch, n_t, _, w = packed.shape
-        c = x.shape[2]
-        cnt = torch.full((batch, n_t * 128), 127, device=packed.device)
-        if counts is not None:
-            cnt = torch.nn.functional.pad(counts, (0, cnt.shape[1]
-                                                   - counts.shape[1]))
-        cnt = cnt.reshape(batch, n_t, 128, 1)
-        sel = int(((packed >= 1) & (packed <= cnt)).sum().item())
-        out = batch * n_t * 128 * c * (
-            x.element_size() + 4 * (bool(kw.get("with_arg"))
-                                    + bool(kw.get("with_index"))))
-        return nbytes(packed, s_blk, counts, x) + out, sel * c
-    if name == "dense_conv_bwd":
-        packed, s_blk, x, filt_b, inv, dout = args
-        c, r = filt_b.shape[2], filt_b.shape[3]
-        nnz = int((packed != 0).sum().item())
-        out = nbytes(x) + nbytes(filt_b)            # dx, dfilt_b
-        return (nbytes(packed, s_blk, x, filt_b, inv, dout) + out,
-                4 * nnz * c * r + inv.numel() * c * r)
-    if name == "rank_pool_bwd":
-        s_blk, arg, dout, num_in, _ = args
-        out = arg.shape[0] * num_in * arg.shape[2] * dout.element_size()
-        return (nbytes(s_blk, arg, dout) + out,
-                int((arg >= 0).sum().item()))
-    if name in UNPOOLS:
-        # the weighted unpool reads the distance map, and per entry forms
-        # its weight (a sum and a division)
-        x, dnbh = args
-        nnz = int((dnbh.packed != 0).sum().item())
-        out = dnbh.num_query * x.shape[0] * x.shape[2] * x.element_size()
-        weighted = name == "weighted_interpolate"
-        return (nbytes(x, dnbh.packed, dnbh.count,
-                       dnbh.dist if weighted else None) + out,
-                2 * nnz * x.shape[2] + out // x.element_size()
-                + (3 * dnbh.packed.numel() if weighted else 0))
-    if name == "mean_interpolate_bwd":
-        # an add per selected entry and channel, and one per window row,
-        # channel and covering tile into the cloud; dx written in f32
-        packed, s_blk, dout, num_in = args
-        c = dout.shape[2]
-        nnz = int((packed != 0).sum().item())
-        return (nbytes(packed, s_blk, dout, kw.get("weights"))
-                + dout.shape[0] * num_in * c * 4,
-                2 * nnz * c + packed.shape[0] * packed.shape[1]
-                * packed.shape[3] * c)
-    if name == "window_gather":
-        # a copy: no arithmetic; the idx of the valid lanes only, the whole
-        # padded (B, M_pad, K, C) output (its zero lanes are outputs too)
-        x, idx, count = args
-        m_pad = -(-idx.shape[1] // 128) * 128
-        out = x.shape[0] * m_pad * idx.shape[2] * x.shape[2]
-        return (nbytes(x, count) + idx.element_size() * valid_edges(name, args)
-                + out * x.element_size(), 0)
-    if name == "window_gather_bwd":
-        # the valid edges' gradient rows and list entries only (invalid
-        # lanes and padded rows add nothing); one add per edge and channel
-        dg, order, starts, num_in = args
-        n_valid = valid_edges(name, args)
-        out = dg.shape[0] * num_in * dg.shape[3] * dg.element_size()
-        return (n_valid * (dg.shape[3] * dg.element_size()
-                           + order.element_size()) + nbytes(starts) + out,
-                n_valid * dg.shape[3])
-    raise KeyError(name)
-
-
-def valid_edges(name: str, args: tuple) -> int:
-    """The valid (k < count) edges of a recorded edge gather or its
-    backward."""
-    if name == "window_gather":
-        return int(args[2].sum().item())
-    return int(args[2][-1].item())
-
-
 def library_call(name: str, args: tuple, kw: dict):
     """One PyTorch call computing the same function, as a thunk, or None
     where PyTorch has none (no PyTorch call reads packed window maps). For
@@ -923,16 +860,6 @@ def describe(name: str, args: tuple, kw: dict) -> str:
     kind = "bins" if args[2] is None else "ranks"
     return (f"{kind} {str(args[3].dtype)[6:]} C={args[3].shape[2]} W={w}"
             + "".join(f" +{k[5:]}" for k in kw))
-
-
-def bound_of(work_done: tuple[int, int]) -> tuple[float, str]:
-    """The least time (ms) of a call, and the side that binds it: its
-    bytes over the memory rate or its operations over the f32 rate,
-    whichever is larger."""
-    data, ops = work_done
-    t_bytes = data / MEM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 class Results:
@@ -1153,16 +1080,6 @@ def kernel_parity(model, x: torch.Tensor, res: Results, what: str) -> None:
     res.summary(what)
 
 
-def union_us(intervals: list[tuple[float, float]]) -> float:
-    """Total length of the union of (start, end) intervals."""
-    total, end = 0.0, -float("inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
-
-
 def profile_forward(model, x: torch.Tensor, family: str,
                     reps: int = 3) -> None:
     """``torch.profiler`` over 1 + ``reps`` synchronised forwards; see
@@ -1194,59 +1111,6 @@ def profile_steps(step_fn, what: str, reps: int = 3) -> None:
                 step_fn()
                 torch.cuda.synchronize()
     report_trace(trace_events(prof), what, reps, span="train_step")
-
-
-def trace_events(prof) -> list:
-    """The chrome-trace events of a finished ``torch.profiler`` session."""
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(trace))
-        return json.loads(trace.read_text())["traceEvents"]
-
-
-def report_trace(events: list, what: str, reps: int,
-                 span: str = "serve_forward", top: int = 12) -> None:
-    """Per profiled span named ``span`` (the first is skipped: a profiler
-    session can miss its first launches): the host-clock wall of the span,
-    the union of its kernel and copy intervals on the device timeline
-    (busy), the idle share ``1 - busy / wall``; then the device time by
-    kernel name.
-
-    A span's device work is found by the correlation ids of the launches
-    made inside it (on any host thread: the backward launches from
-    autograd's own thread), not by device timestamps: a trace aligns its
-    host and device clocks only approximately."""
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
-                   if e.get("name") == span
-                   and e.get("cat") == "user_annotation")[1:]
-    launches = [(e["ts"], e["args"]["correlation"]) for e in events
-                if e.get("cat") in ("cuda_runtime", "cuda_driver")
-                and "correlation" in e.get("args", {})]
-    device = [(e["args"]["correlation"], e["ts"], e["ts"] + e["dur"],
-               e["name"]) for e in events
-              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if len(spans) != reps or not device:
-        raise AssertionError(f"profile of {what}: {len(spans)} spans, "
-                             f"{len(device)} device events")
-    by_name: dict[str, list[float]] = {}
-    for i, (s, e) in enumerate(spans):
-        ids = {c for t, c in launches if s <= t < e}
-        mine = [(a, b, name) for c, a, b, name in device if c in ids]
-        busy = union_us([(a, b) for a, b, _ in mine])
-        for a, b, name in mine:
-            tot = by_name.setdefault(name, [0.0, 0])
-            tot[0] += b - a
-            tot[1] += 1
-        print(f"profile {what} {i + 1}: wall {(e - s) / 1e3:.3f} "
-              f"ms (host clock, under the profiler), device busy "
-              f"{busy / 1e3:.3f} ms, idle share {1 - busy / (e - s):.3f}, "
-              f"{len(mine)} device events", flush=True)
-    print(f"profile {what}: device time per span by name (top {top})",
-          flush=True)
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[
-            :top]:
-        print(f"  {us / reps / 1e3:8.3f} ms  {n / reps:6.1f} x  {name[:90]}",
-              flush=True)
 
 
 def leaf_errors(got: dict, ref: dict, floor: float = 0.0) -> dict:
@@ -1379,10 +1243,11 @@ def check_recovery(what: str, dense_step, direct_step, model, state0: dict,
 
 
 def train_phases(dev: torch.device, res: Results
-                 ) -> tuple[dict[str, int], tuple]:
+                 ) -> tuple[dict[str, int], tuple, dict[str, int]]:
     """Phases 6-10 (see the module docstring). Returns the launch counts
-    of the 20-step run and one recorded conv call's (map, window starts,
-    features) for :func:`max_index_replay`."""
+    of the 20-step run, one recorded conv call's (map, window starts,
+    features) for :func:`max_index_replay`, and the launch counts of
+    ``cli.profile_step``'s run."""
     from sph3d_gcn_torch import _build, kernel_launches, reset_kernel_launches
     from sph3d_gcn_torch.configs import modelnet_config
     from sph3d_gcn_torch.data.synthetic import surface_clouds
@@ -1499,9 +1364,30 @@ def train_phases(dev: torch.device, res: Results
           f"{plain_ms:.2f} ms for one step with the plain versions",
           flush=True)
 
-    # 10. profile of the train step
-    profile_steps(lambda: step.train_step(batch, gen), "train step")
-    return launches, conv_map
+    # 10. profile of the train step: cli.profile_step on the same config
+    # (its own seeded model and batch, the JAX script's): a warm step,
+    # three timed, two traced alone and two with the layer spans, the
+    # second of each counted
+    from sph3d_gcn_torch.cli import profile_step
+
+    del step, plain_step, kernel_step
+    reset_kernel_launches()
+    prof = profile_step.main(["--fast", "--dense", "--batch_size", str(B),
+                              "--top", "12"])
+    prof_launches = kernel_launches()
+    steps = prof["steps_run"]
+    rows = {r["kernel"]: r for r in prof["kernels"]}
+    for name, per in PER_STEP.items():
+        if (prof_launches[name] != steps * per
+                or rows[name]["launches"] != per):
+            raise AssertionError(
+                f"profile_step: {name} launched {prof_launches[name]} times "
+                f"in {steps} steps ({rows[name]['launches']} traced), want "
+                f"{per} a step")
+    if not prof["dense_ok"] or prof["busy_ms"] is None:
+        raise AssertionError("profile_step: dense_ok False or no device "
+                             "time")
+    return launches, conv_map, prof_launches
 
 
 def s3dis_phases(dev: torch.device, res: Results) -> dict[str, int]:
@@ -4598,6 +4484,368 @@ def prep_phases(dev: torch.device, runs: dict) -> dict:
     return fit_runs
 
 
+HOST_THREADS = ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS")
+
+
+@contextlib.contextmanager
+def host_pool(workers: int):
+    """A pool of ``workers`` spawned processes for the host side of
+    phases 53-55 (CPU queries, NumPy oracles), which runs beside phases
+    11-52 on the card, after the main path's timed phases 3-10; each
+    process's BLAS and torch take 2 threads. Every job is submitted
+    inside the block that opens it; on leaving, the pool waits for its
+    processes (a failure cancels what has not started)."""
+    import concurrent.futures
+    import multiprocessing
+
+    saved = {k: os.environ.get(k) for k in HOST_THREADS}
+    os.environ.update({k: "2" for k in HOST_THREADS})
+    pool = concurrent.futures.ProcessPoolExecutor(
+        workers, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        yield pool
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def host_job(fn, *args) -> tuple:
+    """A pool job: ``fn(*args)`` and the host clock (``perf_counter``, one
+    clock for every process) at its start and end."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    return out, t0, time.perf_counter()
+
+
+def cpu_queries(x: torch.Tensor, q: torch.Tensor) -> tuple:
+    """Phase 53's queries on the CPU (a pool job): the cube query and the
+    dilated sphere query with bins, and their seconds."""
+    from sph3d_gcn_torch.ops import build_cube_neighbor
+    from sph3d_gcn_torch.ops.neighbor import build_sphere_neighbor_and_bins
+
+    torch.set_num_threads(2)
+    t0 = time.perf_counter()
+    cube = build_cube_neighbor(x, q, **CUBE_QUERY)
+    t1 = time.perf_counter()
+    nbh, bins = build_sphere_neighbor_and_bins(x, q, **DILATED_QUERY)
+    return tuple(cube), tuple(nbh) + (bins,), t1 - t0, \
+        time.perf_counter() - t1
+
+
+def numpy_oracle(cfg, variables: dict, points: np.ndarray
+                 ) -> tuple[np.ndarray, float]:
+    """The NumPy oracle's logits (a pool job) and its seconds."""
+    from sph3d_gcn_torch.cli.parity_check import oracle_forward
+
+    t0 = time.perf_counter()
+    ref = oracle_forward(cfg, variables, points)
+    return ref, time.perf_counter() - t0
+
+
+def windows_cover(cfg, reqs) -> bool:
+    """Whether ``cfg``'s windows hold every measured requirement (the
+    decoders' only where the model has a decoder)."""
+    decoder = cfg.global_channels is None
+    for lv, r in enumerate(reqs):
+        if r.enc > cfg.enc_window(lv) or r.pool > cfg.pool_window(lv):
+            return False
+        if decoder and (r.dec > cfg.dec_window(lv)
+                        or r.dec_inter > cfg.dec_window(lv) + cfg.dec_margin
+                        or r.growth > cfg.growth_steps):
+            return False
+    return True
+
+
+def exact_in_range(x: torch.Tensor, q: torch.Tensor, idx: torch.Tensor,
+                   count: torch.Tensor, radius: float) -> None:
+    """A sphere query's rows against exact (f64) distances on the card:
+    every row keeps at least its query's own point, no point twice, no
+    point past ``THRESHOLD_BAND`` beyond the in-range threshold ``radius -
+    1e-6``, and no point inside it by more than the band that comes
+    before the row's last kept point (or anywhere, in a row that is not
+    full)."""
+    batch, num_q, k = idx.shape
+    thr = radius - 1e-6
+    cols = torch.arange(x.shape[1], device=x.device)
+    x64 = x[..., :3].double()
+    if int(count.min()) < 1:
+        raise AssertionError("a dilated query's row kept no point")
+    tile = 125
+    for s in range(0, num_q, tile):
+        d = torch.cdist(q[:, s:s + tile, :3].double(), x64,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        n = count[:, s:s + tile]
+        valid = torch.arange(k, device=x.device) < n[..., None]
+        kept = torch.zeros(d.shape, dtype=torch.int32, device=x.device)
+        kept.scatter_add_(2, idx[:, s:s + tile], valid.int())
+        last = idx[:, s:s + tile].gather(2, (n - 1)[..., None])
+        reach = (cols <= last) | (n < k)[..., None]
+        if int(kept.max()) > 1:
+            raise AssertionError("a dilated query's row keeps a point twice")
+        if bool(((kept > 0) & (d >= thr + THRESHOLD_BAND)).any()):
+            raise AssertionError("the dilated query keeps a point out of "
+                                 f"range of {radius}")
+        if bool(((kept == 0) & (d < thr - THRESHOLD_BAND) & reach).any()):
+            raise AssertionError("the dilated query skips a point in range "
+                                 f"of {radius}")
+
+
+def query_phase(dev: torch.device, smi: str) -> tuple:
+    """Phase 53, the card's side: the cube query and the dilated sphere
+    query at ModelNet level-0 scale (queries the FPS sample of each
+    cloud), timed; the dilated query equal to the undilated one at the
+    product radius and held against exact distances. Returns the inputs
+    of the CPU's calls, the card's results and its launches, which
+    :func:`finish_host_phases` compares."""
+    from sph3d_gcn_torch import kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.data.synthetic import surface_clouds
+    from sph3d_gcn_torch.models.common import normalize_unit_sphere
+    from sph3d_gcn_torch.nn.graph import gather_points
+    from sph3d_gcn_torch.ops import build_cube_neighbor
+    from sph3d_gcn_torch.ops.neighbor import build_sphere_neighbor_and_bins
+    from sph3d_gcn_torch.ops.sample import farthest_point_sample
+
+    x = normalize_unit_sphere(torch.from_numpy(
+        surface_clouds(np.random.default_rng(530), B, N)).to(dev))
+    reset_kernel_launches()
+    q = gather_points(x, farthest_point_sample(QUERY_M, x))
+    cube = build_cube_neighbor(x, q, **CUBE_QUERY)
+    nbh, bins = build_sphere_neighbor_and_bins(x, q, **DILATED_QUERY)
+    radius = DILATED_QUERY["dilation_rate"] * DILATED_QUERY["radius"]
+    undilated = dict(DILATED_QUERY, dilation_rate=None, radius=radius)
+    nbh2, bins2 = build_sphere_neighbor_and_bins(x, q, **undilated)
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(tuple(nbh) + (bins,),
+                                                 tuple(nbh2) + (bins2,))):
+        raise AssertionError("the dilated query differs from the "
+                             "undilated one at the product radius")
+    exact_in_range(x, q, nbh.idx, nbh.count, radius)
+    cube_ms = median_ms(lambda: build_cube_neighbor(x, q, **CUBE_QUERY))
+    dil_ms = median_ms(lambda: build_sphere_neighbor_and_bins(
+        x, q, **DILATED_QUERY))
+    counts = cube.count.float()
+    print(f"53. cube query (edge {CUBE_QUERY['length']}, grid "
+          f"{CUBE_QUERY['gridsize']}, K={CUBE_QUERY['nn_sample']}) at B={B} "
+          f"N={N} M={QUERY_M}: {cube_ms:.3f} ms (CUDA events, median of "
+          f"{REPS}), count mean {counts.mean().item():.2f} max "
+          f"{int(counts.max().item())}, {len(cube.bin.unique())} bins "
+          f"used; dilated sphere query + bins (radius "
+          f"{DILATED_QUERY['radius']} x {DILATED_QUERY['dilation_rate']}, "
+          f"K={DILATED_QUERY['nn_sample']}): {dil_ms:.3f} ms, count mean "
+          f"{nbh.count.float().mean().item():.2f}; equal to the undilated "
+          f"query at radius {radius}; against exact (f64) distances, no "
+          f"point kept out of range or skipped in range past "
+          f"{THRESHOLD_BAND:g} of the threshold; launches {launches} (the "
+          f"queries' FPS); {smi}", flush=True)
+    card = (tuple(t.cpu() for t in cube),
+            tuple(t.cpu() for t in tuple(nbh) + (bins,)))
+    return (x.cpu(), q.cpu()), card, launches, (cube_ms, dil_ms)
+
+
+def dense_oracle_phase(dev: torch.device, family: str) -> tuple:
+    """Phases 54 (ModelNet) and 55 (S3DIS), the card's side: the dense
+    engine's f32 config at B=1 on the JAX parity script's first cloud,
+    sorted beforehand so that the model's own sort is the identity; its
+    windows measured on the cloud and widened where they do not cover
+    it; the seeded model calibrated (``cli.parity_check``) and run once,
+    ``dense_ok`` True, the launches counted. Returns the NumPy oracle's
+    arguments, the card's logits and the launches."""
+    from sph3d_gcn_torch import kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.cli.parity_check import (
+        CALIBRATION_CLOUDS,
+        calibrate_batch_norm,
+        seeded_model,
+        synthetic_points,
+    )
+    from sph3d_gcn_torch.configs import modelnet_config, s3dis_config
+    from sph3d_gcn_torch.models.common import normalize_unit_sphere
+    from sph3d_gcn_torch.ops.locality import permute_points, spatial_sort
+    from sph3d_gcn_torch.utils.convert import flax_tree_from_torch
+    from sph3d_gcn_torch.utils.windows import (
+        derive_config_windows,
+        measure_requirements,
+    )
+
+    modelnet = family == "modelnet"
+    factory = modelnet_config if modelnet else s3dis_config
+    cfg = dataclasses.replace(factory(fast=True, dense=True),
+                              compute_dtype="float32")
+    n = cfg.num_input
+    rng = np.random.default_rng(0)
+    points = torch.from_numpy(synthetic_points(family, rng, 1, n)).to(dev)
+    calibration = synthetic_points(family, rng, CALIBRATION_CLOUDS, n)
+    perm, _ = spatial_sort(points, cfg.radius[0])
+    points = permute_points(points, perm)
+    again, _ = spatial_sort(points, cfg.radius[0])
+    if not torch.equal(again, torch.arange(n, device=dev).expand(1, n)):
+        raise AssertionError(f"{family}: the model's sort of the sorted "
+                             f"cloud is not the identity")
+    t0 = time.perf_counter()
+    reqs = measure_requirements(
+        cfg, points.cpu().numpy(), device=dev,
+        normalize=normalize_unit_sphere if modelnet else None)
+    covered = windows_cover(cfg, reqs)
+    text = (f"config windows {cfg.windows} dec {cfg.dec_windows} margin "
+            f"{cfg.dec_margin} growth {cfg.growth_steps}; measured on the "
+            f"cloud in {time.perf_counter() - t0:.2f} s: " + "; ".join(
+                f"level {lv}: enc {r.enc} pool {r.pool}" + (
+                    "" if modelnet else f" dec {r.dec} dec_inter "
+                    f"{r.dec_inter} growth {r.growth}")
+                for lv, r in enumerate(reqs)))
+    if not covered:
+        win, dec_win, margin, growth = derive_config_windows(cfg, reqs)
+        cfg = dataclasses.replace(cfg, windows=win, dec_windows=dec_win,
+                                  dec_margin=margin, growth_steps=growth)
+        text += (f"; the config's do not cover it: derived windows {win} "
+                 f"dec {dec_win} margin {margin} growth {growth}")
+    model = seeded_model(cfg).to(dev)
+    calibrate_batch_norm(model, torch.from_numpy(calibration).to(dev))
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    with torch.no_grad():
+        logits = model(points)
+    launches = kernel_launches()
+    if not bool(model.dense_ok):
+        raise AssertionError(f"{family} oracle forward: dense_ok False")
+    want = PER_FORWARD if modelnet else PER_SEG_FORWARD
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        raise AssertionError(f"{family} oracle forward launches {got}, "
+                             f"want {want}")
+    phase = 54 if modelnet else 55
+    print(f"{phase}. {family} dense engine in f32 at B=1 N={n}: {text}; "
+          f"dense_ok True, launches {got}", flush=True)
+    oracle = (cfg, flax_tree_from_torch(model.state_dict()),
+              points.cpu().numpy())
+    return oracle, logits.float().cpu().numpy(), launches
+
+
+def submit_host_jobs(pool, cards: dict) -> dict:
+    """The host side of phases 53-55 into ``pool``: the CPU's queries on
+    the card's inputs and the oracles on the card's weights."""
+    inputs = cards["queries"][0]
+    jobs = {"queries": pool.submit(host_job, cpu_queries, *inputs)}
+    for family in ("modelnet", "s3dis"):
+        jobs[family] = pool.submit(host_job, numpy_oracle,
+                                   *cards[family][0])
+    return jobs
+
+
+def hold_against_cpu(card: tuple, cpu: tuple, x: torch.Tensor,
+                     q: torch.Tensor, radius: float) -> str:
+    """The card's dilated query (idx, count, dist, bins) against the
+    CPU's: their in-range tests' matmul forms round differently, so at
+    most ``ROW_SHARE`` of the rows may differ, each first at a point that
+    one device keeps and the other does not, within ``THRESHOLD_BAND`` of
+    the threshold ``radius - 1e-6`` in exact distances; the entries both
+    keep have the same bins and distances within ``DIST_TOL``."""
+    idx, count, dist, bins = card
+    cidx, ccount, cdist, cbins = cpu
+    k = idx.shape[-1]
+    valid = torch.arange(k) < count[..., None]
+    cvalid = torch.arange(k) < ccount[..., None]
+    differ = (idx != cidx) | (valid != cvalid)
+    rows = differ.any(-1)
+    both = valid & cvalid & ~differ
+    share = rows.float().mean().item()
+    if share > ROW_SHARE:
+        raise AssertionError(f"the dilated query: {int(rows.sum())} rows "
+                             f"differ from the CPU's")
+    if not torch.equal(bins[both], cbins[both]):
+        raise AssertionError("the dilated query: bins of entries both "
+                             "devices keep differ from the CPU's")
+    dist_err = (dist[both] - cdist[both]).abs().max().item()
+    if dist_err > DIST_TOL:
+        raise AssertionError(f"the dilated query: distances of entries "
+                             f"both devices keep differ by {dist_err:.3g}")
+    b, m = rows.nonzero(as_tuple=True)
+    j = differ[b, m].int().argmax(-1)
+    far = x.shape[1]
+    first = torch.minimum(
+        torch.where(valid[b, m, j], idx[b, m, j], far),
+        torch.where(cvalid[b, m, j], cidx[b, m, j], far))
+    d = (x[b, first, :3].double() - q[b, m, :3].double()).norm(dim=-1)
+    off = (d - (radius - 1e-6)).abs()
+    if off.numel() and off.max().item() >= THRESHOLD_BAND:
+        raise AssertionError(f"the dilated query: a row differs from the "
+                             f"CPU's at a point {off.max().item():.3g} "
+                             f"from the threshold")
+    return (f"{int(rows.sum())} of {rows.numel()} rows differ ({share:.2g}, "
+            f"bound {ROW_SHARE:g}; entries differing in idx, count, dist, "
+            f"bins {[int((a != c).sum()) for a, c in zip(card, cpu)]}), "
+            f"each first at a point "
+            f"{off.max().item() if off.numel() else 0.0:.3g} or less from "
+            f"the threshold (bound {THRESHOLD_BAND:g}); entries both keep: "
+            f"bins equal, distances within {dist_err:.3g}")
+
+
+def finish_host_phases(cards: dict, jobs: dict, start: float) -> None:
+    """Phases 53-55, the host's side: the CPU's queries against the
+    card's (the cube query bitwise; the dilated query by
+    :func:`hold_against_cpu`), each oracle's logits against the card's at
+    rtol = atol = ``ORACLE_TOL``; the jobs' times on the script's
+    clock."""
+    from sph3d_gcn_torch.cli.parity_check import compare_logits
+
+    (x, q), (cube, dilated), _, _ = cards["queries"]
+    (cpu_cube, cpu_dilated, cube_s, dil_s), t0, t1 = jobs["queries"].result()
+    spans = [f"queries {t0 - start:.1f}-{t1 - start:.1f} s"]
+    if not all(torch.equal(a, b) for a, b in zip(cube, cpu_cube)):
+        raise AssertionError("the card's cube query differs from the CPU's")
+    radius = DILATED_QUERY["dilation_rate"] * DILATED_QUERY["radius"]
+    text = hold_against_cpu(dilated, cpu_dilated, x, q, radius)
+    print(f"53. the cube query's idx, bin and count equal to the CPU's, "
+          f"bit for bit (CPU {cube_s:.1f} s at 2 threads); the dilated "
+          f"query against the CPU's (CPU {dil_s:.1f} s): {text}",
+          flush=True)
+    for family, phase in (("modelnet", 54), ("s3dis", 55)):
+        _, logits, _ = cards[family]
+        (ref, seconds), t0, t1 = jobs[family].result()
+        spans.append(f"{family} oracle {t0 - start:.1f}-{t1 - start:.1f} s")
+        print(f"{phase}. {family} dense engine (f32, B=1) against the NumPy "
+              f"oracle ({seconds:.1f} s on the host):", flush=True)
+        out = compare_logits(logits, ref, ORACLE_TOL, ORACLE_TOL,
+                             f"{family}, dense f32, oracle")
+        if not out["ok"]:
+            raise AssertionError(f"{family}: the dense engine's logits "
+                                 f"differ from the oracle's")
+    print(f"host jobs on the script's clock: {'; '.join(spans)}",
+          flush=True)
+
+
+def cli_oracle_phase() -> dict[str, int]:
+    """Phase 56: ``cli.parity_check`` on its default config in this
+    process, after every timed phase; returns its kernel launches."""
+    import io
+
+    from sph3d_gcn_torch import kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.cli import parity_check
+
+    buf = io.StringIO()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        try:
+            parity_check.main(ORACLE_CLI)
+            rc = 0
+        except SystemExit as e:
+            rc = e.code
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    text = buf.getvalue()
+    print(f"56. cli.parity_check {' '.join(ORACLE_CLI)} "
+          f"({time.perf_counter() - t0:.1f} s; launches {launches}):",
+          flush=True)
+    print(text, end="", flush=True)
+    if rc != 0 or "PASS" not in text:
+        raise AssertionError(f"cli.parity_check exited {rc}")
+    return launches
+
+
 def kernel_lines(runs: dict[str, tuple[Results, dict]],
                  others: tuple, fit_runs: dict[str, dict[str, int]]
                  ) -> dict:
@@ -4632,7 +4880,7 @@ def kernel_lines(runs: dict[str, tuple[Results, dict]],
                       for p, (r, launches) in runs.items()
                       if r.calls[name] and name in r.plain_ms
                       and (shared[id(r)] == 1 or p == path)},
-            "fit_paths": {p: launches[name]
+            "fit_paths": {p: launches.get(name, 0)
                           for p, launches in fit_runs.items()},
         })
     return {"kernels": kernels}
@@ -4680,6 +4928,27 @@ def main() -> None:
         if any(k in line for k in ("Compiling entry", "spill", "registers")):
             print("  ptxas:", line.strip(), flush=True)
 
+    # 53-55, the card's side: the queries and the dense engine's f32
+    # forwards, whose host side (the CPU's queries, the oracles) runs in a
+    # pool beside phases 11-52
+    cards = {"queries": query_phase(dev, smi)}
+    for family in ("modelnet", "s3dis"):
+        cards[family] = dense_oracle_phase(dev, family)
+    print(f"[{time.perf_counter() - start:.1f} s] phases 53-55 on the "
+          f"card", flush=True)
+    phases(dev, start, cards)
+
+
+def phases(dev: torch.device, start: float, cards: dict) -> None:
+    """Phases 3-10, the main path's; phases 11-52 beside the host side of
+    phases 53-55 (``cards``: their card side's results) in a pool of
+    processes; phase 56; then the wall time and the JSON lines."""
+    from sph3d_gcn_torch import kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.configs import modelnet_config
+    from sph3d_gcn_torch.data.synthetic import surface_clouds
+    from sph3d_gcn_torch.models import SPH3DModelNet
+    from sph3d_gcn_torch.train.eval import checked_forward, vote_classify
+
     cfg_plain = modelnet_config(fast=True, dense=True)
     cfg = modelnet_config(fast=True, dense=True, family="hard")
     gen = torch.Generator().manual_seed(0)
@@ -4721,8 +4990,8 @@ def main() -> None:
     for name, per in PER_FORWARD.items():
         if launches[name] != per * n_fwd:
             raise AssertionError(
-                f"{name}: {launches[name]} launches, want {per} per forward"
-            )
+                f"{name}: {launches[name]} launches, want {per} per "
+                f"forward")
 
     with torch.inference_mode():
         got = model(x)
@@ -4730,7 +4999,8 @@ def main() -> None:
         ref = model(x, use_kernels=False)
         ok_p = bool(model.dense_ok)
         fwd_ms = median_ms(lambda: model(x))
-        plain_fwd_ms = median_ms(lambda: model(x, use_kernels=False), reps=3)
+        plain_fwd_ms = median_ms(lambda: model(x, use_kernels=False),
+                                 reps=3)
         fwd_plain_win_ms = median_ms(lambda: model_plain(x))
         ok_w = bool(model_plain.dense_ok)
     if not (ok_k and ok_p and ok_w):
@@ -4760,8 +5030,43 @@ def main() -> None:
 
     # 6-10. the train step
     res_train = Results()
-    train_launches, conv_map = train_phases(dev, res_train)
+    train_launches, conv_map, profile_launches = train_phases(dev,
+                                                              res_train)
+    print(f"[{time.perf_counter() - start:.1f} s] phases 1-10 done; the "
+          f"host side of phases 53-55 starts in 3 processes", flush=True)
+    with host_pool(3) as pool:
+        jobs = submit_host_jobs(pool, cards)
+        runs = later_phases(dev, start, batches, conv_map)
+        del conv_map
+        t0 = time.perf_counter()
+        finish_host_phases(cards, jobs, start)
+    print(f"[{time.perf_counter() - start:.1f} s] phases 53-55 done "
+          f"({time.perf_counter() - t0:.1f} s waiting on the host "
+          f"processes)", flush=True)
+    fit_runs = runs.pop("fit_runs")
+    fit_runs["modelnet_oracle_cli"] = cli_oracle_phase()
+    fit_runs["modelnet_profile_step"] = profile_launches
+    fit_runs["cube_dilated_queries"] = cards["queries"][2]
+    fit_runs["modelnet_oracle_dense"] = cards["modelnet"][2]
+    fit_runs["s3dis_oracle_dense"] = cards["s3dis"][2]
+    others = runs.pop("others")
 
+    print(f"chip_smoke wall: {time.perf_counter() - start:.1f} s (host "
+          f"clock, from the script's start; the kernels' build included)",
+          flush=True)
+    print(json.dumps(kernel_lines(dict(
+        runs, modelnet_train_step=(res_train, train_launches)),
+        (res, res_plain_win) + others, fit_runs)), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def later_phases(dev: torch.device, start: float, batches: list,
+                 conv_map: tuple) -> dict:
+    """Phases 11-52. Returns their paths for the JSON line (path ->
+    (Results, launch counts)), with ``fit_runs`` (the entry points'
+    launches) and ``others`` (Results no path names)."""
     # 11-13. the S3DIS serving forward
     res_s3 = Results()
     s3_launches = s3dis_phases(dev, res_s3)
@@ -4814,13 +5119,9 @@ def main() -> None:
     # 47-52. the datasets' raw files prepared, the native reader, TF1
     fit_runs.update(prep_phases(dev, family_runs))
 
-    print(f"chip_smoke wall: {time.perf_counter() - start:.1f} s (host "
-          f"clock, from the script's start; the kernels' build included)",
-          flush=True)
-    print(json.dumps(kernel_lines({
+    return {
         **family_runs,
         "s3dis_serve": (res_s3, s3_launches),
-        "modelnet_train_step": (res_train, train_launches),
         "s3dis_train_step": (res_s3_step, s3_step_launches),
         "modelnet_per_edge_serve": (res_win, win_launches),
         "modelnet_per_edge_train_step": (res_win_step, win_step_launches),
@@ -4828,11 +5129,9 @@ def main() -> None:
         "s3dis_weighted_serve": (res_dist, weighted_launches),
         "s3dis_per_edge_serve": (res_s3pe, s3pe_launches),
         "s3dis_per_edge_train_step": (res_s3pe_step, s3pe_step_launches),
-    }, (res, res_plain_win, res_index, res_weighted, res_ids), fit_runs)),
-        flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+        "fit_runs": fit_runs,
+        "others": (res_index, res_weighted, res_ids),
+    }
 
 
 if __name__ == "__main__":

@@ -9,6 +9,9 @@ of
 - ``train_shapenet`` and ``evaluate_shapenet`` (per-category or one-hot
   part segmentation);
 - ``measure_windows`` (the dense engine's windows for a dataset);
+- ``parity_check`` (logits against the NumPy oracle or a TF1
+  checkpoint's captured logits) and ``profile_step`` (a train step's
+  device time by kernel and layer, each kernel against its bound);
 - ``prepare_modelnet``, ``prepare_s3dis``, ``prepare_scannet``,
   ``prepare_shapenet`` and ``prepare_ruemonge2014`` (the datasets'
   published files into the records, scene files and lists the others

@@ -35,6 +35,9 @@ class SPH3DConfig:
     normalize: bool = True
     pool_method: Literal["max", "avg"] = "max"
     unpool_method: Literal["mean", "weighted"] = "mean"
+    # the reference's neighbor search (ref config nnsearch); as in JAX,
+    # every model builds sphere graphs and none reads it
+    nnsearch: Literal["sphere", "cube"] = "sphere"
     sample: Literal["FPS", "IDS", "random"] = "FPS"
     use_raw: bool = False
     with_bn: bool = True

@@ -46,6 +46,7 @@ from sph3d_gcn_torch.nn.layers import (
     SeparableConv3d,
     pool3d,
 )
+from sph3d_gcn_torch.nn.spans import layer_span
 from sph3d_gcn_torch.ops.kernelbin import spherical_kernel
 from sph3d_gcn_torch.ops.locality import (
     permute_points,
@@ -120,8 +121,9 @@ class SPH3DModelNet(nn.Module):
             )
         points = points.float()
         if cfg.spatial_sort:
-            perm, _ = spatial_sort(points, cfg.radius[0])
-            points = permute_points(points, perm)
+            with layer_span("sort"):
+                perm, _ = spatial_sort(points, cfg.radius[0])
+                points = permute_points(points, perm)
         if cfg.normalize:
             points = normalize_unit_sphere(points)
         xyz = points
@@ -150,9 +152,10 @@ class SPH3DModelNet(nn.Module):
         self.dense_ok = dense_ok
 
         # all remaining points -> centroid (ref SPH3D_modelnet.py:85-94)
-        gnbh = build_global_graph(xyz, query, _GLOBAL_RADIUS)
-        gfilt = spherical_kernel(xyz, query, gnbh, _GLOBAL_RADIUS,
-                                 _GLOBAL_KERNEL)
+        with layer_span("global_graph"):
+            gnbh = build_global_graph(xyz, query, _GLOBAL_RADIUS)
+            gfilt = spherical_kernel(xyz, query, gnbh, _GLOBAL_RADIUS,
+                                     _GLOBAL_KERNEL)
         net = self.global_conv(net, gnbh, gfilt)
         global_feat.append(net)
         net = torch.cat(global_feat, dim=2).reshape(net.shape[0], -1)
@@ -164,12 +167,13 @@ class SPH3DModelNet(nn.Module):
         """One level on the dense engine: (net, coarse xyz, the level's
         certificate)."""
         cfg = self.config
-        nbh, sample_idx = build_graph_dense(
-            xyz, cfg.radius[level], cfg.nn_uplimit[level],
-            cfg.num_sample[level], sample_method=cfg.sample,
-            kernel=cfg.kernel, window=cfg.enc_window(level),
-            use_kernels=use_kernels, **sampling,
-        )
+        with layer_span(f"level{level + 1}.graph"):
+            nbh, sample_idx = build_graph_dense(
+                xyz, cfg.radius[level], cfg.nn_uplimit[level],
+                cfg.num_sample[level], sample_method=cfg.sample,
+                kernel=cfg.kernel, window=cfg.enc_window(level),
+                use_kernels=use_kernels, **sampling,
+            )
         ok = nbh.ok
         net = getattr(self, f"conv{level + 1}")(
             net, nbh, use_kernels=use_kernels, remat=cfg.remat_blocks
@@ -177,39 +181,42 @@ class SPH3DModelNet(nn.Module):
         if cfg.num_sample[level] > 1:
             # the sample indices come back sorted: the coarse cloud stays
             # axis-sorted for the next dense level
-            xyz_coarse = gather_points(xyz, sample_idx)
-            inter = build_pool_graph_dense(
-                xyz, xyz_coarse, cfg.radius[level],
-                cfg.nn_uplimit[level], window=cfg.pool_window(level),
-                use_kernels=use_kernels,
-            )
-            ok = ok & inter.ok
-            net = pool3d(net, inter, method=cfg.pool_method,
-                         use_kernels=use_kernels)
+            with layer_span(f"level{level + 1}.pool"):
+                xyz_coarse = gather_points(xyz, sample_idx)
+                inter = build_pool_graph_dense(
+                    xyz, xyz_coarse, cfg.radius[level],
+                    cfg.nn_uplimit[level], window=cfg.pool_window(level),
+                    use_kernels=use_kernels,
+                )
+                ok = ok & inter.ok
+                net = pool3d(net, inter, method=cfg.pool_method,
+                             use_kernels=use_kernels)
             xyz = xyz_coarse
         return net, xyz, ok
 
     def _classic_level(self, net, xyz, level, sampling, use_kernels):
         """One level on the per-edge engine: (net, coarse xyz)."""
         cfg = self.config
-        nbh, filt_idx, sample_idx = build_graph(
-            xyz, cfg.radius[level], cfg.nn_uplimit[level],
-            cfg.num_sample[level], sample_method=cfg.sample,
-            kernel=cfg.kernel, use_kernels=use_kernels, **sampling,
-        )
+        with layer_span(f"level{level + 1}.graph"):
+            nbh, filt_idx, sample_idx = build_graph(
+                xyz, cfg.radius[level], cfg.nn_uplimit[level],
+                cfg.num_sample[level], sample_method=cfg.sample,
+                kernel=cfg.kernel, use_kernels=use_kernels, **sampling,
+            )
         net = getattr(self, f"conv{level + 1}")(
             net, nbh, filt_idx, window=cfg.enc_window(level),
             use_kernels=use_kernels, remat=cfg.remat_blocks,
         )
         if cfg.num_sample[level] > 1:
-            if cfg.spatial_sort:
-                # ascending order keeps the coarse cloud axis-sorted
-                sample_idx = sort_indices_small(sample_idx)
-            xyz_coarse = gather_points(xyz, sample_idx)
-            inter = gather_neighborhood(nbh, sample_idx)
-            net = pool3d(net, inter, method=cfg.pool_method,
-                         window=cfg.pool_window(level),
-                         use_kernels=use_kernels)
+            with layer_span(f"level{level + 1}.pool"):
+                if cfg.spatial_sort:
+                    # ascending order keeps the coarse cloud axis-sorted
+                    sample_idx = sort_indices_small(sample_idx)
+                xyz_coarse = gather_points(xyz, sample_idx)
+                inter = gather_neighborhood(nbh, sample_idx)
+                net = pool3d(net, inter, method=cfg.pool_method,
+                             window=cfg.pool_window(level),
+                             use_kernels=use_kernels)
             xyz = xyz_coarse
         return net, xyz
 

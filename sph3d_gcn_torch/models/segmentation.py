@@ -48,6 +48,7 @@ from sph3d_gcn_torch.nn.graph import (
     gather_points,
 )
 from sph3d_gcn_torch.nn.layers import PointwiseConv3d, pool3d, unpool3d
+from sph3d_gcn_torch.nn.spans import layer_span
 from sph3d_gcn_torch.ops.locality import (
     permute_points,
     sort_indices_small,
@@ -129,43 +130,47 @@ class SegEncoderDecoder(nn.Module):
                 use_kernels=use_kernels)
             conv = getattr(self, f"conv{level + 1}")
             if cfg.dense_graph:
-                nbh, sample_idx = build_graph_dense(
-                    xyz, cfg.radius[level], cfg.nn_uplimit[level],
-                    cfg.num_sample[level], window=cfg.enc_window(level),
-                    **graph)
+                with layer_span(f"level{level + 1}.graph"):
+                    nbh, sample_idx = build_graph_dense(
+                        xyz, cfg.radius[level], cfg.nn_uplimit[level],
+                        cfg.num_sample[level], window=cfg.enc_window(level),
+                        **graph)
                 dense_ok = dense_ok & nbh.ok
                 net = conv(net, nbh, use_kernels=use_kernels,
                            remat=cfg.remat_blocks)
             else:
-                nbh, filt_idx, sample_idx = build_graph(
-                    xyz, cfg.radius[level], cfg.nn_uplimit[level],
-                    cfg.num_sample[level], **graph)
+                with layer_span(f"level{level + 1}.graph"):
+                    nbh, filt_idx, sample_idx = build_graph(
+                        xyz, cfg.radius[level], cfg.nn_uplimit[level],
+                        cfg.num_sample[level], **graph)
                 net = conv(net, nbh, filt_idx, window=cfg.enc_window(level),
                            use_kernels=use_kernels, remat=cfg.remat_blocks)
             encoder.append(net)
             if cfg.num_sample[level] > 1:
-                if cfg.dense_graph:
-                    # the sample indices come back sorted: the coarse
-                    # cloud stays axis-sorted for the next dense level
-                    xyz_coarse = gather_points(xyz, sample_idx)
-                    inter = build_pool_graph_dense(
-                        xyz, xyz_coarse, cfg.radius[level],
-                        cfg.nn_uplimit[level], window=cfg.pool_window(level),
-                        use_kernels=use_kernels,
-                    )
-                    dense_ok = dense_ok & inter.ok
-                    net = pool3d(net, inter, method=cfg.pool_method,
-                                 use_kernels=use_kernels)
-                else:
-                    if cfg.spatial_sort:
-                        # ascending order keeps the coarse cloud
-                        # axis-sorted
-                        sample_idx = sort_indices_small(sample_idx)
-                    xyz_coarse = gather_points(xyz, sample_idx)
-                    inter = gather_neighborhood(nbh, sample_idx)
-                    net = pool3d(net, inter, method=cfg.pool_method,
-                                 window=cfg.pool_window(level),
-                                 use_kernels=use_kernels)
+                with layer_span(f"level{level + 1}.pool"):
+                    if cfg.dense_graph:
+                        # the sample indices come back sorted: the coarse
+                        # cloud stays axis-sorted for the next dense level
+                        xyz_coarse = gather_points(xyz, sample_idx)
+                        inter = build_pool_graph_dense(
+                            xyz, xyz_coarse, cfg.radius[level],
+                            cfg.nn_uplimit[level],
+                            window=cfg.pool_window(level),
+                            use_kernels=use_kernels,
+                        )
+                        dense_ok = dense_ok & inter.ok
+                        net = pool3d(net, inter, method=cfg.pool_method,
+                                     use_kernels=use_kernels)
+                    else:
+                        if cfg.spatial_sort:
+                            # ascending order keeps the coarse cloud
+                            # axis-sorted
+                            sample_idx = sort_indices_small(sample_idx)
+                        xyz_coarse = gather_points(xyz, sample_idx)
+                        inter = gather_neighborhood(nbh, sample_idx)
+                        net = pool3d(net, inter, method=cfg.pool_method,
+                                     window=cfg.pool_window(level),
+                                     use_kernels=use_kernels)
                 xyz = xyz_coarse
                 xyz_layers.append(xyz)
 
@@ -181,27 +186,34 @@ class SegEncoderDecoder(nn.Module):
             # encoder level: its calibrated decoder window applies
             dec_win = cfg.dec_window(num_levels - 1 - level)
             deconv = getattr(self, f"deconv{level + 1}")
+            span = f"decoder{level + 1}"
             if cfg.dense_graph:
-                intra, inter = build_graph_deconv_dense(
-                    xyz_coarse, xyz_fine, radius_r[level],
-                    nn_uplimit_r[level], kernel=cfg.kernel, window=dec_win,
-                    need_dist=cfg.unpool_method == "weighted",
-                    dec_margin=cfg.dec_margin, growth_steps=cfg.growth_steps,
-                    use_kernels=use_kernels,
-                )
+                with layer_span(span + ".graph"):
+                    intra, inter = build_graph_deconv_dense(
+                        xyz_coarse, xyz_fine, radius_r[level],
+                        nn_uplimit_r[level], kernel=cfg.kernel,
+                        window=dec_win,
+                        need_dist=cfg.unpool_method == "weighted",
+                        dec_margin=cfg.dec_margin,
+                        growth_steps=cfg.growth_steps,
+                        use_kernels=use_kernels,
+                    )
                 dense_ok = dense_ok & intra.ok & inter.ok
                 net = deconv(net, intra, use_kernels=use_kernels,
                              remat=cfg.remat_blocks)
-                net = unpool3d(net, inter, method=cfg.unpool_method,
-                               use_kernels=use_kernels)
+                with layer_span(span + ".unpool"):
+                    net = unpool3d(net, inter, method=cfg.unpool_method,
+                                   use_kernels=use_kernels)
             else:
-                intra, filt_idx, inter = build_graph_deconv(
-                    xyz_coarse, xyz_fine, radius_r[level],
-                    nn_uplimit_r[level], kernel=cfg.kernel)
+                with layer_span(span + ".graph"):
+                    intra, filt_idx, inter = build_graph_deconv(
+                        xyz_coarse, xyz_fine, radius_r[level],
+                        nn_uplimit_r[level], kernel=cfg.kernel)
                 net = deconv(net, intra, filt_idx, window=dec_win,
                              use_kernels=use_kernels, remat=cfg.remat_blocks)
-                net = unpool3d(net, inter, method=cfg.unpool_method,
-                               window=dec_win, use_kernels=use_kernels)
+                with layer_span(span + ".unpool"):
+                    net = unpool3d(net, inter, method=cfg.unpool_method,
+                                   window=dec_win, use_kernels=use_kernels)
             net = torch.cat([net, encoder[level]], dim=-1)
         if self.include_input_skip:
             # mlp2 ++ the mlp1 features (ref SPH3D_shapenet.py:106-108)
@@ -262,8 +274,9 @@ class _SegModel(nn.Module):
         points = points.float()
         perm = rank = None
         if cfg.spatial_sort:
-            perm, rank = spatial_sort(points, cfg.radius[0])
-            points = permute_points(points, perm)
+            with layer_span("sort"):
+                perm, rank = spatial_sort(points, cfg.radius[0])
+                points = permute_points(points, perm)
         net, self.dense_ok = self.backbone(
             self._features(points), points[..., 0:3], cfg,
             use_kernels=use_kernels, generator=generator,

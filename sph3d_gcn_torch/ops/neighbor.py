@@ -1,5 +1,6 @@
-"""Sphere range query keeping the first K in point order (counterpart of
-``build_sphere_neighbor`` and ``build_sphere_neighbor_and_bins`` in
+"""Sphere and cube range queries keeping the first K in point order
+(counterpart of ``build_sphere_neighbor``,
+``build_sphere_neighbor_and_bins`` and ``build_cube_neighbor`` in
 ``sph3d_gcn_tpu/ops/neighbor.py``).
 
 Reproduced quirks (ref tf_nnquery_gpu.cu):
@@ -22,6 +23,18 @@ radius is found without a loop: the in-range test is monotone in the
 radius and in the distance, so a row's radius is the first of the f32
 running sums ``r, r + 0.05, ...`` (the JAX loop's own rounding) at which
 its nearest point is in range; no host synchronisation.
+
+``dilation_rate`` scales the radius (the cube's edge) as a Python float
+product, ``float(dilation_rate) * float(radius)`` (ref
+tf_nnquery.py:30-31), so the f32 threshold is the JAX op's; the scaled
+radius then serves the in-range test, the growth and the bins' radial
+split alike.
+
+The cube query (ref tf_nnquery_gpu.cu:75-108) keeps the first K points
+with ``|delta| < length/2`` on every axis, strictly, and bins each by
+its cell of a ``gridsize``^3 grid over the cube; no growth, no
+distances. It tiles its queries so that one (B, T, N, 3) f32
+displacement block stays within the plain dense ops' element budget.
 """
 
 from __future__ import annotations
@@ -31,8 +44,9 @@ import functools
 import numpy as np
 import torch
 
+from sph3d_gcn_torch.ops.dense import _PLAIN_BUDGET
 from sph3d_gcn_torch.ops.kernelbin import bins_from_delta, validate_kernel_size
-from sph3d_gcn_torch.ops.types import Neighborhood
+from sph3d_gcn_torch.ops.types import CubeNeighborhood, Neighborhood
 
 _BOUNDARY_EPS = 1e-6
 _GROW_STEP = 0.05                 # ref tf_nnquery_gpu.cu:59
@@ -67,6 +81,29 @@ def _grown_radii(radius: float) -> np.ndarray:
     return radii
 
 
+def _dilated(radius: float, dilation_rate: float | None) -> float:
+    """The reference's radius (or cube edge) times ``dilation_rate``, in
+    Python floats."""
+    if dilation_rate is None:
+        return float(radius)
+    return float(dilation_rate) * float(radius)
+
+
+def _first_in_order(mask: torch.Tensor, k: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(..., N) bool -> (idx (..., k) int64 of the first k True columns in
+    order, 0 past the total; valid (..., k) bool; total (...) int32)."""
+    csum = torch.cumsum(mask, dim=-1, dtype=torch.int32)
+    targets = torch.arange(1, k + 1, dtype=torch.int32, device=mask.device)
+    # the t-th True column is the first column whose running count is t
+    idx = torch.searchsorted(csum, targets.expand(csum.shape[:-1] + (k,))
+                             .contiguous())
+    total = csum[..., -1]
+    valid = targets <= total[..., None]
+    idx = torch.where(valid, idx.clamp_max(mask.shape[-1] - 1), 0)
+    return idx, valid, total
+
+
 def _first_k(q: torch.Tensor, db: torch.Tensor, radius: float,
              k: int, self_graph: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """(B, T, 3) queries x (B, N, 3) database -> (idx (B, T, K) int64 of
@@ -86,14 +123,7 @@ def _first_k(q: torch.Tensor, db: torch.Tensor, radius: float,
         steps = (~_in_range(d.amin(dim=-1, keepdim=True), radii)).sum(-1)
         r = radii[steps.clamp_max(_MAX_GROW_ITERS)]           # (B, T)
         mask = _in_range(d, r[..., None])
-    csum = torch.cumsum(mask, dim=-1, dtype=torch.int32)
-    targets = torch.arange(1, k + 1, dtype=torch.int32, device=q.device)
-    # the t-th in-range point is the first column whose running count is t
-    idx = torch.searchsorted(csum, targets.expand(csum.shape[:-1] + (k,))
-                             .contiguous())
-    total = csum[..., -1]
-    valid = targets <= total[..., None]
-    idx = torch.where(valid, idx.clamp_max(db.shape[1] - 1), 0)
+    idx, _, total = _first_in_order(mask, k)
     return idx, torch.clamp_max(total, k).long()
 
 
@@ -132,12 +162,15 @@ def build_sphere_neighbor(
     query: torch.Tensor,
     radius: float = 0.1,
     nn_sample: int = 100,
+    dilation_rate: float | None = None,
     self_graph: bool = False,
 ) -> Neighborhood:
     """(B, N, 3+) database, (B, M, 3+) queries -> Neighborhood with
     (B, M, K) idx/dist and (B, M) count; padding entries are 0.
-    ``self_graph``: every query is a database point (no radius growth)."""
-    nbh, _ = _sphere_query(database, query, radius, nn_sample, self_graph)
+    ``dilation_rate`` scales the radius; ``self_graph``: every query is a
+    database point (no radius growth)."""
+    nbh, _ = _sphere_query(database, query, _dilated(radius, dilation_rate),
+                           nn_sample, self_graph)
     return nbh
 
 
@@ -147,13 +180,16 @@ def build_sphere_neighbor_and_bins(
     radius: float,
     nn_sample: int,
     kernel: tuple[int, int, int] = (8, 2, 2),
+    dilation_rate: float | None = None,
     self_graph: bool = False,
 ) -> tuple[Neighborhood, torch.Tensor]:
     """The query plus the spherical kernel bins of its edges from the same
     gathered displacements: equal to ``build_sphere_neighbor`` followed by
-    ``ops.kernelbin.spherical_kernel``. Returns (Neighborhood, (B, M, K)
-    int64 bins, 0 = self loop and padding)."""
+    ``ops.kernelbin.spherical_kernel`` (both at the dilated radius).
+    Returns (Neighborhood, (B, M, K) int64 bins, 0 = self loop and
+    padding)."""
     validate_kernel_size(kernel)
+    radius = _dilated(radius, dilation_rate)
     nbh, delta = _sphere_query(database, query, radius, nn_sample,
                                self_graph)
     k = delta.shape[2]
@@ -163,3 +199,39 @@ def build_sphere_neighbor_and_bins(
     if pad:
         bins = torch.nn.functional.pad(bins, (0, pad))
     return nbh, bins
+
+
+def build_cube_neighbor(
+    database: torch.Tensor,
+    query: torch.Tensor,
+    length: float = 0.1,
+    nn_sample: int = 100,
+    gridsize: int = 3,
+    dilation_rate: float | None = None,
+) -> CubeNeighborhood:
+    """Axis-aligned cube query with its grid bins: (B, N, 3+) database,
+    (B, M, 3+) queries -> CubeNeighborhood with (B, M, K) idx and bin (bin
+    ``xId*g^2 + yId*g + zId``, ``Id = clip(int((delta + length/2) /
+    (length/g)), 0, g-1)``) and (B, M) count clamped to K; padding
+    entries are 0. ``dilation_rate`` scales ``length``."""
+    db = database[..., :3].float()
+    q = query[..., :3].float()
+    length = _dilated(length, dilation_rate)
+    half = length / 2.0
+    cell = length / float(gridsize)
+    batch, num_db, _ = db.shape
+    k = int(nn_sample)
+    # one (B, T, N, 3) displacement block within the plain ops' budget
+    t = max(1, _PLAIN_BUDGET // max(1, 3 * batch * num_db))
+    parts = []
+    for s in range(0, q.shape[1], t):
+        delta = db[:, None, :, :] - q[:, s:s + t, None, :]   # (B, T, N, 3)
+        inside = (delta.abs() < half).all(dim=-1)
+        idx, valid, total = _first_in_order(inside, k)
+        d_sel = torch.gather(delta, 2, idx[..., None].expand(-1, -1, -1, 3))
+        cells = ((d_sel + half) / cell).to(torch.int64).clamp(0, gridsize - 1)
+        bins = (cells[..., 0] * gridsize * gridsize
+                + cells[..., 1] * gridsize + cells[..., 2])
+        parts.append((idx, torch.where(valid, bins, 0),
+                      torch.clamp_max(total, k).long()))
+    return CubeNeighborhood(*(torch.cat(p, dim=1) for p in zip(*parts)))

@@ -30,8 +30,8 @@ _NAME = re.compile(r"^(\d+)\.pt$")
 
 # fields of the JAX config that the port's models do not read, with JAX's
 # defaults: a JAX snapshot loads when each holds its default
-_JAX_ONLY_DEFAULTS = {"nnsearch": "sphere", "mlp2": None, "num_parts": None,
-                      "point_axis": None, "data_axis": None, "halo_scale": 1}
+_JAX_ONLY_DEFAULTS = {"mlp2": None, "num_parts": None, "point_axis": None,
+                      "data_axis": None, "halo_scale": 1}
 
 
 class Checkpointer:

@@ -150,7 +150,7 @@ def test_config_snapshot_crosses_both_ways(make, tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("nnsearch", "cube"), ("mlp2", 64), ("num_parts", 4),
+    ("mlp2", 64), ("num_parts", 4),
     ("point_axis", "points"), ("data_axis", "data"), ("halo_scale", 2),
     ("not_a_field", 1),
 ])

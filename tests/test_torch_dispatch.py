@@ -217,8 +217,18 @@ def test_port_imports_no_jax():
         "from sph3d_gcn_torch.utils import tf1_bundle, checkpoint_convert\n"
         "assert checkpoint_convert.tf_name('conv1._2.bn.mean') == "
         "'conv1_2/bn/moving_mean'\n"
+        "from sph3d_gcn_torch.ops import build_cube_neighbor, "
+        "CubeNeighborhood\n"
+        "t = torch.from_numpy(x[:1].astype(np.float32))\n"
+        "assert isinstance(build_cube_neighbor(t, t[:, :8], 0.5, 4), "
+        "CubeNeighborhood)\n"
+        "from sph3d_gcn_torch.ops import costs\n"
+        "from sph3d_gcn_torch.utils import numpy_reference\n"
+        "from sph3d_gcn_torch.cli import parity_check, profile_step\n"
+        "assert callable(parity_check.main) and callable(profile_step.main)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'orbax', 'sph3d_gcn_tpu', 'bench'))\n"
+        "('jax', 'jaxlib', 'flax', 'orbax', 'sph3d_gcn_tpu', 'bench', "
+        "'scripts', 'numpy_reference'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
