@@ -422,6 +422,31 @@ at the end, with each job's span on the script's clock):
     default config: the per-edge engine in f32), in this process after
     every other phase.
 
+Then data parallelism (``sph3d_gcn_torch.parallel``), last:
+
+57. a world-1 NCCL group in this process: its all-reduce and all-gather
+    on the card, then the ModelNet dense step (bf16, B=16, N=10000,
+    seeded weights, dropout on) three times from one state through
+    ``classification_step_factory(..., group=...)``, bitwise equal to
+    three plain single-process kernel steps (loss, ``dense_ok``, every
+    gradient, the final parameters and statistics) under
+    ``torch.use_deterministic_algorithms(True)``, launches ``PER_STEP`` a
+    step (a group of one runs no collective in a step); then, once phase
+    58's ranks are done, steps with and without the group timed
+    alternately (the group's cost a step);
+58. two ranks sharing the card over gloo with CUDA tensors, spawned
+    before phase 56 (``parallel.run_ranks``; beside it they build their
+    batches and steps, check each collective the steps use and run each
+    step once, then wait for phase 57 and the references to end): each
+    runs
+    its 8 rows of a ModelNet step (B=16, N=10000) and of an S3DIS
+    inner-masked step (B=16, N=8192), f32 activations, held against the
+    one-process kernel step on the 16 items (loss within
+    ``DP_LOSS_TOL``, each gradient leaf within ``DP_GRAD_TOL`` of the
+    larger of its norm and the median leaf's, BN statistics within
+    ``DP_STATS_TOL``; the measured errors printed beside them), launches
+    ``PER_STEP`` / ``PER_SEG_STEP`` a rank, each rank's step time.
+
 Each replayed K1 call prints its launch plan (cluster size, threads,
 points a thread) and its time per greedy step, of the span and of the
 device alone.
@@ -449,8 +474,10 @@ epoch of phases 36 and 37), ``modelnet_eval_cli`` (phase 38),
 ``modelnet_prep_1024`` (phase 48), ``modelnet_prepared_fit`` (phase 50),
 ``s3dis_prepared_scene_eval_cli`` (phase 51), ``modelnet_profile_step``
 (phase 10), ``cube_dilated_queries`` (phase 53),
-``modelnet_oracle_dense`` and ``s3dis_oracle_dense`` (phases 54-55) and
-``modelnet_oracle_cli`` (phase 56); ``paths``
+``modelnet_oracle_dense`` and ``s3dis_oracle_dense`` (phases 54-55),
+``modelnet_oracle_cli`` (phase 56), ``modelnet_dp_world1`` (phase 57)
+and ``modelnet_dp_rank0``, ``modelnet_dp_rank1``, ``s3dis_dp_rank0``,
+``s3dis_dp_rank1`` (phase 58: each rank's launches); ``paths``
 also holds the replays of ``shapenet_onehot_train_step``,
 ``shapenet_serve``, ``ruemonge_train_step``, ``s3dis_scene_eval`` (their
 launches: the timed steps, the eval CLIs' forwards) and
@@ -588,6 +615,16 @@ ROW_SHARE = 1e-3
 THRESHOLD_BAND = 4e-6
 DIST_TOL = 1e-6
 ORACLE_TOL = 1e-4
+# phases 57-58, data parallelism: the world-1 NCCL steps (bitwise) and the
+# alternated timing rounds; the shared-card ranks' gate against the
+# one-process step (f32: only the BN statistics' and the gradients' sums
+# run in another order; the gradient gate is GRAD_TOL's, whose S3DIS
+# decoder BN bias cancels; BN statistics absolute, as a mean near 0 has
+# no relative error to speak of) and their time limit
+DP_STEPS, DP_TIMED = 3, 3
+DP_LOSS_TOL, DP_GRAD_TOL, DP_STATS_TOL = 1e-5, GRAD_TOL, 1e-5
+DP_TIMEOUT = 300.0
+DP_SIZES = {"modelnet": (B, N), "s3dis": (S3_B, S3_N)}
 ORACLE_CLI = ["--model", "modelnet", "--oracle", "--batch_size", "1"]
 # the path whose run gives each kernel's launches and times in the JSON line
 # (K2 and K7 from the option paths, whose queries write distance maps)
@@ -4846,6 +4883,365 @@ def cli_oracle_phase() -> dict[str, int]:
     return launches
 
 
+def dp_problems(dev: torch.device, sizes: dict) -> dict:
+    """Phase 58's two steps, built from seeds on the host alike in every
+    process at ``sizes`` (name -> global batch and points): name -> (step
+    factory builder, global host batch, launches a step). f32
+    activations: the ranks' step is held to the one-process step by a
+    tight gate."""
+    from sph3d_gcn_torch.configs import modelnet_config, s3dis_config
+    from sph3d_gcn_torch.data.synthetic import scene_blocks, surface_clouds
+    from sph3d_gcn_torch.models import SPH3DModelNet, SPH3DSceneSeg
+    from sph3d_gcn_torch.train.schedule import make_optimizer
+    from sph3d_gcn_torch.train.steps import (
+        classification_step_factory,
+        segmentation_step_factory,
+    )
+
+    mn_cfg = dataclasses.replace(modelnet_config(fast=True, dense=True),
+                                 compute_dtype="float32")
+    s3_cfg = dataclasses.replace(s3dis_config(fast=True, dense=True),
+                                 compute_dtype="float32")
+    (mn_b, mn_n), (s3_b, s3_n) = sizes["modelnet"], sizes["s3dis"]
+    rng = np.random.default_rng(57)
+    mn_batch = {"points": surface_clouds(rng, mn_b, mn_n),
+                "label": rng.integers(0, mn_cfg.num_cls, mn_b)}
+    rng = np.random.default_rng(58)
+    s3_batch = {"points": scene_blocks(rng, s3_b, s3_n),
+                "label": rng.integers(0, s3_cfg.num_cls, (s3_b, s3_n)),
+                "inner_label": rng.integers(0, 2, (s3_b, s3_n))
+                .astype(np.int32)}
+
+    def modelnet(group):
+        model = SPH3DModelNet(mn_cfg, generator=torch.Generator()
+                              .manual_seed(57)).to(dev)
+        return classification_step_factory(
+            model, *make_optimizer(model.parameters(), "adam", 1e-3),
+            weight_decay=mn_cfg.weight_decay, group=group)
+
+    def s3dis(group):
+        model = SPH3DSceneSeg(s3_cfg, generator=torch.Generator()
+                              .manual_seed(58)).to(dev)
+        return segmentation_step_factory(
+            model, *make_optimizer(model.parameters(), "adam", 1e-3),
+            inner_masked=True, group=group)
+
+    return {"modelnet": (modelnet, mn_batch, PER_STEP),
+            "s3dis": (s3dis, s3_batch, PER_SEG_STEP)}
+
+
+def dp_warm_up(factory, batch: dict, dev: torch.device) -> dict:
+    """One step on ``batch`` (host arrays) without the update, the model
+    put back as it was; returns the batch on ``dev``."""
+    dev_batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in batch.items()}
+    model = factory.model
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    factory.loss_and_grads(dev_batch,
+                           torch.Generator(device=dev).manual_seed(59))
+    model.load_state_dict(state0)
+    return dev_batch
+
+
+def dp_step(factory, batch: dict, dev: torch.device) -> dict:
+    """One step's loss, data loss, certificate, gradients and BN running
+    statistics (host tensors), without the update, after a warm-up step
+    from the same state; the step's launches and its ms on the host clock
+    (synchronised)."""
+    from sph3d_gcn_torch import kernel_launches, reset_kernel_launches
+
+    dev_batch = dp_warm_up(factory, batch, dev)
+    model = factory.model
+    gen = torch.Generator(device=dev).manual_seed(59)
+    sync(dev)
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    metrics = factory.loss_and_grads(dev_batch, gen)
+    sync(dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = kernel_launches()
+    return {"loss": metrics["loss"].item(),
+            "data_loss": metrics["data_loss"].item(),
+            "dense_ok": bool(metrics["dense_ok"]), "ms": ms,
+            "launches": launches,
+            "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
+            "stats": {k: v.cpu() for k, v in model.state_dict().items()
+                      if k.endswith((".mean", ".var"))}}
+
+
+def sync(dev: torch.device) -> None:
+    """Wait for ``dev``'s work (the CPU's is done on return)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dp_rank(group, go: str, timeout: float, sizes: dict) -> dict:
+    """Phase 58 on one of two ranks sharing the card over gloo: build both
+    steps' batches, check each collective the steps use on CUDA tensors,
+    build both steps and run each once, wait for the main process's
+    ``go`` file, then run this rank's rows of each global batch."""
+    from sph3d_gcn_torch.parallel import shard_batch
+
+    dev = group.device
+    problems = dp_problems(dev, sizes)
+    x = torch.full((3,), float(group.rank + 1), device=dev)
+    checks = {
+        "all_reduce": group.all_reduce_(x.clone()).tolist(),
+        "all_gather": group.all_gather_rows(x[None]).tolist(),
+        "sum_floats": group.sum_floats(1.0, 2.0 * group.rank)}
+    want = {"all_reduce": [3.0] * 3, "all_gather": [[1.0] * 3, [2.0] * 3],
+            "sum_floats": [2.0, 2.0]}
+    if checks != want:
+        raise AssertionError(f"gloo collectives on {dev}: {checks}")
+    factories = {name: build(group)
+                 for name, (build, _, _) in problems.items()}
+    # a process's first step loads and warms everything (seconds): here,
+    # beside phase 56, not in the timed run after the go
+    for name, (_, batch, _) in problems.items():
+        dp_warm_up(factories[name], shard_batch(batch, group), dev)
+        torch.cuda.empty_cache()
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(go):
+        if time.monotonic() > deadline:
+            raise TimeoutError("no go from the main process")
+        time.sleep(0.05)
+    group.barrier()
+    out = {"checks": checks, "device": str(dev), "clock": []}
+    for name, (_, batch, _) in problems.items():
+        out[name] = dp_step(factories.pop(name), shard_batch(batch, group),
+                            dev)
+        out["clock"].append(time.time())
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_hold(name: str, got: dict, ref: dict) -> float:
+    """Phase 58's gate: a rank's step against the one-process step on the
+    global batch. Returns the largest of the measured errors; raises past
+    the tolerances (``DP_LOSS_TOL`` relative; each gradient leaf's L2
+    error within ``DP_GRAD_TOL`` of the larger of its norm and the median
+    leaf's; each BN statistic within ``DP_STATS_TOL`` absolute)."""
+    loss = max(abs(got[k] - ref[k]) / abs(ref[k])
+               for k in ("loss", "data_loss"))
+    med = float(np.median([v.norm().item() for v in ref["grads"].values()]))
+    grads = leaf_errors(got["grads"], ref["grads"], med)
+    stats = {k: (got["stats"][k] - v).abs().max().item()
+             for k, v in ref["stats"].items()}
+    worst = max(grads, key=grads.get)
+    print(f"  {name}: loss {got['loss']:.6f} vs {ref['loss']:.6f} "
+          f"(relative {loss:.3g}, tolerance {DP_LOSS_TOL:g}); gradient "
+          f"leaves max {grads[worst]:.3g} ({worst}) / median "
+          f"{float(np.median(list(grads.values()))):.3g} of the larger of "
+          f"their norm and the median leaf's (tolerance {DP_GRAD_TOL:g}); "
+          f"BN statistics max abs {max(stats.values()):.3g} "
+          f"(tolerance {DP_STATS_TOL:g}); dense_ok {got['dense_ok']}",
+          flush=True)
+    if (not loss <= DP_LOSS_TOL or not grads[worst] <= DP_GRAD_TOL
+            or not max(stats.values()) <= DP_STATS_TOL
+            or not got["dense_ok"]):
+        raise AssertionError(f"{name}: the ranks' step is not the "
+                             f"one-process step")
+    return max(loss, grads[worst], max(stats.values()))
+
+
+def world_one_phase(dev: torch.device) -> tuple[dict[str, int], object]:
+    """Phase 57: the served ModelNet dense step (bf16, B=16, N=10000) in a
+    world-1 NCCL group, three steps against three plain single-process
+    kernel steps from the same state and dropout seeds, bitwise (loss,
+    certificate, every gradient, the final parameters and statistics).
+    Returns the grouped run's launches and a function that times steps
+    alternately with and without the group (the collectives' cost) and
+    then leaves the group: it runs once phase 58's ranks are done, whose
+    start would take this host's cores from the timed steps."""
+    from sph3d_gcn_torch import kernel_launches, reset_kernel_launches
+    from sph3d_gcn_torch.configs import modelnet_config
+    from sph3d_gcn_torch.data.synthetic import surface_clouds
+    from sph3d_gcn_torch.models import SPH3DModelNet
+    from sph3d_gcn_torch.parallel import (
+        close_data_parallel,
+        init_data_parallel,
+    )
+    from sph3d_gcn_torch.train.schedule import (
+        exponential_decay_lr,
+        make_optimizer,
+    )
+    from sph3d_gcn_torch.train.steps import classification_step_factory
+
+    group = init_data_parallel(dev, "nccl", rank=0, world_size=1,
+                               store=torch.distributed.HashStore())
+    x = torch.arange(3.0, device=dev)
+    nccl = {"all_reduce": group.all_reduce_(x.clone()).tolist(),
+            "all_gather": group.all_gather_rows(x[None]).tolist()}
+    if nccl != {"all_reduce": [0.0, 1.0, 2.0],
+                "all_gather": [[0.0, 1.0, 2.0]]}:
+        raise AssertionError(f"NCCL collectives on {dev}: {nccl}")
+    cfg = modelnet_config(fast=True, dense=True)
+    model = SPH3DModelNet(cfg, generator=torch.Generator().manual_seed(1))
+    model = model.to(dev)
+    rng = np.random.default_rng(1)
+    batch = {
+        "points": torch.from_numpy(surface_clouds(rng, B, N)).to(dev),
+        "label": torch.from_numpy(
+            rng.integers(0, cfg.num_cls, (B,)).astype(np.int64)).to(dev),
+    }
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def factory(g):
+        return classification_step_factory(
+            model, *make_optimizer(model.parameters(), "adam",
+                                   exponential_decay_lr(0.001, B)),
+            weight_decay=cfg.weight_decay, group=g)
+
+    def run(g) -> tuple[list, dict]:
+        model.load_state_dict(state0)
+        step, out = factory(g), []
+        for i in range(DP_STEPS):
+            m = step.train_step(batch, torch.Generator(device=dev)
+                                .manual_seed(60 + i))
+            out.append((m["loss"].clone(), bool(m["dense_ok"]),
+                        {k: p.grad.clone()
+                         for k, p in model.named_parameters()}))
+        return out, {k: v.clone() for k, v in model.state_dict().items()}
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain, plain_state = run(None)
+        sync(dev)
+        reset_kernel_launches()
+        grouped, grouped_state = run(group)
+        sync(dev)
+        launches = kernel_launches()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = [torch.equal(a[0], b[0]) and a[1] == b[1]
+            and all(torch.equal(v, b[2][k]) for k, v in a[2].items())
+            for a, b in zip(grouped, plain)]
+    state_same = sum(torch.equal(v, plain_state[k])
+                     for k, v in grouped_state.items())
+    print(f"57. world-1 NCCL group, ModelNet dense step B={B} N={N} (bf16):"
+          f" {sum(same)} of {DP_STEPS} steps bitwise equal to the plain "
+          f"single-process kernel step (loss, dense_ok, {len(grouped[0][2])}"
+          f" gradient leaves), {state_same} of {len(plain_state)} final "
+          f"parameters and statistics equal; losses "
+          f"{[round(x[0].item(), 4) for x in grouped]}; NCCL collectives "
+          f"on the card {nccl}, none in a step of a group of one; "
+          f"launches {launches}", flush=True)
+    if sum(same) != DP_STEPS or state_same != len(plain_state):
+        raise AssertionError("the world-1 NCCL step is not the plain step")
+    for name, per in PER_STEP.items():
+        if launches[name] != per * DP_STEPS:
+            raise AssertionError(f"world-1 group: {name} launched "
+                                 f"{launches[name]} times, want {per} a "
+                                 f"step")
+
+    def timed() -> None:
+        times: dict = {None: [], group: []}
+        model.load_state_dict(state0)
+        steps = {g: factory(g) for g in times}
+        gen = torch.Generator(device=dev).manual_seed(60)
+        for g in (None, group, group, None) * DP_TIMED:
+            sync(dev)
+            t0 = time.perf_counter()
+            steps[g].train_step(batch, gen)
+            sync(dev)
+            times[g].append((time.perf_counter() - t0) * 1e3)
+        plain_ms, group_ms = (float(np.median(times[g])) for g in times)
+        (p_lo, p_hi), (g_lo, g_hi) = ((min(times[g]), max(times[g]))
+                                      for g in times)
+        print(f"57. world-1 step {group_ms:.2f} ms against {plain_ms:.2f} "
+              f"ms without the group (medians of {2 * DP_TIMED} steps "
+              f"each, alternated; host clock, synchronised; ranges "
+              f"{g_lo:.2f}-{g_hi:.2f} and {p_lo:.2f}-{p_hi:.2f}): the "
+              f"group adds {group_ms - plain_ms:.2f} ms a step",
+              flush=True)
+        close_data_parallel()
+
+    return launches, timed
+
+
+def start_dp_ranks(dev: torch.device) -> dict:
+    """Phase 58's two ranks, started before phase 56 so that their start
+    (imports, models, batches, the collectives' check) runs beside it:
+    they wait for :func:`data_parallel_phases` to write the ``go`` file.
+    Daemon thread and processes: a failed phase before 57 leaves nothing
+    running."""
+    import threading
+
+    from sph3d_gcn_torch.parallel import run_ranks
+
+    tmp = tempfile.mkdtemp()
+    ranks: dict = {"tmp": tmp, "go": os.path.join(tmp, "go")}
+
+    def spawn():
+        try:
+            ranks["out"] = run_ranks(
+                dp_rank, 2, (ranks["go"], DP_TIMEOUT, DP_SIZES),
+                device=str(dev), backend="gloo", timeout=DP_TIMEOUT,
+                threads=2, store_dir=tmp)
+        except BaseException as e:     # re-raised in the main thread
+            ranks["error"] = e
+
+    ranks["thread"] = threading.Thread(target=spawn, daemon=True)
+    ranks["thread"].start()
+    return ranks
+
+
+def data_parallel_phases(dev: torch.device, smi: str, ranks: dict) -> dict:
+    """Phases 57-58 (see the module docstring), the latter's ranks from
+    :func:`start_dp_ranks`. Returns their launches by path for the JSON
+    line's ``fit_paths``."""
+    import shutil
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()
+    try:
+        try:
+            launches, timed = world_one_phase(dev)
+            runs = {"modelnet_dp_world1": launches}
+            t_world = time.perf_counter()
+            problems, refs = dp_problems(dev, DP_SIZES), {}
+            for name, (build, batch, _) in problems.items():
+                refs[name] = dp_step(build(None), batch, dev)
+                torch.cuda.empty_cache()
+            t_refs = time.perf_counter()
+            t_go = time.time()
+        finally:
+            Path(ranks["go"]).touch()
+            ranks["thread"].join()
+        t_ranks = time.perf_counter()
+        timed()
+    finally:
+        shutil.rmtree(ranks["tmp"], ignore_errors=True)
+    if "error" in ranks:
+        raise ranks["error"]
+    print(f"   phase 57 {t_world - t_start:.1f} s, the one-process "
+          f"references {t_refs - t_world:.1f} s, the ranks after them "
+          f"{t_ranks - t_refs:.1f} s (rank 0's steps end "
+          f"{[round(t - t_go, 2) for t in ranks['out'][0]['clock']]} s "
+          f"after the go)", flush=True)
+    print(f"58. two ranks sharing the card over gloo ({smi}): collectives "
+          f"on CUDA tensors {ranks['out'][0]['checks']}; each rank's rows "
+          f"of the global batch (f32 activations) against the one-process "
+          f"kernel step on it:", flush=True)
+    for name, (_, _, per_step) in problems.items():
+        ref = refs[name]
+        for rank, out in enumerate(ranks["out"]):
+            got = out[name]
+            dp_hold(f"{name} rank {rank} ({got['ms']:.1f} ms, one-process "
+                    f"{ref['ms']:.1f} ms)", got, ref)
+            for kernel, per in per_step.items():
+                if got["launches"][kernel] != per:
+                    raise AssertionError(
+                        f"{name} rank {rank}: {kernel} launched "
+                        f"{got['launches'][kernel]} times, want {per}")
+            runs[f"{name}_dp_rank{rank}"] = got["launches"]
+            print(f"  {name} rank {rank} launches {got['launches']}",
+                  flush=True)
+    print(f"[phases 57-58: {time.perf_counter() - t_start:.1f} s]",
+          flush=True)
+    return runs
+
+
 def kernel_lines(runs: dict[str, tuple[Results, dict]],
                  others: tuple, fit_runs: dict[str, dict[str, int]]
                  ) -> dict:
@@ -4936,10 +5332,10 @@ def main() -> None:
         cards[family] = dense_oracle_phase(dev, family)
     print(f"[{time.perf_counter() - start:.1f} s] phases 53-55 on the "
           f"card", flush=True)
-    phases(dev, start, cards)
+    phases(dev, start, cards, smi)
 
 
-def phases(dev: torch.device, start: float, cards: dict) -> None:
+def phases(dev: torch.device, start: float, cards: dict, smi: str) -> None:
     """Phases 3-10, the main path's; phases 11-52 beside the host side of
     phases 53-55 (``cards``: their card side's results) in a pool of
     processes; phase 56; then the wall time and the JSON lines."""
@@ -5044,7 +5440,9 @@ def phases(dev: torch.device, start: float, cards: dict) -> None:
           f"({time.perf_counter() - t0:.1f} s waiting on the host "
           f"processes)", flush=True)
     fit_runs = runs.pop("fit_runs")
+    dp_ranks = start_dp_ranks(dev)
     fit_runs["modelnet_oracle_cli"] = cli_oracle_phase()
+    fit_runs.update(data_parallel_phases(dev, smi, dp_ranks))
     fit_runs["modelnet_profile_step"] = profile_launches
     fit_runs["cube_dilated_queries"] = cards["queries"][2]
     fit_runs["modelnet_oracle_dense"] = cards["modelnet"][2]

@@ -10,7 +10,8 @@ mean-class and per-class accuracy, and the votes written to
 The model is rebuilt from the log dir's ``config.json`` (either
 package's) and its variables are restored from the checkpoint. A batch
 whose dense certificate fails is re-run on the per-edge engine
-(``train.eval.checked_eval_step``).
+(``train.eval.checked_eval_step``). Under ``torchrun`` (``cli``) every
+rank reads every record and serves its rows of each batch.
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the card's kernels) or 'cpu' (the "
                              "plain versions)")
+    from sph3d_gcn_torch.cli import add_parallel_args
+
+    add_parallel_args(parser)
     return parser.parse_args(argv)
 
 
@@ -40,13 +44,14 @@ def main(argv=None) -> dict:
     the per-edge engine."""
     args = parse_args(argv)
 
-    from sph3d_gcn_torch.cli import read_list, resolve_device
+    from sph3d_gcn_torch.cli import rank_print, read_list, setup_parallel
     from sph3d_gcn_torch.data.datasets import (
         load_modelnet_records,
         modelnet_batches,
         pad_batch,
     )
     from sph3d_gcn_torch.models import SPH3DModelNet
+    from sph3d_gcn_torch.parallel import is_primary, shard_batch
     from sph3d_gcn_torch.train.checkpoint import (
         Checkpointer,
         load_config_snapshot,
@@ -62,16 +67,17 @@ def main(argv=None) -> dict:
     from sph3d_gcn_torch.train.schedule import make_optimizer
     from sph3d_gcn_torch.train.steps import classification_step_factory
 
-    device = resolve_device(args.device)
+    device, group = setup_parallel(args)
+    say = rank_print(group)
     # the trained architecture from the log dir's snapshot (the reference
     # re-imports the copied model/config .py, ref evaluate_modelnet.py:35-46)
     cfg = load_config_snapshot(args.log_dir)
     model = SPH3DModelNet(cfg).to(device)
     epoch = Checkpointer(args.log_dir).restore_variables(model, args.epoch)
-    print(f"restored epoch {epoch} from {args.log_dir}")
+    say(f"restored epoch {epoch} from {args.log_dir}")
     factory = classification_step_factory(
         model, *make_optimizer(model.parameters(), "adam", 1e-3),
-        weight_decay=cfg.weight_decay,
+        weight_decay=cfg.weight_decay, group=group,
     )
     eval_step = checked_eval_step(factory)
     records = load_modelnet_records(
@@ -84,7 +90,8 @@ def main(argv=None) -> dict:
         batch = {"points": points.astype(np.float32),
                  "label": np.zeros(len(points), np.int32)}
         batch, bsize = pad_batch(batch, args.batch_size)
-        logits = eval_step(to_device(batch, device))["logits"]
+        logits = eval_step(to_device(shard_batch(batch, group),
+                                     device))["logits"]
         forwards += 1
         reruns += not bool(model.dense_ok)   # the dense forward's certificate
         return logits[:bsize].float().cpu().numpy()
@@ -100,14 +107,15 @@ def main(argv=None) -> dict:
     label = np.concatenate(all_label)
 
     cm = confusion_matrix(pred, label, cfg.num_cls)
-    print(f"eval accuracy: {overall_accuracy(cm):f}")
-    print(f"eval avg class acc: {mean_class_accuracy(cm):f}")
+    say(f"eval accuracy: {overall_accuracy(cm):f}")
+    say(f"eval avg class acc: {mean_class_accuracy(cm):f}")
     for i, acc in enumerate(per_class_accuracy(cm)):
-        print(f"class {i:02d}: {acc:.3f}")
-    print(f"forwards re-run on the per-edge engine: {reruns} of {forwards}")
+        say(f"class {i:02d}: {acc:.3f}")
+    say(f"forwards re-run on the per-edge engine: {reruns} of {forwards}")
     votes = np.concatenate(all_votes)
-    np.savez(os.path.join(args.log_dir, "pred_votes.npz"), votes=votes,
-             label=label)
+    if is_primary(group):
+        np.savez(os.path.join(args.log_dir, "pred_votes.npz"), votes=votes,
+                 label=label)
     return {"accuracy": overall_accuracy(cm),
             "mean_class_accuracy": mean_class_accuracy(cm),
             "votes": votes, "label": label, "forwards": forwards,

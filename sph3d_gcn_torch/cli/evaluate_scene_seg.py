@@ -56,6 +56,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the card's kernels) or 'cpu' (the "
                              "plain versions)")
+    from sph3d_gcn_torch.cli import add_parallel_args
+
+    add_parallel_args(parser)
     return parser.parse_args(argv)
 
 
@@ -67,7 +70,7 @@ def main(argv=None) -> dict:
     engine."""
     args = parse_args(argv)
 
-    from sph3d_gcn_torch.cli import read_list, resolve_device
+    from sph3d_gcn_torch.cli import rank_print, read_list, setup_parallel
     from sph3d_gcn_torch.data.datasets import load_scene_blocks
     from sph3d_gcn_torch.data.merge import (
         SceneAccumulator,
@@ -76,6 +79,7 @@ def main(argv=None) -> dict:
     )
     from sph3d_gcn_torch.data.prep.scannet import benchmark21_to_nyu40
     from sph3d_gcn_torch.models import SPH3DRueMonge, SPH3DSceneSeg
+    from sph3d_gcn_torch.parallel import is_primary, shard_batch
     from sph3d_gcn_torch.train.checkpoint import (
         Checkpointer,
         load_config_snapshot,
@@ -88,23 +92,25 @@ def main(argv=None) -> dict:
     from sph3d_gcn_torch.train.schedule import make_optimizer
     from sph3d_gcn_torch.train.steps import segmentation_step_factory
 
-    device = resolve_device(args.device)
+    device, group = setup_parallel(args)
+    say = rank_print(group)
+    primary = is_primary(group)
     ruemonge = args.dataset == "ruemonge2014"
     test_list = os.path.join(
         args.data_dir, f"test_files_fold{args.test_area}.txt"
         if args.dataset == "s3dis" else "test_files.txt")
     test_files = read_list(test_list)
     blocks = load_scene_blocks(test_files, with_index=True)
-    print(f"evaluating {len(blocks)} blocks from {len(test_files)} scenes")
+    say(f"evaluating {len(blocks)} blocks from {len(test_files)} scenes")
 
     cfg = load_config_snapshot(args.log_dir)
     model_class = SPH3DRueMonge if ruemonge else SPH3DSceneSeg
     model = model_class(cfg, in_columns=blocks[0].points.shape[1]).to(device)
     epoch = Checkpointer(args.log_dir).restore_variables(model, args.epoch)
-    print(f"restored epoch {epoch} from {args.log_dir}")
+    say(f"restored epoch {epoch} from {args.log_dir}")
     factory = segmentation_step_factory(
         model, *make_optimizer(model.parameters(), "adam", 1e-3),
-        inner_masked=not ruemonge,
+        inner_masked=not ruemonge, group=group,
     )
     eval_step = checked_eval_step(factory)
 
@@ -115,7 +121,8 @@ def main(argv=None) -> dict:
         batch = {"points": points.astype(np.float32),
                  "label": np.zeros(points.shape[:2], np.int32),
                  "inner_label": np.ones(points.shape[:2], np.int32)}
-        logits = eval_step(to_device(batch, device))["logits"]
+        logits = eval_step(to_device(shard_batch(batch, group),
+                                     device))["logits"]
         forwards += 1
         reruns += not bool(model.dense_ok)   # the dense forward's certificate
         return logits.float().cpu().numpy()
@@ -129,20 +136,21 @@ def main(argv=None) -> dict:
     per_scene: dict[str, list] = {}
     block_acc = SceneAccumulator(num_cls=cfg.num_cls)
     out_dir = os.path.join(args.log_dir, "block_results")
-    if args.save_blocks:
+    save_blocks = args.save_blocks and primary
+    if save_blocks:
         os.makedirs(out_dir, exist_ok=True)
     for i, (blk, logits) in enumerate(zip(blocks, all_logits)):
         inner = blk.inner == 1
         block_acc.add_scene(logits.argmax(-1)[inner], blk.label[inner])
         per_scene.setdefault(blk.scene, []).append(
             (blk.index, blk.inner, logits))
-        if args.save_blocks:
+        if save_blocks:
             np.savez(os.path.join(out_dir, f"{blk.scene}_{i}.npz"),
                      data=blk.points, logits=logits, index=blk.index,
                      inner=blk.inner, label=blk.label)
-    print(f"block-level OA: {block_acc.overall_accuracy:.4f} "
+    say(f"block-level OA: {block_acc.overall_accuracy:.4f} "
           f"mIoU: {block_acc.mean_iou:.4f}")
-    print(f"forwards re-run on the per-edge engine: {reruns} of {forwards}")
+    say(f"forwards re-run on the per-edge engine: {reruns} of {forwards}")
 
     # scene re-merge (ref post-merging/s3dis_merge.m)
     acc = None
@@ -152,14 +160,15 @@ def main(argv=None) -> dict:
         for scene, blks in sorted(per_scene.items()):
             path = os.path.join(args.scene_dir, scene + ".npz")
             if not os.path.exists(path):
-                print(f"missing scene ground truth: {path}")
+                say(f"missing scene ground truth: {path}")
                 continue
             gt = np.load(path)
             labels = merge_scene_predictions(len(gt["label"]), blks,
                                              cfg.num_cls)
             merged[scene] = labels
             full = "full_xyz" in gt
-            if args.submission_dir and args.dataset == "scannet":
+            if (args.submission_dir and args.dataset == "scannet"
+                    and primary):
                 os.makedirs(args.submission_dir, exist_ok=True)
                 out_labels = benchmark21_to_nyu40(labels)
                 if full:
@@ -172,19 +181,20 @@ def main(argv=None) -> dict:
                     gt["xyz"], labels, gt["full_xyz"]), gt["full_label"])
             else:
                 acc.add_scene(labels, gt["label"])
-            print(f"{scene}: running OA {acc.overall_accuracy:.4f}")
-        print("================== merged scene metrics ==================")
-        print(f"OA:   {acc.overall_accuracy:.4f}")
-        print(f"mAcc: {acc.mean_acc:.4f}")
-        print(f"mIoU: {acc.mean_iou:.4f}")
+            say(f"{scene}: running OA {acc.overall_accuracy:.4f}")
+        say("================== merged scene metrics ==================")
+        say(f"OA:   {acc.overall_accuracy:.4f}")
+        say(f"mAcc: {acc.mean_acc:.4f}")
+        say(f"mIoU: {acc.mean_iou:.4f}")
         for c, iou in enumerate(acc.class_iou):
-            print(f"class {c:02d} IoU: {iou:.4f}")
+            say(f"class {c:02d} IoU: {iou:.4f}")
         # raw counts for the cross-fold aggregate (cli.aggregate_folds;
         # ref post-merging/s3dis_merge.m:96-99, s3dis_merge_6Areas.m)
         metric_path = os.path.join(args.log_dir,
                                    f"Area_{args.test_area}_metric.npz")
-        acc.save(metric_path)
-        print(f"saved fold counts to {metric_path}")
+        if primary:
+            acc.save(metric_path)
+            say(f"saved fold counts to {metric_path}")
     return {"block_accumulator": block_acc, "accumulator": acc,
             "logits": all_logits, "merged": merged, "forwards": forwards,
             "reruns": reruns}

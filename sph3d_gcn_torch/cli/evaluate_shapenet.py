@@ -45,6 +45,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the card's kernels) or 'cpu' (the "
                              "plain versions)")
+    from sph3d_gcn_torch.cli import add_parallel_args
+
+    add_parallel_args(parser)
     args = parser.parse_args(argv)
     if not args.onehot and args.category is None:
         parser.error("--category is required unless --onehot")
@@ -57,13 +60,14 @@ def main(argv=None) -> dict:
     engine."""
     args = parse_args(argv)
 
-    from sph3d_gcn_torch.cli import read_list, resolve_device
+    from sph3d_gcn_torch.cli import rank_print, read_list, setup_parallel
     from sph3d_gcn_torch.cli.train_shapenet import (
         NUM_PARTS,
         SHAPENET_CATEGORIES,
     )
     from sph3d_gcn_torch.data.prep.shapenet import load_shapenet_records
     from sph3d_gcn_torch.models import SPH3DShapeNet, SPH3DShapeNetOnehot
+    from sph3d_gcn_torch.parallel import is_primary, shard_batch
     from sph3d_gcn_torch.train.checkpoint import (
         Checkpointer,
         load_config_snapshot,
@@ -78,7 +82,9 @@ def main(argv=None) -> dict:
     from sph3d_gcn_torch.train.schedule import make_optimizer
     from sph3d_gcn_torch.train.steps import segmentation_step_factory
 
-    device = resolve_device(args.device)
+    device, group = setup_parallel(args)
+    say = rank_print(group)
+    primary = is_primary(group)
     cfg = load_config_snapshot(args.log_dir)
     if args.onehot:
         model = SPH3DShapeNetOnehot(cfg, num_cls=50)
@@ -93,17 +99,17 @@ def main(argv=None) -> dict:
         kwargs_keys = ()
     model = model.to(device)
     epoch = Checkpointer(args.log_dir).restore_variables(model, args.epoch)
-    print(f"restored epoch {epoch} from {args.log_dir}")
+    say(f"restored epoch {epoch} from {args.log_dir}")
 
     records = load_shapenet_records(
         read_list(os.path.join(args.data_dir, test_list)))
     if not args.onehot:
         records = [r for r in records if r["cls_label"] == cat_id]
-    print(f"evaluating {len(records)} shapes")
+    say(f"evaluating {len(records)} shapes")
 
     factory = segmentation_step_factory(
         model, *make_optimizer(model.parameters(), "adam", 1e-3),
-        model_kwargs_keys=kwargs_keys,
+        model_kwargs_keys=kwargs_keys, group=group,
     )
     eval_step = checked_eval_step(factory)
     forwards = reruns = 0
@@ -114,7 +120,8 @@ def main(argv=None) -> dict:
                  "label": np.zeros(points.shape[:2], np.int32),
                  "cls_label": np.array([records[i]["cls_label"] for i in ids],
                                        np.int32)}
-        logits = eval_step(to_device(batch, device))["logits"]
+        logits = eval_step(to_device(shard_batch(batch, group),
+                                     device))["logits"]
         forwards += 1
         reruns += not bool(model.dense_ok)   # the dense forward's certificate
         return logits.float().cpu().numpy()
@@ -128,7 +135,8 @@ def main(argv=None) -> dict:
         cfg.num_input, args.batch_size, np.random.default_rng(0),
         min_count=MIN_COUNT, augment_fn=shapenet_eval_augment)
     out_dir = os.path.join(args.log_dir, "pred")
-    os.makedirs(out_dir, exist_ok=True)
+    if primary:
+        os.makedirs(out_dir, exist_ok=True)
     instance_ious = []
     per_class: dict[int, list[float]] = {}
     for i, (rec, logits) in enumerate(zip(records, all_logits)):
@@ -140,14 +148,15 @@ def main(argv=None) -> dict:
         iou = shape_iou(pred, label, part_ids)
         instance_ious.append(iou)
         per_class.setdefault(cls, []).append(iou)
-        np.savetxt(os.path.join(out_dir, f"shape_{i}.txt"),
-                   np.stack([pred, label], axis=1), fmt="%d")
+        if primary:
+            np.savetxt(os.path.join(out_dir, f"shape_{i}.txt"),
+                       np.stack([pred, label], axis=1), fmt="%d")
 
     instance = float(np.mean(instance_ious))
     class_miou = float(np.mean([np.mean(v) for v in per_class.values()]))
-    print(f"instance mIoU: {instance:.4f}")
-    print(f"class mIoU: {class_miou:.4f}")
-    print(f"forwards re-run on the per-edge engine: {reruns} of {forwards}")
+    say(f"instance mIoU: {instance:.4f}")
+    say(f"class mIoU: {class_miou:.4f}")
+    say(f"forwards re-run on the per-edge engine: {reruns} of {forwards}")
     return {"instance_miou": instance, "class_miou": class_miou,
             "shape_ious": instance_ious, "logits": all_logits,
             "forwards": forwards, "reruns": reruns}

@@ -8,6 +8,9 @@ epoch and resumes from the latest checkpoint in ``--log_dir``::
 
     python -m sph3d_gcn_torch.cli.train_modelnet --data_dir DIR \\
         --log_dir log_modelnet --mode dense
+
+Under ``torchrun --nproc_per_node N`` it trains data-parallel (``cli``):
+rank i reads every N-th record file at ``batch_size / N`` a step.
 """
 
 from __future__ import annotations
@@ -52,13 +55,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the card's kernels) or 'cpu' (the "
                              "plain versions)")
+    from sph3d_gcn_torch.cli import add_parallel_args
+
+    add_parallel_args(parser)
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> torch.nn.Module:
     args = parse_args(argv)
 
-    from sph3d_gcn_torch.cli import read_list, resolve_device
+    from sph3d_gcn_torch.cli import read_list, setup_parallel
     from sph3d_gcn_torch.configs import modelnet_config
     from sph3d_gcn_torch.data.datasets import (
         load_modelnet_records,
@@ -74,11 +80,11 @@ def main(argv=None) -> torch.nn.Module:
     )
     from sph3d_gcn_torch.train.steps import classification_step_factory
 
-    device = resolve_device(args.device)
+    device, group = setup_parallel(args)
     cfg = modelnet_config(num_input=args.num_input,
                           fast=args.mode in ("fast", "dense"),
                           dense=args.mode == "dense", family=args.family)
-    snapshot_config(args.log_dir, cfg)
+    snapshot_config(args.log_dir, cfg, group)
     model = SPH3DModelNet(
         cfg, generator=torch.Generator().manual_seed(args.seed)).to(device)
     schedule = exponential_decay_lr(
@@ -87,7 +93,7 @@ def main(argv=None) -> torch.nn.Module:
     factory = classification_step_factory(
         model, *make_optimizer(model.parameters(), args.optimizer, schedule,
                                momentum=args.momentum),
-        weight_decay=cfg.weight_decay,
+        weight_decay=cfg.weight_decay, group=group,
     )
 
     train_records = load_modelnet_records(

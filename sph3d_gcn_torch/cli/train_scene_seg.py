@@ -55,13 +55,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the card's kernels) or 'cpu' (the "
                              "plain versions)")
+    from sph3d_gcn_torch.cli import add_parallel_args
+
+    add_parallel_args(parser)
     return parser.parse_args(argv)
 
 
 def main(argv=None) -> torch.nn.Module:
     args = parse_args(argv)
 
-    from sph3d_gcn_torch.cli import read_list, resolve_device
+    from sph3d_gcn_torch.cli import read_list, setup_parallel
     from sph3d_gcn_torch.configs import (
         ruemonge2014_config,
         s3dis_config,
@@ -81,7 +84,7 @@ def main(argv=None) -> torch.nn.Module:
     )
     from sph3d_gcn_torch.train.steps import segmentation_step_factory
 
-    device = resolve_device(args.device)
+    device, group = setup_parallel(args)
     mode_kw = {"fast": args.mode in ("fast", "dense"),
                "dense": args.mode == "dense"}
     train_list = os.path.join(args.data_dir, "train_files.txt")
@@ -103,7 +106,7 @@ def main(argv=None) -> torch.nn.Module:
         model_class, inner_masked, repeats = SPH3DRueMonge, False, 100
 
     log_dir = args.log_dir or f"log_{args.dataset}"
-    snapshot_config(log_dir, cfg)
+    snapshot_config(log_dir, cfg, group)
     # the train list repeated ``repeats`` times (RueMonge's 100), as its
     # blocks read once and repeated in the list's order
     train_blocks = load_scene_blocks(read_list(train_list)) * repeats
@@ -122,6 +125,7 @@ def main(argv=None) -> torch.nn.Module:
                                momentum=args.momentum,
                                adam_epsilon=args.adam_eps),
         weight_decay=cfg.weight_decay, inner_masked=inner_masked,
+        group=group,
     )
 
     def train_batches(epoch):

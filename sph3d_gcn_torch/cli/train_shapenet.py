@@ -62,6 +62,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the card's kernels) or 'cpu' (the "
                              "plain versions)")
+    from sph3d_gcn_torch.cli import add_parallel_args
+
+    add_parallel_args(parser)
     args = parser.parse_args(argv)
     if not args.onehot and args.category is None:
         parser.error("--category is required unless --onehot")
@@ -71,7 +74,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> torch.nn.Module:
     args = parse_args(argv)
 
-    from sph3d_gcn_torch.cli import read_list, resolve_device
+    from sph3d_gcn_torch.cli import read_list, setup_parallel
     from sph3d_gcn_torch.configs import shapenet_config
     from sph3d_gcn_torch.data.datasets import resample_indices
     from sph3d_gcn_torch.data.prep.shapenet import load_shapenet_records
@@ -85,7 +88,7 @@ def main(argv=None) -> torch.nn.Module:
     )
     from sph3d_gcn_torch.train.steps import segmentation_step_factory
 
-    device = resolve_device(args.device)
+    device, group = setup_parallel(args)
     cfg = shapenet_config(fast=args.mode in ("fast", "dense"),
                           dense=args.mode == "dense")
     gen = torch.Generator().manual_seed(args.seed)
@@ -112,7 +115,7 @@ def main(argv=None) -> torch.nn.Module:
         decay_step = factor * len(records) * 36
         records = records * factor
     print(f"{len(records)} training shapes, decay_step={decay_step}")
-    snapshot_config(log_dir, cfg)
+    snapshot_config(log_dir, cfg, group)
 
     schedule = exponential_decay_lr(
         args.learning_rate, args.batch_size, decay_step, args.decay_rate)
@@ -121,6 +124,7 @@ def main(argv=None) -> torch.nn.Module:
                                momentum=args.momentum),
         weight_decay=cfg.weight_decay,
         model_kwargs_keys=("cls_label",) if args.onehot else (),
+        group=group,
     )
 
     def train_batches(epoch):

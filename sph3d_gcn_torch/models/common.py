@@ -16,6 +16,7 @@ from sph3d_gcn_torch.nn.layers import SeparableConv3d, frozen_running_stats
 from sph3d_gcn_torch.ops.dense import DenseNeighborhood
 from sph3d_gcn_torch.ops.types import Neighborhood
 from sph3d_gcn_torch.ops.windowed import EdgeLists
+from sph3d_gcn_torch.parallel.mesh import active_group, data_parallel
 
 
 def compute_dtype(cfg: SPH3DConfig) -> torch.dtype:
@@ -66,9 +67,16 @@ def normalize_mean_center(points: torch.Tensor) -> torch.Tensor:
 
 
 def _remat_contexts():
-    """The forward runs as it is; the backward's recompute leaves the BN
-    running statistics that the forward updated."""
-    return contextlib.nullcontext(), frozen_running_stats()
+    """The forward runs as it is; the backward's recompute (on autograd's
+    thread) leaves the BN running statistics that the forward updated,
+    under the forward's data-parallel group."""
+    return contextlib.nullcontext(), _recompute(active_group())
+
+
+@contextlib.contextmanager
+def _recompute(group):
+    with frozen_running_stats(), data_parallel(group):
+        yield
 
 
 class SeparableConvBlock(nn.Module):

@@ -18,10 +18,13 @@ from sph3d_gcn_torch.ops.neighbor import (
 )
 from sph3d_gcn_torch.ops.sample import (
     farthest_point_sample,
+    ids_uniform,
     inverse_density_sample,
+    random_indices,
     random_sample,
 )
 from sph3d_gcn_torch.ops.types import Neighborhood
+from sph3d_gcn_torch.parallel.mesh import active_group, draw_rows, spread
 
 
 def _sample(xyz, num_sample, sample_method, prob_fn, generator, noise,
@@ -31,14 +34,24 @@ def _sample(xyz, num_sample, sample_method, prob_fn, generator, noise,
     neighbor distance) or random with replacement; ``generator`` draws
     the noise of IDS and random sampling unless ``noise`` holds the
     draws ((B, N) uniforms in [tiny, 1) for IDS, (B, S) indices for
-    random)."""
+    random). Under ``parallel.data_parallel`` with more than one rank,
+    the draws are this rank's rows of the global batch's
+    (``parallel.draw_rows``)."""
+    spread_draws = noise is None and spread(active_group())
+    batch, num = xyz.shape[0], xyz.shape[1]
     if sample_method == "FPS":
         return farthest_point_sample(num_sample, xyz,
                                      use_kernels=use_kernels)
     if sample_method == "IDS":
+        if spread_draws:
+            noise = draw_rows(lambda shape: ids_uniform(
+                shape, generator, xyz.device), (batch, num))
         return inverse_density_sample(num_sample, prob_fn(), generator,
                                       uniform=noise)
     if sample_method == "random":
+        if spread_draws:
+            noise = draw_rows(lambda shape: random_indices(
+                shape, num, generator, xyz.device), (batch, num_sample))
         return random_sample(num_sample, xyz, generator, indices=noise)
     raise ValueError(f"Unknown sampling method: {sample_method!r}")
 

@@ -32,6 +32,12 @@ from sph3d_gcn_torch.ops.pool import avg_pool3d, max_pool3d
 from sph3d_gcn_torch.ops.types import Neighborhood
 from sph3d_gcn_torch.ops.unpool import mean_interpolate, weighted_interpolate
 from sph3d_gcn_torch.ops.windowed import EdgeLists
+from sph3d_gcn_torch.parallel.mesh import (
+    active_group,
+    draw_rows,
+    pmean,
+    spread,
+)
 
 
 _STATS = threading.local()
@@ -73,7 +79,11 @@ class BatchNorm(nn.Module):
     ``momentum * running + (1 - momentum) * batch`` (momentum 0.99, eps
     1e-3; not ``F.batch_norm``, which keeps the unbiased variance and
     reads its momentum as ``1 - m``), except under
-    :func:`frozen_running_stats`."""
+    :func:`frozen_running_stats`. Under ``parallel.data_parallel`` the
+    per-channel means of x and x^2 are averaged over the group's ranks
+    (``parallel.pmean``, whose backward averages the cotangent): every
+    rank holds the same local batch size, so these are the global batch's
+    statistics, and every rank's running statistics move alike."""
 
     def __init__(self, channels: int, momentum: float = 0.99,
                  epsilon: float = 1e-3) -> None:
@@ -89,8 +99,11 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.training:
             red = tuple(range(x.dim() - 1))
-            mean = xf.mean(dim=red)
-            var = torch.clamp_min((xf * xf).mean(dim=red) - mean * mean, 0.0)
+            mean, sq = xf.mean(dim=red), (xf * xf).mean(dim=red)
+            group = active_group()
+            if spread(group):
+                mean, sq = pmean(torch.stack([mean, sq]), group).unbind(0)
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             if not getattr(_STATS, "frozen", False):
                 with torch.no_grad():
                     m = self.momentum
@@ -106,8 +119,9 @@ class Dropout(nn.Module):
     """Inverted dropout (flax ``nn.Dropout``): in train mode each element
     is kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``,
     its mask drawn from an explicit ``torch.Generator`` (on the tensor's
-    device; None takes PyTorch's default generator); the identity in eval
-    mode or at rate 0."""
+    device; None takes PyTorch's default generator; under
+    ``parallel.data_parallel`` this rank's rows of the global batch's
+    mask); the identity in eval mode or at rate 0."""
 
     def __init__(self, rate: float = 0.5) -> None:
         super().__init__()
@@ -118,7 +132,8 @@ class Dropout(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=generator, device=x.device)
+        mask = draw_rows(lambda shape: torch.rand(
+            shape, generator=generator, device=x.device), x.shape)
         return torch.where(mask < keep, x / keep, torch.zeros_like(x))
 
 

@@ -218,6 +218,21 @@ def farthest_point_sample_kernel(
 _TINY = float(torch.finfo(torch.float32).tiny)
 
 
+def ids_uniform(shape, generator: torch.Generator | None,
+                device: torch.device) -> torch.Tensor:
+    """The uniforms in ``[tiny, 1)`` that :func:`inverse_density_sample`
+    draws from ``generator`` for probabilities of ``shape``."""
+    return torch.rand(shape, generator=generator,
+                      device=device).clamp_min(_TINY)
+
+
+def random_indices(shape, num: int, generator: torch.Generator | None,
+                   device: torch.device) -> torch.Tensor:
+    """The indices in ``[0, num)`` that :func:`random_sample` draws from
+    ``generator``, of ``shape`` (B, npoint)."""
+    return torch.randint(0, num, shape, generator=generator, device=device)
+
+
 def inverse_density_sample(
     npoint: int,
     probability: torch.Tensor,
@@ -248,8 +263,8 @@ def inverse_density_sample(
         raise ValueError(f"npoint must be in [1, num_points={num}], got "
                          f"{npoint}")
     if uniform is None:
-        uniform = torch.rand(probability.shape, generator=generator,
-                             device=probability.device).clamp_min(_TINY)
+        uniform = ids_uniform(probability.shape, generator,
+                              probability.device)
     elif uniform.shape != probability.shape:
         raise ValueError(f"uniform draws {tuple(uniform.shape)} for "
                          f"probabilities {tuple(probability.shape)}")
@@ -271,8 +286,8 @@ def random_sample(
     (the draws themselves) is given."""
     batch, num = database.shape[0], database.shape[1]
     if indices is None:
-        return torch.randint(0, num, (batch, npoint), generator=generator,
-                             device=database.device)
+        return random_indices((batch, npoint), num, generator,
+                              database.device)
     if indices.shape != (batch, npoint):
         raise ValueError(f"indices {tuple(indices.shape)}, want "
                          f"{(batch, npoint)}")

@@ -9,7 +9,10 @@ checkpoints with auto-resume from the latest one
 ``state_dict`` (parameters and BN statistics), the optimizer's and the
 scheduler's state and the epoch; it is written under a temporary name
 and renamed into place, so an interrupted save never becomes the latest.
-Files are read with ``weights_only=True``.
+Files are read with ``weights_only=True``. Under a data-parallel group
+(every rank holds the same state) rank 0 writes and the others wait for
+it at a barrier; every rank reads the same files. JAX's processes all
+write identical files, which in one shared directory would race here.
 
 The config snapshot keeps the JAX package's JSON format: a
 ``config.json`` written by either package loads in the other.
@@ -25,11 +28,13 @@ import re
 import torch
 
 from sph3d_gcn_torch.configs.base import SPH3DConfig
+from sph3d_gcn_torch.parallel.mesh import DataGroup, is_primary, spread
 
 _NAME = re.compile(r"^(\d+)\.pt$")
 
 # fields of the JAX config that the port's models do not read, with JAX's
-# defaults: a JAX snapshot loads when each holds its default
+# defaults: a JAX snapshot loads when each holds its default (the point
+# sharding's data_axis and halo_scale among them)
 _JAX_ONLY_DEFAULTS = {"mlp2": None, "num_parts": None, "point_axis": None,
                       "data_axis": None, "halo_scale": 1}
 
@@ -37,12 +42,15 @@ _JAX_ONLY_DEFAULTS = {"mlp2": None, "num_parts": None, "point_axis": None,
 class Checkpointer:
     """Per-epoch save and restore of a model, its optimizer and its
     scheduler under ``log_dir/ckpt``, keeping the newest
-    ``max_to_keep``."""
+    ``max_to_keep``; with ``group`` (``parallel.DataGroup``) rank 0
+    writes."""
 
-    def __init__(self, log_dir: str | os.PathLike, max_to_keep: int = 500):
+    def __init__(self, log_dir: str | os.PathLike, max_to_keep: int = 500,
+                 group: DataGroup | None = None):
         self._dir = os.path.join(os.path.abspath(log_dir), "ckpt")
         os.makedirs(self._dir, exist_ok=True)
         self.max_to_keep = max_to_keep
+        self.group = group
 
     def _path(self, epoch: int) -> str:
         return os.path.join(self._dir, f"{epoch}.pt")
@@ -63,7 +71,11 @@ class Checkpointer:
              **extra) -> None:
         """Blocking per-epoch save (ref train_modelnet.py:254). ``extra``:
         more entries (ints, floats, strings, tensors) that
-        :meth:`restore` returns."""
+        :meth:`restore` returns. Under a group every rank calls it and
+        returns once rank 0's file is in place."""
+        if not is_primary(self.group):
+            self.group.barrier()
+            return
         payload = {"epoch": epoch, "model": model.state_dict(),
                    "extra": extra}
         if optimizer is not None:
@@ -79,6 +91,8 @@ class Checkpointer:
         os.replace(tmp, path)
         for old in self.epochs()[: -self.max_to_keep]:
             os.remove(self._path(old))
+        if spread(self.group):
+            self.group.barrier()
 
     def _load(self, model: torch.nn.Module, epoch: int | None) -> dict:
         if epoch is None:
@@ -119,9 +133,13 @@ class Checkpointer:
         """Nothing stays open between saves (JAX's API)."""
 
 
-def snapshot_config(log_dir: str | os.PathLike, config: SPH3DConfig) -> None:
+def snapshot_config(log_dir: str | os.PathLike, config: SPH3DConfig,
+                    group: DataGroup | None = None) -> None:
     """Write the architecture config as JSON into the log dir (the
-    reference's .py-copy trick, ref train_modelnet.py:53-55)."""
+    reference's .py-copy trick, ref train_modelnet.py:53-55); under
+    ``group``, rank 0 writes it."""
+    if not is_primary(group):
+        return
     os.makedirs(log_dir, exist_ok=True)
     with open(os.path.join(log_dir, "config.json"), "w") as f:
         json.dump(dataclasses.asdict(config), f, indent=2)

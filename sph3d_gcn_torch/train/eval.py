@@ -19,6 +19,11 @@ sharding) and by :func:`checked_forward` (the same rule for the numpy
 forwards of the two protocols): a batch whose ``dense_ok`` is False is
 re-run on the model's per-edge (classic) engine, on the same parameters,
 which is exact for every cloud.
+
+Under a data-parallel group (``parallel.DataGroup``) every rank runs the
+same host loop on the same records, as JAX's single-host mesh eval
+does: each rank's step serves its rows of each batch, the gathered
+logits feed the votes, and the ranks agree on every fallback re-run.
 """
 
 from __future__ import annotations
@@ -30,7 +35,14 @@ import numpy as np
 import torch
 
 from sph3d_gcn_torch.data import augment as aug
+from sph3d_gcn_torch.data.datasets import pad_batch
 from sph3d_gcn_torch.models.common import classic_clone
+from sph3d_gcn_torch.parallel.mesh import (
+    DataGroup,
+    data_parallel,
+    is_primary,
+    spread,
+)
 
 
 def checked_eval_step(factory) -> Callable[[dict], dict]:
@@ -41,7 +53,9 @@ def checked_eval_step(factory) -> Callable[[dict], dict]:
     the eval step of ``factory.classic_fallback()`` (the per-edge engine
     on the same parameters, built at the first such batch, which prints
     one line), so results are never silently wrong. A dense config pays
-    one host read of the certificate a batch; a per-edge one none."""
+    one host read of the certificate a batch; a per-edge one none. Under
+    ``factory.group``, ``batch`` is this rank's rows and the certificate
+    is the group's, so every rank re-runs together."""
     dense = bool(factory.model.config.dense_graph)
     fallback: list = []
 
@@ -49,8 +63,10 @@ def checked_eval_step(factory) -> Callable[[dict], dict]:
         metrics = factory.eval_step(batch)
         if dense and not bool(metrics["dense_ok"]):
             if not fallback:
-                print("dense window coverage violated at eval: re-running "
-                      "on the classic per-edge engine", flush=True)
+                if is_primary(factory.group):
+                    print("dense window coverage violated at eval: "
+                          "re-running on the classic per-edge engine",
+                          flush=True)
                 fallback.append(factory.classic_fallback())
             metrics = fallback[0].eval_step(batch)
         return metrics
@@ -88,6 +104,7 @@ def checked_forward(
     model: torch.nn.Module, device: torch.device | str = "cuda",
     generator: torch.Generator | None = None,
     model_inputs: Callable[[list[int]], list[np.ndarray]] | None = None,
+    group: DataGroup | None = None,
 ) -> Callable[..., np.ndarray]:
     """A forward for :func:`vote_classify` and :func:`coverage_eval_blocks`:
     numpy points in ((B, N, 3) clouds or (B, N, 9) scene blocks), numpy
@@ -103,31 +120,52 @@ def checked_forward(
     forward, so both answer for the same sample. ``model_inputs`` maps the
     ``block_ids`` that :func:`coverage_eval_blocks` passes to the model's
     extra inputs after the points (the one-hot ShapeNet model's category
-    labels, (B,)); None: the model takes none."""
+    labels, (B,)); None: the model takes none. With ``group`` every rank
+    calls the forward on the same global batch: each runs its rows (the
+    batch padded with repeats of its last item when it does not split
+    over the ranks), the ranks re-run together when any certificate
+    failed, and every rank returns the whole batch's logits."""
     fallback: list[torch.nn.Module] = []
     gen = generator if generator is not None else _default_generator(device)
 
     def forward(points: np.ndarray, block_ids=None) -> np.ndarray:
-        x = torch.as_tensor(np.asarray(points, np.float32), device=device)
-        extra = ([] if model_inputs is None else
-                 [torch.as_tensor(np.asarray(a), device=device)
-                  for a in model_inputs(block_ids)])
-        with torch.inference_mode():
+        inputs = [np.asarray(points, np.float32)] + (
+            [] if model_inputs is None else
+            [np.asarray(a) for a in model_inputs(block_ids)])
+        size = len(inputs[0])
+        if spread(group):
+            # a batch that does not split over the ranks is padded with
+            # repeats of its last item, and the logits trimmed back
+            padded, _ = pad_batch(dict(enumerate(inputs)),
+                                  -(-size // group.size) * group.size)
+            inputs = [group.local_rows(a) for a in padded.values()]
+        x, *extra = [torch.as_tensor(a, device=device) for a in inputs]
+        with torch.inference_mode(), data_parallel(group):
             state = gen.get_state()
             logits = model(x, *extra, generator=gen)
-            if not bool(model.dense_ok):
+            if not _agreed(model.dense_ok, group):
                 first = not fallback
                 if first:
                     fallback.append(classic_clone(model))
                 gen.set_state(state)
                 logits = fallback[0](x, *extra, generator=gen)
-                if first:
+                if first and is_primary(group):
                     print("dense window coverage violated at eval: "
                           "re-ran on the classic per-edge engine",
                           flush=True)
+            if spread(group):
+                logits = group.all_gather_rows(logits)[:size]
         return logits.float().cpu().numpy()
 
     return forward
+
+
+def _agreed(ok: torch.Tensor, group: DataGroup | None) -> bool:
+    """Whether the certificate held on every rank (a host read)."""
+    if not spread(group):
+        return bool(ok)
+    failed = (~ok).to(torch.float32).reshape(1)
+    return bool(group.all_reduce_(failed) == 0)
 
 
 def _default_generator(device: torch.device | str) -> torch.Generator:

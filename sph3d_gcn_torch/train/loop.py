@@ -1,5 +1,6 @@
 """Epoch-driven training loop with logging and checkpoint/resume
-(counterpart of ``sph3d_gcn_tpu/train/loop.py``, one process, no mesh).
+(counterpart of ``sph3d_gcn_tpu/train/loop.py``, without its point-axis
+sharding).
 
 Replaces the reference's per-dataset `train_*.py` `sess.run` loops
 (e.g. ref modelnet40_cls/train_modelnet.py:241-311): per-epoch train and
@@ -20,6 +21,16 @@ copy to the device, the step, its host reads of the loss, the
 certificate and the logits), the pre-step copy in a span
 ``pre_step_copy``: a trace of ``fit`` reads each step's device time and
 idle share from them.
+
+Under a data-parallel group (``factory.group``) every rank's
+``train_batches`` and ``eval_batches`` yield the same global batches
+(every rank reads every record with the same seeds, as JAX's one
+process a host does): each rank pads a batch to ``batch_size`` and
+steps on its rows of it, so R ranks run what one process runs on the
+same batches, batch for batch. The ranks restore and re-run together,
+and rank 0 alone logs and writes the checkpoints. The logged losses are
+the global batch's; the logged accuracies count every rank's rows (JAX
+logs process 0's rows only).
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import torch
 from torch.profiler import record_function
 
 from sph3d_gcn_torch.data.datasets import pad_batch
+from sph3d_gcn_torch.parallel.mesh import is_primary, shard_batch, spread
 from sph3d_gcn_torch.train.checkpoint import Checkpointer
 from sph3d_gcn_torch.train.steps import StepFactory
 
@@ -45,24 +57,36 @@ TRAIN_STREAM, PRIME_STREAM = 0, 1
 class Logger:
     """Tee to stdout and a log file (ref train_modelnet.py:56,68-71), plus
     a metrics.jsonl scalar stream (the TF-summary equivalent,
-    ref train_modelnet.py:167-178,207-209)."""
+    ref train_modelnet.py:167-178,207-209). A logger that is not
+    ``primary`` (a rank other than 0) opens nothing and stays silent, as
+    JAX's on processes other than 0."""
 
-    def __init__(self, log_dir: str, name: str = "log_train.txt"):
+    def __init__(self, log_dir: str, name: str = "log_train.txt",
+                 primary: bool = True):
+        self._primary = primary
+        if not primary:
+            return
         os.makedirs(log_dir, exist_ok=True)
         self._f = open(os.path.join(log_dir, name), "a")
         self._metrics = open(os.path.join(log_dir, "metrics.jsonl"), "a")
 
     def log(self, msg: str) -> None:
+        if not self._primary:
+            return
         self._f.write(msg + "\n")
         self._f.flush()
         print(msg, flush=True)
 
     def scalars(self, **kwargs) -> None:
         """Append one JSON line of scalar metrics."""
+        if not self._primary:
+            return
         self._metrics.write(json.dumps(kwargs) + "\n")
         self._metrics.flush()
 
     def close(self) -> None:
+        if not self._primary:
+            return
         self._f.close()
         self._metrics.close()
 
@@ -180,8 +204,10 @@ def fit(
         device (the model and its state stay there).
       train_batches: epoch -> iterator of host numpy batches.
       eval_batches: optional () -> iterator for the per-epoch eval pass.
-      batch_size: the fixed batch size (a short batch is padded by
-        repeating its last item; the eval loss counts real items only).
+      batch_size: the fixed global batch size (a short batch is padded
+        by repeating its last item; the eval loss counts real items only);
+        under a group every rank is given the same global batches and
+        steps on its ``batch_size / R`` rows of each.
       num_epochs: total epochs (resume-aware).
       log_dir: log and checkpoint directory.
       seed: seeds each step's generator with the step count
@@ -206,8 +232,26 @@ def fit(
         )
     model = factory.model
     device = next(model.parameters()).device
-    logger = Logger(log_dir)
-    ckpt = Checkpointer(log_dir)
+    group = factory.group
+    ranks = 1 if group is None else group.size
+    if batch_size % ranks:
+        raise ValueError(f"global batch {batch_size} does not split over "
+                         f"{ranks} processes")
+    logger = Logger(log_dir, primary=is_primary(group))
+    ckpt = Checkpointer(log_dir, group=group)
+
+    def mine(batch: dict) -> tuple[dict, int]:
+        """This rank's rows of a global batch padded to ``batch_size``,
+        and how many of them are real items."""
+        batch, bsize = pad_batch(batch, batch_size)
+        if group is None:
+            return batch, bsize
+        local = batch_size // ranks
+        return (shard_batch(batch, group),
+                min(max(bsize - group.rank * local, 0), local))
+
+    def group_sums(*values: float) -> list[float]:
+        return group.sum_floats(*values) if spread(group) else list(values)
 
     dense_mode = bool(model.config.dense_graph)
     use_fallback = dense_mode and on_dense_violation == "fallback"
@@ -263,7 +307,7 @@ def fit(
         batch_idx = 0
         train_time = 0.0
         for batch in train_batches(epoch):
-            batch, bsize = pad_batch(batch, batch_size)
+            batch, bsize = mine(batch)
             now = time.time()
             with record_function("fit_step"):
                 dev_batch = to_device(batch, device)
@@ -291,6 +335,8 @@ def fit(
             epoch_loss_sum += loss
             batch_idx += 1
             if batch_idx % log_every == 0:
+                total_correct, total_seen = group_sums(total_correct,
+                                                       total_seen)
                 logger.log(f" ---- batch: {batch_idx:03d} ----")
                 logger.log(f"mean loss: {loss_sum / log_every:f}")
                 logger.log(
@@ -313,17 +359,18 @@ def fit(
         if eval_batches is not None:
             running = None
             if bn_prime_steps > 0:
-                running = _prime(factory, train_batches(epoch),
-                                 bn_prime_steps, batch_size, seed, device,
-                                 logger)
+                running = _prime(factory, map(mine, train_batches(epoch)),
+                                 bn_prime_steps, seed, device, logger)
             logger.log(f"---- EPOCH {epoch:03d} EVALUATION ----")
             ev_correct = ev_seen = 0
             ev_loss = 0.0
             ev_items = 0
             ev_batches = 0
             for batch in eval_batches():
+                # the step gathers the whole batch's logits and item
+                # losses: every rank counts the global batch
                 batch, bsize = pad_batch(batch, batch_size)
-                dev_batch = to_device(batch, device)
+                dev_batch = to_device(mine(batch)[0], device)
                 metrics = factory.eval_step(dev_batch)
                 if _rerun(bool(metrics["dense_ok"]), f"epoch {epoch} eval"):
                     metrics = _fallback().eval_step(dev_batch)
@@ -367,19 +414,18 @@ def fit(
     return model
 
 
-def _prime(factory: StepFactory, batches, num: int, batch_size: int,
-           seed: int, device: torch.device, logger: Logger
+def _prime(factory: StepFactory, batches, num: int, seed: int,
+           device: torch.device, logger: Logger
            ) -> dict[str, torch.Tensor] | None:
     """Install BN statistics averaged over up to ``num`` of ``batches``
-    (batch i's dropout drawn from the prime stream's generator i, as
-    JAX's folds its key by i); returns the running statistics they
-    replace (None: no batch)."""
+    (padded, (batch, real items); batch i's dropout drawn from the prime
+    stream's generator i, as JAX's folds its key by i); returns the
+    running statistics they replace (None: no batch)."""
     sums = None
     primed = 0
-    for batch in batches:
+    for batch, _ in batches:
         if primed >= num:
             break
-        batch, _ = pad_batch(batch, batch_size)
         stats = factory.prime_step(
             to_device(batch, device),
             step_generator(seed, primed, device, PRIME_STREAM))

@@ -1,5 +1,5 @@
-"""Train and eval steps (counterpart of the non-mesh branch of
-``sph3d_gcn_tpu/train/steps.py``).
+"""Train and eval steps (counterpart of ``sph3d_gcn_tpu/train/steps.py``
+without its point-axis sharding).
 
 One train step: the train-mode forward (batch-statistics BN, which
 updates the running statistics in place; dropout, and the noise of IDS
@@ -12,6 +12,20 @@ dense step whose certificate ``dense_ok`` came back False has applied an
 update from a possibly wrong graph; ``train.loop.fit`` restores the
 pre-step state and re-runs the batch through
 :meth:`StepFactory.classic_fallback`, as JAX's ``fit()`` does.
+
+With a ``group`` (``parallel.DataGroup``) each of the R ranks runs the
+step on its rows of the global batch and the step computes what one
+process computes on the whole of it, as JAX's ``mesh=`` steps do: batch
+norm and the random draws follow ``parallel.data_parallel``; each rank's
+objective is its data loss over R (a ``"mean"`` loss) or as it is (the
+``"sum"`` of the inner-masked scene loss) plus the replicated weight
+decay over R, so one all-reduce sums the gradients into the global
+batch's. That all-reduce also carries the loss, the data loss and the
+certificate failures, so every rank returns the global loss and data
+loss and one ``dense_ok`` (every rank's certificate held), and takes the
+same fallback decision. Nothing syncs the parameters afterwards: every
+rank applies the same update to the same state. A group of one rank
+runs the one-process step, with no collective.
 """
 
 from __future__ import annotations
@@ -23,6 +37,7 @@ import torch
 
 from sph3d_gcn_torch.models.common import classic_clone
 from sph3d_gcn_torch.nn.layers import BatchNorm, l2_regularization
+from sph3d_gcn_torch.parallel.mesh import DataGroup, data_parallel, spread
 
 # (logits, batch) -> data loss (scalar) or per-item loss (B,)
 LossFn = Callable[[torch.Tensor, dict[str, torch.Tensor]], torch.Tensor]
@@ -47,6 +62,11 @@ class StepFactory:
       model_kwargs_keys: batch keys passed to the model after the points,
         in this order (the ShapeNet one-hot model's ``cls_label``), by
         every step, the fallback's included.
+      group: the data-parallel group, or None for one process: each
+        batch is then this rank's rows of the global batch.
+      loss_reduction: how ``loss_fn`` reduces over the batch's items,
+        ``"mean"`` or ``"sum"`` (the inner-masked scene loss), so that the
+        ranks' losses sum to the global one.
     """
 
     model: torch.nn.Module
@@ -57,20 +77,55 @@ class StepFactory:
     item_loss_fn: LossFn | None = None
     use_kernels: bool | None = None
     model_kwargs_keys: tuple[str, ...] = ()
+    group: DataGroup | None = None
+    loss_reduction: str = "mean"
+
+    def __post_init__(self) -> None:
+        if self.loss_reduction not in ("mean", "sum"):
+            raise ValueError(f"loss_reduction must be 'mean' or 'sum', got "
+                             f"{self.loss_reduction!r}")
 
     def _forward(self, batch, generator, sample_noise=None):
         extra = [batch[k] for k in self.model_kwargs_keys]
-        return self.model(batch["points"], *extra,
-                          use_kernels=self.use_kernels, generator=generator,
-                          sample_noise=sample_noise)
+        with data_parallel(self.group):
+            return self.model(batch["points"], *extra,
+                              use_kernels=self.use_kernels,
+                              generator=generator, sample_noise=sample_noise)
 
     def _losses(self, batch, generator, sample_noise=None):
+        """(objective, data loss, logits): under a group, this rank's
+        share of the global objective and data loss (module docstring)."""
         logits = self._forward(batch, generator, sample_noise)
         data_loss = self.loss_fn(logits, batch)
-        total = data_loss
+        decay = None
         if self.weight_decay is not None:
-            total = total + self.weight_decay * l2_regularization(self.model)
+            decay = self.weight_decay * l2_regularization(self.model)
+        if spread(self.group):
+            ranks = self.group.size
+            if self.loss_reduction == "mean":
+                data_loss = data_loss * (1.0 / ranks)
+            if decay is not None:
+                decay = decay / ranks
+        total = data_loss if decay is None else data_loss + decay
         return total, data_loss, logits
+
+    def _agree(self, total, data_loss, grads=()):
+        """Sum the ranks' objectives, data losses, certificate failures
+        and ``grads`` (in place) in one all-reduce; returns the global
+        (loss, data loss, dense_ok) and leaves ``dense_ok`` on the model."""
+        failed = (~self.model.dense_ok).to(torch.float32)
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [total.detach().reshape(1).float(),
+                            data_loss.detach().reshape(1).float(),
+                            failed.reshape(1)])
+        self.group.all_reduce_(flat)
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        ok = flat[-1] == 0
+        self.model.dense_ok = ok
+        return flat[-3], flat[-2], ok
 
     def loss_and_grads(self, batch: dict[str, torch.Tensor],
                        generator: torch.Generator | None = None,
@@ -82,14 +137,21 @@ class StepFactory:
         draws the dropout masks and the sampling noise (IDS, random);
         ``sample_noise`` gives each level's sampling draws instead (the
         model's forward). The certificate stays on the device: no host
-        read."""
+        read. Under a group the gradients, ``loss``, ``data_loss`` and
+        ``dense_ok`` are the global batch's (one all-reduce after the
+        backward) and ``logits`` this rank's rows."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         total, data_loss, logits = self._losses(batch, generator,
                                                 sample_noise)
         total.backward()
+        ok = self.model.dense_ok
+        if spread(self.group):
+            grads = [p.grad for p in self.model.parameters()
+                     if p.grad is not None]
+            total, data_loss, ok = self._agree(total, data_loss, grads)
         return {"loss": total.detach(), "data_loss": data_loss.detach(),
-                "logits": logits.detach(), "dense_ok": self.model.dense_ok}
+                "logits": logits.detach(), "dense_ok": ok}
 
     def train_step(self, batch: dict[str, torch.Tensor],
                    generator: torch.Generator | None = None
@@ -113,7 +175,8 @@ class StepFactory:
         ``var`` buffer: statistic}; the running statistics are left as
         they were. ``fit(bn_prime_steps=N)`` averages these over N
         batches for its eval pass: the momentum-0.99 running averages
-        lag on short runs."""
+        lag on short runs. Under a group: the global batch's
+        statistics, on every rank."""
         stats = [(f"{name}.{k}", getattr(bn, k), bn.momentum)
                  for name, bn in self.model.named_modules()
                  if isinstance(bn, BatchNorm) for k in ("mean", "var")]
@@ -143,14 +206,25 @@ class StepFactory:
     def eval_step(self, batch: dict[str, torch.Tensor]
                   ) -> dict[str, torch.Tensor]:
         """The eval-mode forward and losses (running BN statistics, no
-        dropout, no gradient)."""
+        dropout, no gradient). Under a group ``batch`` is this rank's
+        rows, and ``logits`` and ``item_loss`` come back for the whole
+        global batch (all-gathered in rank order), ``loss``, ``data_loss``
+        and ``dense_ok`` the global batch's."""
         self.model.eval()
         with torch.no_grad():
             total, data_loss, logits = self._losses(batch, None)
+            item_loss = (None if self.item_loss_fn is None
+                         else self.item_loss_fn(logits, batch))
+            ok = self.model.dense_ok
+            if spread(self.group):
+                total, data_loss, ok = self._agree(total, data_loss)
+                logits = self.group.all_gather_rows(logits)
+                if item_loss is not None:
+                    item_loss = self.group.all_gather_rows(item_loss)
         out = {"loss": total, "data_loss": data_loss, "logits": logits,
-               "dense_ok": self.model.dense_ok}
-        if self.item_loss_fn is not None:
-            out["item_loss"] = self.item_loss_fn(logits, batch)
+               "dense_ok": ok}
+        if item_loss is not None:
+            out["item_loss"] = item_loss
         return out
 
 
@@ -160,9 +234,10 @@ def classification_step_factory(
     scheduler: torch.optim.lr_scheduler.LRScheduler,
     weight_decay: float | None = None,
     use_kernels: bool | None = None,
+    group: DataGroup | None = None,
 ) -> StepFactory:
     """StepFactory with the mean softmax-CE classification loss
-    (ref SPH3D_modelnet.py:112-119)."""
+    (ref SPH3D_modelnet.py:112-119); ``group`` as :class:`StepFactory`."""
     from sph3d_gcn_torch.models.modelnet import (
         classification_item_loss,
         classification_loss,
@@ -175,7 +250,7 @@ def classification_step_factory(
         weight_decay=weight_decay,
         item_loss_fn=lambda logits, batch: classification_item_loss(
             logits, batch["label"]),
-        use_kernels=use_kernels,
+        use_kernels=use_kernels, group=group, loss_reduction="mean",
     )
 
 
@@ -187,13 +262,14 @@ def segmentation_step_factory(
     inner_masked: bool = False,
     use_kernels: bool | None = None,
     model_kwargs_keys: tuple[str, ...] = (),
+    group: DataGroup | None = None,
 ) -> StepFactory:
     """StepFactory with the per-point CE loss over ``batch["label"]``
     (B, N): the plain mean, or with ``inner_masked`` the S3DIS / ScanNet
     loss over the inner points ``batch["inner_label"] > 0``, summed over
     the batch's items (ref SPH3D_s3dis.py:116-133). ``model_kwargs_keys``
     names the batch's extra model inputs (``("cls_label",)`` for
-    ``SPH3DShapeNetOnehot``)."""
+    ``SPH3DShapeNetOnehot``); ``group`` as :class:`StepFactory`."""
     from sph3d_gcn_torch.models.segmentation import (
         inner_masked_item_loss,
         inner_masked_segmentation_loss,
@@ -215,5 +291,6 @@ def segmentation_step_factory(
         model=model, optimizer=optimizer, scheduler=scheduler,
         loss_fn=loss_fn, weight_decay=weight_decay,
         item_loss_fn=item_loss_fn, use_kernels=use_kernels,
-        model_kwargs_keys=tuple(model_kwargs_keys),
+        model_kwargs_keys=tuple(model_kwargs_keys), group=group,
+        loss_reduction="sum" if inner_masked else "mean",
     )

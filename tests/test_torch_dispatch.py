@@ -226,6 +226,10 @@ def test_port_imports_no_jax():
         "from sph3d_gcn_torch.utils import numpy_reference\n"
         "from sph3d_gcn_torch.cli import parity_check, profile_step\n"
         "assert callable(parity_check.main) and callable(profile_step.main)\n"
+        "import sph3d_gcn_torch.parallel\n"
+        "from sph3d_gcn_torch.parallel import launch, mesh, run_ranks, "
+        "shard_batch, process_shard_files, local_batch_size\n"
+        "assert process_shard_files(['a', 'b']) == ['a', 'b']\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'orbax', 'sph3d_gcn_tpu', 'bench', "
         "'scripts', 'numpy_reference'))\n"
