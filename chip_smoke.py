@@ -15,10 +15,11 @@ through the hand-written CUDA kernels, in phases:
    call of the main path (``_build.record_calls``); each recorded call is
    replayed through the kernel and its plain version and the two are
    compared (FPS indices, query maps and pool outputs exactly, conv bf16
-   outputs within rtol=atol=1e-2), with median CUDA-event times of both.
-   Done once with the served model's ``"hard"`` windows (these go into
-   the per-kernel JSON line) and once with the default ``"plain"``
-   windows of ``modelnet_config(fast=True, dense=True)``;
+   outputs within rtol=atol=1e-2), with CUDA-event times of both (the
+   kernel's the median of ``REPS`` runs, the plain version's of one).
+   Done with the served model's ``"hard"`` windows (these go into the
+   per-kernel JSON line); the default ``"plain"`` windows' forward calls
+   are replayed within phase 6's train step;
 4. serving: 2 batches x 3 votes through ``vote_classify``; logits
    (16, 40) and finite, ``dense_ok`` on every forward, launch counts of
    3 FPS, 6 query, 6 conv and 3 pool per forward; one forward's kernel
@@ -445,7 +446,21 @@ Then data parallelism (``sph3d_gcn_torch.parallel``), last:
     ``DP_LOSS_TOL``, each gradient leaf within ``DP_GRAD_TOL`` of the
     larger of its norm and the median leaf's, BN statistics within
     ``DP_STATS_TOL``; the measured errors printed beside them), launches
-    ``PER_STEP`` / ``PER_SEG_STEP`` a rank, each rank's step time.
+    ``PER_STEP`` / ``PER_SEG_STEP`` a rank, each rank's step time. Then
+    the same two ranks form one point group (``parallel.split_groups``)
+    and run the S3DIS dense train step point-sharded (``point_axis``;
+    B=16, N=8192, f32; rows 8192, 2048 and 768 split two ways, 384 and
+    128 replicated): every K1-K7 and K9 call of one sharded step
+    recorded and held against its plain version on the same operands
+    (K6's and K9's f32 sums within ``F32_SUM_TOL``), beside phases 56-57
+    before the go and before anything is timed (``sp_prepare``); after
+    the data-parallel steps (``sp_measure``) the step against the one-process kernel step on the same
+    batch and weights (``dp_hold``'s gates, ``halo_ok``, the gathered
+    logits within ``SP_LOGIT_TOL``, the Adam update by ``SP_RESOLVED``
+    and ``SP_UNRESOLVED``), launches ``PER_SEG_STEP`` a rank; the step's
+    ms (median of ``SP_TIMED``), the halo exchanges' count, rows, bytes
+    and host ms a step (two ranks sharing one card over gloo, staged
+    through the host: not a two-card figure); one bf16 step, finite.
 
 Each replayed K1 call prints its launch plan (cluster size, threads,
 points a thread) and its time per greedy step, of the span and of the
@@ -477,7 +492,8 @@ epoch of phases 36 and 37), ``modelnet_eval_cli`` (phase 38),
 ``modelnet_oracle_dense`` and ``s3dis_oracle_dense`` (phases 54-55),
 ``modelnet_oracle_cli`` (phase 56), ``modelnet_dp_world1`` (phase 57)
 and ``modelnet_dp_rank0``, ``modelnet_dp_rank1``, ``s3dis_dp_rank0``,
-``s3dis_dp_rank1`` (phase 58: each rank's launches); ``paths``
+``s3dis_dp_rank1``, ``s3dis_sp_rank0``, ``s3dis_sp_rank1`` (phase 58:
+each rank's launches, data-parallel and point-sharded); ``paths``
 also holds the replays of ``shapenet_onehot_train_step``,
 ``shapenet_serve``, ``ruemonge_train_step``, ``s3dis_scene_eval`` (their
 launches: the timed steps, the eval CLIs' forwards) and
@@ -528,7 +544,12 @@ from sph3d_gcn_torch.train.profiling import (  # noqa: E402
 B, N = 16, 10000
 BATCHES, VOTES = 2, 3
 REPS = 5
-PLAIN_REPS = 3       # the plain versions of the train replay
+# the plain versions' timed runs in the ModelNet forward and train
+# replays, dense and per-edge (phases 3, 6, 14 and 16; one run, after a
+# warm-up, as the S3DIS replays time them: the plain times only set the
+# kernels' speedups)
+FWD_PLAIN_REPS = 1
+PLAIN_REPS = 1
 STEPS = 20
 CONV_TOL = 1e-2      # bf16 outputs: f32 sums in another order, one rounding
 DX_ATOL = 1e-3       # conv backward dx: of its largest magnitude
@@ -625,6 +646,23 @@ DP_STEPS, DP_TIMED = 3, 3
 DP_LOSS_TOL, DP_GRAD_TOL, DP_STATS_TOL = 1e-5, GRAD_TOL, 1e-5
 DP_TIMEOUT = 300.0
 DP_SIZES = {"modelnet": (B, N), "s3dis": (S3_B, S3_N)}
+# phase 58's point-sharded S3DIS step: the two ranks form one point group
+# (levels 0-2 of the B=16, N=8192 pyramid split 2 ways, 8192/2048/768
+# rows; 384 and 128 run replicated) and hold the one-process f32 step on
+# the same batch and weights to DP_*_TOL, its logits within SP_LOGIT_TOL
+# of their largest magnitude, and its Adam update as the CPU tests do:
+# every entry whose two gradients agree within SP_RESOLVED of the smaller
+# within lr * SP_RESOLVED / 4 + 1e-7, the others (a gradient cancelling to
+# ~1e-7 may flip its sign) under SP_UNRESOLVED of the entries
+SP_POINTS = 2
+SP_SHARDED_ROWS = (8192, 2048, 768)
+SP_LOGIT_TOL = 1e-4
+SP_LR, SP_RESOLVED, SP_UNRESOLVED = 1e-3, 0.1, 1e-3
+SP_TIMED = 2
+# f32 gradient sums in another order (the sharded step runs in f32): of
+# the largest magnitude, a few ulps of the summed terms
+F32_SUM_TOL = 1e-5
+SP_CHECKS = ("rank_pool_bwd", "mean_interpolate_bwd", "window_gather_bwd")
 ORACLE_CLI = ["--model", "modelnet", "--oracle", "--batch_size", "1"]
 # the path whose run gives each kernel's launches and times in the JSON line
 # (K2 and K7 from the option paths, whose queries write distance maps)
@@ -735,6 +773,20 @@ def exact(got: tuple, ref: tuple) -> None:
     if not all(r is None if g is None else torch.equal(g, r)
                for g, r in zip(got, ref)):
         raise AssertionError("kernel != plain")
+
+
+def sums_close(got: tuple, ref: tuple) -> None:
+    """Gradient sums (K6, K9): bf16 outputs bitwise equal (both sum in f32
+    and round once); f32 outputs within F32_SUM_TOL of the largest
+    magnitude, since the plain version's ``scatter_add_`` sums by atomics
+    in no fixed order and the kernel in its own."""
+    for g, r in zip(got, ref):
+        if r.dtype != torch.float32:
+            exact((g,), (r,))
+            continue
+        torch.testing.assert_close(
+            g, r, rtol=F32_SUM_TOL,
+            atol=F32_SUM_TOL * r.abs().max().item())
 
 
 def query_exact(got: tuple, ref: tuple) -> None:
@@ -1031,7 +1083,7 @@ class Results:
 
 def replay(calls: list, res: Results, expect: dict[str, int],
            plain_reps: int = REPS, reps: int = REPS,
-           device: bool = True) -> None:
+           device: bool = True, checks: dict | None = None) -> None:
     """Replay recorded kernel-wrapped calls through the kernel and its
     plain version: compare the two and time both (and the library call,
     where one exists), each the median of ``reps`` runs (the plain
@@ -1041,7 +1093,8 @@ def replay(calls: list, res: Results, expect: dict[str, int],
     wrapper's ``per_call`` a call). Recorded masked-mean unpools
     (plain PyTorch, no kernel) are timed; their backwards launch K9 and
     are replayed as kernels, with the scatter-add that autograd of the
-    window gather would run as their library call."""
+    window gather would run as their library call. ``checks``: kernel
+    name -> its comparison in place of :func:`versions`'s."""
     from sph3d_gcn_torch import _build
     from sph3d_gcn_torch.ops import dense as D
     from sph3d_gcn_torch.ops import windowed as W
@@ -1058,6 +1111,8 @@ def replay(calls: list, res: Results, expect: dict[str, int],
     if seen != expect:
         raise AssertionError(f"recorded calls {seen}, want {expect}")
     table = versions()
+    for name, check in (checks or {}).items():
+        table[name] = table[name][:2] + (check,)
     with torch.no_grad():
         for name, args, kw in calls:
             what = describe(name, args, kw)
@@ -1113,7 +1168,7 @@ def kernel_parity(model, x: torch.Tensor, res: Results, what: str) -> None:
 
     with _build.record_calls() as calls, torch.inference_mode():
         model(x, use_kernels=False)
-    replay(calls, res, PER_FORWARD)
+    replay(calls, res, PER_FORWARD, plain_reps=FWD_PLAIN_REPS)
     res.summary(what)
 
 
@@ -2309,7 +2364,8 @@ def windowed_phases(dev: torch.device, batches: list[np.ndarray],
           "events)", flush=True)
     with _build.record_calls() as calls, torch.inference_mode():
         model(x, use_kernels=False)
-    replay(gathers(calls), res_fwd, {"window_gather": 9})
+    replay(gathers(calls), res_fwd, {"window_gather": 9},
+           plain_reps=FWD_PLAIN_REPS)
     res_fwd.summary("ModelNet per-edge forward")
     del calls
 
@@ -2440,7 +2496,8 @@ def windowed_phases(dev: torch.device, batches: list[np.ndarray],
     with _build.record_calls() as calls:
         factory(False).loss_and_grads(batch, dropout_gen())
     replay(gathers(calls), res_step,
-           {"window_gather": 9, "window_gather_bwd": 9})
+           {"window_gather": 9, "window_gather_bwd": 9},
+           plain_reps=PLAIN_REPS)
     # the backward's inverse edge lists: one build per neighbourhood (a
     # level's two convs share theirs), timed alone
     nbhs = {id(args[1]): args for name, args, _ in calls
@@ -2461,7 +2518,7 @@ def windowed_phases(dev: torch.device, batches: list[np.ndarray],
         factory(False, model32).loss_and_grads(batch, dropout_gen())
     res32 = Results()
     replay(gathers(calls, ("window_gather_bwd",)), res32,
-           {"window_gather_bwd": 9})
+           {"window_gather_bwd": 9}, plain_reps=PLAIN_REPS)
     res_step.err["window_gather_bwd"] = max(
         res_step.err["window_gather_bwd"], res32.err["window_gather_bwd"])
     res_step.summary("ModelNet per-edge train step (bf16)")
@@ -4919,12 +4976,15 @@ def dp_problems(dev: torch.device, sizes: dict) -> dict:
             model, *make_optimizer(model.parameters(), "adam", 1e-3),
             weight_decay=mn_cfg.weight_decay, group=group)
 
-    def s3dis(group):
-        model = SPH3DSceneSeg(s3_cfg, generator=torch.Generator()
+    def s3dis(group, points=None, dtype="float32"):
+        cfg = dataclasses.replace(
+            s3_cfg, compute_dtype=dtype,
+            point_axis=None if points is None else "points")
+        model = SPH3DSceneSeg(cfg, generator=torch.Generator()
                               .manual_seed(58)).to(dev)
         return segmentation_step_factory(
-            model, *make_optimizer(model.parameters(), "adam", 1e-3),
-            inner_masked=True, group=group)
+            model, *make_optimizer(model.parameters(), "adam", SP_LR),
+            inner_masked=True, group=group, points=points)
 
     return {"modelnet": (modelnet, mn_batch, PER_STEP),
             "s3dis": (s3dis, s3_batch, PER_SEG_STEP)}
@@ -4943,11 +5003,13 @@ def dp_warm_up(factory, batch: dict, dev: torch.device) -> dict:
     return dev_batch
 
 
-def dp_step(factory, batch: dict, dev: torch.device) -> dict:
-    """One step's loss, data loss, certificate, gradients and BN running
-    statistics (host tensors), without the update, after a warm-up step
-    from the same state; the step's launches and its ms on the host clock
-    (synchronised)."""
+def dp_step(factory, batch: dict, dev: torch.device,
+            update: bool = False) -> dict:
+    """One step's loss, data loss, certificates, gradients and BN running
+    statistics (host tensors), after a warm-up step from the same state;
+    the step's launches and its ms on the host clock (synchronised). With
+    ``update`` also its logits and the parameters after the optimizer's
+    update (timed with it); without, no update."""
     from sph3d_gcn_torch import kernel_launches, reset_kernel_launches
 
     dev_batch = dp_warm_up(factory, batch, dev)
@@ -4957,16 +5019,145 @@ def dp_step(factory, batch: dict, dev: torch.device) -> dict:
     reset_kernel_launches()
     t0 = time.perf_counter()
     metrics = factory.loss_and_grads(dev_batch, gen)
+    if update:
+        factory.optimizer.step()
     sync(dev)
     ms = (time.perf_counter() - t0) * 1e3
     launches = kernel_launches()
-    return {"loss": metrics["loss"].item(),
-            "data_loss": metrics["data_loss"].item(),
-            "dense_ok": bool(metrics["dense_ok"]), "ms": ms,
-            "launches": launches,
-            "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
-            "stats": {k: v.cpu() for k, v in model.state_dict().items()
-                      if k.endswith((".mean", ".var"))}}
+    out = {"loss": metrics["loss"].item(),
+           "data_loss": metrics["data_loss"].item(),
+           "dense_ok": bool(metrics["dense_ok"]),
+           "halo_ok": bool(metrics["halo_ok"]), "ms": ms,
+           "launches": launches,
+           "grads": {k: p.grad.cpu() for k, p in model.named_parameters()},
+           "stats": {k: v.cpu() for k, v in model.state_dict().items()
+                     if k.endswith((".mean", ".var"))}}
+    if update:
+        out["logits"] = metrics["logits"].cpu()
+        out["params"] = {k: p.detach().cpu()
+                         for k, p in model.named_parameters()}
+    return out
+
+
+def sp_prepare(group, dev: torch.device) -> dict:
+    """The first half of phase 58's point-sharded S3DIS step on one of the
+    two ranks, before the main process's go: the ranks form one point
+    group, and every kernel-wrapped call of one sharded step (the rank's
+    first, which also warms it) is recorded and held against its plain
+    version on the same operands (the replay's lines come back as text).
+    Returns what :func:`sp_measure` takes on."""
+    import contextlib
+    import io
+
+    from sph3d_gcn_torch import _build
+    from sph3d_gcn_torch.parallel import shard_batch, split_groups
+    from sph3d_gcn_torch.parallel import spatial
+
+    data, points = split_groups(group, SP_POINTS)
+    build, batch, _ = dp_problems(dev, DP_SIZES)["s3dis"]
+    factory = build(None, points)
+    levels = [n for n in (batch["points"].shape[1],)
+              + factory.model.config.num_sample
+              if spatial.shardable_rows(n, points.size)]
+    if tuple(levels) != SP_SHARDED_ROWS:
+        raise AssertionError(f"sharded levels {levels}, want "
+                             f"{SP_SHARDED_ROWS}")
+    rows = shard_batch(batch, data)
+    dev_batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                 for k, v in rows.items()}
+    state0 = {k: v.clone() for k, v in factory.model.state_dict().items()}
+    with _build.record_calls() as calls:
+        factory.loss_and_grads(dev_batch,
+                               torch.Generator(device=dev).manual_seed(59))
+    factory.model.load_state_dict(state0)
+    res, text = Results(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(text):
+            replay(calls, res, PER_SEG_STEP, plain_reps=1, reps=1,
+                   device=False, checks=dict.fromkeys(SP_CHECKS, sums_close))
+    except AssertionError as e:
+        raise AssertionError(f"point rank {points.rank}: {e}; its replay "
+                             f"so far:\n{text.getvalue()}") from e
+    del calls, state0
+    torch.cuda.empty_cache()
+    return {"build": build, "factory": factory, "rows": rows,
+            "dev_batch": dev_batch, "points": points,
+            "held": {name: (res.calls[name], res.err[name])
+                     for name in res.calls},
+            "replay": text.getvalue()}
+
+
+def sp_measure(prep: dict, dev: torch.device) -> dict:
+    """The second half, after the data-parallel steps: the sharded step
+    against the one-process step (:func:`dp_step` with the update;
+    launches, ms), SP_TIMED more steps with the halo exchanges' rows,
+    bytes and host ms, and one bf16 step, whose loss and logits must be
+    finite."""
+    from sph3d_gcn_torch.parallel import spatial
+
+    factory, dev_batch = prep["factory"], prep["dev_batch"]
+    out = dp_step(factory, prep["rows"], dev, update=True)
+    spatial.reset_halo_stats()
+    times = []
+    gen = torch.Generator(device=dev).manual_seed(60)
+    for _ in range(SP_TIMED):
+        sync(dev)
+        t0 = time.perf_counter()
+        factory.train_step(dev_batch, gen)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["timed"] = times
+    out["halo"] = spatial.halo_stats()
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    del factory, prep["factory"]
+    torch.cuda.empty_cache()
+    points = prep["points"]
+    bf16 = prep["build"](None, points, "bfloat16")
+    m = bf16.train_step(dev_batch, torch.Generator(device=dev)
+                        .manual_seed(61))
+    out["bf16"] = {"loss": m["loss"].item(),
+                   "finite": bool(torch.isfinite(m["logits"]).all()),
+                   "dense_ok": bool(m["dense_ok"]),
+                   "halo_ok": bool(m["halo_ok"])}
+    out["replay"], out["held"] = prep["replay"], prep["held"]
+    out["points"] = (points.rank, points.size, points.backend)
+    del bf16
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_hold(name: str, got: dict, ref: dict) -> None:
+    """Phase 58's gate on a point-sharded step: :func:`dp_hold`'s (loss,
+    gradients, BN statistics, dense_ok), the halo certificate, the
+    gathered logits within SP_LOGIT_TOL of their largest magnitude and
+    the Adam update (SP_RESOLVED, SP_UNRESOLVED)."""
+    dp_hold(name, got, ref)
+    scale = ref["logits"].abs().max().item()
+    logit_err = (got["logits"] - ref["logits"]).abs().max().item()
+    unresolved = entries = 0
+    worst = 0.0
+    for k, want in ref["params"].items():
+        g, r = got["grads"][k], ref["grads"][k]
+        loose = (g - r).abs() > SP_RESOLVED * torch.minimum(g.abs(),
+                                                           r.abs())
+        err = (got["params"][k] - want).abs()
+        worst = max(worst, err[~loose].max().item() if (~loose).any()
+                    else 0.0)
+        unresolved += int(loose.sum())
+        entries += loose.numel()
+    bound = SP_LR * SP_RESOLVED / 4 + 1e-7
+    print(f"  {name}: halo_ok {got['halo_ok']}; logits max abs err "
+          f"{logit_err:.3g} of |logits| <= {scale:.3g} (tolerance "
+          f"{SP_LOGIT_TOL:g} of that); Adam update: {unresolved} of "
+          f"{entries} entries with gradients not within {SP_RESOLVED:g} "
+          f"of each other (tolerance {SP_UNRESOLVED:g} of them), the "
+          f"others' parameters within {worst:.3g} (tolerance {bound:.3g})",
+          flush=True)
+    if (not got["halo_ok"] or not logit_err <= SP_LOGIT_TOL * scale
+            or not worst <= bound
+            or not unresolved <= SP_UNRESOLVED * entries):
+        raise AssertionError(f"{name}: the point-sharded step is not the "
+                             f"one-process step")
 
 
 def sync(dev: torch.device) -> None:
@@ -5000,6 +5191,8 @@ def dp_rank(group, go: str, timeout: float, sizes: dict) -> dict:
     for name, (_, batch, _) in problems.items():
         dp_warm_up(factories[name], shard_batch(batch, group), dev)
         torch.cuda.empty_cache()
+    # the point-sharded step's replay, held before anything is timed
+    sp = sp_prepare(group, dev)
     deadline = time.monotonic() + timeout
     while not os.path.exists(go):
         if time.monotonic() > deadline:
@@ -5012,6 +5205,8 @@ def dp_rank(group, go: str, timeout: float, sizes: dict) -> dict:
                             dev)
         out["clock"].append(time.time())
         torch.cuda.empty_cache()
+    out["sp"] = sp_measure(sp, dev)
+    out["clock"].append(time.time())
     return out
 
 
@@ -5201,7 +5396,9 @@ def data_parallel_phases(dev: torch.device, smi: str, ranks: dict) -> dict:
             t_world = time.perf_counter()
             problems, refs = dp_problems(dev, DP_SIZES), {}
             for name, (build, batch, _) in problems.items():
-                refs[name] = dp_step(build(None), batch, dev)
+                # the S3DIS reference also holds the point-sharded step
+                refs[name] = dp_step(build(None), batch, dev,
+                                     update=name == "s3dis")
                 torch.cuda.empty_cache()
             t_refs = time.perf_counter()
             t_go = time.time()
@@ -5237,8 +5434,64 @@ def data_parallel_phases(dev: torch.device, smi: str, ranks: dict) -> dict:
             runs[f"{name}_dp_rank{rank}"] = got["launches"]
             print(f"  {name} rank {rank} launches {got['launches']}",
                   flush=True)
+    runs.update(point_sharded_report(smi, refs["s3dis"],
+                                     [out["sp"] for out in ranks["out"]]))
     print(f"[phases 57-58: {time.perf_counter() - t_start:.1f} s]",
           flush=True)
+    return runs
+
+
+def point_sharded_report(smi: str, ref: dict, outs: list[dict]
+                         ) -> dict[str, dict[str, int]]:
+    """Phase 58's point-sharded half: each rank's replay of its recorded
+    calls (held on the rank), its step against the one-process step
+    ``ref`` (:func:`sp_hold`), its times, launches, halo traffic and bf16
+    step. Returns the launches by path for ``fit_paths``."""
+    runs = {}
+    print(f"58. point sharding: the same two ranks as one point group "
+          f"(two ranks sharing one card over gloo, {smi}; not a two-card "
+          f"figure), the S3DIS dense train step B={S3_B} N={S3_N} (f32) "
+          f"with rows {list(SP_SHARDED_ROWS)} split {SP_POINTS} ways, "
+          f"against the one-process step on the same batch and weights:",
+          flush=True)
+    for rank, got in enumerate(outs):
+        print(f"  point rank {got['points'][0]} of {got['points'][1]} "
+              f"({got['points'][2]}): replay of one sharded step's "
+              f"kernel-wrapped calls, each against its plain version "
+              f"(K6 and K9's f32 sums within {F32_SUM_TOL:g} of their "
+              f"largest magnitude, the others as in the other replays; "
+              f"spans of one run, not device times):", flush=True)
+        print(got["replay"].rstrip(), flush=True)
+        print(f"  held on rank {rank}: " + ", ".join(
+            f"{k} {n} calls max_abs_err {e:.3g}"
+            for k, (n, e) in sorted(got["held"].items())), flush=True)
+        sp_hold(f"sharded s3dis rank {rank}", got, ref)
+        for kernel, per in PER_SEG_STEP.items():
+            if got["launches"][kernel] != per:
+                raise AssertionError(
+                    f"sharded s3dis rank {rank}: {kernel} launched "
+                    f"{got['launches'][kernel]} times, want {per}")
+        halo, per = got["halo"], len(got["timed"])
+        print(f"  sharded s3dis rank {rank}: step "
+              f"{float(np.median(got['timed'])):.1f} ms, median of {per} "
+              f"(range {min(got['timed']):.1f}-{max(got['timed']):.1f}; "
+              f"the gated step {got['ms']:.1f} ms, one-process "
+              f"{ref['ms']:.1f} ms on the whole batch; with the Adam "
+              f"update, host clock, synchronised); halo exchanges a step: "
+              f"{halo['exchanges'] // per}, {halo['rows'] // per} rows and "
+              f"{halo['bytes'] / per / 2**20:.2f} MiB sent, "
+              f"{halo['seconds'] * 1e3 / per:.1f} ms host time in them "
+              f"(gloo, staged through the host); peak device memory "
+              f"{got['peak_gib']:.2f} GiB; launches {got['launches']}",
+              flush=True)
+        bf = got["bf16"]
+        print(f"  sharded s3dis rank {rank} bf16 step: loss "
+              f"{bf['loss']:.4f}, logits finite {bf['finite']}, dense_ok "
+              f"{bf['dense_ok']}, halo_ok {bf['halo_ok']}", flush=True)
+        if not (bf["finite"] and np.isfinite(bf["loss"])):
+            raise AssertionError(f"sharded bf16 step on rank {rank} is "
+                                 "not finite")
+        runs[f"s3dis_sp_rank{rank}"] = got["launches"]
     return runs
 
 
@@ -5356,19 +5609,17 @@ def phases(dev: torch.device, start: float, cards: dict, smi: str) -> None:
     rng = np.random.default_rng(0)
     batches = [surface_clouds(rng, B, N) for _ in range(BATCHES)]
 
-    # 3. per-kernel parity: the served shapes (reported), then the default
-    # windows' shapes
+    # 3. per-kernel parity at the served shapes (the default windows'
+    # forward calls are replayed with phase 6's step)
     x = torch.from_numpy(batches[0]).to(dev)
-    res, res_plain_win = Results(), Results()
-    for family, m, r in (("hard", model, res),
-                         ("plain", model_plain, res_plain_win)):
-        c = m.config
-        levels = range(len(c.radius))
-        print(f"per-kernel parity, batch 0, {family} windows "
-              f"{[c.enc_window(lv) for lv in levels]} / pool "
-              f"{[c.pool_window(lv) for lv in levels]} "
-              f"(times: median of CUDA events)", flush=True)
-        kernel_parity(m, x, r, f"ModelNet forward, {family} windows")
+    res = Results()
+    c = model.config
+    levels = range(len(c.radius))
+    print(f"per-kernel parity, batch 0, hard windows "
+          f"{[c.enc_window(lv) for lv in levels]} / pool "
+          f"{[c.pool_window(lv) for lv in levels]} "
+          f"(times: median of CUDA events)", flush=True)
+    kernel_parity(model, x, res, "ModelNet forward, hard windows")
 
     # 4. serving: vote_classify through the kernels
     forward = checked_forward(model, dev)
@@ -5454,7 +5705,7 @@ def phases(dev: torch.device, start: float, cards: dict, smi: str) -> None:
           flush=True)
     print(json.dumps(kernel_lines(dict(
         runs, modelnet_train_step=(res_train, train_launches)),
-        (res, res_plain_win) + others, fit_runs)), flush=True)
+        (res,) + others, fit_runs)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -34,20 +34,32 @@ Each rank drives ``cuda:LOCAL_RANK`` over NCCL (``--device cpu``: gloo).
 Ranks that share a card meet over gloo: those that outnumber the host's
 cards, or name one card (``--device cuda:0``) for all of them
 (:func:`rank_device`). Every rank reads every record and steps on its
-rows of each global batch. Rank 0 writes every output file."""
+rows of each global batch. Rank 0 writes every output file.
+
+``--point_devices P`` shards each cloud's rows over P ranks
+(``parallel.spatial``, the dense engine's ``--mode dense`` only), and
+with ``--num_devices D`` the run is D replicas of P point ranks: launch
+D x P ranks, rank r holding data index r // P and point index r % P::
+
+    torchrun --nproc_per_node 2 -m sph3d_gcn_torch.cli.train_scene_seg \
+        --dataset s3dis --data_dir DIR --mode dense --point_devices 2"""
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import torch
 
 from sph3d_gcn_torch.parallel.mesh import (
     DataGroup,
+    PointGroup,
     current_group,
     init_data_parallel,
     is_primary,
+    split_groups,
+    spread,
 )
 
 
@@ -85,6 +97,11 @@ def add_parallel_args(parser: argparse.ArgumentParser) -> None:
              "--nproc_per_node N); default: torchrun's group, or one "
              "process")
     parser.add_argument(
+        "--point_devices", type=int, default=None,
+        help="point-axis sharding: ranks that split each cloud's rows, "
+             "with halo exchanges (dense mode; parallel/spatial.py); the "
+             "run then holds num_devices x point_devices ranks")
+    parser.add_argument(
         "--multihost", action="store_true",
         help="accepted for the JAX scripts' flag: a group whose ranks "
              "span hosts (torchrun --nnodes > 1) needs no flag")
@@ -120,21 +137,29 @@ def setup_parallel(args: argparse.Namespace
     :func:`add_parallel_args` and ``--device``: the group this process has
     already joined, else the one ``torchrun``'s environment describes
     (joined here, its device and backend from :func:`rank_device`), else
-    one process (None)."""
+    one process (None). With ``--point_devices`` the group holds every
+    rank of the run (:func:`setup_mesh` splits it)."""
+    points = getattr(args, "point_devices", None) or 1
     joined = current_group("cpu")
     if joined is not None:
         size = joined.size
     elif "WORLD_SIZE" in os.environ:
         size = int(os.environ["WORLD_SIZE"])
     else:
-        if args.num_devices not in (None, 1) or args.multihost:
+        if args.num_devices not in (None, 1) or args.multihost \
+                or points != 1:
             raise ValueError(
-                f"--num_devices {args.num_devices} / --multihost: launch "
-                "the ranks under torchrun --nproc_per_node N")
+                f"--num_devices {args.num_devices} / --point_devices "
+                f"{points} / --multihost: launch the ranks under torchrun "
+                "--nproc_per_node N")
         return resolve_device(args.device), None
-    if args.num_devices is not None and args.num_devices != size:
-        raise ValueError(f"--num_devices {args.num_devices}, but the "
-                         f"process group has {size} ranks")
+    if args.num_devices is not None and args.num_devices * points != size:
+        raise ValueError(f"--num_devices {args.num_devices} x "
+                         f"--point_devices {points}, but the process group "
+                         f"has {size} ranks")
+    if size % points:
+        raise ValueError(f"--point_devices {points} does not divide the "
+                         f"process group's {size} ranks")
     resolve_device(args.device)
     device, backend = rank_device(
         args.device, int(os.environ.get("LOCAL_RANK", 0)),
@@ -143,3 +168,35 @@ def setup_parallel(args: argparse.Namespace
     if joined is not None:
         return device, current_group(device)
     return device, init_data_parallel(device, backend)
+
+
+def setup_mesh(args: argparse.Namespace
+               ) -> tuple[torch.device, DataGroup | None, PointGroup | None]:
+    """This process's device, data-parallel group and point group from
+    the flags (:func:`setup_parallel`, then ``parallel.split_groups`` by
+    ``--point_devices``; JAX's ``points_mesh``): no point group without
+    the flag or at 1. Prints the layout on rank 0."""
+    device, group = setup_parallel(args)
+    points = getattr(args, "point_devices", None) or 1
+    if group is None or points == 1:
+        return device, group, None
+    data, pts = split_groups(group, points)
+    if is_primary(group):
+        print(f"composed: {data.size} data x {pts.size} points ranks"
+              if spread(data) else f"point-axis group: {pts.size} ranks",
+              flush=True)
+    return device, data, pts
+
+
+def shard_config(cfg, group: DataGroup | None, points: PointGroup | None):
+    """``cfg`` with the point sharding of a run's groups: ``point_axis``
+    'points' (and ``data_axis`` 'data' across replicas) under a point
+    group (which needs the dense engine), else ``cfg``."""
+    if points is None:
+        return cfg
+    if not cfg.dense_graph:
+        raise ValueError("--point_devices shards the dense engine: run "
+                         "with --mode dense")
+    return dataclasses.replace(
+        cfg, point_axis="points",
+        data_axis="data" if spread(group) else None)

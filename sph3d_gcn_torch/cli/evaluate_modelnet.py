@@ -44,7 +44,12 @@ def main(argv=None) -> dict:
     the per-edge engine."""
     args = parse_args(argv)
 
-    from sph3d_gcn_torch.cli import rank_print, read_list, setup_parallel
+    from sph3d_gcn_torch.cli import (
+        rank_print,
+        read_list,
+        setup_mesh,
+        shard_config,
+    )
     from sph3d_gcn_torch.data.datasets import (
         load_modelnet_records,
         modelnet_batches,
@@ -67,17 +72,17 @@ def main(argv=None) -> dict:
     from sph3d_gcn_torch.train.schedule import make_optimizer
     from sph3d_gcn_torch.train.steps import classification_step_factory
 
-    device, group = setup_parallel(args)
+    device, group, points = setup_mesh(args)
     say = rank_print(group)
     # the trained architecture from the log dir's snapshot (the reference
     # re-imports the copied model/config .py, ref evaluate_modelnet.py:35-46)
-    cfg = load_config_snapshot(args.log_dir)
+    cfg = shard_config(load_config_snapshot(args.log_dir), group, points)
     model = SPH3DModelNet(cfg).to(device)
     epoch = Checkpointer(args.log_dir).restore_variables(model, args.epoch)
     say(f"restored epoch {epoch} from {args.log_dir}")
     factory = classification_step_factory(
         model, *make_optimizer(model.parameters(), "adam", 1e-3),
-        weight_decay=cfg.weight_decay, group=group,
+        weight_decay=cfg.weight_decay, group=group, points=points,
     )
     eval_step = checked_eval_step(factory)
     records = load_modelnet_records(

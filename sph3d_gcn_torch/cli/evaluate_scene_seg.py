@@ -70,7 +70,12 @@ def main(argv=None) -> dict:
     engine."""
     args = parse_args(argv)
 
-    from sph3d_gcn_torch.cli import rank_print, read_list, setup_parallel
+    from sph3d_gcn_torch.cli import (
+        rank_print,
+        read_list,
+        setup_mesh,
+        shard_config,
+    )
     from sph3d_gcn_torch.data.datasets import load_scene_blocks
     from sph3d_gcn_torch.data.merge import (
         SceneAccumulator,
@@ -92,7 +97,7 @@ def main(argv=None) -> dict:
     from sph3d_gcn_torch.train.schedule import make_optimizer
     from sph3d_gcn_torch.train.steps import segmentation_step_factory
 
-    device, group = setup_parallel(args)
+    device, group, points = setup_mesh(args)
     say = rank_print(group)
     primary = is_primary(group)
     ruemonge = args.dataset == "ruemonge2014"
@@ -103,14 +108,14 @@ def main(argv=None) -> dict:
     blocks = load_scene_blocks(test_files, with_index=True)
     say(f"evaluating {len(blocks)} blocks from {len(test_files)} scenes")
 
-    cfg = load_config_snapshot(args.log_dir)
+    cfg = shard_config(load_config_snapshot(args.log_dir), group, points)
     model_class = SPH3DRueMonge if ruemonge else SPH3DSceneSeg
     model = model_class(cfg, in_columns=blocks[0].points.shape[1]).to(device)
     epoch = Checkpointer(args.log_dir).restore_variables(model, args.epoch)
     say(f"restored epoch {epoch} from {args.log_dir}")
     factory = segmentation_step_factory(
         model, *make_optimizer(model.parameters(), "adam", 1e-3),
-        inner_masked=not ruemonge, group=group,
+        inner_masked=not ruemonge, group=group, points=points,
     )
     eval_step = checked_eval_step(factory)
 

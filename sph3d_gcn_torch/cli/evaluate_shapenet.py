@@ -60,7 +60,12 @@ def main(argv=None) -> dict:
     engine."""
     args = parse_args(argv)
 
-    from sph3d_gcn_torch.cli import rank_print, read_list, setup_parallel
+    from sph3d_gcn_torch.cli import (
+        rank_print,
+        read_list,
+        setup_mesh,
+        shard_config,
+    )
     from sph3d_gcn_torch.cli.train_shapenet import (
         NUM_PARTS,
         SHAPENET_CATEGORIES,
@@ -82,10 +87,10 @@ def main(argv=None) -> dict:
     from sph3d_gcn_torch.train.schedule import make_optimizer
     from sph3d_gcn_torch.train.steps import segmentation_step_factory
 
-    device, group = setup_parallel(args)
+    device, group, points = setup_mesh(args)
     say = rank_print(group)
     primary = is_primary(group)
-    cfg = load_config_snapshot(args.log_dir)
+    cfg = shard_config(load_config_snapshot(args.log_dir), group, points)
     if args.onehot:
         model = SPH3DShapeNetOnehot(cfg, num_cls=50)
         test_list = "test_files.txt"
@@ -109,7 +114,7 @@ def main(argv=None) -> dict:
 
     factory = segmentation_step_factory(
         model, *make_optimizer(model.parameters(), "adam", 1e-3),
-        model_kwargs_keys=kwargs_keys, group=group,
+        model_kwargs_keys=kwargs_keys, group=group, points=points,
     )
     eval_step = checked_eval_step(factory)
     forwards = reruns = 0

@@ -64,7 +64,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> torch.nn.Module:
     args = parse_args(argv)
 
-    from sph3d_gcn_torch.cli import read_list, setup_parallel
+    from sph3d_gcn_torch.cli import read_list, setup_mesh, shard_config
     from sph3d_gcn_torch.configs import modelnet_config
     from sph3d_gcn_torch.data.datasets import (
         load_modelnet_records,
@@ -80,11 +80,13 @@ def main(argv=None) -> torch.nn.Module:
     )
     from sph3d_gcn_torch.train.steps import classification_step_factory
 
-    device, group = setup_parallel(args)
+    device, group, points = setup_mesh(args)
     cfg = modelnet_config(num_input=args.num_input,
                           fast=args.mode in ("fast", "dense"),
                           dense=args.mode == "dense", family=args.family)
+    # the snapshot holds the architecture, not the run's sharding (JAX's)
     snapshot_config(args.log_dir, cfg, group)
+    cfg = shard_config(cfg, group, points)
     model = SPH3DModelNet(
         cfg, generator=torch.Generator().manual_seed(args.seed)).to(device)
     schedule = exponential_decay_lr(
@@ -93,7 +95,7 @@ def main(argv=None) -> torch.nn.Module:
     factory = classification_step_factory(
         model, *make_optimizer(model.parameters(), args.optimizer, schedule,
                                momentum=args.momentum),
-        weight_decay=cfg.weight_decay, group=group,
+        weight_decay=cfg.weight_decay, group=group, points=points,
     )
 
     train_records = load_modelnet_records(

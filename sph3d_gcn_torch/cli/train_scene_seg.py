@@ -64,7 +64,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> torch.nn.Module:
     args = parse_args(argv)
 
-    from sph3d_gcn_torch.cli import read_list, setup_parallel
+    from sph3d_gcn_torch.cli import read_list, setup_mesh, shard_config
     from sph3d_gcn_torch.configs import (
         ruemonge2014_config,
         s3dis_config,
@@ -84,7 +84,7 @@ def main(argv=None) -> torch.nn.Module:
     )
     from sph3d_gcn_torch.train.steps import segmentation_step_factory
 
-    device, group = setup_parallel(args)
+    device, group, points = setup_mesh(args)
     mode_kw = {"fast": args.mode in ("fast", "dense"),
                "dense": args.mode == "dense"}
     train_list = os.path.join(args.data_dir, "train_files.txt")
@@ -106,7 +106,9 @@ def main(argv=None) -> torch.nn.Module:
         model_class, inner_masked, repeats = SPH3DRueMonge, False, 100
 
     log_dir = args.log_dir or f"log_{args.dataset}"
+    # the snapshot holds the architecture, not the run's sharding (JAX's)
     snapshot_config(log_dir, cfg, group)
+    cfg = shard_config(cfg, group, points)
     # the train list repeated ``repeats`` times (RueMonge's 100), as its
     # blocks read once and repeated in the list's order
     train_blocks = load_scene_blocks(read_list(train_list)) * repeats
@@ -125,7 +127,7 @@ def main(argv=None) -> torch.nn.Module:
                                momentum=args.momentum,
                                adam_epsilon=args.adam_eps),
         weight_decay=cfg.weight_decay, inner_masked=inner_masked,
-        group=group,
+        group=group, points=points,
     )
 
     def train_batches(epoch):

@@ -74,7 +74,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> torch.nn.Module:
     args = parse_args(argv)
 
-    from sph3d_gcn_torch.cli import read_list, setup_parallel
+    from sph3d_gcn_torch.cli import read_list, setup_mesh, shard_config
     from sph3d_gcn_torch.configs import shapenet_config
     from sph3d_gcn_torch.data.datasets import resample_indices
     from sph3d_gcn_torch.data.prep.shapenet import load_shapenet_records
@@ -88,9 +88,10 @@ def main(argv=None) -> torch.nn.Module:
     )
     from sph3d_gcn_torch.train.steps import segmentation_step_factory
 
-    device, group = setup_parallel(args)
-    cfg = shapenet_config(fast=args.mode in ("fast", "dense"),
-                          dense=args.mode == "dense")
+    device, group, points = setup_mesh(args)
+    arch = shapenet_config(fast=args.mode in ("fast", "dense"),
+                           dense=args.mode == "dense")
+    cfg = shard_config(arch, group, points)
     gen = torch.Generator().manual_seed(args.seed)
     if args.onehot:
         model = SPH3DShapeNetOnehot(cfg, num_cls=50, generator=gen)
@@ -115,7 +116,8 @@ def main(argv=None) -> torch.nn.Module:
         decay_step = factor * len(records) * 36
         records = records * factor
     print(f"{len(records)} training shapes, decay_step={decay_step}")
-    snapshot_config(log_dir, cfg, group)
+    # the snapshot holds the architecture, not the run's sharding (JAX's)
+    snapshot_config(log_dir, arch, group)
 
     schedule = exponential_decay_lr(
         args.learning_rate, args.batch_size, decay_step, args.decay_rate)
@@ -124,7 +126,7 @@ def main(argv=None) -> torch.nn.Module:
                                momentum=args.momentum),
         weight_decay=cfg.weight_decay,
         model_kwargs_keys=("cls_label",) if args.onehot else (),
-        group=group,
+        group=group, points=points,
     )
 
     def train_batches(epoch):

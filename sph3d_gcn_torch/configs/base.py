@@ -4,10 +4,8 @@
 The fields the port's models read, under the JAX config's names, order
 and defaults; ``tests/test_torch_configs_data.py`` holds every field and
 window of the port's ``modelnet_config``, ``s3dis_config`` and
-``scannet_config`` equal to the JAX package's. Fields of engines not
-ported yet (point-axis sharding) come with them;
-``train.checkpoint.load_config_snapshot`` reads a JAX snapshot that holds
-them at their defaults.
+``scannet_config`` equal to the JAX package's, and a config snapshot of
+either package loads in the other (``train.checkpoint``).
 """
 
 from __future__ import annotations
@@ -67,6 +65,25 @@ class SPH3DConfig:
     # dense windowed engine (ops/dense.py): level graphs as (tile x
     # window) maps, exactness certified per graph (dense_ok)
     dense_graph: bool = False
+    # point-axis sharding (parallel/spatial.py): the models split each
+    # shardable level's rows over the point group of the enclosing
+    # ``parallel.data_parallel`` with halo exchanges, build only their
+    # own query tiles, run the coarse tail and the heads replicated and
+    # gather the logits, so the model's contract is unchanged. The value
+    # names the axis, as JAX's mesh axis ('points' from the CLIs).
+    # Requires dense_graph.
+    point_axis: str | None = None
+    # the batch axis of a composed data x points run (JAX's 'data'): set
+    # with point_axis by the CLIs; the port's BN syncs over the data group
+    # whenever one is active, so nothing reads it but the snapshot
+    data_axis: str | None = None
+    # width multiplier of the INTER-level (pool / unpool) halos under
+    # point sharding: intra-level halos provably suffice at 1x, while
+    # inter-level windows live in the other cloud's rows, where a skewed
+    # cloud can breach 1x (halo_ok False); fit() re-runs such batches at
+    # 2x (``train.steps.StepFactory.halo_widened``) before the classic
+    # engine
+    halo_scale: int = 1
 
     def enc_window(self, level: int) -> int | None:
         """Row window for encoder level ``level`` (cloud size N_level)."""
@@ -109,6 +126,11 @@ class SPH3DConfig:
         if self.dense_graph and (self.windows is None or not self.spatial_sort):
             raise ValueError(
                 "dense_graph requires spatial_sort=True and per-level windows"
+            )
+        if self.point_axis is not None and not self.dense_graph:
+            raise ValueError(
+                "point_axis sharding requires the dense windowed engine "
+                "(dense_graph=True)"
             )
         if self.windows is not None and len(self.windows) != num_levels:
             raise ValueError(

@@ -14,14 +14,32 @@ from torch.utils.checkpoint import checkpoint
 from sph3d_gcn_torch.configs.base import SPH3DConfig
 from sph3d_gcn_torch.nn.layers import SeparableConv3d, frozen_running_stats
 from sph3d_gcn_torch.ops.dense import DenseNeighborhood
+from sph3d_gcn_torch.ops.query import TILE
 from sph3d_gcn_torch.ops.types import Neighborhood
 from sph3d_gcn_torch.ops.windowed import EdgeLists
-from sph3d_gcn_torch.parallel.mesh import active_group, data_parallel
+from sph3d_gcn_torch.parallel import spatial
+from sph3d_gcn_torch.parallel.mesh import (
+    PointGroup,
+    active_group,
+    active_points,
+    data_parallel,
+)
 
 
 def compute_dtype(cfg: SPH3DConfig) -> torch.dtype:
     """The torch dtype of ``cfg.compute_dtype`` ('float32' | 'bfloat16')."""
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def config_clone(model: nn.Module, **changes) -> nn.Module:
+    """The model on the SAME parameters and buffers with its config's
+    ``changes`` (flax's ``model.clone(config=...)``): the clone shares
+    the submodules, so an update through either changes both; only
+    ``config`` and the per-forward attributes (``dense_ok``) are its
+    own."""
+    clone = copy.copy(model)      # shares _parameters, _buffers, _modules
+    clone.config = dataclasses.replace(model.config, **changes)
+    return clone
 
 
 def classic_clone(model: nn.Module) -> nn.Module:
@@ -32,13 +50,26 @@ def classic_clone(model: nn.Module) -> nn.Module:
     an update through either changes both; only ``config`` and the
     per-forward attributes (``dense_ok``) are its own (a model whose
     submodules read the config takes it from the model's forward, as the
-    scene models' backbone does). A model already on the per-edge engine
-    is returned as it is."""
+    scene models' backbone does). The per-edge engine has no point
+    sharding: the clone runs each rank's cloud whole (``point_axis`` and
+    ``data_axis`` None, as JAX's ``classic_fallback``). A model already on
+    the per-edge engine is returned as it is."""
     if not model.config.dense_graph:
         return model
-    clone = copy.copy(model)      # shares _parameters, _buffers, _modules
-    clone.config = dataclasses.replace(model.config, dense_graph=False)
-    return clone
+    return config_clone(model, dense_graph=False, point_axis=None,
+                        data_axis=None)
+
+
+def halo_clone(model: nn.Module, scale: int = 2) -> nn.Module:
+    """The point-sharded model on the same parameters with its inter-level
+    halos ``scale`` times wider (``halo_scale``; JAX's
+    ``StepFactory.halo_widened``): the first re-run of a batch whose only
+    breach was a halo, which stays sharded. A model without point
+    sharding is returned as it is."""
+    if model.config.point_axis is None:
+        return model
+    return config_clone(model,
+                        halo_scale=max(model.config.halo_scale, 1) * scale)
 
 
 def normalize_unit_sphere(points: torch.Tensor) -> torch.Tensor:
@@ -69,13 +100,14 @@ def normalize_mean_center(points: torch.Tensor) -> torch.Tensor:
 def _remat_contexts():
     """The forward runs as it is; the backward's recompute (on autograd's
     thread) leaves the BN running statistics that the forward updated,
-    under the forward's data-parallel group."""
-    return contextlib.nullcontext(), _recompute(active_group())
+    under the forward's data-parallel and point groups."""
+    return contextlib.nullcontext(), _recompute(active_group(),
+                                                active_points())
 
 
 @contextlib.contextmanager
-def _recompute(group):
-    with frozen_running_stats(), data_parallel(group):
+def _recompute(group, points):
+    with frozen_running_stats(), data_parallel(group, points):
         yield
 
 
@@ -86,7 +118,9 @@ class SeparableConvBlock(nn.Module):
     keeps no activations for the backward and runs again there
     (``torch.utils.checkpoint``, as JAX's ``nn.remat``); the recompute
     does not move the BN running statistics a second time, so gradients
-    and statistics equal the step without it."""
+    and statistics equal the step without it. ``halo_rows`` (point
+    sharding): ``net`` holds this point rank's rows and every conv of the
+    stack exchanges that halo of its input (``nn.layers.SeparableConv3d``)."""
 
     def __init__(self, in_channels: int, list_channels: tuple[int, ...],
                  bin_size: int, depth_multiplier: tuple[int, ...],
@@ -106,7 +140,8 @@ class SeparableConvBlock(nn.Module):
                 filt_index: torch.Tensor | None = None,
                 window: int | None = None,
                 use_kernels: bool | None = None,
-                remat: bool = False) -> torch.Tensor:
+                remat: bool = False,
+                halo_rows: int | None = None) -> torch.Tensor:
         lists = None
         if isinstance(nbh, Neighborhood) and window is not None:
             # the convs gather through one neighborhood: one set of
@@ -114,7 +149,8 @@ class SeparableConvBlock(nn.Module):
             lists = EdgeLists(nbh.idx, nbh.count)
         remat = remat and torch.is_grad_enabled()
         for conv in self.children():
-            kw = dict(window=window, lists=lists, use_kernels=use_kernels)
+            kw = dict(window=window, lists=lists, use_kernels=use_kernels,
+                      halo_rows=halo_rows)
             if remat:
                 net = checkpoint(conv, net, nbh, filt_index, **kw,
                                  use_reentrant=False,
@@ -123,3 +159,59 @@ class SeparableConvBlock(nn.Module):
             else:
                 net = conv(net, nbh, filt_index, **kw)
         return net
+
+
+def sharding_of(cfg: SPH3DConfig) -> PointGroup | None:
+    """The point group a forward of ``cfg`` shards over: the enclosing
+    ``parallel.data_parallel``'s when ``cfg.point_axis`` is set (which
+    raises without one), else None."""
+    if cfg.point_axis is None:
+        return None
+    pts = active_points()
+    if pts is None:
+        raise ValueError(
+            f"point_axis={cfg.point_axis!r} needs a point group: run the "
+            "forward under parallel.data_parallel(group, points)")
+    return pts
+
+
+def shard_intra(nbh, xyz, pts, sharded):
+    """An intra-level graph built on this rank's tiles (``sharded``),
+    rebased for a halo of one window: (graph, halo certificate, halo
+    rows for the convs); unsharded (graph, True, None)."""
+    if not sharded:
+        return nbh, torch.ones((), dtype=torch.bool,
+                               device=xyz.device), None
+    halo_b = nbh.window // TILE
+    nbh, h_ok = spatial.local_neighborhood(
+        nbh, pts.rank, halo_b, (xyz.shape[1] // TILE) // pts.size)
+    return nbh, h_ok, halo_b * TILE
+
+
+def shard_inputs(net, inter, xyz_db, pts, db_sh, q_sh, halo_scale):
+    """The rows an inter-level op (pool, unpool) reads, and its graph,
+    under point sharding: with its database rows (of ``xyz_db``) and its
+    query tiles both sharded, ``net`` haloed by ``halo_scale`` windows and
+    the graph rebased (its certificate folded in); with the database
+    rows alone sharded, every rank's rows gathered; otherwise as they
+    are (query tiles from a sharded build read whole rows). Returns (rows,
+    graph, halo certificate)."""
+    ok = torch.ones((), dtype=torch.bool, device=xyz_db.device)
+    if db_sh and q_sh:
+        halo_b = (inter.window // TILE) * halo_scale
+        inter, ok = spatial.local_neighborhood(
+            inter, pts.rank, halo_b, (xyz_db.shape[1] // TILE) // pts.size)
+        net = spatial.halo_exchange(net, halo_b * TILE, pts)
+    elif db_sh:
+        net = spatial.all_rows(net, pts)
+    return net, inter, ok
+
+
+def agree_certificates(dense_ok, halo_ok, pts):
+    """The forward's certificates, each held on every point rank (one
+    all-reduce of the failures over the group; JAX's ``pmin``)."""
+    if pts is None or pts.size == 1:
+        return dense_ok, halo_ok
+    failed = torch.stack([~dense_ok, ~halo_ok]).to(torch.float32)
+    pts.all_reduce_(failed)
+    return failed[0] == 0, failed[1] == 0

@@ -18,6 +18,18 @@ the per-edge engine (edge lists from the sphere query with fused bins,
 the pool graph gathered at the sorted FPS indices, convs and pools
 through the edge gather of ``ops/windowed.py`` at the config's windows,
 or the plain gather without windows). Both hold the same parameters.
+
+With ``config.point_axis`` (point sharding, ``parallel.spatial``) the
+dense engine runs on the point group of the enclosing
+``parallel.data_parallel``: coordinates, sampling and the pool graphs'
+databases stay whole, each level whose rows split into whole tiles over
+the ranks (``shardable_rows``) holds this rank's rows and builds its own
+query tiles, its windows rebased for a halo of one window (intra graphs)
+or ``halo_scale`` pool windows (pool graphs); pooling onto a level that
+does not split gathers the rows (``all_rows``), each level's global max
+is the max of the ranks' maxima, and the global conv and the head run
+replicated. ``halo_ok`` then certifies the halos (False: a window left
+its halo, which ``dense_ok`` folds in too), both agreed over the ranks.
 """
 
 from __future__ import annotations
@@ -28,8 +40,12 @@ from torch import nn
 from sph3d_gcn_torch.configs.base import SPH3DConfig
 from sph3d_gcn_torch.models.common import (
     SeparableConvBlock,
+    agree_certificates,
     compute_dtype,
     normalize_unit_sphere,
+    shard_inputs,
+    shard_intra,
+    sharding_of,
 )
 from sph3d_gcn_torch.nn.graph import (
     build_global_graph,
@@ -48,6 +64,7 @@ from sph3d_gcn_torch.nn.layers import (
 )
 from sph3d_gcn_torch.nn.spans import layer_span
 from sph3d_gcn_torch.ops.kernelbin import spherical_kernel
+from sph3d_gcn_torch.parallel import spatial
 from sph3d_gcn_torch.ops.locality import (
     permute_points,
     sort_indices_small,
@@ -66,7 +83,8 @@ class SPH3DModelNet(nn.Module):
     covered all in-range neighbors, so the logits equal the classic
     per-edge engine's; always True on the per-edge engine, which is
     exact for every cloud (``models.common.classic_clone`` re-runs a
-    dense model there).
+    dense model there). ``halo_ok`` holds the halo certificate of a
+    point-sharded forward (True otherwise).
     """
 
     def __init__(self, config: SPH3DConfig,
@@ -101,6 +119,7 @@ class SPH3DModelNet(nn.Module):
             activation=False, generator=generator,
         )
         self.dense_ok: torch.Tensor | None = None
+        self.halo_ok: torch.Tensor | None = None
 
     def forward(self, points: torch.Tensor,
                 use_kernels: bool | None = None,
@@ -128,28 +147,47 @@ class SPH3DModelNet(nn.Module):
             points = normalize_unit_sphere(points)
         xyz = points
         query = xyz.mean(dim=1, keepdim=True)   # the global viewing point
-        net = self.mlp1(xyz)
+        pts = sharding_of(cfg)
+        cur_sh = pts is not None and spatial.shardable_rows(xyz.shape[1],
+                                                            pts.size)
+
+        def rows(x):
+            """``x``'s rows that ``net`` holds."""
+            return spatial.slice_rows_local(x, pts) if cur_sh else x
+
+        net = self.mlp1(rows(xyz), sharded=cur_sh)
 
         global_feat = []
-        dense_ok = torch.ones((), dtype=torch.bool, device=points.device)
+        dense_ok = halo_ok = torch.ones((), dtype=torch.bool,
+                                        device=points.device)
         for level in range(len(cfg.radius)):
             if cfg.use_raw:
-                net = torch.cat([net, xyz.to(net.dtype)], dim=-1)
+                net = torch.cat([net, rows(xyz).to(net.dtype)], dim=-1)
             sampling = dict(
                 generator=generator,
                 noise=None if sample_noise is None else sample_noise[level])
             if cfg.dense_graph:
-                net, xyz, ok = self._dense_level(net, xyz, level, sampling,
-                                                 use_kernels)
+                net, xyz, ok, h_ok, cur_sh = self._dense_level(
+                    net, xyz, level, sampling, use_kernels, pts, cur_sh)
                 dense_ok = dense_ok & ok
+                halo_ok = halo_ok & h_ok
             else:
                 net, xyz = self._classic_level(net, xyz, level, sampling,
                                                use_kernels)
             # multi-scale global max feature (ref SPH3D_modelnet.py:82-83);
             # amax splits the gradient evenly between tied maxima, as
-            # jnp.max does (bf16 makes ties common)
-            global_feat.append(net.amax(dim=1, keepdim=True))
-        self.dense_ok = dense_ok
+            # jnp.max does (bf16 makes ties common); sharded, the max of
+            # the ranks' maxima, the gradient routed to its rank
+            local_max = net.amax(dim=1, keepdim=True)
+            if cur_sh:
+                local_max = spatial.all_rows(local_max, pts).amax(
+                    dim=1, keepdim=True)
+            global_feat.append(local_max)
+        if cur_sh:
+            # the remaining cloud feeds the replicated global conv
+            net = spatial.all_rows(net, pts)
+        self.dense_ok, self.halo_ok = agree_certificates(dense_ok, halo_ok,
+                                                         pts)
 
         # all remaining points -> centroid (ref SPH3D_modelnet.py:85-94)
         with layer_span("global_graph"):
@@ -163,36 +201,51 @@ class SPH3DModelNet(nn.Module):
         net = self.fc2_dp(self.fc2(net), generator)
         return self.logits(net)
 
-    def _dense_level(self, net, xyz, level, sampling, use_kernels):
+    def _dense_level(self, net, xyz, level, sampling, use_kernels, pts,
+                     cur_sh):
         """One level on the dense engine: (net, coarse xyz, the level's
-        certificate)."""
+        certificate, its halo certificate, whether the coarse rows are
+        sharded). ``pts``: the point group of a sharded forward, and
+        ``cur_sh`` whether ``net`` holds this rank's rows of ``xyz``."""
         cfg = self.config
         with layer_span(f"level{level + 1}.graph"):
             nbh, sample_idx = build_graph_dense(
                 xyz, cfg.radius[level], cfg.nn_uplimit[level],
                 cfg.num_sample[level], sample_method=cfg.sample,
                 kernel=cfg.kernel, window=cfg.enc_window(level),
-                use_kernels=use_kernels, **sampling,
+                use_kernels=use_kernels,
+                query_shard=(pts.rank, pts.size) if cur_sh else None,
+                **sampling,
             )
+            nbh, h_ok, halo = shard_intra(nbh, xyz, pts, cur_sh)
         ok = nbh.ok
         net = getattr(self, f"conv{level + 1}")(
-            net, nbh, use_kernels=use_kernels, remat=cfg.remat_blocks
+            net, nbh, use_kernels=use_kernels, remat=cfg.remat_blocks,
+            halo_rows=halo,
         )
         if cfg.num_sample[level] > 1:
             # the sample indices come back sorted: the coarse cloud stays
             # axis-sorted for the next dense level
             with layer_span(f"level{level + 1}.pool"):
                 xyz_coarse = gather_points(xyz, sample_idx)
+                nxt_sh = pts is not None and spatial.shardable_rows(
+                    xyz_coarse.shape[1], pts.size)
                 inter = build_pool_graph_dense(
                     xyz, xyz_coarse, cfg.radius[level],
                     cfg.nn_uplimit[level], window=cfg.pool_window(level),
                     use_kernels=use_kernels,
+                    query_shard=(pts.rank, pts.size) if nxt_sh else None,
                 )
+                net, inter, p_ok = shard_inputs(net, inter, xyz, pts,
+                                                cur_sh, nxt_sh,
+                                                cfg.halo_scale)
                 ok = ok & inter.ok
+                h_ok = h_ok & p_ok
                 net = pool3d(net, inter, method=cfg.pool_method,
                              use_kernels=use_kernels)
             xyz = xyz_coarse
-        return net, xyz, ok
+            cur_sh = nxt_sh
+        return net, xyz, ok, h_ok, cur_sh
 
     def _classic_level(self, net, xyz, level, sampling, use_kernels):
         """One level on the per-edge engine: (net, coarse xyz)."""

@@ -23,6 +23,17 @@ the pool graph gathered at the sorted sample indices, the decoders'
 inter graphs from the growing query; convs, pools and unpools through
 the edge gather of ``ops/windowed.py`` at the config's windows, or the
 plain gather without windows). Both hold the same parameters.
+
+With ``config.point_axis`` the dense engine shards each level's rows
+over the point group of the enclosing ``parallel.data_parallel``, as
+``models.modelnet`` describes: the encoder's levels and pools as
+there; the decoder's intra graphs on the coarse rows with a window of
+halo, and its unpools from coarse rows haloed by ``halo_scale`` inter
+windows (both sharded), from whole coarse rows onto this rank's fine
+tiles (coarse level replicated), or from gathered rows (fine level
+replicated); the logits of this rank's rows are gathered into the whole
+cloud's before the unsort (JAX's ``_maybe_gather_rows``), so the
+contract is unchanged.
 """
 
 from __future__ import annotations
@@ -33,10 +44,14 @@ from torch import nn
 from sph3d_gcn_torch.configs.base import SPH3DConfig
 from sph3d_gcn_torch.models.common import (
     SeparableConvBlock,
+    agree_certificates,
     compute_dtype,
     normalize_mean_center,
     normalize_unit_sphere,
     normalize_xy_center_z_floor,
+    shard_inputs,
+    shard_intra,
+    sharding_of,
 )
 from sph3d_gcn_torch.nn.graph import (
     build_graph,
@@ -54,6 +69,7 @@ from sph3d_gcn_torch.ops.locality import (
     sort_indices_small,
     spatial_sort,
 )
+from sph3d_gcn_torch.parallel import spatial
 
 # the scene blocks' columns: xyz, block-relative xyz, rgb; the backbone
 # reads the xy-centered xyz and the columns from 6 on (rgb)
@@ -65,13 +81,15 @@ NUM_SHAPENET_CATEGORIES = 16  # ref models/SPH3D_shapenet_onehot.py:10
 
 class SegEncoderDecoder(nn.Module):
     """mlp1 -> encoder pyramid -> decoder with skip concats [-> mlp2], on
-    either engine (without point sharding). ``include_input_skip`` (the
-    ShapeNet variant, ref SPH3D_shapenet.py:46,106-108) puts the mlp1
-    output first in the skip list and ends with ``mlp2`` (cfg.mlp
-    channels) concatenated with it; the scene models run without both.
+    either engine, the dense one point-sharded under ``point_axis``.
+    ``include_input_skip`` (the ShapeNet variant, ref
+    SPH3D_shapenet.py:46,106-108) puts the mlp1 output first in the skip
+    list and ends with ``mlp2`` (cfg.mlp channels) concatenated with it;
+    the scene models run without both.
 
-    ``forward`` returns (features (B, N, C) at the finest level, the
-    forward's window-coverage certificate as a bool tensor)."""
+    ``forward`` returns (features (B, N, C) at the finest level, this
+    point rank's rows of them when sharded, the forward's window-coverage
+    certificate and its halo certificate as bool tensors)."""
 
     def __init__(self, config: SPH3DConfig, in_channels: int,
                  generator: torch.Generator | None = None,
@@ -116,10 +134,22 @@ class SegEncoderDecoder(nn.Module):
         (``nn.graph.build_graph``)."""
         cfg = self.config if config is None else config
         num_levels = len(cfg.radius)
-        net = self.mlp1(net)
+        pts = sharding_of(cfg)
+
+        def sharded(rows: int) -> bool:
+            return pts is not None and spatial.shardable_rows(rows, pts.size)
+
+        def tiles(on: bool):
+            return (pts.rank, pts.size) if on else None
+
+        cur_sh = sharded(net.shape[1])
+        if cur_sh:
+            net = spatial.slice_rows_local(net, pts)
+        net = self.mlp1(net, sharded=cur_sh)
         xyz_layers = [xyz]
         encoder = [net] if self.include_input_skip else []
-        dense_ok = torch.ones((), dtype=torch.bool, device=xyz.device)
+        dense_ok = halo_ok = torch.ones((), dtype=torch.bool,
+                                        device=xyz.device)
 
         # encoder (ref SPH3D_s3dis.py:53-77)
         for level in range(num_levels):
@@ -134,10 +164,12 @@ class SegEncoderDecoder(nn.Module):
                     nbh, sample_idx = build_graph_dense(
                         xyz, cfg.radius[level], cfg.nn_uplimit[level],
                         cfg.num_sample[level], window=cfg.enc_window(level),
-                        **graph)
+                        query_shard=tiles(cur_sh), **graph)
+                    nbh, h_ok, halo = shard_intra(nbh, xyz, pts, cur_sh)
                 dense_ok = dense_ok & nbh.ok
+                halo_ok = halo_ok & h_ok
                 net = conv(net, nbh, use_kernels=use_kernels,
-                           remat=cfg.remat_blocks)
+                           remat=cfg.remat_blocks, halo_rows=halo)
             else:
                 with layer_span(f"level{level + 1}.graph"):
                     nbh, filt_idx, sample_idx = build_graph(
@@ -152,15 +184,22 @@ class SegEncoderDecoder(nn.Module):
                         # the sample indices come back sorted: the coarse
                         # cloud stays axis-sorted for the next dense level
                         xyz_coarse = gather_points(xyz, sample_idx)
+                        nxt_sh = sharded(xyz_coarse.shape[1])
                         inter = build_pool_graph_dense(
                             xyz, xyz_coarse, cfg.radius[level],
                             cfg.nn_uplimit[level],
                             window=cfg.pool_window(level),
                             use_kernels=use_kernels,
+                            query_shard=tiles(nxt_sh),
                         )
+                        net, inter, h_ok = shard_inputs(
+                            net, inter, xyz, pts, cur_sh, nxt_sh,
+                            cfg.halo_scale)
                         dense_ok = dense_ok & inter.ok
+                        halo_ok = halo_ok & h_ok
                         net = pool3d(net, inter, method=cfg.pool_method,
                                      use_kernels=use_kernels)
+                        cur_sh = nxt_sh
                     else:
                         if cfg.spatial_sort:
                             # ascending order keeps the coarse cloud
@@ -182,6 +221,7 @@ class SegEncoderDecoder(nn.Module):
         for level in range(num_levels):
             xyz_coarse = xyz_layers[level]
             xyz_fine = xyz_layers[level + 1]
+            fine_sh = sharded(xyz_fine.shape[1])
             # decoder edges search the SAMPLED cloud of the mirrored
             # encoder level: its calibrated decoder window applies
             dec_win = cfg.dec_window(num_levels - 1 - level)
@@ -197,13 +237,24 @@ class SegEncoderDecoder(nn.Module):
                         dec_margin=cfg.dec_margin,
                         growth_steps=cfg.growth_steps,
                         use_kernels=use_kernels,
+                        intra_shard=tiles(cur_sh),
+                        inter_shard=tiles(fine_sh),
                     )
-                dense_ok = dense_ok & intra.ok & inter.ok
+                    intra, h_ok, halo = shard_intra(intra, xyz_coarse, pts,
+                                                    cur_sh)
+                dense_ok = dense_ok & intra.ok
+                halo_ok = halo_ok & h_ok
                 net = deconv(net, intra, use_kernels=use_kernels,
-                             remat=cfg.remat_blocks)
+                             remat=cfg.remat_blocks, halo_rows=halo)
                 with layer_span(span + ".unpool"):
+                    net, inter, h_ok = shard_inputs(
+                        net, inter, xyz_coarse, pts, cur_sh, fine_sh,
+                        cfg.halo_scale)
+                    dense_ok = dense_ok & inter.ok
+                    halo_ok = halo_ok & h_ok
                     net = unpool3d(net, inter, method=cfg.unpool_method,
                                    use_kernels=use_kernels)
+                cur_sh = fine_sh
             else:
                 with layer_span(span + ".graph"):
                     intra, filt_idx, inter = build_graph_deconv(
@@ -217,8 +268,10 @@ class SegEncoderDecoder(nn.Module):
             net = torch.cat([net, encoder[level]], dim=-1)
         if self.include_input_skip:
             # mlp2 ++ the mlp1 features (ref SPH3D_shapenet.py:106-108)
-            net = torch.cat([self.mlp2(net), encoder[-1]], dim=-1)
-        return net, dense_ok
+            net = torch.cat([self.mlp2(net, sharded=cur_sh), encoder[-1]],
+                            dim=-1)
+        dense_ok, halo_ok = agree_certificates(dense_ok, halo_ok, pts)
+        return net, dense_ok, halo_ok
 
 
 class _SegModel(nn.Module):
@@ -233,7 +286,8 @@ class _SegModel(nn.Module):
     covered all its in-range neighbors (at its grown radius, for the
     decoders' inter graphs); always True on the per-edge engine, which is
     exact for every cloud (``models.common.classic_clone`` re-runs a dense
-    model there)."""
+    model there). ``halo_ok``: the halo certificate of a point-sharded
+    forward (True otherwise)."""
 
     def __init__(self, config: SPH3DConfig, num_cls: int, in_columns: int,
                  in_channels: int, generator: torch.Generator | None = None,
@@ -251,6 +305,7 @@ class _SegModel(nn.Module):
             generator=generator,
         )
         self.dense_ok: torch.Tensor | None = None
+        self.halo_ok: torch.Tensor | None = None
 
     def _features(self, points: torch.Tensor) -> torch.Tensor:
         """The backbone's input features of the sorted (B, N, D) points."""
@@ -277,13 +332,16 @@ class _SegModel(nn.Module):
             with layer_span("sort"):
                 perm, rank = spatial_sort(points, cfg.radius[0])
                 points = permute_points(points, perm)
-        net, self.dense_ok = self.backbone(
+        net, self.dense_ok, self.halo_ok = self.backbone(
             self._features(points), points[..., 0:3], cfg,
             use_kernels=use_kernels, generator=generator,
             sample_noise=sample_noise)
         if head is not None:
             net = head(net)
         logits = self.logits(net)
+        if net.shape[1] != points.shape[1]:
+            # this point rank's rows: the whole cloud's logits
+            logits = spatial.all_rows(logits, sharding_of(cfg))
         # back to the caller's point order; ``perm`` rides along so the
         # backward gathers instead of scattering
         return (logits if rank is None

@@ -97,15 +97,25 @@ def build_graph_dense(
     generator: torch.Generator | None = None,
     noise: torch.Tensor | None = None,
     use_kernels: bool | None = None,
+    query_shard: tuple[int, int] | None = None,
 ) -> tuple[DenseNeighborhood, torch.Tensor | None]:
     """Intra-level dense graph plus subsample indices (FPS, IDS or random,
     as :func:`build_graph`), returned SORTED so the coarser cloud stays
     axis-sorted. IDS asks the query for its distance map
-    (``dense_ids_prob``)."""
+    (``dense_ids_prob``). ``query_shard`` (rank, shards) builds that point
+    rank's query tiles only (``ops.dense.build_dense_graph``); the
+    sampling stays replicated (FPS is a greedy over the whole cloud, and
+    every rank needs its indices). IDS, which reads every point's
+    density, raises with it."""
     need_dist = sample_method == "IDS" and num_sample is not None
+    if query_shard is not None and sample_method == "IDS":
+        raise ValueError(
+            "IDS sampling needs the full per-point density map and is not "
+            "supported with a tile-sharded graph build (use FPS/random)")
     dnbh = build_dense_graph(
         xyz, xyz, radius, nn_uplimit, kernel, window=window,
         self_graph=True, need_dist=need_dist, use_kernels=use_kernels,
+        query_shard=query_shard,
     )
     if num_sample is None:
         return dnbh, None
@@ -122,12 +132,14 @@ def build_pool_graph_dense(
     nn_uplimit: int,
     window: int,
     use_kernels: bool | None = None,
+    query_shard: tuple[int, int] | None = None,
 ) -> DenseNeighborhood:
     """Dense pooling graph: the sampled points re-query the level cloud
-    (selection-only rank maps)."""
+    (selection-only rank maps); ``query_shard``: that point rank's coarse
+    query tiles only."""
     return build_dense_graph(
         xyz, xyz_sampled, radius, nn_uplimit, None, window=window,
-        self_graph=False, use_kernels=use_kernels,
+        self_graph=False, use_kernels=use_kernels, query_shard=query_shard,
     )
 
 
@@ -164,21 +176,26 @@ def build_graph_deconv_dense(
     dec_margin: int = 384,
     growth_steps: int = 12,
     use_kernels: bool | None = None,
+    intra_shard: tuple[int, int] | None = None,
+    inter_shard: tuple[int, int] | None = None,
 ) -> tuple[DenseNeighborhood, DenseNeighborhood]:
     """Decoder graphs: the coarse cloud's intra graph (bin maps) and the
     fine->coarse inter graph for unpooling (rank maps, with its distance
     map when ``need_dist``: the weighted unpool). The inter graph
     reproduces the reference's +0.05 radius growth for fine points with
     no coarse neighbor (ref tf_nnquery_gpu.cu:30-60) in a window widened
-    by ``dec_margin`` rows, re-certified at each tile's grown radius."""
+    by ``dec_margin`` rows, re-certified at each tile's grown radius.
+    ``intra_shard`` / ``inter_shard`` (rank, shards): that point rank's
+    coarse / fine query tiles only."""
     intra = build_dense_graph(
         xyz, xyz, radius, nn_uplimit, kernel, window=window,
-        self_graph=True, use_kernels=use_kernels,
+        self_graph=True, use_kernels=use_kernels, query_shard=intra_shard,
     )
     inter = build_dense_graph(
         xyz, xyz_unpool, radius, nn_uplimit, None,
         window=window + dec_margin, self_graph=False, need_dist=need_dist,
         growth_steps=growth_steps, use_kernels=use_kernels,
+        query_shard=inter_shard,
     )
     return intra, inter
 

@@ -34,6 +34,7 @@ from sph3d_gcn_torch.ops.unpool import mean_interpolate, weighted_interpolate
 from sph3d_gcn_torch.ops.windowed import EdgeLists
 from sph3d_gcn_torch.parallel.mesh import (
     active_group,
+    active_points,
     draw_rows,
     pmean,
     spread,
@@ -83,7 +84,10 @@ class BatchNorm(nn.Module):
     per-channel means of x and x^2 are averaged over the group's ranks
     (``parallel.pmean``, whose backward averages the cotangent): every
     rank holds the same local batch size, so these are the global batch's
-    statistics, and every rank's running statistics move alike."""
+    statistics, and every rank's running statistics move alike. A layer
+    on a point-sharded input (``sharded``) averages them over the point
+    group too (JAX's ``_bn_axes``): each point rank holds as many rows
+    of the same items."""
 
     def __init__(self, channels: int, momentum: float = 0.99,
                  epsilon: float = 1e-3) -> None:
@@ -95,14 +99,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sharded: bool = False
+                ) -> torch.Tensor:
         xf = x.float()
         if self.training:
             red = tuple(range(x.dim() - 1))
             mean, sq = xf.mean(dim=red), (xf * xf).mean(dim=red)
-            group = active_group()
-            if spread(group):
-                mean, sq = pmean(torch.stack([mean, sq]), group).unbind(0)
+            groups = [active_group()]
+            if sharded:
+                groups.insert(0, active_points())
+            moments = None
+            for group in groups:
+                if spread(group):
+                    moments = pmean(torch.stack([mean, sq])
+                                    if moments is None else moments, group)
+            if moments is not None:
+                mean, sq = moments.unbind(0)
             var = torch.clamp_min(sq - mean * mean, 0.0)
             if not getattr(_STATS, "frozen", False):
                 with torch.no_grad():
@@ -163,13 +175,14 @@ class _Dense(nn.Module):
             self.biases = None
         self.bn = BatchNorm(num_out) if with_bn else None
 
-    def _tail(self, out: torch.Tensor) -> torch.Tensor:
+    def _tail(self, out: torch.Tensor, sharded: bool = False
+              ) -> torch.Tensor:
         if self.biases is not None:
             out = out + self.biases.to(out.dtype)
         if self.activation:
             out = F.elu(out)
         if self.bn is not None:
-            out = self.bn(out)
+            out = self.bn(out, sharded)
         return out
 
 
@@ -197,11 +210,21 @@ class SeparableConv3d(_Dense):
         window: int | None = None,
         lists: EdgeLists | None = None,
         use_kernels: bool | None = None,
+        halo_rows: int | None = None,
     ) -> torch.Tensor:
         """``nbh`` a dense graph (bins in its maps), or an edge-list graph
         with its ``filt_index`` bins, the per-edge engine's ``window``
-        (None: the plain gather) and the gather's shared ``lists``."""
+        (None: the plain gather) and the gather's shared ``lists``.
+        ``halo_rows`` (point sharding): ``inputs`` are this point rank's
+        rows and ``nbh`` its tiles with windows rebased for a halo of that
+        many rows a side; the conv exchanges the halo of its own input
+        (``parallel.spatial.halo_exchange``, so stacked convs hand each
+        other local rows) and its BN averages over the point group."""
         inputs = inputs.to(self.dtype)
+        if halo_rows is not None:
+            from sph3d_gcn_torch.parallel.spatial import halo_exchange
+
+            inputs = halo_exchange(inputs, halo_rows, active_points())
         if isinstance(nbh, DenseNeighborhood):
             # bins live in the packed maps; the pointwise GEMM is folded in
             out = dense_depthwise_conv3d(
@@ -217,7 +240,7 @@ class SeparableConv3d(_Dense):
             out = einsum_f32(
                 "bmc,co->bmo", out, self.weights.to(self.dtype)
             ).to(self.dtype)
-        return self._tail(out)
+        return self._tail(out, halo_rows is not None)
 
 
 class PointwiseConv3d(_Dense):
@@ -234,11 +257,14 @@ class PointwiseConv3d(_Dense):
             (in_channels, num_out_channels), generator
         )
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+    def forward(self, inputs: torch.Tensor, sharded: bool = False
+                ) -> torch.Tensor:
+        """``sharded``: ``inputs`` are this point rank's rows (BN averages
+        over the point group)."""
         out = einsum_f32(
             "bmc,co->bmo", inputs.to(self.dtype), self.weights.to(self.dtype)
         ).to(self.dtype)
-        return self._tail(out)
+        return self._tail(out, sharded)
 
 
 class FullyConnected(_Dense):

@@ -169,12 +169,15 @@ def plan_dense_query(
     kernel: tuple[int, int, int] | None,
     window: int,
     growth_steps: int = 0,
+    query_shard: tuple[int, int] | None = None,
 ) -> QueryPlan:
     """Padding, per-tile window starts and slab ends, and the provable
     coverage certificate of one dense graph (the JAX op's XLA part). With
     ``growth_steps`` the window starts one block lower and the slab end
     is taken at the largest grown radius; the grown slab is re-certified
-    after the query (:func:`build_dense_graph`)."""
+    after the query (:func:`build_dense_graph`). ``query_shard``
+    (rank, shards): only that rank's chunk of the query tiles (the plan's
+    ``q_p``, bounds and certificate cover those tiles alone)."""
     db = database[..., :3].float()
     q = query[..., :3].float()
     batch, num_db, _ = db.shape
@@ -189,6 +192,19 @@ def plan_dense_query(
     # query rows select nothing
     db_p = F.pad(db, (0, 0, 0, n_pad - num_db), value=2e9)
     q_p = F.pad(q, (0, 0, 0, m_pad - num_q), value=1e9)
+    if query_shard is not None:
+        # every bound and map below is per query tile: slicing the
+        # queries shrinks all of it to this rank's tiles
+        rank, shards = query_shard
+        if n_t % shards:
+            raise ValueError(
+                f"{n_t} query tiles do not split over {shards} shards")
+        if num_q != m_pad:
+            raise ValueError(f"query_shard needs a TILE-aligned query "
+                             f"count, got {num_q} (pad to {m_pad})")
+        n_t //= shards
+        m_pad = num_q = n_t * TILE
+        q_p = q_p[:, rank * m_pad:(rank + 1) * m_pad].contiguous()
 
     key, axis, is_sorted = _sorted_axis_ok(db)
     key_p = F.pad(key, (0, n_pad - num_db), value=2e9)
@@ -265,22 +281,27 @@ def build_dense_graph(
                 graphs (``kernel=None``) only.
       need_dist: also build the f32 distance map (``dist``), in the same
                 query launch (at each row's grown radius with growth).
-      query_shard: point-axis sharding, not ported yet (raises).
+      query_shard: (rank, shards) under point sharding: only that point
+                rank's chunk of the query tiles is built (the queries, the
+                slab bounds and the maps shrink 1/shards; the database
+                stays whole). The fields are then tile-local, ``s_blk``
+                still in the whole database's blocks (rebase it with
+                ``parallel.spatial.local_neighborhood`` for haloed
+                features), ``count`` and ``num_query`` the rank's padded
+                rows, and ``ok`` certifies its tiles only (the models
+                combine the ranks' certificates). The query tiles must
+                split evenly and the query count be TILE-aligned.
 
     Returns:
       DenseNeighborhood.
     """
-    if query_shard is not None:
-        raise NotImplementedError(
-            "query sharding of the dense graph is not ported yet"
-        )
     if growth_steps and kernel is not None:
         raise ValueError(
             "growth_steps is only supported for selection-only graphs "
             "(kernel=None); intra graphs self-include and never grow"
         )
     plan = plan_dense_query(database, query, radius, kernel, window,
-                            growth_steps)
+                            growth_steps, query_shard)
     k = int(nn_sample)
     if growth_steps:
         packed, steps, count, dist = growth_query(

@@ -1,11 +1,14 @@
-"""Data parallelism over ``torch.distributed`` (counterpart of
-``sph3d_gcn_tpu/parallel``'s data-parallel half, ``mesh.py``; the point
-sharding of its ``spatial.py`` is not ported yet)."""
+"""Data parallelism and point-axis sharding over ``torch.distributed``
+(counterpart of ``sph3d_gcn_tpu/parallel``: ``mesh.py``'s groups and
+``spatial.py``'s halo exchange, whose functions are in
+``parallel.spatial``)."""
 
-from sph3d_gcn_torch.parallel.launch import run_ranks
+from sph3d_gcn_torch.parallel.launch import RankPool, run_ranks
 from sph3d_gcn_torch.parallel.mesh import (
     DataGroup,
+    PointGroup,
     active_group,
+    active_points,
     close_data_parallel,
     current_group,
     data_parallel,
@@ -16,12 +19,17 @@ from sph3d_gcn_torch.parallel.mesh import (
     pmean,
     process_shard_files,
     shard_batch,
+    split_groups,
     spread,
+    world_group,
 )
 
 __all__ = [
     "DataGroup",
+    "PointGroup",
+    "RankPool",
     "active_group",
+    "active_points",
     "close_data_parallel",
     "current_group",
     "data_parallel",
@@ -33,5 +41,7 @@ __all__ = [
     "process_shard_files",
     "run_ranks",
     "shard_batch",
+    "split_groups",
     "spread",
+    "world_group",
 ]

@@ -1,5 +1,6 @@
-"""Data parallelism over ``torch.distributed`` (counterpart of
-``sph3d_gcn_tpu/parallel/mesh.py``).
+"""Data parallelism over ``torch.distributed`` and the groups of point
+sharding (counterpart of ``sph3d_gcn_tpu/parallel/mesh.py`` and of the
+mesh that ``sph3d_gcn_tpu/train/cli.py``'s ``points_mesh`` builds).
 
 JAX expresses data parallelism as a ('data', 'model') mesh: state
 replicated, the batch sharded over 'data', and XLA computes the
@@ -20,6 +21,16 @@ with them) the layers give the step its global-batch semantics:
   (:func:`draw_rows`), so the world size changes no value;
 - the step all-reduces the gradients, losses and certificate failures
   once (``train.steps``).
+
+Point sharding (``parallel.spatial``) splits the ranks further: with
+P point ranks a replica, rank r holds data index r // P and point index
+r % P (JAX's ``devices.reshape(num_devices, point_devices)``), and
+:func:`split_groups` forms both kinds of group with ``dist.new_group``:
+the P ranks of one replica (a :class:`PointGroup`, whose ranks hold one
+batch and split each cloud's rows) and the ranks of one point index
+across the replicas (a :class:`DataGroup`, over which the batch splits).
+Under :func:`data_parallel` with a point group the sharded layers halo-
+exchange their rows and average their batch statistics over both.
 
 Nothing falls back: a group that does not form raises and NCCL is never
 replaced by gloo. A group of one rank runs no collective in a step
@@ -44,30 +55,33 @@ _ACTIVE = threading.local()
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DataGroup:
-    """One rank's view of the data-parallel group: the default process
-    group of ``torch.distributed``, which this process has joined.
+    """One rank's view of the data-parallel group: the ranks over which
+    the batch splits, which this process has joined.
 
     Attributes:
-      rank, size: this process's rank and the group's size R.
+      rank, size: this process's rank in the group and the group's size R.
       device: where this rank's model lives and its collectives' tensors
         go (NCCL: its CUDA device; gloo: the CPU, or a CUDA device that
         several ranks may share).
+      group: the ``torch.distributed`` process group its collectives run
+        on; None: the default group (every rank of the run).
     """
 
     rank: int
     size: int
     device: torch.device
+    group: object = None
 
     def all_reduce_(self, tensor: torch.Tensor) -> torch.Tensor:
         """Sum ``tensor`` over the group in place; returns it."""
-        dist.all_reduce(tensor)
+        dist.all_reduce(tensor, group=self.group)
         return tensor
 
     def all_gather_rows(self, tensor: torch.Tensor) -> torch.Tensor:
         """Every rank's ``tensor`` (each of the same shape) concatenated
         along dim 0 in rank order: the global batch's rows."""
         parts = [torch.empty_like(tensor) for _ in range(self.size)]
-        dist.all_gather(parts, tensor.contiguous())
+        dist.all_gather(parts, tensor.contiguous(), group=self.group)
         return torch.cat(parts, dim=0)
 
     def local_rows(self, x):
@@ -87,9 +101,69 @@ class DataGroup:
         return self.all_reduce_(t).tolist()
 
     def barrier(self) -> None:
-        """Wait until every rank arrives (an all-reduce of one number on
-        the group's device, which both backends run)."""
+        """Wait until every rank of the group arrives (an all-reduce of
+        one number on the group's device, which both backends run)."""
         self.sum_floats(0.0)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PointGroup(DataGroup):
+    """One rank's view of its point group: the P ranks of one replica,
+    which hold the same batch and split each cloud's rows into P
+    contiguous chunks (``parallel.spatial``).
+
+    Attributes (beside :class:`DataGroup`'s, ``rank`` being the point
+    index):
+      ranks: the global ranks of the group in point order (the peers of
+        its point-to-point exchanges).
+      backend: the group's backend: 'nccl' exchanges CUDA tensors with
+        ``dist.batch_isend_irecv``; 'gloo' stages them through the host,
+        since its send and receive take CPU tensors only.
+    """
+
+    ranks: tuple[int, ...] = ()
+    backend: str = "gloo"
+
+
+def split_groups(world: DataGroup, point_devices: int
+                 ) -> tuple[DataGroup, PointGroup | None]:
+    """This rank's data group and point group in a run of
+    ``num_devices x point_devices`` ranks (``world``: the group of every
+    rank, :func:`init_data_parallel`'s). Rank r holds data index r // P
+    and point index r % P; every rank forms every group, as
+    ``dist.new_group`` requires. ``point_devices`` 1 returns ``world``
+    and no point group. Raises when the ranks do not split."""
+    p = int(point_devices)
+    if p < 1 or world.size % p:
+        raise ValueError(f"{world.size} ranks do not split into point "
+                         f"groups of {point_devices}")
+    if p == 1:
+        return world, None
+    backend = dist.get_backend()
+    replicas = world.size // p
+    point_groups = [dist.new_group(list(range(d * p, (d + 1) * p)))
+                    for d in range(replicas)]
+    data_groups = [dist.new_group(list(range(i, world.size, p)))
+                   for i in range(p)]
+    d, i = divmod(world.rank, p)
+    data = DataGroup(rank=d, size=replicas, device=world.device,
+                     group=data_groups[i])
+    points = PointGroup(rank=i, size=p, device=world.device,
+                        group=point_groups[d],
+                        ranks=tuple(range(d * p, (d + 1) * p)),
+                        backend=backend)
+    return data, points
+
+
+def world_group(group: DataGroup | None, points: PointGroup | None
+                ) -> DataGroup | None:
+    """The group of every rank of a run whose data group is ``group`` and
+    point group ``points``: ``group`` itself without point ranks (the
+    checkpoints' barrier runs on it)."""
+    if points is None:
+        return group
+    return DataGroup(rank=dist.get_rank(), size=dist.get_world_size(),
+                     device=points.device)
 
 
 def init_data_parallel(device: torch.device | str,
@@ -159,9 +233,10 @@ def spread(group: DataGroup | None) -> bool:
 
 
 def is_primary(group: DataGroup | None) -> bool:
-    """Whether this process writes the run's files and reports: rank 0,
-    or the one process of a run without a group."""
-    return group is None or group.rank == 0
+    """Whether this process writes the run's files and reports: rank 0
+    of the run (the point ranks of the first replica hold data rank 0
+    alike), or the one process of a run without a group."""
+    return group is None or (group.rank == 0 and _world()[0] == 0)
 
 
 def close_data_parallel() -> None:
@@ -170,21 +245,29 @@ def close_data_parallel() -> None:
 
 
 @contextlib.contextmanager
-def data_parallel(group: DataGroup | None):
+def data_parallel(group: DataGroup | None,
+                  points: PointGroup | None = None):
     """Run the enclosed forward (on this thread) with ``group``'s
-    global-batch semantics (module docstring); None runs it as one
+    global-batch semantics (module docstring), its clouds' rows split
+    over ``points`` where the config shards them; None runs it as one
     process does."""
-    prev = getattr(_ACTIVE, "group", None)
-    _ACTIVE.group = group
+    prev = (getattr(_ACTIVE, "group", None),
+            getattr(_ACTIVE, "points", None))
+    _ACTIVE.group, _ACTIVE.points = group, points
     try:
         yield
     finally:
-        _ACTIVE.group = prev
+        _ACTIVE.group, _ACTIVE.points = prev
 
 
 def active_group() -> DataGroup | None:
     """The group of the enclosing :func:`data_parallel`, or None."""
     return getattr(_ACTIVE, "group", None)
+
+
+def active_points() -> PointGroup | None:
+    """The point group of the enclosing :func:`data_parallel`, or None."""
+    return getattr(_ACTIVE, "points", None)
 
 
 class _PMean(torch.autograd.Function):

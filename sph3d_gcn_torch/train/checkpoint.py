@@ -33,10 +33,8 @@ from sph3d_gcn_torch.parallel.mesh import DataGroup, is_primary, spread
 _NAME = re.compile(r"^(\d+)\.pt$")
 
 # fields of the JAX config that the port's models do not read, with JAX's
-# defaults: a JAX snapshot loads when each holds its default (the point
-# sharding's data_axis and halo_scale among them)
-_JAX_ONLY_DEFAULTS = {"mlp2": None, "num_parts": None, "point_axis": None,
-                      "data_axis": None, "halo_scale": 1}
+# defaults: a JAX snapshot loads when each holds its default
+_JAX_ONLY_DEFAULTS = {"mlp2": None, "num_parts": None}
 
 
 class Checkpointer:

@@ -14,11 +14,12 @@
   does it for one block, one resample a forward.
 
 The dense engine's window-coverage certificate is enforced by
-:func:`checked_eval_step` (JAX's, without the halo retry of point
-sharding) and by :func:`checked_forward` (the same rule for the numpy
-forwards of the two protocols): a batch whose ``dense_ok`` is False is
-re-run on the model's per-edge (classic) engine, on the same parameters,
-which is exact for every cloud.
+:func:`checked_eval_step` (JAX's) and by :func:`checked_forward` (the
+same rule for the numpy forwards of the two protocols): a batch whose
+``dense_ok`` is False is re-run on the model's per-edge (classic)
+engine, on the same parameters, which is exact for every cloud. Under
+point sharding a batch whose only breach was a halo first re-runs
+sharded at twice the inter-level halos.
 
 Under a data-parallel group (``parallel.DataGroup``) every rank runs the
 same host loop on the same records, as JAX's single-host mesh eval
@@ -36,9 +37,10 @@ import torch
 
 from sph3d_gcn_torch.data import augment as aug
 from sph3d_gcn_torch.data.datasets import pad_batch
-from sph3d_gcn_torch.models.common import classic_clone
+from sph3d_gcn_torch.models.common import classic_clone, halo_clone
 from sph3d_gcn_torch.parallel.mesh import (
     DataGroup,
+    PointGroup,
     data_parallel,
     is_primary,
     spread,
@@ -55,22 +57,38 @@ def checked_eval_step(factory) -> Callable[[dict], dict]:
     one line), so results are never silently wrong. A dense config pays
     one host read of the certificate a batch; a per-edge one none. Under
     ``factory.group``, ``batch`` is this rank's rows and the certificate
-    is the group's, so every rank re-runs together."""
+    is the group's, so every rank re-runs together. Under point sharding
+    (``factory.points``) a batch whose only breach was a halo first
+    re-runs through ``factory.halo_widened()``'s eval step (JAX's,
+    ``sph3d_gcn_tpu/train/eval.py:41-49``). ``run.reruns`` counts the
+    re-runs of each kind."""
     dense = bool(factory.model.config.dense_graph)
-    fallback: list = []
+    fallback: dict = {}
+    reruns = {"halo": 0, "classic": 0}
+
+    def rerun(kind: str, batch: dict) -> dict:
+        if kind not in fallback:
+            if is_primary(factory.group):
+                print("dense window coverage violated at eval: re-running "
+                      + ("sharded with 2x halos" if kind == "halo"
+                         else "on the classic per-edge engine"),
+                      flush=True)
+            fallback[kind] = (factory.halo_widened() if kind == "halo"
+                              else factory.classic_fallback())
+        reruns[kind] += 1
+        return fallback[kind].eval_step(batch)
 
     def run(batch: dict) -> dict:
         metrics = factory.eval_step(batch)
         if dense and not bool(metrics["dense_ok"]):
-            if not fallback:
-                if is_primary(factory.group):
-                    print("dense window coverage violated at eval: "
-                          "re-running on the classic per-edge engine",
-                          flush=True)
-                fallback.append(factory.classic_fallback())
-            metrics = fallback[0].eval_step(batch)
+            if factory.points is not None and not bool(metrics["halo_ok"]):
+                metrics = rerun("halo", batch)
+                if bool(metrics["dense_ok"]):
+                    return metrics
+            metrics = rerun("classic", batch)
         return metrics
 
+    run.reruns = reruns
     return run
 
 
@@ -105,6 +123,7 @@ def checked_forward(
     generator: torch.Generator | None = None,
     model_inputs: Callable[[list[int]], list[np.ndarray]] | None = None,
     group: DataGroup | None = None,
+    points: PointGroup | None = None,
 ) -> Callable[..., np.ndarray]:
     """A forward for :func:`vote_classify` and :func:`coverage_eval_blocks`:
     numpy points in ((B, N, 3) clouds or (B, N, 9) scene blocks), numpy
@@ -124,9 +143,28 @@ def checked_forward(
     calls the forward on the same global batch: each runs its rows (the
     batch padded with repeats of its last item when it does not split
     over the ranks), the ranks re-run together when any certificate
-    failed, and every rank returns the whole batch's logits."""
-    fallback: list[torch.nn.Module] = []
+    failed, and every rank returns the whole batch's logits. ``points``:
+    the point group of a point-sharded model (its config's
+    ``point_axis``): the point ranks of a replica run its rows together,
+    and a batch whose only breach was a halo re-runs sharded at twice the
+    inter-level halos (``models.common.halo_clone``) before the per-edge
+    engine."""
+    fallback: dict[str, torch.nn.Module] = {}
     gen = generator if generator is not None else _default_generator(device)
+    point_group = points      # ``forward``'s own ``points`` are the clouds
+
+    def rerun(kind: str, x, extra, state):
+        first = kind not in fallback
+        if first:
+            fallback[kind] = (halo_clone(model) if kind == "halo"
+                              else classic_clone(model))
+        gen.set_state(state)
+        logits = fallback[kind](x, *extra, generator=gen)
+        if first and is_primary(group):
+            print("dense window coverage violated at eval: re-ran "
+                  + ("sharded with 2x halos" if kind == "halo"
+                     else "on the classic per-edge engine"), flush=True)
+        return logits
 
     def forward(points: np.ndarray, block_ids=None) -> np.ndarray:
         inputs = [np.asarray(points, np.float32)] + (
@@ -140,19 +178,17 @@ def checked_forward(
                                   -(-size // group.size) * group.size)
             inputs = [group.local_rows(a) for a in padded.values()]
         x, *extra = [torch.as_tensor(a, device=device) for a in inputs]
-        with torch.inference_mode(), data_parallel(group):
+        with torch.inference_mode(), data_parallel(group, point_group):
             state = gen.get_state()
             logits = model(x, *extra, generator=gen)
             if not _agreed(model.dense_ok, group):
-                first = not fallback
-                if first:
-                    fallback.append(classic_clone(model))
-                gen.set_state(state)
-                logits = fallback[0](x, *extra, generator=gen)
-                if first and is_primary(group):
-                    print("dense window coverage violated at eval: "
-                          "re-ran on the classic per-edge engine",
-                          flush=True)
+                ok = False
+                if point_group is not None \
+                        and not _agreed(model.halo_ok, group):
+                    logits = rerun("halo", x, extra, state)
+                    ok = _agreed(fallback["halo"].dense_ok, group)
+                if not ok:
+                    logits = rerun("classic", x, extra, state)
             if spread(group):
                 logits = group.all_gather_rows(logits)[:size]
         return logits.float().cpu().numpy()

@@ -1,6 +1,5 @@
 """Epoch-driven training loop with logging and checkpoint/resume
-(counterpart of ``sph3d_gcn_tpu/train/loop.py``, without its point-axis
-sharding).
+(counterpart of ``sph3d_gcn_tpu/train/loop.py``).
 
 Replaces the reference's per-dataset `train_*.py` `sess.run` loops
 (e.g. ref modelnet40_cls/train_modelnet.py:241-311): per-epoch train and
@@ -14,7 +13,11 @@ pre-step model, optimizer and scheduler from a device copy taken before
 each step (:class:`PreStepCopy`) and re-runs the batch through
 ``factory.classic_fallback()``, the per-edge engine on the same
 parameters, built once; an eval batch that fails is re-run through the
-fallback's eval step.
+fallback's eval step. Under point sharding (``factory.points``) a batch
+whose only breach was a halo (``halo_ok`` False) first re-runs sharded
+through ``factory.halo_widened()`` (twice the inter-level halos, built
+once), and through the classic fallback only if that fails too, as
+JAX's ``fit()`` does; each re-run is counted and logged.
 
 Each train batch runs in a ``torch.profiler`` span ``fit_step`` (its
 copy to the device, the step, its host reads of the loss, the
@@ -30,7 +33,8 @@ steps on its rows of it, so R ranks run what one process runs on the
 same batches, batch for batch. The ranks restore and re-run together,
 and rank 0 alone logs and writes the checkpoints. The logged losses are
 the global batch's; the logged accuracies count every rank's rows (JAX
-logs process 0's rows only).
+logs process 0's rows only). The point ranks of a replica step on the
+same rows together.
 """
 
 from __future__ import annotations
@@ -46,7 +50,12 @@ import torch
 from torch.profiler import record_function
 
 from sph3d_gcn_torch.data.datasets import pad_batch
-from sph3d_gcn_torch.parallel.mesh import is_primary, shard_batch, spread
+from sph3d_gcn_torch.parallel.mesh import (
+    is_primary,
+    shard_batch,
+    spread,
+    world_group,
+)
 from sph3d_gcn_torch.train.checkpoint import Checkpointer
 from sph3d_gcn_torch.train.steps import StepFactory
 
@@ -238,7 +247,8 @@ def fit(
         raise ValueError(f"global batch {batch_size} does not split over "
                          f"{ranks} processes")
     logger = Logger(log_dir, primary=is_primary(group))
-    ckpt = Checkpointer(log_dir, group=group)
+    ckpt = Checkpointer(log_dir,
+                        group=world_group(group, factory.points))
 
     def mine(batch: dict) -> tuple[dict, int]:
         """This rank's rows of a global batch padded to ``batch_size``,
@@ -256,16 +266,38 @@ def fit(
     dense_mode = bool(model.config.dense_graph)
     use_fallback = dense_mode and on_dense_violation == "fallback"
     pre_step = PreStepCopy(factory) if use_fallback else None
-    fallback: list[StepFactory] = []
+    fallback: dict[str, StepFactory] = {}
+    reruns = {"halo": 0, "classic": 0}
 
-    def _fallback() -> StepFactory:
-        if not fallback:
-            fallback.append(factory.classic_fallback())
-            logger.log(
-                "dense window coverage violated: building the classic-"
-                "engine fallback step (exact per-edge ops)"
-            )
-        return fallback[0]
+    def _fallback(kind: str = "classic") -> StepFactory:
+        if kind not in fallback:
+            if kind == "halo":
+                fallback[kind] = factory.halo_widened()
+                logger.log("halo coverage violated: building the 2x-halo "
+                           "sharded retry step")
+            else:
+                fallback[kind] = factory.classic_fallback()
+                logger.log(
+                    "dense window coverage violated: building the classic-"
+                    "engine fallback step (exact per-edge ops)"
+                )
+        reruns[kind] += 1
+        return fallback[kind]
+
+    def _recover(metrics: dict, action: str | None, run) -> dict:
+        """Re-run a batch by ``action`` ('halo': sharded at 2x halos,
+        then classic if that fails too; 'classic'); ``run(factory)``
+        runs the batch and returns its metrics."""
+        if action == "halo":
+            metrics = run(_fallback("halo"))
+            if bool(metrics["dense_ok"]):
+                return metrics
+            logger.log("2x-halo retry still violated: falling back to the "
+                       "classic engine")
+            action = "classic"
+        if action == "classic":
+            metrics = run(_fallback())
+        return metrics
 
     step = 0
     start_epoch = 0
@@ -278,12 +310,14 @@ def fit(
 
     violations = 0
 
-    def _rerun(ok: bool, where: str) -> bool:
-        """Whether a batch whose certificate read ``ok`` re-runs on the
-        per-edge engine ('raise' raises here)."""
+    def _rerun(metrics: dict, where: str) -> str | None:
+        """How a batch whose certificates read ``metrics`` re-runs: None
+        (it stands), 'halo' (a halo-only breach under point sharding:
+        sharded at 2x halos) or 'classic' (the per-edge engine); 'raise'
+        raises here."""
         nonlocal violations
-        if not dense_mode or ok:
-            return False
+        if not dense_mode or bool(metrics["dense_ok"]):
+            return None
         violations += 1
         if on_dense_violation == "raise":
             raise RuntimeError(
@@ -291,13 +325,18 @@ def fit(
                 "SPH3DConfig.windows (sph3d_gcn_torch.cli.measure_windows) "
                 "or run with on_dense_violation='fallback'"
             )
+        halo_only = (factory.points is not None
+                     and not bool(metrics.get("halo_ok", True)))
+        action = (("halo" if halo_only else "classic") if use_fallback
+                  else None)
         logger.log(
             f"WARNING: dense window coverage violated during {where} "
             f"(violation #{violations}); "
-            + ("re-running via the classic engine" if use_fallback
-               else "keeping the possibly-wrong step")
+            + {"halo": "re-running sharded with 2x halos",
+               "classic": "re-running via the classic engine",
+               None: "keeping the possibly-wrong step"}[action]
         )
-        return use_fallback
+        return action
 
     for epoch in range(start_epoch, num_epochs):
         logger.log(f"**** EPOCH {epoch:03d} ****")
@@ -317,13 +356,17 @@ def fit(
                 metrics = factory.train_step(
                     dev_batch, step_generator(seed, step, device))
                 loss = float(metrics["loss"])  # host sync
-                if _rerun(bool(metrics["dense_ok"]),
-                          f"epoch {epoch} batch {batch_idx}"):
-                    # redo the batch from the pre-step state with exact
-                    # ops; the dense step's update is discarded
-                    pre_step.restore()
-                    metrics = _fallback().train_step(
-                        dev_batch, step_generator(seed, step, device))
+                action = _rerun(metrics, f"epoch {epoch} batch {batch_idx}")
+                if action is not None:
+                    # redo the batch from the pre-step state; the failed
+                    # step's update is discarded
+
+                    def run(f, batch=dev_batch, step=step):
+                        pre_step.restore()
+                        return f.train_step(
+                            batch, step_generator(seed, step, device))
+
+                    metrics = _recover(metrics, action, run)
                     loss = float(metrics["loss"])
                 step += 1
                 train_time += time.time() - now
@@ -372,8 +415,10 @@ def fit(
                 batch, bsize = pad_batch(batch, batch_size)
                 dev_batch = to_device(mine(batch)[0], device)
                 metrics = factory.eval_step(dev_batch)
-                if _rerun(bool(metrics["dense_ok"]), f"epoch {epoch} eval"):
-                    metrics = _fallback().eval_step(dev_batch)
+                action = _rerun(metrics, f"epoch {epoch} eval")
+                metrics = _recover(
+                    metrics, action,
+                    lambda f, batch=dev_batch: f.eval_step(batch))
                 if "item_loss" in metrics:
                     # real items only: padded repeats of the last item
                     # would bias short final batches
@@ -406,8 +451,11 @@ def fit(
     if violations:
         logger.log(
             f"dense window coverage violations total: {violations} "
-            + ("(all re-run through the classic engine)"
-               if use_fallback else "(steps kept — results may be wrong)")
+            + ("(steps kept — results may be wrong)" if not use_fallback
+               else "(all re-run through the classic engine)"
+               if not reruns["halo"]
+               else f"(re-runs: {reruns['halo']} sharded at 2x halos, "
+               f"{reruns['classic']} through the classic engine)")
         )
     ckpt.close()
     logger.close()

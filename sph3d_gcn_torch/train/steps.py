@@ -1,5 +1,4 @@
-"""Train and eval steps (counterpart of ``sph3d_gcn_tpu/train/steps.py``
-without its point-axis sharding).
+"""Train and eval steps (counterpart of ``sph3d_gcn_tpu/train/steps.py``).
 
 One train step: the train-mode forward (batch-statistics BN, which
 updates the running statistics in place; dropout, and the noise of IDS
@@ -26,6 +25,22 @@ loss and one ``dense_ok`` (every rank's certificate held), and takes the
 same fallback decision. Nothing syncs the parameters afterwards: every
 rank applies the same update to the same state. A group of one rank
 runs the one-process step, with no collective.
+
+With ``points`` (a ``parallel.PointGroup``; the model's config names a
+``point_axis``) the P ranks of a replica hold the same rows of the batch
+and split each cloud's rows (``parallel.spatial``); the model gathers the
+logits, so every point rank computes the same loss. Each rank's
+objective is then its data loss over D x P (a ``"mean"`` loss, or
+without a data group) or over P (the ``"sum"`` loss across D replicas),
+plus the weight decay over D x P, summed in the forward by
+``parallel.spatial.psum_replicated`` (identity backward) into the global
+loss; one all-reduce over the point group and one over the data group
+then sum the gradients into the global batch's (JAX's psum of the
+gradients over both axes). The metrics carry ``halo_ok`` beside
+``dense_ok``; :meth:`StepFactory.halo_widened` re-runs a halo-only
+breach sharded at twice the inter-level halos, and
+:meth:`StepFactory.classic_fallback` runs each replica's rows unsharded
+on the per-edge engine.
 """
 
 from __future__ import annotations
@@ -35,9 +50,15 @@ from collections.abc import Callable
 
 import torch
 
-from sph3d_gcn_torch.models.common import classic_clone
+from sph3d_gcn_torch.models.common import classic_clone, halo_clone
 from sph3d_gcn_torch.nn.layers import BatchNorm, l2_regularization
-from sph3d_gcn_torch.parallel.mesh import DataGroup, data_parallel, spread
+from sph3d_gcn_torch.parallel.mesh import (
+    DataGroup,
+    PointGroup,
+    data_parallel,
+    spread,
+)
+from sph3d_gcn_torch.parallel.spatial import psum_replicated
 
 # (logits, batch) -> data loss (scalar) or per-item loss (B,)
 LossFn = Callable[[torch.Tensor, dict[str, torch.Tensor]], torch.Tensor]
@@ -67,6 +88,8 @@ class StepFactory:
       loss_reduction: how ``loss_fn`` reduces over the batch's items,
         ``"mean"`` or ``"sum"`` (the inner-masked scene loss), so that the
         ranks' losses sum to the global one.
+      points: the point group of a point-sharded model (whose config
+        sets ``point_axis``), or None.
     """
 
     model: torch.nn.Module
@@ -79,15 +102,22 @@ class StepFactory:
     model_kwargs_keys: tuple[str, ...] = ()
     group: DataGroup | None = None
     loss_reduction: str = "mean"
+    points: PointGroup | None = None
 
     def __post_init__(self) -> None:
         if self.loss_reduction not in ("mean", "sum"):
             raise ValueError(f"loss_reduction must be 'mean' or 'sum', got "
                              f"{self.loss_reduction!r}")
+        axis = getattr(self.model.config, "point_axis", None)
+        if (axis is None) != (self.points is None):
+            raise ValueError(
+                f"the model's point_axis is {axis!r} but the step has "
+                f"{'no' if self.points is None else 'a'} point group: set "
+                "both or neither")
 
     def _forward(self, batch, generator, sample_noise=None):
         extra = [batch[k] for k in self.model_kwargs_keys]
-        with data_parallel(self.group):
+        with data_parallel(self.group, self.points):
             return self.model(batch["points"], *extra,
                               use_kernels=self.use_kernels,
                               generator=generator, sample_noise=sample_noise)
@@ -100,6 +130,21 @@ class StepFactory:
         decay = None
         if self.weight_decay is not None:
             decay = self.weight_decay * l2_regularization(self.model)
+        if self.points is not None:
+            # every point rank holds the replica's loss: the JAX step's
+            # reassembly (module docstring)
+            replicas = self.group.size if spread(self.group) else 1
+            denom = replicas * self.points.size
+            scale = (1.0 / denom if self.loss_reduction == "mean"
+                     or replicas == 1 else 1.0 / self.points.size)
+            part = data_loss * scale
+            if decay is not None:
+                part = part + decay / denom
+            total = psum_replicated(part, self.points, self.group)
+            if replicas > 1:
+                # the global data loss (the weight decay is replicated)
+                data_loss = total if decay is None else total - decay
+            return total, data_loss, logits
         if spread(self.group):
             ranks = self.group.size
             if self.loss_reduction == "mean":
@@ -109,23 +154,39 @@ class StepFactory:
         total = data_loss if decay is None else data_loss + decay
         return total, data_loss, logits
 
+    def _spread(self) -> bool:
+        return spread(self.group) or spread(self.points)
+
+    def _halo_ok(self) -> torch.Tensor:
+        ok = getattr(self.model, "halo_ok", None)
+        return (torch.ones((), dtype=torch.bool,
+                           device=self.model.dense_ok.device)
+                if ok is None else ok)
+
     def _agree(self, total, data_loss, grads=()):
-        """Sum the ranks' objectives, data losses, certificate failures
-        and ``grads`` (in place) in one all-reduce; returns the global
-        (loss, data loss, dense_ok) and leaves ``dense_ok`` on the model."""
-        failed = (~self.model.dense_ok).to(torch.float32)
-        flat = torch.cat([g.reshape(-1) for g in grads]
-                         + [total.detach().reshape(1).float(),
-                            data_loss.detach().reshape(1).float(),
-                            failed.reshape(1)])
-        self.group.all_reduce_(flat)
+        """Sum the ranks' objectives, data losses (unless the forward
+        summed them: point sharding), certificate failures and ``grads``
+        (in place) in one all-reduce a group; returns the global (loss,
+        data loss, dense_ok, halo_ok) and leaves both certificates on the
+        model."""
+        failed = torch.stack([~self.model.dense_ok,
+                              ~self._halo_ok()]).to(torch.float32)
+        sums = [] if self.points is not None else [
+            total.detach().reshape(1).float(),
+            data_loss.detach().reshape(1).float()]
+        flat = torch.cat([g.reshape(-1) for g in grads] + sums + [failed])
+        for group in (self.points, self.group):
+            if spread(group):
+                group.all_reduce_(flat)
         offset = 0
         for g in grads:
             g.copy_(flat[offset:offset + g.numel()].view_as(g))
             offset += g.numel()
-        ok = flat[-1] == 0
-        self.model.dense_ok = ok
-        return flat[-3], flat[-2], ok
+        if sums:
+            total, data_loss = flat[-4], flat[-3]
+        ok, halo_ok = flat[-2] == 0, flat[-1] == 0
+        self.model.dense_ok, self.model.halo_ok = ok, halo_ok
+        return total, data_loss, ok, halo_ok
 
     def loss_and_grads(self, batch: dict[str, torch.Tensor],
                        generator: torch.Generator | None = None,
@@ -136,29 +197,32 @@ class StepFactory:
         statistics updated) and returns the step's metrics. ``generator``
         draws the dropout masks and the sampling noise (IDS, random);
         ``sample_noise`` gives each level's sampling draws instead (the
-        model's forward). The certificate stays on the device: no host
-        read. Under a group the gradients, ``loss``, ``data_loss`` and
-        ``dense_ok`` are the global batch's (one all-reduce after the
-        backward) and ``logits`` this rank's rows."""
+        model's forward). The certificates stay on the device: no host
+        read. Under a group the gradients, ``loss``, ``data_loss``,
+        ``dense_ok`` and ``halo_ok`` are the global batch's (one
+        all-reduce a group after the backward) and ``logits`` this
+        replica's rows."""
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
         total, data_loss, logits = self._losses(batch, generator,
                                                 sample_noise)
         total.backward()
-        ok = self.model.dense_ok
-        if spread(self.group):
+        ok, halo_ok = self.model.dense_ok, self._halo_ok()
+        if self._spread():
             grads = [p.grad for p in self.model.parameters()
                      if p.grad is not None]
-            total, data_loss, ok = self._agree(total, data_loss, grads)
+            total, data_loss, ok, halo_ok = self._agree(total, data_loss,
+                                                        grads)
         return {"loss": total.detach(), "data_loss": data_loss.detach(),
-                "logits": logits.detach(), "dense_ok": ok}
+                "logits": logits.detach(), "dense_ok": ok,
+                "halo_ok": halo_ok}
 
     def train_step(self, batch: dict[str, torch.Tensor],
                    generator: torch.Generator | None = None
                    ) -> dict[str, torch.Tensor]:
         """One step on ``batch`` (``points``, and the labels the loss
-        reads): returns ``loss``, ``data_loss``, ``logits`` and
-        ``dense_ok``, all device tensors."""
+        reads): returns ``loss``, ``data_loss``, ``logits``, ``dense_ok``
+        and ``halo_ok``, all device tensors."""
         metrics = self.loss_and_grads(batch, generator)
         self.optimizer.step()
         self.scheduler.step()
@@ -190,39 +254,58 @@ class StepFactory:
                 buf.copy_(prev)
         return out
 
+    def halo_widened(self, scale: int = 2) -> StepFactory:
+        """A point-sharded StepFactory on the SAME parameters, buffers,
+        optimizer and scheduler with the inter-level halos ``scale`` times
+        wider (``models.common.halo_clone``; JAX's, ``sph3d_gcn_tpu/train/
+        steps.py:208-222``): the first re-run of a batch whose only breach
+        was a halo (``halo_ok`` False), which stays sharded, so no rank
+        ever holds the whole cloud's activations. Returns ``self``
+        without point sharding."""
+        if self.points is None:
+            return self
+        return dataclasses.replace(self, model=halo_clone(self.model, scale))
+
     def classic_fallback(self) -> StepFactory:
         """A StepFactory on the SAME parameters, BN buffers, optimizer and
         scheduler whose model runs the per-edge engine
         (``models.common.classic_clone``): the recovery path for a batch
         whose dense certificate failed, exact for every cloud
         (``sph3d_gcn_tpu/train/steps.py:227-270``). The clone keeps the
-        config's sampling, pooling and unpooling options. Returns ``self``
-        when the model already runs it."""
+        config's sampling, pooling and unpooling options. Under point
+        sharding it runs unsharded (the per-edge engine has none): each
+        point rank runs its replica's rows whole, the data group's
+        all-reduce alone summing the gradients, so the whole cloud's
+        activations must fit one card (JAX's memory bound; ``fit`` tries
+        :meth:`halo_widened` first where the halos alone failed). Returns
+        ``self`` when the model already runs it."""
         model = classic_clone(self.model)
         if model is self.model:
             return self
-        return dataclasses.replace(self, model=model)
+        return dataclasses.replace(self, model=model, points=None)
 
     def eval_step(self, batch: dict[str, torch.Tensor]
                   ) -> dict[str, torch.Tensor]:
         """The eval-mode forward and losses (running BN statistics, no
-        dropout, no gradient). Under a group ``batch`` is this rank's
+        dropout, no gradient). Under a group ``batch`` is this replica's
         rows, and ``logits`` and ``item_loss`` come back for the whole
-        global batch (all-gathered in rank order), ``loss``, ``data_loss``
-        and ``dense_ok`` the global batch's."""
+        global batch (all-gathered in rank order), ``loss``, ``data_loss``,
+        ``dense_ok`` and ``halo_ok`` the global batch's."""
         self.model.eval()
         with torch.no_grad():
             total, data_loss, logits = self._losses(batch, None)
             item_loss = (None if self.item_loss_fn is None
                          else self.item_loss_fn(logits, batch))
-            ok = self.model.dense_ok
+            ok, halo_ok = self.model.dense_ok, self._halo_ok()
+            if self._spread():
+                total, data_loss, ok, halo_ok = self._agree(total,
+                                                            data_loss)
             if spread(self.group):
-                total, data_loss, ok = self._agree(total, data_loss)
                 logits = self.group.all_gather_rows(logits)
                 if item_loss is not None:
                     item_loss = self.group.all_gather_rows(item_loss)
         out = {"loss": total, "data_loss": data_loss, "logits": logits,
-               "dense_ok": ok}
+               "dense_ok": ok, "halo_ok": halo_ok}
         if item_loss is not None:
             out["item_loss"] = item_loss
         return out
@@ -235,9 +318,11 @@ def classification_step_factory(
     weight_decay: float | None = None,
     use_kernels: bool | None = None,
     group: DataGroup | None = None,
+    points: PointGroup | None = None,
 ) -> StepFactory:
     """StepFactory with the mean softmax-CE classification loss
-    (ref SPH3D_modelnet.py:112-119); ``group`` as :class:`StepFactory`."""
+    (ref SPH3D_modelnet.py:112-119); ``group`` and ``points`` as
+    :class:`StepFactory`."""
     from sph3d_gcn_torch.models.modelnet import (
         classification_item_loss,
         classification_loss,
@@ -251,6 +336,7 @@ def classification_step_factory(
         item_loss_fn=lambda logits, batch: classification_item_loss(
             logits, batch["label"]),
         use_kernels=use_kernels, group=group, loss_reduction="mean",
+        points=points,
     )
 
 
@@ -263,13 +349,15 @@ def segmentation_step_factory(
     use_kernels: bool | None = None,
     model_kwargs_keys: tuple[str, ...] = (),
     group: DataGroup | None = None,
+    points: PointGroup | None = None,
 ) -> StepFactory:
     """StepFactory with the per-point CE loss over ``batch["label"]``
     (B, N): the plain mean, or with ``inner_masked`` the S3DIS / ScanNet
     loss over the inner points ``batch["inner_label"] > 0``, summed over
     the batch's items (ref SPH3D_s3dis.py:116-133). ``model_kwargs_keys``
     names the batch's extra model inputs (``("cls_label",)`` for
-    ``SPH3DShapeNetOnehot``); ``group`` as :class:`StepFactory`."""
+    ``SPH3DShapeNetOnehot``); ``group`` and ``points`` as
+    :class:`StepFactory`."""
     from sph3d_gcn_torch.models.segmentation import (
         inner_masked_item_loss,
         inner_masked_segmentation_loss,
@@ -292,5 +380,5 @@ def segmentation_step_factory(
         loss_fn=loss_fn, weight_decay=weight_decay,
         item_loss_fn=item_loss_fn, use_kernels=use_kernels,
         model_kwargs_keys=tuple(model_kwargs_keys), group=group,
-        loss_reduction="sum" if inner_masked else "mean",
+        loss_reduction="sum" if inner_masked else "mean", points=points,
     )

@@ -127,12 +127,13 @@ def test_grouped_perm_matches_jax():
 
 
 def test_unported_options_raise():
-    # distance maps are ported (tests/test_torch_dist_maps.py); query
-    # sharding is not
+    # distance maps (tests/test_torch_dist_maps.py) and query sharding
+    # (tests/test_torch_spatial.py) are ported: a shard count that does
+    # not split the query tiles raises
     pts = torch.zeros(1, 128, 3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="do not split"):
         td.build_dense_graph(pts, pts, 0.1, 8, None, window=128,
-                             query_shard=("p", 2))
+                             query_shard=(0, 2))
     g = td.build_dense_graph(pts, pts, 0.1, 8, None, window=128,
                              need_dist=True)
     assert g.dist.shape == g.packed.shape
