@@ -60,8 +60,8 @@ schedule, weight decay):
    backward's, query's and edge gather's (and FPS's) is followed by its
    device time (the pool backward's beside ``scatter_add_``'s, the edge
    gather's beside ``torch.gather``'s; the conv backward's three
-   kernels summed), and each unpool backward's by its K9 segment sum's,
-   in a ``torch.profiler`` trace,
+   kernels summed), and each unpool backward's, whole and its K9 (form
+   (b)) alone, in a ``torch.profiler`` trace,
    without the host's time before the launch that a single call's span
    holds (:func:`device_ms`). Every query call's kernel count must equal
    its map's nonzero bytes a row;
@@ -83,7 +83,7 @@ schedule, weight decay):
 8. determinism: two kernel steps from the same state give bitwise-equal
    loss and gradients, under ``torch.use_deterministic_algorithms(True)``
    (cuBLAS's workspace is fixed before CUDA starts);
-9. 20 steps on the fixed batch: finite loss, lower at the end, ``dense_ok``
+9. 12 steps on the fixed batch: finite loss, lower at the end, ``dense_ok``
    on every step, launch counts of exactly 3 FPS, 6 query, 6 conv, 3 pool,
    18 conv-backward (6 calls of 3 kernels: the dfilt partials of each
    query tile, their sum over tiles, dx) and 3 pool-backward per step;
@@ -138,9 +138,10 @@ architecture and width, seeded weights), at B=16, N=10000:
     memory, profile;
 17. the per-edge train step: the K8 and K9 calls of one plain bf16 step
     and the K9 calls of one plain f32 step replayed (K9 bitwise equal to
-    its plain twin, which adds in the same list order), kernel step vs
+    its plain twin, which adds in the same list order; a line with K9's
+    goal, its device ms a step), kernel step vs
     plain step (f32 and bf16, as phase 7),
-    two kernel steps bitwise equal, 10 steps (launches 3 FPS, 9 K8, 9 K9
+    two kernel steps bitwise equal, 8 steps (launches 3 FPS, 9 K8, 9 K9
     per step, loss falling), step time and peak device memory;
 18. profile of the per-edge train step;
 19. ``fit()``'s recovery: a batch with half its clouds rotated about z
@@ -160,10 +161,12 @@ inner_masked=True).train_step`` (Adam on the staircase schedule):
     every kernel-wrapped call (the forward's, 16 conv backwards at C_in
     up to 1024, 4 pool backwards at C up to 512) and the 4 unpools and
     their backwards; each kernel call is replayed as in phase 6, and each
-    unpool backward (its cloud sum through K9) against its plain version
-    (the same list-order sums) bitwise, timed beside the
+    unpool backward (K9's form (b): the window gradients formed from the
+    map and summed into the cloud) against its plain version (the same
+    sums in the same order) bitwise, timed beside the einsum and
     ``index_put_`` scatter-add that autograd of the window gather would
-    run;
+    run; a line with K9's goals (PERF.md §6, row #15): the four backwards'
+    span and device ms;
 21. one kernel step against one plain step, f32 and bf16, as phase 7;
 22. two kernel steps bitwise equal, as phase 8;
 23. 10 steps on the fixed batch: ``dense_ok`` on every step, a falling
@@ -185,8 +188,13 @@ inner_masked=True).train_step`` (Adam on the staircase schedule):
     instance, with counts and as a bin map) and K8 on adversarial
     operands (:func:`gather_stress`: C 1-512, features at unaligned
     addresses, K 1 to 64, counts 0 to K, out-of-range indices; the
-    per-edge forward's odd widths at full size), bitwise equal to their
-    plain versions and to themselves, timed; and K3 and K5 on a crowded
+    per-edge forward's odd widths at full size) and K9 on adversarial
+    operands (:func:`gather_bwd_stress`: both forms at C 1-512, f32 and
+    bf16 edge gradients, the int8 map and f32 and bf16 weights, rows at
+    unaligned addresses, empty lists, one-entry lists, a list of 1000
+    edges, window columns selected in all 128 rows, cloud rows in no
+    window), bitwise equal to their plain versions and to themselves,
+    timed; and K3 and K5 on a crowded
     operand at the step's level-0 shapes (:func:`conv_fwd_stress`,
     :func:`conv_bwd_stress`: 64 selected entries in every query row, as
     real scene blocks have) against their plain versions and themselves,
@@ -530,6 +538,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from sph3d_gcn_torch.ops.costs import (  # noqa: E402
+    LAUNCHED_BY,
     MEM_BYTES_PER_S,
     UNPOOLS,
     bound_of,
@@ -550,7 +559,7 @@ REPS = 5
 # kernels' speedups)
 FWD_PLAIN_REPS = 1
 PLAIN_REPS = 1
-STEPS = 20
+STEPS = 12
 CONV_TOL = 1e-2      # bf16 outputs: f32 sums in another order, one rounding
 DX_ATOL = 1e-3       # conv backward dx: of its largest magnitude
 DFILT_TOL = 1e-4     # conv backward f32 dfilt: of its largest magnitude
@@ -583,7 +592,7 @@ S3_STEPS = 10
 # gather (K8), each with its backward (K9) in training
 PER_WIN_FORWARD = {"fps": 3, "window_gather": 9}
 PER_WIN_STEP = dict(PER_WIN_FORWARD, window_gather_bwd=9)
-WIN_STEPS = 10
+WIN_STEPS = 8
 S3W_STEPS = 4                       # the weighted-unpool S3DIS steps
 # the S3DIS per-edge engine: per forward 4 FPS and 24 edge gathers (8
 # encoder convs, 4 pools, 8 decoder convs, 4 unpools), each gather with
@@ -596,7 +605,7 @@ S3PE_STEPS = 5
 TRAIN_RECORDS, TEST_RECORDS = 64, 32
 FIT_STEPS = TRAIN_RECORDS // B
 EVAL_VOTES = 3
-REMAT_STEPS = 3
+REMAT_STEPS = 2
 # the ShapeNet and RueMonge paths and the scene evaluation: the one-hot
 # train batch (JAX train_shapenet's B=32, N=2048), shapes of 2600 points
 # (resampled to 2048), 64 train shapes over the 16 categories and 16 more
@@ -662,7 +671,9 @@ SP_TIMED = 2
 # f32 gradient sums in another order (the sharded step runs in f32): of
 # the largest magnitude, a few ulps of the summed terms
 F32_SUM_TOL = 1e-5
-SP_CHECKS = ("rank_pool_bwd", "mean_interpolate_bwd", "window_gather_bwd")
+# (K6's plain version sums by scatter_add_'s atomics; K9's twins add in
+# its order, so its sharded calls are held bitwise as every other's)
+SP_CHECKS = ("rank_pool_bwd",)
 ORACLE_CLI = ["--model", "modelnet", "--oracle", "--batch_size", "1"]
 # the path whose run gives each kernel's launches and times in the JSON line
 # (K2 and K7 from the option paths, whose queries write distance maps)
@@ -840,8 +851,8 @@ def versions():
                          query_exact),
         "window_gather": (W.window_gather_kernel, W.window_gather_plain,
                           exact),
-        # the unpool backward: its window gradients, then their cloud sum
-        # through K9 or through K9's plain version
+        # the dense window sums' backward: K9's form (b), or its plain
+        # version
         "mean_interpolate_bwd": (D.window_mean_bwd, functools.partial(
             D.window_mean_bwd, use_kernels=False), exact),
         "window_gather_bwd": (W.window_gather_bwd_kernel,
@@ -1102,11 +1113,10 @@ def replay(calls: list, res: Results, expect: dict[str, int],
     unpool = {"mean_interpolate": D.dense_mean_interpolate,
               "weighted_interpolate": D.dense_weighted_interpolate,
               "avg_pool": D.dense_avg_pool3d}
-    launches_of = {"mean_interpolate_bwd": "window_gather_bwd"}
     seen = {name: 0 for name in expect}
     for name, _, _ in calls:
         if name not in unpool:
-            name = launches_of.get(name, name)
+            name = LAUNCHED_BY.get(name, name)
             seen[name] = seen.get(name, 0) + _build.KERNELS[name].per_call
     if seen != expect:
         raise AssertionError(f"recorded calls {seen}, want {expect}")
@@ -1148,17 +1158,43 @@ def replay(calls: list, res: Results, expect: dict[str, int],
                                None if name == "window_gather_bwd" else lib,
                                work(name, args, kw))
             if name == "mean_interpolate_bwd":
-                # K9 alone, on the segment sum's operands of this call
-                k9 = D.window_mean_bwd_operands(*args, **kw)
+                # the whole backward beside the einsum and scatter-add it
+                # replaced, and K9 (form (b)) alone, without the wrapper
+                res.add_device(name, what,
+                               functools.partial(kern, *args, **kw), lib,
+                               work(name, args, kw))
                 res.add_device("window_gather_bwd", what, functools.partial(
-                    W.window_gather_bwd_kernel, *k9), None,
-                    work("window_gather_bwd", k9, {}))
+                    W.window_sum_bwd_kernel, kw.get("weights", args[0]),
+                    *args[1:]), None, work(name, args, kw))
             if name == "fps":
                 steps = max(args[0] - 1, 1)
                 print(f"  {'':14s} {what:30s} {ms * 1e3 / steps:.3f} us a "
                       f"greedy step (span)", flush=True)
                 res.add_device(name, what, functools.partial(kern, *args),
                                None, work(name, args, kw), steps)
+
+
+def k9_line(res: Results, what: str,
+            goal: tuple[str, float] | None = None) -> None:
+    """K9's times on one path, summed over its calls (PERF.md §6): the
+    per-edge steps' K9 span and device ms; a dense step's window-sum
+    backwards' span and device ms, whole, and K9's own inside them;
+    beside the goal (``span`` or ``device``, at most so many ms), if any."""
+    res.time_device()
+    dense = "mean_interpolate_bwd" in res.calls
+    name = "mean_interpolate_bwd" if dense else "window_gather_bwd"
+    times = {"span": res.ms[name]}
+    text = f"span {times['span']:.3f} ms"
+    if name in res.device:
+        times["device"] = res.device[name][0]
+        text += f", device {times['device']:.4f} ms"
+    if dense and "window_gather_bwd" in res.device:
+        text += f" (K9 alone {res.device['window_gather_bwd'][0]:.4f} ms)"
+    if goal is not None:
+        side, most = goal
+        met = side in times and times[side] <= most
+        text += f"; goal: {side} at most {most} ms, {'met' if met else 'missed'}"
+    print(f"K9 on {what} ({res.calls[name]} calls): {text}", flush=True)
 
 
 def kernel_parity(model, x: torch.Tensor, res: Results, what: str) -> None:
@@ -1652,6 +1688,8 @@ def s3dis_train_phases(dev: torch.device, res: Results
         raise AssertionError(f"recorded unpools and backwards {n_unpool}")
     replay(calls, res, PER_SEG_STEP, plain_reps=S3_PLAIN_REPS)
     res.summary("S3DIS train step")
+    k9_line(res, "the S3DIS step's masked-mean unpool backwards",
+            ("span", 1.5))
     pool_calls = [tuple(a.cpu() for a in args) for name, args, _ in calls
                   if name == "rank_pool"]     # host memory, as conv_map
     del calls
@@ -2010,6 +2048,65 @@ def gather_stress(dev: torch.device) -> None:
             W.window_gather_kernel, *args), lib,
             work("window_gather", args, {}))
     res.time_device()
+
+
+def gather_bwd_stress(dev: torch.device) -> None:
+    """Phase 25d': K9 bitwise equal to its plain twins and to itself. Form
+    (a) at C from 1 to 512, f32 and bf16 edge gradients at 0, 1 and 3
+    elements past their storage's start, over lists with empty rows,
+    one-entry rows and a row of 1000 edges; form (b) at the same C on the
+    int8 map and f32 and bf16 weights, ``dout`` at the same offsets, a
+    window column selected in all 128 rows, a query row selecting its
+    whole window, window rows past the cloud and cloud rows in no
+    window."""
+    from sph3d_gcn_torch.ops import windowed as W
+
+    print("segment sum (K9) on adversarial operands, both forms, kernel vs "
+          "plain version bitwise:", flush=True)
+    gen = torch.Generator(device=dev).manual_seed(14)
+    n_ops = 0
+    # form (a): 2 clouds of 700 rows, 2 x 512 x 8 edges
+    rows, edges = 2 * 700, 2 * 512 * 8
+    key = torch.randint(0, rows, (edges,), generator=gen, device=dev)
+    key[torch.rand(edges, generator=gen, device=dev) < 0.2] = rows
+    key[(key >= 100) & (key < 120)] = rows       # rows 100-119 empty
+    key[:1000] = 7                               # a list of 1000 edges
+    key[1000:1010] = torch.arange(110, 120, device=dev)   # one entry each
+    order, starts = W.group_by_row(key.to(torch.int32), rows)
+    for c in (1, 3, 35, 64, 67, 131, 259, 512):
+        dg = torch.randn((2, 512, 8, c), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = dg.to(dtype)
+            ref = W.window_gather_bwd_plain(x, order, starts, 700)
+            for offset in (0, 1, 3):
+                xs = offset_view(x, offset)
+                got = W.window_gather_bwd_kernel(xs, order, starts, 700)
+                exact((got,), (ref,))
+                exact((got,), (W.window_gather_bwd_kernel(
+                    xs, order, starts, 700),))
+                n_ops += 1
+    # form (b): 2 clouds of 700 rows, 4 query tiles, windows of 512
+    n_t, window, n = 4, 512, 700
+    sel = torch.rand((2, n_t, 128, window), generator=gen, device=dev) < 0.03
+    sel[0, 1, :, 5] = True
+    sel[1, 2, 9, :] = True
+    packed = torch.where(sel, torch.randint(
+        1, 30, sel.shape, generator=gen, device=dev), 0).to(torch.int8)
+    s_blk = torch.tensor([[0, 0, 1, 2], [0, 1, 1, 1]], device=dev)
+    weights = torch.where(sel, torch.rand(sel.shape, generator=gen,
+                                          device=dev), 0.0)
+    for c in (1, 3, 35, 64, 67, 131, 259, 512):
+        dout = torch.randn((2, n_t * 128, c), generator=gen, device=dev)
+        for lhs in (packed, weights, weights.bfloat16()):
+            ref = W.window_sum_bwd_plain(lhs, s_blk, dout, n)
+            for offset in (0, 1, 3):
+                ds = offset_view(dout, offset)
+                got = W.window_sum_bwd_kernel(lhs, s_blk, ds, n)
+                exact((got,), (ref,))
+                exact((got,), (W.window_sum_bwd_kernel(
+                    lhs, s_blk, ds, n),))
+                n_ops += 1
+    print(f"  {n_ops} operands: bitwise", flush=True)
 
 
 def crowded_map(dev: torch.device, gen: torch.Generator) -> tuple:
@@ -2523,6 +2620,8 @@ def windowed_phases(dev: torch.device, batches: list[np.ndarray],
         res_step.err["window_gather_bwd"], res32.err["window_gather_bwd"])
     res_step.summary("ModelNet per-edge train step (bf16)")
     res32.summary("K9 of the per-edge f32 train step")
+    k9_line(res_step, "the ModelNet per-edge bf16 step", ("device", 0.97))
+    k9_line(res32, "the ModelNet per-edge f32 step")
     del calls
 
     compare_steps(grads_of, factory, model32, "per-edge train step")
@@ -2725,10 +2824,11 @@ def s3dis_weighted_phases(dev: torch.device, res: Results
     del calls
     if len(bwd) != 4 or not all("weights" in kw for _, _, kw in bwd):
         raise AssertionError(f"{len(bwd)} weighted unpool backwards, want 4")
-    print("weighted unpool backward (K9 cloud sum) against its plain "
+    print("weighted unpool backward (K9) against its plain "
           "version, and the mean unpool's backward on the same gradients:",
           flush=True)
     replay(bwd, res, {"window_gather_bwd": 4}, plain_reps=1)
+    k9_line(res, "the S3DIS step's weighted unpool backwards")
     with torch.no_grad():
         mean_bwd = sum(median_ms(lambda a=args: D.window_mean_bwd(*a))
                        for _, args, _ in bwd)
@@ -2871,9 +2971,10 @@ def modelnet_option_phases(dev: torch.device, res: Results
                   flush=True)
     print(f"  sums: avg {res.ms['avg_pool']:.3f} ms, max "
           f"{res.ms['max_pool']:.3f} ms", flush=True)
-    print("dense avg pool backward (K9 cloud sum) against its plain "
+    print("dense avg pool backward (K9) against its plain "
           "version:", flush=True)
     replay(pool_bwd, res, {"window_gather_bwd": 3}, plain_reps=1)
+    k9_line(res, "the ModelNet IDS step's avg-pool backwards")
     del pools, pool_bwd
 
     model.load_state_dict(state0)
@@ -3182,6 +3283,7 @@ def s3dis_per_edge_phases(dev: torch.device, res_fwd: Results,
            {"window_gather": 24, "window_gather_bwd": 24},
            plain_reps=S3_PLAIN_REPS)
     res_step.summary("S3DIS per-edge train step (bf16)")
+    k9_line(res_step, "the S3DIS per-edge bf16 step", ("device", 0.90))
     del calls
 
     model32 = SPH3DSceneSeg(dataclasses.replace(
@@ -5732,6 +5834,7 @@ def later_phases(dev: torch.device, start: float, batches: list,
     pool_bwd_stress(dev)
     pool_fwd_stress(dev)
     gather_stress(dev)
+    gather_bwd_stress(dev)
     conv_fwd_stress(dev)
     conv_bwd_stress(dev)
     fps_stress(dev)

@@ -133,15 +133,17 @@ def library() -> ctypes.CDLL:
 
 class Kernel:
     """One C launcher of the library, with its count of device kernel
-    launches (``per_call`` of them each call)."""
+    launches (``per_call`` of them each call), kept on ``counter``: itself,
+    or the first launcher registered under the same kernel name."""
 
     def __init__(self, name: str, symbol: str, argtypes: list,
-                 per_call: int = 1) -> None:
+                 per_call: int = 1, counter: Kernel | None = None) -> None:
         self.name = name
         self.symbol = symbol
         self.argtypes = argtypes
         self.per_call = per_call   # device kernels one call launches
         self.launches = 0
+        self.counter = counter or self
         self._fn = None
 
     def launch(self, *args) -> None:
@@ -157,7 +159,7 @@ class Kernel:
                 f"kernel {self.name} ({self.symbol}) failed to launch: "
                 f"CUDA error {err}: {msg}"
             )
-        self.launches += self.per_call
+        self.counter.launches += self.per_call
 
 
 KERNELS: dict[str, Kernel] = {}
@@ -165,8 +167,10 @@ KERNELS: dict[str, Kernel] = {}
 
 def register(name: str, symbol: str, argtypes: list,
              per_call: int = 1) -> Kernel:
-    k = Kernel(name, symbol, argtypes, per_call)
-    KERNELS[name] = k
+    """A launcher of kernel ``name``; a second launcher of the same kernel
+    (another C entry) adds its launches to the first's count."""
+    k = Kernel(name, symbol, argtypes, per_call, KERNELS.get(name))
+    KERNELS.setdefault(name, k)
     return k
 
 

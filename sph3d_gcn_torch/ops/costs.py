@@ -29,6 +29,9 @@ MEM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # the plain-PyTorch window sums around K8/K9 (no kernel of their own)
 UNPOOLS = ("mean_interpolate", "weighted_interpolate", "avg_pool")
+# the kernel that a recorded call of another name launches: a dense
+# unpool's or avg pool's backward is K9's form (b)
+LAUNCHED_BY = {"mean_interpolate_bwd": "window_gather_bwd"}
 # the device functions each kernel wrapper launches, as a trace names them
 DEVICE_FUNCTIONS = {
     "fps": ("fps_kernel", "fps_stream_kernel"),
@@ -40,7 +43,8 @@ DEVICE_FUNCTIONS = {
     "rank_pool": ("rank_pool_kernel",),
     "rank_pool_bwd": ("rank_pool_bwd_kernel",),
     "window_gather": ("window_gather_kernel",),
-    "window_gather_bwd": ("window_gather_bwd_kernel",),
+    "window_gather_bwd": ("window_gather_bwd_kernel",
+                          "window_sum_bwd_kernel"),
 }
 
 
@@ -133,15 +137,15 @@ def work(name: str, args: tuple, kw: dict) -> tuple[int, int]:
                 2 * nnz * x.shape[2] + out // x.element_size()
                 + (3 * dnbh.packed.numel() if weighted else 0))
     if name == "mean_interpolate_bwd":
-        # an add per selected entry and channel, and one per window row,
-        # channel and covering tile into the cloud; dx written in f32
+        # K9's form (b), the dense window sums' backward: the map or the
+        # weights, s_blk and dout read once, dx written in f32; a product
+        # and an add per selected entry and channel
         packed, s_blk, dout, num_in = args
+        lhs = kw.get("weights", packed)
+        sel = lhs > 0 if lhs.dtype == torch.int8 else lhs != 0
         c = dout.shape[2]
-        nnz = int((packed != 0).sum().item())
-        return (nbytes(packed, s_blk, dout, kw.get("weights"))
-                + dout.shape[0] * num_in * c * 4,
-                2 * nnz * c + packed.shape[0] * packed.shape[1]
-                * packed.shape[3] * c)
+        return (nbytes(lhs, s_blk, dout) + dout.shape[0] * num_in * c * 4,
+                2 * int(sel.sum().item()) * c)
     if name == "window_gather":
         # a copy: no arithmetic; the idx of the valid lanes only, the whole
         # padded (B, M_pad, K, C) output (its zero lanes are outputs too)
@@ -150,6 +154,16 @@ def work(name: str, args: tuple, kw: dict) -> tuple[int, int]:
         out = x.shape[0] * m_pad * idx.shape[2] * x.shape[2]
         return (nbytes(x, count) + idx.element_size() * valid_edges(name, args)
                 + out * x.element_size(), 0)
+    if name == "mean_interpolate_bwd":
+        # K9's form (b), the dense window sums' backward: the map or the
+        # weights, s_blk and dout read once, dx written in f32; a product
+        # and an add per selected entry and channel
+        packed, s_blk, dout, num_in = args
+        lhs = kw.get("weights", packed)
+        sel = lhs > 0 if lhs.dtype == torch.int8 else lhs != 0
+        c = dout.shape[2]
+        return (nbytes(lhs, s_blk, dout) + dout.shape[0] * num_in * c * 4,
+                2 * int(sel.sum().item()) * c)
     if name == "window_gather_bwd":
         # the valid edges' gradient rows and list entries only (invalid
         # lanes and padded rows add nothing); one add per edge and channel
@@ -194,20 +208,16 @@ def call_costs(calls: list) -> dict[str, dict]:
     """Sum :func:`work` and :func:`bound_of` over recorded calls, by the
     kernel they launch: name -> {"calls", "bytes", "operations",
     "bound_ms", "bound_by"} (``bound_by`` the side that binds most of the
-    summed bound). A masked-mean unpool's backward launches K9 on its
-    segment sum; the unpools themselves launch no kernel."""
-    from sph3d_gcn_torch.ops import dense as D
-
+    summed bound). A dense unpool's or avg pool's backward launches K9
+    (its form (b)); the unpools themselves launch no kernel."""
     out: dict[str, dict] = {}
     sides = collections.defaultdict(lambda: {"bytes": 0.0, "operations": 0.0})
     with torch.no_grad():
         for name, args, kw in calls:
             if name in UNPOOLS:
                 continue
-            if name == "mean_interpolate_bwd":
-                name = "window_gather_bwd"
-                args, kw = D.window_mean_bwd_operands(*args, **kw), {}
             data, ops = work(name, args, kw)
+            name = LAUNCHED_BY.get(name, name)
             t, side = bound_of((data, ops))
             tot = out.setdefault(name, {"calls": 0, "bytes": 0,
                                         "operations": 0, "bound_ms": 0.0})

@@ -33,9 +33,10 @@ row one owner and sum in a fixed order, so gradients are bitwise
 reproducible. The masked-mean unpool, the avg pool (the same masked mean)
 and the distance-weighted unpool are a batched matmul over the gathered
 windows (the JAX package leaves them to XLA as well); their backward
-sums the window gradients into the cloud through the per-edge engine's
-segment sum (``csrc/window_gather_bwd.cu``, ``ops/windowed.py``), again
-one owner per row. ``dense_max_pool3d(with_index=True)``
+is the per-edge engine's segment sum in its second form
+(``csrc/window_gather_bwd.cu``, ``ops/windowed.py``), which forms the
+window gradients from the map and sums them into the cloud, again one
+owner per row. ``dense_max_pool3d(with_index=True)``
 (the op-level ``max_index``) runs the pool kernel with its first
 attaining column.
 """
@@ -1015,38 +1016,23 @@ def window_mean_bwd(packed, s_blk, dout, num_in, weights=None,
     """Backward of the masked window sum of the unpools and the avg pool:
     (B, num_in, C) f32 from ``dout`` (B, M_pad, C) f32.
 
-    The window gradients ``lhs^T . dout`` (a batched matmul per tile, lhs
-    the 0/1 mask of the selected entries, or the weighted unpool's
-    ``weights`` (B, nT, TILE, W), 0 off the selection) are summed into the
-    cloud by the per-edge engine's segment sum over inverse lists (K9,
-    ``windowed.window_gather_bwd_kernel``; its plain version on a CPU
-    tensor or with ``use_kernels=False``): window row w of tile t is cloud
-    row ``s_blk[t] * 128 + w``, so every cloud row has one owner and its
-    terms one fixed order (reproducible), and the work grows with the
-    windows, not with the cloud times the tiles. Autograd of the window
-    gather would scatter-add them instead: float atomics on a CUDA
-    device, or a sorting path under
+    Window row w of tile t is cloud row ``s_blk[t] * 128 + w``; its
+    gradient is ``sum over the tile's query rows r of lhs[t, r, w] *
+    dout[t, r]`` (lhs the 0/1 mask of the selected entries, or the
+    weighted unpool's ``weights`` (B, nT, TILE, W), 0 off the selection),
+    and every cloud row sums the gradients of the window rows that are it.
+    K9's form (b) (``windowed.window_sum_bwd_kernel``; its plain version
+    on a CPU tensor or with ``use_kernels=False``) forms each window
+    row's gradient from the map and ``dout`` as it sums them: every cloud
+    row has one owner and its terms one fixed order (reproducible), and
+    the work grows with the windows' selected entries, not with the cloud
+    times the tiles. Autograd of the window gather would scatter-add them
+    instead: float atomics on a CUDA device, or a sorting path under
     ``torch.use_deterministic_algorithms``."""
-    args = window_mean_bwd_operands(packed, s_blk, dout, num_in, weights)
-    if _build.use_kernel(args[0], use_kernels):
-        return windowed.window_gather_bwd_kernel(*args)
-    return windowed.window_gather_bwd_plain(*args)
-
-
-def window_mean_bwd_operands(packed, s_blk, dout, num_in, weights=None):
-    """The segment sum's operands of :func:`window_mean_bwd`: (the window
-    gradients (B, nT, W, C) f32, order, starts, num_in), as
-    ``windowed.window_gather_bwd_kernel`` takes them."""
-    batch, n_t, _, w = packed.shape
-    lhs = (packed > 0) if weights is None else weights
-    c = dout.shape[-1]
-    dfw = einsum_f32("gtw,gtc->gwc", lhs.reshape(batch * n_t, TILE, w),
-                     dout.reshape(batch * n_t, TILE, c))
-    dfw = dfw.reshape(batch, n_t, w, c)
-    rows, valid, b_of_g = _window_rows(packed, s_blk, num_in)
-    key = torch.where(valid, b_of_g[:, None] * num_in + rows, batch * num_in)
-    return (dfw, *windowed.group_by_row(key.to(torch.int32).reshape(-1),
-                                        batch * num_in), num_in)
+    lhs = packed if weights is None else weights
+    if _build.use_kernel(dout, use_kernels):
+        return windowed.window_sum_bwd_kernel(lhs, s_blk, dout, num_in)
+    return windowed.window_sum_bwd_plain(lhs, s_blk, dout, num_in)
 
 
 class _WindowSum(torch.autograd.Function):
@@ -1100,8 +1086,8 @@ def dense_mean_interpolate(
     """Mean unpooling: each fine point's masked mean over its selected
     coarse neighbors (ref tf_unpool3d_gpu.cu:5-22): one batched matmul of
     the 0/1 maps with the gathered feature windows (:func:`_masked_mean`).
-    Differentiable in ``inputs`` through :func:`window_mean_bwd`, whose
-    cloud sum runs K9 (``use_kernels`` as the other wrappers take it); the
+    Differentiable in ``inputs`` through :func:`window_mean_bwd`, which
+    runs K9 (``use_kernels`` as the other wrappers take it); the
     forward is plain PyTorch, as the JAX package leaves this op to XLA,
     with no Pallas kernel.
 
@@ -1150,8 +1136,8 @@ def dense_weighted_interpolate(
     before the product, summed in f32 and rounded once (the JAX op's
     rounding points, ``ops/dense.py:2416-2418,2443-2460``). Needs a graph
     built with ``need_dist``. Differentiable in ``inputs`` through
-    :func:`window_mean_bwd` with the weights in place of the 0/1 mask (the
-    cloud sum runs K9); the forward is plain PyTorch, as the JAX package
+    :func:`window_mean_bwd` with the weights in place of the 0/1 mask (it
+    runs K9); the forward is plain PyTorch, as the JAX package
     leaves this op to XLA.
 
     Returns (B, M, C) in the input dtype."""
